@@ -1,0 +1,529 @@
+"""Chip smoke: build the port's CUDA kernels and drive its placement path on
+one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero and prints no result line:
+
+  1. card     the card's name and power limit (nvidia-smi);
+  2. build    nvcc builds every kernel from nomad_tpu_torch/csrc;
+  3. kernels  each kernel against its plain PyTorch version on the card,
+              same inputs, same tolerances as the CPU tests (chosen nodes
+              exactly equal, scores rtol=1e-4 atol=1e-4 where placed,
+              usage rtol=1e-5 atol=1e-3, scatter exact), timed with CUDA
+              events;
+  4. slice    the torch-binpack path through Harness.process on cuda:
+              10,000 mock nodes with a 1,000-task-group job (bench.py
+              config 4 shape), then 1,000 nodes with config-2 batch jobs
+              committed one after another (the mirror sync scatters) and
+              a job that is not rounds-eligible (place_sequence); every
+              kernel's launch count must move, and the config-2
+              placements must equal a rerun through the plain versions
+              on the card;
+  5. report   one ``{"kernels": [...]}`` line, then the card's name and
+              power limit exactly as nvidia-smi prints them, then the
+              result line ``{"ok": true, "device": {...}}`` last.
+
+Inputs come from fixed seeds.  Only the port is imported (no JAX, no
+nomad_tpu).
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# Published H100 SXM peaks (NVIDIA data sheet, 700 W): the least time a
+# kernel could take is max(bytes / HBM rate, fp32 ops / fp32 rate).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# fp32 operations to score one node for one ask (score_node in
+# csrc/binpack.cu: 12 adds + 6 compares for AllocsFit, 4 subtracts, 2
+# divides, 2 powers, 2 adds/subtracts, 2 clamps, 1 multiply + 1
+# subtract for the penalty) and 1 more to take it into an argmax or a
+# top-k selection.
+OPS_PER_NODE = 33
+
+DEV = "cuda"  # where the kernel checks put their tensors
+
+TOL = dict(rtol=1e-4, atol=1e-4)         # scores where placed
+USAGE_TOL = dict(rtol=1e-5, atol=1e-3)   # usage
+
+
+class SmokeError(RuntimeError):
+    pass
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeError(what)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def bound(nbytes: float, ops: float) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_ms(torch, fn, reps: int) -> float:
+    """Mean ms of ``fn`` over ``reps`` calls, CUDA events, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# -- phase 3: kernels against their plain versions -------------------------
+
+
+def fleet_case(torch, n, rng, *, uniform=False, g=8):
+    """Random fleet tensors on the card: f32[N, 6] capacity/reserved/usage,
+    i32[N] job counts, bool[G, N] feasibility, asks f32[G, 6]."""
+    cap = np.zeros((n, 6), dtype=np.float32)
+    res = np.zeros((n, 6), dtype=np.float32)
+    if uniform:
+        cap[:, :5] = (4000, 8192, 102400, 150, 1000)
+        res[:, :5] = (100, 256, 4096, 0, 1)
+        usage = np.zeros((n, 6), dtype=np.float32)
+        jc = np.zeros(n, dtype=np.int32)
+        feas = np.ones((g, n), dtype=bool)
+    else:
+        cap[:, 0] = rng.integers(2000, 6000, n)
+        cap[:, 1] = rng.integers(4096, 12288, n)
+        cap[:, 2:5] = (102400, 150, 1000)
+        res[:, 0:2] = (100, 256)
+        usage = np.zeros((n, 6), dtype=np.float32)
+        busy = rng.random(n) > 0.5
+        usage[:, 0] = np.where(busy, rng.integers(0, 1500, n), 0)
+        usage[:, 1] = np.where(busy, rng.integers(0, 3000, n), 0)
+        jc = np.where(busy, rng.integers(0, 3, n), 0).astype(np.int32)
+        feas = rng.random((g, n)) > 0.2
+    cap[:, 5] = 40000.0
+    asks = np.zeros((g, 6), dtype=np.float32)
+    asks[:, 0] = rng.integers(50, 700, g)
+    asks[:, 1] = rng.integers(40, 900, g)
+    asks[:, 4] = 5
+    asks[:, 5] = 1
+    distinct = rng.random(g) > 0.7 if not uniform else np.zeros(g, bool)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(DEV)
+    return dict(capacity=t(cap), reserved=t(res), usage0=t(usage),
+                jc0=t(jc), feasible=t(feas), asks=t(asks),
+                distinct=t(distinct))
+
+
+def compare(torch, what, got, want) -> float:
+    """Hold a kernel's (chosen, scores, usage) against the plain
+    version's; returns the largest absolute score/usage difference."""
+    gc, gs, gu = (x.cpu().numpy() for x in got)
+    wc, ws, wu = (x.cpu().numpy() for x in want)
+    require(np.array_equal(gc, wc),
+            f"{what}: chosen differs at {int((gc != wc).sum())} positions")
+    placed = wc >= 0
+    require(np.isfinite(gs[placed]).all(), f"{what}: non-finite scores")
+    np.testing.assert_allclose(gs[placed], ws[placed], **TOL,
+                               err_msg=what)
+    np.testing.assert_allclose(gu, wu, **USAGE_TOL, err_msg=what)
+    return float(max(np.abs(gs[placed] - ws[placed]).max(initial=0.0),
+                     np.abs(gu - wu).max(initial=0.0)))
+
+
+def check_sequence(torch, binpack, n, p, rng, uniform, reps):
+    c = fleet_case(torch, n, rng, uniform=uniform)
+    g = c["feasible"].shape[0]
+    group_idx = torch.from_numpy(
+        rng.integers(0, 3 if not uniform else 1, p).astype(np.int32)).to(DEV)
+    valid = torch.ones(p, dtype=torch.bool, device=DEV)
+    valid[-8:] = False
+    args = (c["capacity"], c["reserved"], c["usage0"], c["jc0"],
+            c["feasible"], c["asks"], c["distinct"], group_idx, valid, 10.0)
+    usage_before = c["usage0"].clone()
+    got = binpack.place_sequence(*args)
+    torch.cuda.synchronize()
+    want = binpack.place_sequence_plain(*args)
+    require(torch.equal(c["usage0"], usage_before),
+            "place_sequence wrote to its input usage")
+    err = compare(torch, f"place_sequence N={n} P={p}", got, want)
+    ms = time_ms(torch, lambda: binpack.place_sequence(*args), reps)
+    plain_ms = time_ms(torch, lambda: binpack.place_sequence_plain(*args), 1)
+    steps = int(valid.sum())
+    nbytes = (3 * n * 6 * 4 + 4 * n + g * n + g * 6 * 4 + g + 5 * p
+              + 8 * p + n * 6 * 4)
+    b_ms, b_by = bound(nbytes, steps * n * OPS_PER_NODE)
+    placed = int((got[0] >= 0).sum())
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, placed=placed)
+
+
+def rounds_run(counts, chosen, rounds, k_cap) -> int:
+    """Rounds the kernel actually scored: those entered with copies
+    left to place (the data-dependent work of this run)."""
+    ran = 0
+    for s, count in enumerate(counts):
+        m = int(count)
+        for r in range(rounds):
+            if m <= 0:
+                break
+            ran += 1
+            m -= int((chosen[s, r * k_cap:(r + 1) * k_cap] >= 0).sum())
+    return ran
+
+
+def check_rounds(torch, binpack, n, count, k_cap, rounds, rng, uniform,
+                 reps):
+    c = fleet_case(torch, n, rng, uniform=uniform)
+    g = c["feasible"].shape[0]
+    counts_h = np.zeros(g, dtype=np.int32)
+    counts_h[0] = count
+    counts_h[1] = count // 7
+    counts = torch.from_numpy(counts_h).to(DEV)
+    args = (c["capacity"], c["reserved"], c["usage0"], c["jc0"],
+            c["feasible"], c["asks"], c["distinct"], counts, 10.0)
+    kw = dict(k_cap=k_cap, rounds=rounds)
+    usage_before = c["usage0"].clone()
+    got = binpack.place_rounds(*args, **kw)
+    torch.cuda.synchronize()
+    want = binpack.place_rounds_plain(*args, **kw)
+    require(torch.equal(c["usage0"], usage_before),
+            "place_rounds wrote to its input usage")
+    err = compare(torch, f"place_rounds N={n} count={count}", got, want)
+    ms = time_ms(torch, lambda: binpack.place_rounds(*args, **kw), reps)
+    plain_ms = time_ms(torch, lambda: binpack.place_rounds_plain(*args, **kw),
+                       1)
+    ran = rounds_run(counts_h, want[0].cpu().numpy(), rounds, k_cap)
+    out = g * rounds * k_cap
+    nbytes = 3 * n * 6 * 4 + 4 * n + g * n + g * 6 * 4 + 5 * g + 8 * out \
+        + n * 6 * 4
+    b_ms, b_by = bound(nbytes, ran * n * OPS_PER_NODE)
+    placed = int((got[0] >= 0).sum())
+    require(placed == int(counts_h.sum()) or not uniform,
+            "place_rounds left copies unplaced on an empty uniform fleet")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, placed=placed, rounds_run=ran)
+
+
+def check_scatter(torch, fleet, n, r, rng, reps):
+    usage = torch.from_numpy(rng.random((n, 6)).astype(np.float32)).to(DEV)
+    idx = torch.from_numpy(rng.choice(n, r, replace=False).astype(
+        np.int32)).to(DEV)
+    rows = torch.from_numpy(rng.random((r, 6)).astype(np.float32)).to(DEV)
+    before = usage.clone()
+    got = fleet.scatter_rows(usage, idx, rows)
+    torch.cuda.synchronize()
+    want = fleet.scatter_rows_plain(usage, idx, rows)
+    require(torch.equal(usage, before), "scatter_rows modified the old buffer")
+    require(torch.equal(got, want), "scatter_rows differs from plain")
+    # padded duplicates (idx[0] repeated with its own row)
+    pad_idx = torch.cat([idx, idx[:1].repeat(7)])
+    pad_rows = torch.cat([rows, rows[:1].repeat(7, 1)])
+    require(torch.equal(fleet.scatter_rows(usage, pad_idx, pad_rows), want),
+            "scatter_rows with padded duplicates differs")
+    ms = time_ms(torch, lambda: fleet.scatter_rows(usage, idx, rows), reps)
+    plain_ms = time_ms(
+        torch, lambda: fleet.scatter_rows_plain(usage, idx, rows), reps)
+    idx64 = idx.long()
+    library_ms = time_ms(torch, lambda: usage.index_copy(0, idx64, rows),
+                         reps)
+    nbytes = 2 * n * 6 * 4 + 4 * r + r * 6 * 4
+    b_ms, b_by = bound(nbytes, 0)
+    return dict(err=float((got - want).abs().max()), ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+# -- phase 4: the slice -----------------------------------------------------
+
+
+def bench_task_group(structs, name):
+    """bench.py _bench_task_group: the config 4/5 workload shape."""
+    return structs.TaskGroup(name=name, count=1, tasks=[structs.Task(
+        name="web", driver="exec", resources=structs.Resources(
+            cpu=100, memory_mb=64, networks=[structs.NetworkResource(
+                mbits=5, dynamic_ports=["http"])]))])
+
+
+def config2_job(mock, structs, seed):
+    """bench.py _config2_jobs: batch, 10 TGs x 4, constraint + distinct."""
+    j = mock.job()
+    j.id = f"config2-{seed}"
+    j.type = "batch"
+    groups = []
+    for g in range(10):
+        tg = bench_task_group(structs, f"tg-{g}")
+        tg.count = 4
+        tg.constraints = [
+            structs.Constraint(hard=True, l_target="$attr.kernel.name",
+                               r_target="linux", operand="="),
+            structs.Constraint(hard=True,
+                               operand=structs.CONSTRAINT_DISTINCT_HOSTS)]
+        groups.append(tg)
+    j.task_groups = groups
+    return j
+
+
+def sequence_job(mock, structs):
+    """Asks large next to a node: not rounds-eligible (place_sequence)."""
+    j = mock.job()
+    j.id = "sequence-job"
+    tg = j.task_groups[0]
+    tg.count = 24
+    tg.tasks[0].resources = structs.Resources(
+        cpu=1500, memory_mb=3000,
+        networks=[structs.NetworkResource(mbits=10, dynamic_ports=["http"])])
+    return j
+
+
+def run_eval(structs, h, job, times):
+    h.state.upsert_job(h.next_index(), job)
+    ev = structs.Evaluation(
+        id=structs.generate_uuid(), priority=job.priority, type=job.type,
+        triggered_by=structs.EVAL_TRIGGER_JOB_REGISTER, job_id=job.id)
+    name = "torch-binpack-batch" if job.type == "batch" else "torch-binpack"
+    start = time.perf_counter()
+    h.process(name, ev)
+    times.append(time.perf_counter() - start)
+    plan = h.plans[-1]
+    placed = {a.name: node_id for node_id, allocs in
+              plan.node_allocation.items() for a in allocs}
+    require(h.evals[-1].status == structs.EVAL_STATUS_COMPLETE,
+            f"eval for {job.id} ended {h.evals[-1].status}")
+    return placed, sorted(a.name for a in plan.failed_allocs)
+
+
+def small_cluster(mock, structs, Harness, nodes, times):
+    """1,000 nodes: three config-2 batch jobs, each committed before the
+    next eval, then the rounds-ineligible job."""
+    h = Harness(device="cuda")
+    for node in nodes:
+        h.state.upsert_node(h.next_index(), node.copy())
+    out = []
+    for seed in range(3):
+        out.append(run_eval(structs, h, config2_job(mock, structs, seed),
+                            times))
+    out.append(run_eval(structs, h, sequence_job(mock, structs), times))
+    return out
+
+
+def phase_breakdown(torch, structs, h, job):
+    """One more eval on ``h`` (after the main path's counts were read),
+    with host-clock time per scheduler phase and the card's busy time
+    from torch.profiler.  Returns ms per phase, the eval's wall ms, the
+    device busy ms (None when the profiler saw no device time) and the
+    top device kernels by time."""
+    from nomad_tpu_torch.scheduler import Harness, TorchBinPackScheduler
+
+    spent: dict = {}
+    wrapped = [(TorchBinPackScheduler, name) for name in (
+        "_compute_job_allocs", "_prepare_device", "dispatch_device",
+        "collect_device", "finish_deferred")] + [(Harness, "submit_plan")]
+    saved = []
+    for cls, name in wrapped:
+        orig = getattr(cls, name)
+        saved.append((cls, name, orig))
+
+        def timed(*a, _orig=orig, _name=name, **kw):
+            t = time.perf_counter()
+            try:
+                return _orig(*a, **kw)
+            finally:
+                spent[_name] = spent.get(_name, 0.0) + \
+                    time.perf_counter() - t
+        setattr(cls, name, timed)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            times: list = []
+            run_eval(structs, h, job, times)
+            torch.cuda.synchronize()
+    finally:
+        for cls, name, orig in saved:
+            setattr(cls, name, orig)
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    busy_us = sum(dev_us(e) for e in events)
+    top = sorted(((e.key, dev_us(e) / 1e3) for e in events
+                  if dev_us(e) > 0), key=lambda kv: -kv[1])[:6]
+    # _compute_job_allocs encloses the device phases; report its own part.
+    inner = sum(spent.get(k, 0.0) for k in (
+        "_prepare_device", "dispatch_device", "collect_device",
+        "finish_deferred"))
+    spent["_compute_job_allocs"] = spent.get("_compute_job_allocs",
+                                             0.0) - inner
+    return dict(phases_ms={k: v * 1e3 for k, v in spent.items()},
+                eval_ms=times[0] * 1e3,
+                device_busy_ms=busy_us / 1e3 if busy_us > 0 else None,
+                device_top_ms=top)
+
+
+def run_slice(torch):
+    import nomad_tpu_torch.mock as mock
+    import nomad_tpu_torch.structs as structs
+    from nomad_tpu_torch.models import fleet
+    from nomad_tpu_torch.ops import binpack
+    from nomad_tpu_torch.scheduler import Harness
+
+    counters = (binpack.place_sequence, binpack.place_rounds,
+                fleet.scatter_rows)
+    for fn in counters:
+        fn.launches = 0
+    times: list = []
+
+    # 10,000 nodes x one 1,000-task-group job (config 4).
+    t0 = time.perf_counter()
+    big = Harness(device="cuda")
+    for i in range(10_000):
+        big.state.upsert_node(big.next_index(), mock.node(i))
+    setup_s = time.perf_counter() - t0
+    job4 = mock.job()
+    job4.task_groups = [bench_task_group(structs, f"tg-{g}")
+                        for g in range(1000)]
+    placed4, failed4 = run_eval(structs, big, job4, times)
+    require(len(placed4) == 1000 and not failed4,
+            f"config 4: {len(placed4)} placed, {len(failed4)} failed")
+
+    nodes = [mock.node(i) for i in range(1000)]
+    small = small_cluster(mock, structs, Harness, nodes, times)
+    for placed, failed in small[:3]:
+        require(len(placed) == 40 and not failed,
+                f"config 2: {len(placed)} placed, {len(failed)} failed")
+        require(len(set(placed.values())) == 40,
+                "config 2: distinct_hosts broken")
+    require(len(small[3][0]) == 24 and not small[3][1],
+            "sequence job not fully placed")
+    launches = {fn.__name__: fn.launches for fn in counters}
+    for name, n in launches.items():
+        require(n > 0, f"{name} was not launched on the main path")
+
+    # A second 1,000-group job on the 10,000-node cluster, profiled.
+    job4b = mock.job()
+    job4b.id = "config4-second"
+    job4b.task_groups = [bench_task_group(structs, f"tg-{g}")
+                         for g in range(1000)]
+    profile = phase_breakdown(torch, structs, big, job4b)
+    require(len(big.plans[-1].failed_allocs) == 0,
+            "second config-4 job left allocs unplaced")
+
+    # The same 1,000-node run through the plain versions on the card.
+    saved = (binpack.place_sequence, binpack.place_rounds,
+             fleet.scatter_rows)
+    binpack.place_sequence = binpack.place_sequence_plain
+    binpack.place_rounds = binpack.place_rounds_plain
+    fleet.scatter_rows = fleet.scatter_rows_plain
+    try:
+        plain = small_cluster(mock, structs, Harness, nodes, [])
+    finally:
+        (binpack.place_sequence, binpack.place_rounds,
+         fleet.scatter_rows) = saved
+    require([p for p, _f in small] == [p for p, _f in plain],
+            "slice placements differ from the plain versions' run")
+    return dict(launches=launches, evals=len(times),
+                placements=len(placed4) + sum(len(p) for p, _f in small),
+                eval_ms_median=statistics.median(times) * 1e3,
+                eval_ms_max=max(times) * 1e3,
+                config4_eval_ms=times[0] * 1e3, node_setup_s=setup_s,
+                profiled_config4_eval=profile)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from nomad_tpu_torch.models import fleet
+    from nomad_tpu_torch.ops import binpack, kernels
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+
+    t0 = time.perf_counter()
+    built = kernels.build()
+    print(f"build: {time.perf_counter() - t0:.2f} s "
+          f"({', '.join(sorted(built)) or 'up to date'})", flush=True)
+
+    rng = np.random.default_rng(1234)
+    seq = check_sequence(torch, binpack, 16384, 1024, rng, False, 5)
+    seq_tie = check_sequence(torch, binpack, 16384, 1024, rng, True, 5)
+    rnd = check_rounds(torch, binpack, 16384, 1000, 1024, 1, rng, True, 10)
+    rnd_rand = check_rounds(torch, binpack, 16384, 1000, 1024, 2, rng,
+                            False, 10)
+    rnd_big = check_rounds(torch, binpack, 131072, 1000, 1024, 1, rng,
+                           True, 3)
+    sct = check_scatter(torch, fleet, 16384, 1024, rng, 50)
+    for name, r in (("place_sequence N=16384 P=1024", seq),
+                    ("place_sequence N=16384 P=1024 ties", seq_tie),
+                    ("place_rounds N=16384 count=1000 k=1024", rnd),
+                    ("place_rounds N=16384 random rounds=2", rnd_rand),
+                    ("place_rounds N=131072 count=1000 k=1024", rnd_big),
+                    ("scatter_rows N=16384 R=1024", sct)):
+        print(f"kernel {name}: " + json.dumps(r), flush=True)
+
+    sl = run_slice(torch)
+    print("slice: " + json.dumps(sl), flush=True)
+
+    kernels_line = {"kernels": [
+        dict(name="place_sequence", route="cuda",
+             source="nomad_tpu_torch/csrc/binpack.cu",
+             replaces="nomad_tpu/ops/binpack.py:78",
+             launches=sl["launches"]["place_sequence"],
+             max_abs_err=max(seq["err"], seq_tie["err"]), ms=seq["ms"],
+             plain_ms=seq["plain_ms"], bound_ms=seq["bound_ms"],
+             bound_by=seq["bound_by"], library_ms=None),
+        dict(name="place_rounds", route="cuda",
+             source="nomad_tpu_torch/csrc/binpack.cu",
+             replaces="nomad_tpu/ops/binpack.py:123",
+             launches=sl["launches"]["place_rounds"],
+             max_abs_err=max(rnd["err"], rnd_rand["err"], rnd_big["err"]),
+             ms=rnd["ms"], plain_ms=rnd["plain_ms"],
+             bound_ms=rnd["bound_ms"], bound_by=rnd["bound_by"],
+             library_ms=None),
+        dict(name="scatter_rows", route="cuda",
+             source="nomad_tpu_torch/csrc/scatter_rows.cu",
+             replaces="nomad_tpu/models/fleet.py:1108",
+             launches=sl["launches"]["scatter_rows"],
+             max_abs_err=sct["err"], ms=sct["ms"],
+             plain_ms=sct["plain_ms"], bound_ms=sct["bound_ms"],
+             bound_by=sct["bound_by"], library_ms=sct["library_ms"]),
+    ]}
+    print(json.dumps(kernels_line), flush=True)
+    print(card_line(), flush=True)  # as nvidia-smi prints it
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        code = main()
+    except (SmokeError, AssertionError, RuntimeError, ImportError) as e:
+        print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
+              file=sys.stderr)
+        code = 1
+    sys.exit(code)

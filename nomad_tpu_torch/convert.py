@@ -1,0 +1,34 @@
+"""Carry cluster state from the JAX package into the port.
+
+This system has no weights: what the two packages must share to be
+compared is the cluster itself (nodes, jobs, allocations).  The
+functions here take objects of the JAX package ``nomad_tpu`` (or any
+objects with the same ``to_dict()`` wire shape) and rebuild the port's
+own objects with ``from_dict``.  The module imports nothing of
+``nomad_tpu``: it reads only the plain dicts, so one mock cluster can be
+loaded into both packages.
+"""
+from __future__ import annotations
+
+from typing import Iterable
+
+from nomad_tpu_torch.structs import Allocation, Job, Node
+
+
+def _plain(obj) -> dict:
+    return obj if isinstance(obj, dict) else obj.to_dict()
+
+
+def nodes_from_reference(nodes: Iterable) -> list:
+    """Port ``Node`` objects equal, field by field, to ``nodes``."""
+    return [Node.from_dict(_plain(n)) for n in nodes]
+
+
+def jobs_from_reference(jobs: Iterable) -> list:
+    """Port ``Job`` objects equal, field by field, to ``jobs``."""
+    return [Job.from_dict(_plain(j)) for j in jobs]
+
+
+def allocs_from_reference(allocs: Iterable) -> list:
+    """Port ``Allocation`` objects equal, field by field, to ``allocs``."""
+    return [Allocation.from_dict(_plain(a)) for a in allocs]

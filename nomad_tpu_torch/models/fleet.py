@@ -1,0 +1,710 @@
+"""Fleet tensorization: the state -> device bridge.
+
+Converts the host data model (Node/Allocation objects in the MVCC store)
+into the device-resident tensors the torch-binpack scheduler consumes:
+
+  capacity  f32[N, D]   node.resources       (D = ALL_FIT_DIMS = 6)
+  reserved  f32[N, D]   node.reserved
+  ready     bool[N]     status == ready and not draining
+  dc_codes  i32[N]      interned datacenter id
+
+plus host-side numpy mirrors used to compile constraint masks
+(nomad_tpu_torch/models/constraints.py).  Capability parity role: this is the
+device-side replacement for the iterator walk over memdb state in
+reference scheduler/feasible.go + rank.go — instead of lazily visiting
+nodes, the whole fleet is resident on device and every candidate is scored in
+one dispatch.
+
+Caching contract: the state store is copy-on-write at table granularity, so
+the identity of a snapshot's frozen ``nodes`` table dict is a sound cache key
+— if any node changes, the store swaps in a new dict.  ``fleet_cache`` keys
+static tensors on that identity; per-eval dynamic state (usage, job counts)
+is rebuilt from the allocs table (vectorized, numpy) and cached the same way.
+
+Port/bandwidth dims are a *sound over-approximation* of the exact host-side
+NetworkIndex accounting (reference nomad/structs/network.go): the device mask
+never admits a node the exact check would reject on total bandwidth, and the
+exact per-device/port assignment runs host-side after selection
+(SURVEY.md section 7, "Network/port allocation").
+"""
+from __future__ import annotations
+
+import itertools
+import threading
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from nomad_tpu_torch.structs import (
+    ALL_FIT_DIMS,
+    NODE_STATUS_READY,
+    Allocation,
+    Node,
+    Resources,
+)
+from nomad_tpu_torch.utils.sync import CopySwap
+
+NDIMS = len(ALL_FIT_DIMS)  # cpu, memory_mb, disk_mb, iops, mbits, port_slots
+
+# Dynamic port range size: the port_slots capacity over-approximation
+# (reference nomad/structs/network.go:9-18 — 20000..60000 dynamic ports).
+PORT_SLOTS_CAPACITY = 40000.0
+
+
+def _res_vector(res: Optional[Resources]) -> np.ndarray:
+    if res is None:
+        return np.zeros(NDIMS, dtype=np.float32)
+    return np.asarray(res.as_vector(), dtype=np.float32)
+
+
+def alloc_vec(alloc: "Allocation") -> np.ndarray:
+    """Cached resource vector of an allocation.  Sound because committed
+    allocations are replaced, never mutated (the store immutability
+    contract, tests/test_state_store.py) — a new record is a new object
+    with an empty cache; dataclasses.replace()-based copies don't carry
+    the cache either."""
+    d = alloc.__dict__
+    vec = d.get("_res_vec")
+    if vec is None:
+        vec = d["_res_vec"] = _res_vector(alloc.resources)
+    return vec
+
+
+def _pad_to(n: int) -> int:
+    """Next power of two >= n (>= 8): the node axis of every device
+    tensor (the kernels' bitonic top-k needs a power of two)."""
+    p = 8
+    while p < n:
+        p *= 2
+    return p
+
+
+_FLEET_GEN = itertools.count()
+
+
+@dataclass
+class FleetStatics:
+    """Node-static tensors + host mirrors, cached per nodes-table generation."""
+
+    n_real: int
+    n_pad: int
+    node_ids: list                      # index -> node id (real rows only)
+    index_of: dict                      # node id -> index
+    nodes: list                         # index -> Node (host objects)
+    capacity: np.ndarray                # f32[n_pad, D]
+    reserved: np.ndarray                # f32[n_pad, D]
+    ready: np.ndarray                   # bool[n_pad] (padding rows False)
+    datacenters: np.ndarray             # object[n_pad] (host-side dc strings)
+    # Host-side attribute/meta mirrors for constraint compilation:
+    attr_rows: list                     # index -> node.attributes dict
+    meta_rows: list                     # index -> node.meta dict
+    mask_cache: dict = field(default_factory=dict)   # constraint-key -> bool[n_pad]
+    # Device-resident mirrors, populated lazily (torch tensors).  Keys:
+    # "capres" -> (capacity, reserved); ("feas", group-keys) -> bool[G, N].
+    # Keeping these resident avoids re-uploading the fleet every eval —
+    # at 10k nodes the feasibility matrix transfer dominates eval latency.
+    device_cache: dict = field(default_factory=dict)
+    # node_index -> (frozen used_ports, bw_used, bw_avail, ip, device) or
+    # None: the node-static half of the fast network assigner
+    # (scheduler/torch_binpack.py _node_net_init).
+    net_base: dict = field(default_factory=dict)
+    # Process-unique generation id: lets per-job prep caches key on the
+    # fleet generation WITHOUT holding a strong ref that would pin
+    # evicted generations (and their device buffers) alive.
+    gen: int = field(default_factory=lambda: next(_FLEET_GEN))
+    # Lazily attached incremental usage mirror (see mirror_for()).
+    mirror: Optional["UsageMirror"] = None
+
+    def device_capacity_reserved(self, device):
+        """(capacity, reserved) resident on ``device``, uploaded once per
+        fleet generation and device."""
+        from nomad_tpu_torch.parallel.devices import ensure_on_default, \
+            on_default_platform
+        hit = self.device_cache.get("capres")
+        if hit is None or not on_default_platform(hit[0], device):
+            hit = (ensure_on_default(None, self.capacity, device),
+                   ensure_on_default(None, self.reserved, device))
+            self.device_cache["capres"] = hit
+        return hit
+
+
+def build_fleet(nodes: list[Node]) -> FleetStatics:
+    """State -> fleet tensors (host numpy; uploaded on first use)."""
+    n_real = len(nodes)
+    n_pad = _pad_to(n_real)
+
+    capacity = np.zeros((n_pad, NDIMS), dtype=np.float32)
+    reserved = np.zeros((n_pad, NDIMS), dtype=np.float32)
+    ready = np.zeros(n_pad, dtype=bool)
+    datacenters = np.empty(n_pad, dtype=object)
+    attr_rows, meta_rows, node_ids = [], [], []
+    index_of: dict = {}
+
+    for i, node in enumerate(nodes):
+        node_ids.append(node.id)
+        index_of[node.id] = i
+        cap = _res_vector(node.resources)
+        cap[5] = PORT_SLOTS_CAPACITY  # port_slots capacity over-approximation
+        capacity[i] = cap
+        reserved[i] = _res_vector(node.reserved)
+        ready[i] = node.status == NODE_STATUS_READY and not node.drain
+        datacenters[i] = node.datacenter
+        attr_rows.append(node.attributes)
+        meta_rows.append(node.meta)
+
+    return FleetStatics(
+        n_real=n_real,
+        n_pad=n_pad,
+        node_ids=node_ids,
+        index_of=index_of,
+        nodes=list(nodes),
+        capacity=capacity,
+        reserved=reserved,
+        ready=ready,
+        datacenters=datacenters,
+        attr_rows=attr_rows,
+        meta_rows=meta_rows,
+    )
+
+
+def net_base_for(statics: FleetStatics, node_index: int, node):
+    """Node-static network base for the fast port/bandwidth paths:
+    ``(frozen reserved-ports, reserved mbits, bandwidth capacity, ip,
+    device)`` or None for topologies that need the exact NetworkIndex
+    walk (multi-network nodes, unresolvable ip).  Cached on the fleet
+    statics; shared by the scheduler's fast assigner
+    (scheduler/torch_binpack.FastPlacementMixin)."""
+    base_cache = statics.net_base
+    base = base_cache.get(node_index, False)
+    if base is not False:
+        return base
+    from nomad_tpu_torch.structs.network import _cidr_ips
+
+    base = None
+    nets = [n for n in node.resources.networks if n.device] \
+        if node.resources is not None else []
+    if len(nets) == 1:
+        n0 = nets[0]
+        ip = n0.ip
+        if not ip:
+            for ip in _cidr_ips(n0.cidr):
+                break
+        if ip:
+            used: set = set()
+            bw_used = 0
+            if node.reserved is not None:
+                for rn in node.reserved.networks:
+                    used.update(rn.reserved_ports)
+                    bw_used += rn.mbits
+            base = (frozenset(used), bw_used, n0.mbits, ip,
+                    n0.device)
+    base_cache[node_index] = base
+    return base
+
+
+# Sentinel: a freshly-built mirror view whose device-usage attachment
+# has not resolved yet (UsageMirror._attach_device runs outside the
+# mirror lock and replaces it with a real buffer or None).  Never
+# escapes view()/view_at().
+_PENDING_DEVICE = object()
+
+
+@dataclass
+class FleetView:
+    """One eval's dynamic view: statics + usage + same-job alloc counts."""
+
+    statics: FleetStatics
+    usage: np.ndarray       # f32[n_pad, D] — sum of non-terminal alloc asks
+    job_counts: np.ndarray  # i32[n_pad] — proposed allocs of the eval's job
+    # Set when the view came from a UsageMirror with no plan deltas:
+    # usage_device is the mirror's device-resident copy of exactly `usage`,
+    # so the dispatch can skip the host->device upload entirely.
+    usage_device: Optional[object] = None
+
+    def dispatch_usage(self):
+        """The usage argument for a device dispatch: the resident device
+        copy when the mirror has one, else the host array (uploaded by
+        the dispatch through put_counted)."""
+        return self.usage_device if self.usage_device is not None \
+            else self.usage
+
+
+def build_usage(statics: FleetStatics, allocs: list[Allocation],
+                job_id: str = "") -> FleetView:
+    """Aggregate per-node usage + same-job counts from an alloc list.
+
+    Vectorized host-side: one np.add.at scatter instead of a Python loop per
+    (alloc x dim).  Terminal allocs must already be filtered by the caller.
+    """
+    usage = np.zeros((statics.n_pad, NDIMS), dtype=np.float32)
+    job_counts = np.zeros(statics.n_pad, dtype=np.int32)
+    if allocs:
+        idx = np.empty(len(allocs), dtype=np.int64)
+        vecs = np.empty((len(allocs), NDIMS), dtype=np.float32)
+        keep = 0
+        for a in allocs:
+            i = statics.index_of.get(a.node_id, -1)
+            if i < 0:
+                continue
+            idx[keep] = i
+            vecs[keep] = alloc_vec(a)
+            if job_id and a.job_id == job_id:
+                job_counts[i] += 1
+            keep += 1
+        np.add.at(usage, idx[:keep], vecs[:keep])
+    return FleetView(statics=statics, usage=usage, job_counts=job_counts)
+
+
+class UsageMirror:
+    """Incremental state->device bridge for the dynamic half of the fleet.
+
+    Maintains per-node aggregate usage, per-job sparse alloc counts and a
+    device-resident usage copy, updated from the store's alloc changelog
+    (state/store.py ``alloc_log``) with a RefreshIndex-style fence: a sync
+    applies only the deltas between the mirror's allocs index and the
+    snapshot's, so the eval hot path does O(changed) host work instead of
+    rebuilding usage from every alloc in the store (SURVEY.md section 7
+    "Incremental device state"; reference analogue: the alloc-watch feed
+    of nomad/state/state_store.go:115-156).
+
+    Concurrency: one mutator at a time (internal lock); readers take the
+    current arrays by reference — sync replaces arrays copy-on-write, so
+    a view handed to an in-flight eval never mutates under it.  The
+    device copy is likewise never written in place: a scatter allocates
+    a new device buffer (``scatter_rows``), so tensors held by in-flight
+    dispatches stay valid.  The mirror only moves forward: ``sync``
+    against a snapshot older than the mirror returns False and the
+    caller falls back to a from-scratch ``build_usage`` for that eval.
+    """
+
+    # Re-upload the full usage tensor after this many incremental device
+    # scatters, bounding float drift between host and device mirrors.
+    DEVICE_REFRESH_EVERY = 2048
+    # Scatter at most this many changed rows per sync; beyond it a fresh
+    # upload is cheaper.
+    MAX_SCATTER_ROWS = 1024
+
+    def __init__(self, statics: FleetStatics) -> None:
+        self.statics = statics
+        self.usage = np.zeros((statics.n_pad, NDIMS), dtype=np.float32)
+        self.job_counts: dict = {}   # job_id -> {node_index: count}
+        self.alloc_rows: dict = {}   # alloc_id -> (ni, vec, job_id)
+        self.index = -1
+        self.rebuilds = 0            # full O(allocs) rebuilds (observability)
+        self._lineage: object = None
+        self._log_ref: Optional[list] = None
+        self._log_pos = 0
+        # Invariant: _usage_d is None or exactly equals self.usage.
+        self._usage_d = None
+        self._scatters_since_upload = 0
+        self._lock = threading.RLock()
+        # Published fence (index, lineage): ONE CopySwap tuple rebound
+        # under the lock by _publish_fence, read lock-free by the sync
+        # fast path — an already-current caller must never block behind
+        # another thread's O(allocs) rebuild.
+        self._fence: CopySwap = (-1, None)
+
+    # -- sync --------------------------------------------------------------
+    def _current(self, t) -> bool:
+        """True when the mirror already matches this generation.  The
+        fence is the monotonic allocs raft index plus the store lineage
+        token — NOT table-dict identity, because the store mutates tables
+        in place when no snapshot shares them.  The lineage token changes
+        on snapshot restore (which can replace the world without raising
+        the index); it survives clones and changelog compaction."""
+        return (self.index == t.indexes["allocs"]
+                and self._lineage is t.lineage)
+
+    def _sync_locked(self, t) -> bool:
+        if self._current(t):
+            return True
+        target = t.indexes["allocs"]
+        if self._lineage is t.lineage and self.index > target:
+            return False
+        table = t.tables["allocs"]
+        log = t.alloc_log
+        # A new log list under the SAME lineage can only be compaction
+        # (the kept tail retains every entry above alloc_log_base), so
+        # scanning it from position 0 is sound.
+        if self.index < 0 or self.index < t.alloc_log_base or \
+                self._lineage is not t.lineage:
+            self._rebuild(table)
+        else:
+            changed = self._changed_ids(log, target)
+            if changed:
+                self._apply_deltas(table, changed)
+        self.index = target
+        self._lineage = t.lineage
+        self._log_ref = log
+        self._log_pos = self._position_after(log, target)
+        self._publish_fence()
+        return True
+
+    def _publish_fence(self) -> None:
+        """Rebind the lock-free fence tuple (called under the lock
+        after any index/lineage move)."""
+        self._fence = (self.index, self._lineage)
+
+    def sync(self, state) -> bool:
+        """Bring the mirror to ``state``'s allocs table (store or
+        snapshot).  O(changed allocs) when the changelog covers the gap;
+        full rebuild otherwise.  Returns False (mirror untouched) when the
+        snapshot is older than the mirror — the mirror is monotonic.
+
+        Already-current fast path: one lock-free read of the CopySwap
+        fence tuple — a caller whose snapshot the mirror already covers
+        returns immediately even while another thread holds the lock
+        through a full O(allocs) rebuild."""
+        t = state._t
+        index, lineage = self._fence
+        if index == t.indexes["allocs"] and lineage is t.lineage:
+            return True
+        with self._lock:
+            return self._sync_locked(t)
+
+    def _changed_ids(self, log: list, target: int) -> set:
+        start = self._log_pos if log is self._log_ref else 0
+        changed: set = set()
+        n = len(log)
+        for i in range(start, n):
+            idx, ids = log[i]
+            if idx <= self.index:
+                continue
+            if idx > target:
+                break
+            changed.update(ids)
+        return changed
+
+    @staticmethod
+    def _position_after(log: list, target: int) -> int:
+        n = len(log)
+        pos = n
+        while pos > 0 and log[pos - 1][0] > target:
+            pos -= 1
+        return pos
+
+    def _rebuild(self, table: dict) -> None:
+        statics = self.statics
+        index_of = statics.index_of
+        usage = np.zeros((statics.n_pad, NDIMS), dtype=np.float32)
+        job_counts: dict = {}
+        rows: dict = {}
+        for alloc in table.values():
+            if alloc.terminal_status():
+                continue
+            ni = index_of.get(alloc.node_id, -1)
+            if ni < 0:
+                continue
+            vec = alloc_vec(alloc)
+            usage[ni] += vec
+            job_counts.setdefault(alloc.job_id, {})[ni] = \
+                job_counts.get(alloc.job_id, {}).get(ni, 0) + 1
+            rows[alloc.id] = (ni, vec, alloc.job_id)
+        self.usage = usage
+        self.job_counts = job_counts
+        self.alloc_rows = rows
+        self.rebuilds += 1
+        self._usage_d = None
+
+    def _apply_deltas(self, table: dict, changed: set) -> None:
+        statics = self.statics
+        index_of = statics.index_of
+        # Copy-on-write so views handed to in-flight evals stay frozen.
+        usage = self.usage.copy()
+        touched_rows: set = set()
+        touched_jobs: dict = {}
+        for aid in changed:
+            old = self.alloc_rows.get(aid)
+            if old is not None:
+                ni, vec, jid = old
+                usage[ni] -= vec
+                jc = touched_jobs.get(jid)
+                if jc is None:
+                    jc = touched_jobs[jid] = dict(
+                        self.job_counts.get(jid, ()))
+                jc[ni] = jc.get(ni, 0) - 1
+                del self.alloc_rows[aid]
+                touched_rows.add(ni)
+            new = table.get(aid)
+            if new is not None and not new.terminal_status():
+                ni = index_of.get(new.node_id, -1)
+                if ni < 0:
+                    continue
+                vec = alloc_vec(new)
+                usage[ni] += vec
+                jid = new.job_id
+                jc = touched_jobs.get(jid)
+                if jc is None:
+                    jc = touched_jobs[jid] = dict(
+                        self.job_counts.get(jid, ()))
+                jc[ni] = jc.get(ni, 0) + 1
+                self.alloc_rows[aid] = (ni, vec, jid)
+                touched_rows.add(ni)
+        for jid, jc in touched_jobs.items():
+            jc = {ni: c for ni, c in jc.items() if c > 0}
+            if jc:
+                self.job_counts[jid] = jc
+            else:
+                self.job_counts.pop(jid, None)
+        self._update_device(usage, touched_rows)
+        self.usage = usage
+
+    # -- device mirror -----------------------------------------------------
+    def _update_device(self, new_usage: np.ndarray,
+                       touched_rows: set) -> None:
+        """Keep the device copy equal to the (about-to-be-installed) host
+        usage: scatter the touched rows into a new buffer (K5), or drop
+        the copy when a fresh upload is cheaper.  Called under the lock
+        from _apply_deltas."""
+        if self._usage_d is None:
+            return
+        if len(touched_rows) > self.MAX_SCATTER_ROWS or \
+                self._scatters_since_upload >= self.DEVICE_REFRESH_EVERY:
+            self._usage_d = None
+            return
+        idx = np.fromiter(touched_rows, dtype=np.int32,
+                          count=len(touched_rows))
+        self._usage_d = _scatter_rows(self._usage_d, idx, new_usage[idx])
+        self._scatters_since_upload += 1
+
+    def device_usage(self, device):
+        """Copy of the mirror's usage resident on ``device`` (uploaded on
+        first use, then scatter-maintained alongside every host delta).
+
+        The upload itself happens OUTSIDE the mirror lock: at 131k+
+        nodes the full usage tensor is fleet-sized, and holding the lock
+        across its host->device copy would park every worker's sync and
+        view build behind one thread's transfer.  The install is
+        revalidated under the lock exactly ONCE — a mirror that moved on
+        mid-upload just gets the fresh copy of the snapshot we read,
+        uninstalled."""
+        from nomad_tpu_torch.parallel.devices import on_default_platform, \
+            put_counted
+        with self._lock:
+            host = self.usage
+            buf = self._usage_d
+        if buf is not None and on_default_platform(buf, device):
+            return buf
+        fresh = put_counted(host, device)
+        self._install(host, fresh, device)
+        return fresh
+
+    def _install(self, host: np.ndarray, fresh, device) -> None:
+        """Adopt ``fresh`` (a device copy of ``host``) as the resident
+        copy when the mirror still holds ``host`` and has no copy on
+        ``device``."""
+        from nomad_tpu_torch.parallel.devices import on_default_platform
+        with self._lock:
+            if self.usage is host and (
+                    self._usage_d is None or
+                    not on_default_platform(self._usage_d, device)):
+                self._usage_d = fresh
+                self._scatters_since_upload = 0
+
+    def _attach_device(self, view: "FleetView", device) -> "FleetView":
+        """Resolve a view's pending device-usage attachment (set by
+        _view_locked when the view rides the mirror's own array): reuse
+        the resident copy, or upload one OUTSIDE the lock and install it
+        when the mirror hasn't moved.  Either way the view gets a device
+        copy of exactly ITS snapshot array."""
+        if view is None or view.usage_device is not _PENDING_DEVICE:
+            return view
+        view.usage_device = None
+        from nomad_tpu_torch.parallel.devices import on_default_platform, \
+            put_counted
+        host = view.usage
+        with self._lock:
+            buf = self._usage_d if self.usage is host else None
+        if buf is not None and on_default_platform(buf, device):
+            view.usage_device = buf
+            return view
+        fresh = put_counted(host, device)
+        self._install(host, fresh, device)
+        view.usage_device = fresh
+        return view
+
+    # -- views -------------------------------------------------------------
+    def _view_locked(self, plan, job_id: str) -> FleetView:
+        statics = self.statics
+        jc_dense = np.zeros(statics.n_pad, dtype=np.int32)
+        sparse = self.job_counts.get(job_id)
+        if sparse:
+            for ni, c in sparse.items():
+                jc_dense[ni] = c
+        usage = self.usage
+        deltas = plan is not None and \
+            (plan.node_update or plan.node_allocation)
+        if not deltas:
+            # The device copy is attached OUTSIDE the lock
+            # (_attach_device): the sentinel marks the view as riding
+            # the mirror's own array, so the attachment can validate
+            # against it after the upload.
+            return FleetView(statics=statics, usage=usage,
+                             job_counts=jc_dense,
+                             usage_device=_PENDING_DEVICE)
+        usage = usage.copy()
+        index_of = statics.index_of
+        for updates in plan.node_update.values():
+            for alloc in updates:
+                row = self.alloc_rows.get(alloc.id)
+                if row is None:
+                    continue
+                ni, vec, jid = row
+                usage[ni] -= vec
+                if jid == job_id:
+                    jc_dense[ni] -= 1
+        for placements in plan.node_allocation.values():
+            for alloc in placements:
+                ni = index_of.get(alloc.node_id, -1)
+                if ni < 0:
+                    continue
+                usage[ni] += alloc_vec(alloc)
+                if alloc.job_id == job_id:
+                    jc_dense[ni] += 1
+        return FleetView(statics=statics, usage=usage,
+                         job_counts=jc_dense)
+
+    def view(self, plan, job_id: str, device) -> FleetView:
+        """A FleetView for one eval: mirror base plus the eval's in-flight
+        plan deltas (EvalContext.ProposedAllocs semantics, reference
+        scheduler/context.go:96-126, fleet-wide), with the usage copy on
+        ``device`` attached when the view has no deltas."""
+        with self._lock:
+            view = self._view_locked(plan, job_id)
+        return self._attach_device(view, device)
+
+    def view_at(self, state, plan, job_id: str,
+                device) -> Optional[FleetView]:
+        """Atomically sync to ``state`` and build a view under one lock
+        hold, so a concurrent worker cannot advance the mirror between
+        the sync and the view (the view must reflect exactly this eval's
+        snapshot).  Returns None when the snapshot is older than the
+        mirror — the caller falls back to a from-scratch build.  The
+        view's device-usage attachment resolves after the lock releases
+        (_attach_device) so the first-use upload never serializes other
+        workers' syncs."""
+        t = state._t
+        with self._lock:
+            if not self._sync_locked(t):
+                return None
+            view = self._view_locked(plan, job_id)
+        return self._attach_device(view, device)
+
+
+_mirror_create_lock = threading.Lock()
+
+
+def mirror_for(statics: FleetStatics) -> UsageMirror:
+    """The one UsageMirror attached to a fleet generation (created on
+    first use; a new fleet generation starts a fresh mirror)."""
+    mirror = statics.mirror
+    if mirror is None:
+        with _mirror_create_lock:
+            mirror = statics.mirror
+            if mirror is None:
+                mirror = statics.mirror = UsageMirror(statics)
+    return mirror
+
+
+def _scatter_rows(usage_d, idx: np.ndarray, rows: np.ndarray):
+    """Device scatter of the touched rows into a NEW buffer (K5): the
+    old one stays as it is, since in-flight dispatches may still read
+    it.  Runs under the mirror lock by design: the scatter is a bounded
+    (<= MAX_SCATTER_ROWS) asynchronous launch that must stay atomic
+    with the host-array swap so the ``_usage_d == usage`` invariant
+    holds.
+
+    The batch is padded to a power-of-two row count as in the JAX
+    package (pad entries rewrite row idx[0] with its own value — a
+    no-op).  The idx/rows batch is uploaded EXPLICITLY (counted)."""
+    n = len(idx)
+    if n == 0:
+        return usage_d
+    if idx.min() < 0 or idx.max() >= usage_d.shape[0]:
+        raise IndexError(
+            f"scatter row index outside [0, {usage_d.shape[0]})")
+    padded = 1 << int(n - 1).bit_length()
+    if padded != n:
+        pad = padded - n
+        idx = np.concatenate([idx, np.repeat(idx[:1], pad)])
+        rows = np.concatenate([rows, np.repeat(rows[:1], pad, axis=0)])
+    from nomad_tpu_torch.parallel.devices import put_counted
+    device = usage_d.device
+    idx_d = put_counted(idx.astype(np.int32), device)
+    rows_d = put_counted(rows.astype(np.float32), device)
+    return scatter_rows(usage_d, idx_d, rows_d)
+
+
+def scatter_rows_plain(usage, idx, rows):
+    """Plain version of K5 (``usage.at[idx].set(rows)``): a new tensor
+    equal to ``usage`` with rows ``idx`` replaced by ``rows``."""
+    out = usage.clone()
+    out[idx.long()] = rows
+    return out
+
+
+def scatter_rows(usage, idx, rows):
+    """K5: the plain version for CPU tensors, the ``scatter_rows_kernel``
+    launch (``csrc/scatter_rows.cu``) for CUDA tensors.  ``usage``
+    f32[N, D] is never modified; the result is a new buffer.  Indices
+    must lie in [0, N)."""
+    from nomad_tpu_torch.ops import kernels
+
+    args = dict(usage=usage, idx=idx, rows=rows)
+    device = kernels.route(args)
+    if device.type == "cpu":
+        return scatter_rows_plain(usage, idx, rows)
+    n, d = usage.shape
+    r = idx.shape[0]
+    kernels.check_args(args, dict(
+        usage=(torch.float32, (n, d)), idx=(torch.int32, (r,)),
+        rows=(torch.float32, (r, d))))
+    out = torch.empty_like(usage)
+    out.copy_(usage)
+    lib = kernels.library("scatter_rows")
+    code = lib.nomad_scatter_rows(
+        out.data_ptr(), idx.data_ptr(), rows.data_ptr(), r, n, d,
+        kernels.stream_handle(device))
+    kernels.check(lib, "scatter_rows", code)
+    scatter_rows.launches += 1
+    return out
+
+
+scatter_rows.launches = 0
+
+
+class FleetCache:
+    """Caches FleetStatics per nodes-table generation.  Sound because the
+    MVCC store is copy-on-write: a frozen table dict is never mutated, only
+    swapped."""
+
+    def __init__(self, max_entries: int = 4) -> None:
+        self.max_entries = max_entries
+        self._statics: dict = {}
+
+    def _table(self, state, table: str):
+        t = getattr(state, "_t", None)
+        if t is None:
+            return None
+        return t.tables[table]
+
+    def statics_for(self, state) -> FleetStatics:
+        table = self._table(state, "nodes")
+        if table is not None:
+            hit = self._statics.get(id(table))
+            # Keep the keyed dict alive inside the entry so its id() cannot
+            # be reused by a different dict while cached.
+            if hit is not None and hit[0] is table:
+                return hit[1]
+        fleet = build_fleet(list(state.nodes()))
+        if table is not None:
+            if len(self._statics) >= self.max_entries:
+                self._statics.clear()
+            self._statics[id(table)] = (table, fleet)
+        return fleet
+
+
+fleet_cache = FleetCache()

@@ -1,0 +1,2 @@
+"""Device seams: which device the port computes on, and the counted
+host<->device transfers."""

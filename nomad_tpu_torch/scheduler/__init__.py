@@ -1,0 +1,33 @@
+"""Scheduler layer: pure placement logic behind the State/Planner seams.
+
+Registry carries the sequential ``service``/``batch`` schedulers and the
+device backend ``torch-binpack`` / ``torch-binpack-batch``.
+"""
+from .interfaces import (  # noqa: F401
+    BUILTIN_SCHEDULERS,
+    Factory,
+    Planner,
+    Scheduler,
+    SetStatusError,
+    State,
+    new_scheduler,
+    register_scheduler,
+)
+from .context import EvalContext  # noqa: F401
+from .generic import (  # noqa: F401
+    GenericScheduler,
+    new_batch_scheduler,
+    new_service_scheduler,
+)
+from .harness import Harness, RejectPlan  # noqa: F401
+from .stack import GenericStack  # noqa: F401
+from .torch_binpack import (  # noqa: F401
+    TorchBinPackScheduler,
+    new_torch_binpack_batch_scheduler,
+    new_torch_binpack_scheduler,
+)
+
+register_scheduler("service", new_service_scheduler)
+register_scheduler("batch", new_batch_scheduler)
+register_scheduler("torch-binpack", new_torch_binpack_scheduler)
+register_scheduler("torch-binpack-batch", new_torch_binpack_batch_scheduler)
