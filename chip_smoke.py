@@ -12,6 +12,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
               exactly equal, scores rtol=1e-4 atol=1e-4 where placed,
               usage rtol=1e-5 atol=1e-3, scatter exact), timed with CUDA
               events;
+              The batch kernels (K4a/K4b) are also held lane by lane
+              against the single-eval kernels (K3/K2), exactly;
   4. slice    the torch-binpack path through Harness.process on cuda:
               10,000 mock nodes with a 1,000-task-group job (bench.py
               config 4 shape), then 1,000 nodes with config-2 batch jobs
@@ -20,7 +22,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
               kernel's launch count must move, and the config-2
               placements must equal a rerun through the plain versions
               on the card;
-  5. report   one ``{"kernels": [...]}`` line, then the card's name and
+  5. storm    the fused eval storm through BatchEvalRunner on cuda:
+              (a) bench.py config 5, 64 jobs x 1,000 groups on 10,000
+              nodes with a record-only planner: ONE place_rounds_batch
+              launch, 64 plans of 1,000 placements, host phases and the
+              card's busy time; (b) bench.py config 5b, 64 jobs x 100
+              groups on 160 nodes through VerifyingPlanner: contended,
+              no node oversubscribed, placements equal to a rerun
+              through the plain versions on the card; (c) 8 jobs that
+              are not rounds-eligible on 1,000 nodes: place_sequence_batch;
+  6. report   one ``{"kernels": [...]}`` line, then the card's name and
               power limit exactly as nvidia-smi prints them, then the
               result line ``{"ok": true, "device": {...}}`` last.
 
@@ -29,8 +40,10 @@ nomad_tpu).
 """
 from __future__ import annotations
 
+import inspect
 import json
 import os
+import random
 import statistics
 import subprocess
 import sys
@@ -49,7 +62,7 @@ FP32_OPS_PER_S = 67e12
 # top-k selection.
 OPS_PER_NODE = 33
 
-DEV = "cuda"  # where the kernel checks put their tensors
+DEV = "cuda"  # where the checks put their tensors and run the port
 
 TOL = dict(rtol=1e-4, atol=1e-4)         # scores where placed
 USAGE_TOL = dict(rtol=1e-5, atol=1e-3)   # usage
@@ -252,6 +265,123 @@ def check_scatter(torch, fleet, n, r, rng, reps):
                 bound_by=b_by)
 
 
+def lanes_case(torch, n, lanes, rng, *, uniform, g=8):
+    """Per-lane operands over one shared fleet: the shared capacity,
+    reserved and usage0 of ``fleet_case``, and for each lane its own job
+    counts, feasibility, asks and distinct flags."""
+    shared = fleet_case(torch, n, rng, uniform=uniform, g=g)
+    per = [fleet_case(torch, n, rng, uniform=uniform, g=g)
+           for _ in range(lanes)]
+    out = {k: shared[k] for k in ("capacity", "reserved", "usage0")}
+    for k in ("jc0", "feasible", "asks", "distinct"):
+        out[k] = torch.stack([c[k] for c in per]).contiguous()
+    return out
+
+
+def batch_compare(torch, what, got, want, lanes_alone) -> float:
+    """compare() for a batch kernel, plus lane b of the batch equal, bit
+    for bit, to the single-eval kernel's result on lane b alone."""
+    err = compare(torch, what, got, want)
+    for b, alone in enumerate(lanes_alone):
+        for x, y in zip(got, alone):
+            require(torch.equal(x[b], y),
+                    f"{what}: lane {b} differs from the single-eval kernel")
+    return err
+
+
+def check_rounds_batch(torch, binpack, n, lanes, counts0, k_cap, rounds, rng,
+                       uniform, reps):
+    """K4a against its plain version and, lane by lane, against K3.
+    ``counts0`` is slot 0's copies in every lane; random cases add a
+    second slot of a seventh of it."""
+    c = lanes_case(torch, n, lanes, rng, uniform=uniform)
+    g = c["feasible"].shape[1]
+    counts_h = np.zeros((lanes, g), dtype=np.int32)
+    counts_h[:, 0] = counts0
+    if not uniform:
+        counts_h[:, 1] = counts0 // 7
+    counts = torch.from_numpy(counts_h).to(DEV)
+    penalty = torch.full((lanes,), 10.0, device=DEV)
+    args = (c["capacity"], c["reserved"], c["usage0"], c["jc0"],
+            c["feasible"], c["asks"], c["distinct"], counts, penalty)
+    kw = dict(k_cap=k_cap, rounds=rounds)
+    usage_before = c["usage0"].clone()
+    got = binpack.place_rounds_batch(*args, **kw)
+    torch.cuda.synchronize()
+    require(torch.equal(c["usage0"], usage_before),
+            "place_rounds_batch wrote to its input usage")
+    want = binpack.place_rounds_batch_plain(*args, **kw)
+    alone = [binpack.place_rounds(
+        c["capacity"], c["reserved"], c["usage0"], c["jc0"][b],
+        c["feasible"][b], c["asks"][b], c["distinct"][b], counts[b], 10.0,
+        **kw) for b in range(lanes)]
+    torch.cuda.synchronize()
+    err = batch_compare(torch, f"place_rounds_batch N={n} B={lanes}", got,
+                        want, alone)
+    ms = time_ms(torch, lambda: binpack.place_rounds_batch(*args, **kw), reps)
+    plain_ms = time_ms(
+        torch, lambda: binpack.place_rounds_batch_plain(*args, **kw), 1)
+    chosen = want[0].cpu().numpy()
+    ran = sum(rounds_run(counts_h[b], chosen[b], rounds, k_cap)
+              for b in range(lanes))
+    out = lanes * g * rounds * k_cap
+    nbytes = (3 * n * 6 * 4 + lanes * (4 * n + g * n + g * 6 * 4 + 5 * g + 4)
+              + 8 * out + lanes * n * 6 * 4)
+    b_ms, b_by = bound(nbytes, ran * n * OPS_PER_NODE)
+    placed = int((got[0] >= 0).sum())
+    require(placed == int(counts_h.sum()) or not uniform,
+            "place_rounds_batch left copies unplaced on an empty fleet")
+    # The same lanes as one single-eval K3 launch each: what the fused
+    # launch saves.
+    alone_ms = time_ms(torch, lambda: [binpack.place_rounds(
+        c["capacity"], c["reserved"], c["usage0"], c["jc0"][b],
+        c["feasible"][b], c["asks"][b], c["distinct"][b], counts[b], 10.0,
+        **kw) for b in range(lanes)], 2)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, placed=placed, rounds_run=ran,
+                lanes_as_single_launches_ms=alone_ms)
+
+
+def check_sequence_batch(torch, binpack, n, lanes, p, rng, reps):
+    """K4b against its plain version and, lane by lane, against K2."""
+    c = lanes_case(torch, n, lanes, rng, uniform=False)
+    g = c["feasible"].shape[1]
+    group_idx = torch.from_numpy(
+        rng.integers(0, 3, (lanes, p)).astype(np.int32)).to(DEV)
+    valid = torch.ones((lanes, p), dtype=torch.bool, device=DEV)
+    valid[:, -8:] = False
+    valid[-1] = False  # a pad lane
+    penalty = torch.from_numpy(
+        np.where(np.arange(lanes) % 2 == 0, 10.0, 5.0).astype(
+            np.float32)).to(DEV)
+    args = (c["capacity"], c["reserved"], c["usage0"], c["jc0"],
+            c["feasible"], c["asks"], c["distinct"], group_idx, valid,
+            penalty)
+    usage_before = c["usage0"].clone()
+    got = binpack.place_sequence_batch(*args)
+    torch.cuda.synchronize()
+    require(torch.equal(c["usage0"], usage_before),
+            "place_sequence_batch wrote to its input usage")
+    want = binpack.place_sequence_batch_plain(*args)
+    alone = [binpack.place_sequence(
+        c["capacity"], c["reserved"], c["usage0"], c["jc0"][b],
+        c["feasible"][b], c["asks"][b], c["distinct"][b], group_idx[b],
+        valid[b], float(penalty[b])) for b in range(lanes)]
+    torch.cuda.synchronize()
+    err = batch_compare(torch, f"place_sequence_batch N={n} B={lanes}", got,
+                        want, alone)
+    require(bool((got[0][-1] == -1).all()), "the pad lane placed something")
+    ms = time_ms(torch, lambda: binpack.place_sequence_batch(*args), reps)
+    plain_ms = time_ms(torch,
+                       lambda: binpack.place_sequence_batch_plain(*args), 1)
+    steps = int(valid.sum())
+    nbytes = (3 * n * 6 * 4 + lanes * (4 * n + g * n + g * 6 * 4 + g + 4
+                                       + 5 * p + 8 * p + n * 6 * 4))
+    b_ms, b_by = bound(nbytes, steps * n * OPS_PER_NODE)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, placed=int((got[0] >= 0).sum()))
+
+
 # -- phase 4: the slice -----------------------------------------------------
 
 
@@ -325,22 +455,14 @@ def small_cluster(mock, structs, Harness, nodes, times):
     return out
 
 
-def phase_breakdown(torch, structs, h, job):
-    """One more eval on ``h`` (after the main path's counts were read),
-    with host-clock time per scheduler phase and the card's busy time
-    from torch.profiler.  Returns ms per phase, the eval's wall ms, the
-    device busy ms (None when the profiler saw no device time) and the
-    top device kernels by time."""
-    from nomad_tpu_torch.scheduler import Harness, TorchBinPackScheduler
-
+def timed_phases(targets):
+    """Wrap each ``(cls, method name)`` in ``targets`` with a host-clock
+    timer; returns (spent: name -> seconds, restore function)."""
     spent: dict = {}
-    wrapped = [(TorchBinPackScheduler, name) for name in (
-        "_compute_job_allocs", "_prepare_device", "dispatch_device",
-        "collect_device", "finish_deferred")] + [(Harness, "submit_plan")]
-    saved = []
-    for cls, name in wrapped:
+    # (cls, name, the class's own attribute or None when inherited)
+    saved = [(cls, name, cls.__dict__.get(name)) for cls, name in targets]
+    for cls, name, _own in saved:
         orig = getattr(cls, name)
-        saved.append((cls, name, orig))
 
         def timed(*a, _orig=orig, _name=name, **kw):
             t = time.perf_counter()
@@ -349,17 +471,27 @@ def phase_breakdown(torch, structs, h, job):
             finally:
                 spent[_name] = spent.get(_name, 0.0) + \
                     time.perf_counter() - t
-        setattr(cls, name, timed)
+        static = isinstance(inspect.getattr_static(cls, name), staticmethod)
+        setattr(cls, name, staticmethod(timed) if static else timed)
+
+    def restore():
+        for cls, name, own in saved:
+            if own is None:
+                delattr(cls, name)
+            else:
+                setattr(cls, name, own)
+    return spent, restore
+
+
+def device_busy_ms(torch, fn):
+    """Run ``fn`` under torch.profiler.  Returns the card's busy ms (None
+    when the profiler saw no device time), the top device entries by
+    time, and what ``fn`` returned."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    try:
-        with torch.profiler.profile(activities=acts) as prof:
-            times: list = []
-            run_eval(structs, h, job, times)
-            torch.cuda.synchronize()
-    finally:
-        for cls, name, orig in saved:
-            setattr(cls, name, orig)
+    with torch.profiler.profile(activities=acts) as prof:
+        result = fn()
+        torch.cuda.synchronize()
     events = prof.key_averages()
 
     def dev_us(e):
@@ -368,6 +500,26 @@ def phase_breakdown(torch, structs, h, job):
     busy_us = sum(dev_us(e) for e in events)
     top = sorted(((e.key, dev_us(e) / 1e3) for e in events
                   if dev_us(e) > 0), key=lambda kv: -kv[1])[:6]
+    return (busy_us / 1e3 if busy_us > 0 else None), top, result
+
+
+def phase_breakdown(torch, structs, h, job):
+    """One more eval on ``h`` (after the main path's counts were read),
+    with host-clock time per scheduler phase and the card's busy time
+    from torch.profiler.  Returns ms per phase, the eval's wall ms, the
+    device busy ms (None when the profiler saw no device time) and the
+    top device kernels by time."""
+    from nomad_tpu_torch.scheduler import Harness, TorchBinPackScheduler
+
+    spent, restore = timed_phases([(TorchBinPackScheduler, name) for name in (
+        "_compute_job_allocs", "_prepare_device", "dispatch_device",
+        "collect_device", "finish_deferred")] + [(Harness, "submit_plan")])
+    times: list = []
+    try:
+        busy_ms, top, _ = device_busy_ms(
+            torch, lambda: run_eval(structs, h, job, times))
+    finally:
+        restore()
     # _compute_job_allocs encloses the device phases; report its own part.
     inner = sum(spent.get(k, 0.0) for k in (
         "_prepare_device", "dispatch_device", "collect_device",
@@ -375,8 +527,7 @@ def phase_breakdown(torch, structs, h, job):
     spent["_compute_job_allocs"] = spent.get("_compute_job_allocs",
                                              0.0) - inner
     return dict(phases_ms={k: v * 1e3 for k, v in spent.items()},
-                eval_ms=times[0] * 1e3,
-                device_busy_ms=busy_us / 1e3 if busy_us > 0 else None,
+                eval_ms=times[0] * 1e3, device_busy_ms=busy_ms,
                 device_top_ms=top)
 
 
@@ -449,6 +600,218 @@ def run_slice(torch):
                 profiled_config4_eval=profile)
 
 
+# -- phase 5: the fused storm ----------------------------------------------
+
+
+class RecordOnlyPlanner:
+    """bench.py _RecordOnlyPlanner: accepts every plan as fully committed
+    WITHOUT applying it to state, so repeated storms all see the
+    identical snapshot."""
+
+    def __init__(self, structs) -> None:
+        self.structs = structs
+        self.plans = []
+
+    def submit_plan(self, plan):
+        self.plans.append(plan)
+        return self.structs.PlanResult(
+            node_update=plan.node_update,
+            node_allocation=plan.node_allocation,
+            failed_allocs=plan.failed_allocs), None
+
+    def update_eval(self, ev) -> None:
+        pass
+
+    def create_eval(self, ev) -> None:
+        pass
+
+
+def make_eval(structs, job):
+    return structs.Evaluation(
+        id=structs.generate_uuid(), priority=job.priority, type=job.type,
+        triggered_by=structs.EVAL_TRIGGER_JOB_REGISTER, job_id=job.id)
+
+
+def storm_jobs(mock, structs, prefix, n_jobs, n_groups):
+    """bench.py _bench_job, ``n_jobs`` times: one service job of
+    ``n_groups`` config-4 task groups, its id fixed by ``prefix``."""
+    jobs = []
+    for k in range(n_jobs):
+        j = mock.job()
+        j.id = f"{prefix}-{k}"
+        j.task_groups = [bench_task_group(structs, f"tg-{g}")
+                         for g in range(n_groups)]
+        jobs.append(j)
+    return jobs
+
+
+def storm_config5(torch, mock, structs, binpack, Harness, BatchEvalRunner,
+                  n_nodes=10_000, n_jobs=64, n_groups=1000):
+    """bench.py config 5: 64 evals x 1,000 groups on 10,000 nodes, with
+    the record-only planner.  Three storms on one snapshot: the first
+    cold (fleet tensors, masks, prep caches), the second timed by host
+    phase, the third under torch.profiler for the card's busy time."""
+    h = Harness(device=DEV)
+    for i in range(n_nodes):
+        h.state.upsert_node(h.next_index(), mock.node(i))
+    jobs = storm_jobs(mock, structs, "config5", n_jobs, n_groups)
+    for j in jobs:
+        h.state.upsert_job(h.next_index(), j)
+    snap = h.snapshot()
+
+    def storm():
+        planner = RecordOnlyPlanner(structs)
+        before = binpack.place_rounds_batch.launches
+        t = time.perf_counter()
+        BatchEvalRunner(snap, planner, device=DEV).process(
+            [make_eval(structs, j) for j in jobs])
+        wall = time.perf_counter() - t
+        require(binpack.place_rounds_batch.launches - before == 1,
+                "config 5: the storm was not ONE place_rounds_batch launch")
+        require(len(planner.plans) == n_jobs,
+                f"config 5: {len(planner.plans)} plans, want {n_jobs}")
+        for plan in planner.plans:
+            placed = sum(len(v) for v in plan.node_allocation.values())
+            require(placed == n_groups and not plan.failed_allocs,
+                    f"config 5: a plan placed {placed}, failed "
+                    f"{len(plan.failed_allocs)}")
+        return wall
+    cold_s = storm()
+    spent, restore = timed_phases([(BatchEvalRunner, name) for name in (
+        "_begin_eval", "_dispatch_fused", "_finish_lanes",
+        "_submit_window")])
+    try:
+        warm_s = storm()
+    finally:
+        restore()
+    busy_ms, top, profiled_s = device_busy_ms(torch, storm)
+    phases_ms = {"begin": spent["_begin_eval"] * 1e3,
+                 "dispatch": spent["_dispatch_fused"] * 1e3,
+                 "finish": spent["_finish_lanes"] * 1e3,
+                 "submit": spent["_submit_window"] * 1e3}
+    phases_ms["other"] = warm_s * 1e3 - sum(phases_ms.values())
+    return dict(evals=n_jobs, placements=n_jobs * n_groups,
+                cold_wall_s=cold_s, wall_s=warm_s,
+                evals_per_s=n_jobs / warm_s,
+                phases_ms=phases_ms,
+                profiled_storm_s=profiled_s,
+                profiled_storm_device_busy_ms=busy_ms,
+                device_idle_share=None if busy_ms is None
+                else 1.0 - busy_ms / (profiled_s * 1e3),
+                device_top_ms=top)
+
+
+def storm_config5b(mock, structs, Harness, VerifyingPlanner,
+                   BatchEvalRunner, n_nodes=160, n_jobs=64, n_groups=100):
+    """bench.py config 5b: 64 evals x 100 groups on 160 nodes through
+    the verifying applier with state_refresh.  Returns the committed
+    placements ((job, alloc name) -> (node name, ports)) and the
+    applier's counts; fails if any node ends oversubscribed.  Python's
+    ``random``, which seeds each plan's dynamic ports (and so the port
+    collisions between lanes), is seeded first, so two runs of equal
+    kernels commit equal placements."""
+    random.seed(5)
+    h = Harness(device=DEV)
+    for i in range(n_nodes):
+        h.state.upsert_node(h.next_index(), mock.node(i))
+    jobs = storm_jobs(mock, structs, "config5b", n_jobs, n_groups)
+    for j in jobs:
+        h.state.upsert_job(h.next_index(), j)
+    h.planner = VerifyingPlanner(h)
+    t = time.perf_counter()
+    BatchEvalRunner(h.snapshot(), h.planner, state_refresh=h.snapshot,
+                    device=DEV).process(
+        [make_eval(structs, j) for j in jobs])
+    wall = time.perf_counter() - t
+    names = {n.id: n.name for n in h.state.nodes()}
+    placed = {(a.job_id, a.name): (names[a.node_id], tuple(
+        p for tr in a.task_resources.values() for n in tr.networks
+        for p in n.reserved_ports))
+        for a in h.state.allocs() if a.node_id and not a.terminal_status()}
+    for node in h.state.nodes():
+        live = [a for a in h.state.allocs_by_node(node.id)
+                if not a.terminal_status()]
+        fit, dim, _ = structs.allocs_fit(node, live)
+        require(fit, f"config 5b: node {node.name} oversubscribed on {dim}")
+    vp = h.planner
+    return placed, dict(evals=n_jobs, wall_s=wall,
+                        evals_per_s=n_jobs / wall,
+                        placed=len(placed), conflicts=vp.conflicts,
+                        commits=vp.commits,
+                        plans_per_commit=vp.committed_plans /
+                        max(1, vp.commits),
+                        conflict_fallbacks=vp.conflict_fallbacks)
+
+
+def storm_sequence(mock, structs, Harness, BatchEvalRunner, nodes):
+    """8 jobs of the slice's sequence_job shape (not rounds-eligible) on
+    1,000 nodes, fused, committed through the harness's direct apply."""
+    h = Harness(device=DEV)
+    for node in nodes:
+        h.state.upsert_node(h.next_index(), node.copy())
+    jobs = []
+    for k in range(8):
+        j = sequence_job(mock, structs)
+        j.id = f"sequence-storm-{k}"
+        h.state.upsert_job(h.next_index(), j)
+        jobs.append(j)
+    t = time.perf_counter()
+    BatchEvalRunner(h.snapshot(), h, device=DEV).process(
+        [make_eval(structs, j) for j in jobs])
+    wall = time.perf_counter() - t
+    placed = sum(len(v) for p in h.plans for v in p.node_allocation.values())
+    require(placed == 8 * 24, f"sequence storm placed {placed} of 192")
+    return dict(evals=8, wall_s=wall, placed=placed)
+
+
+def run_storm(torch, sizes5=(), sizes5b=(), n_seq_nodes=1000):
+    """The storm phase.  The sizes default to the configurations'; a
+    rehearsal passes smaller ones."""
+    import nomad_tpu_torch.mock as mock
+    import nomad_tpu_torch.structs as structs
+    from nomad_tpu_torch.models import fleet
+    from nomad_tpu_torch.ops import binpack
+    from nomad_tpu_torch.scheduler import (BatchEvalRunner, Harness,
+                                           VerifyingPlanner)
+
+    counters = (binpack.place_sequence, binpack.place_rounds,
+                fleet.scatter_rows, binpack.place_rounds_batch,
+                binpack.place_sequence_batch)
+    for fn in counters:
+        fn.launches = 0
+    c5 = storm_config5(torch, mock, structs, binpack, Harness,
+                       BatchEvalRunner, *sizes5)
+    placed5b, c5b = storm_config5b(mock, structs, Harness, VerifyingPlanner,
+                                   BatchEvalRunner, *sizes5b)
+    require(c5b["conflicts"] > 0, "config 5b was not contended")
+    nodes = [mock.node(i) for i in range(n_seq_nodes)]
+    seq = storm_sequence(mock, structs, Harness, BatchEvalRunner, nodes)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    for name in ("place_rounds_batch", "place_sequence_batch"):
+        require(launches[name] > 0, f"{name} was not launched by the storm")
+
+    # Config 5b again, through the plain versions on the card.
+    saved = (binpack.place_sequence, binpack.place_rounds,
+             fleet.scatter_rows, binpack.place_rounds_batch,
+             binpack.place_sequence_batch)
+    binpack.place_sequence = binpack.place_sequence_plain
+    binpack.place_rounds = binpack.place_rounds_plain
+    fleet.scatter_rows = fleet.scatter_rows_plain
+    binpack.place_rounds_batch = binpack.place_rounds_batch_plain
+    binpack.place_sequence_batch = binpack.place_sequence_batch_plain
+    try:
+        plain5b, _ = storm_config5b(mock, structs, Harness,
+                                    VerifyingPlanner, BatchEvalRunner,
+                                    *sizes5b)
+    finally:
+        (binpack.place_sequence, binpack.place_rounds, fleet.scatter_rows,
+         binpack.place_rounds_batch, binpack.place_sequence_batch) = saved
+    require(placed5b == plain5b,
+            "config 5b placements differ from the plain versions' run")
+    return dict(launches=launches, config5=c5, config5b=c5b,
+                sequence_storm=seq)
+
+
 def main() -> int:
     import torch
 
@@ -475,29 +838,45 @@ def main() -> int:
     rnd_big = check_rounds(torch, binpack, 131072, 1000, 1024, 1, rng,
                            True, 3)
     sct = check_scatter(torch, fleet, 16384, 1024, rng, 50)
+    rb = check_rounds_batch(torch, binpack, 16384, 64, 1000, 1024, 1, rng,
+                            True, 10)
+    rb_rand = check_rounds_batch(torch, binpack, 16384, 16, 1000, 1024, 2,
+                                 rng, False, 10)
+    sb = check_sequence_batch(torch, binpack, 16384, 8, 256, rng, 3)
     for name, r in (("place_sequence N=16384 P=1024", seq),
                     ("place_sequence N=16384 P=1024 ties", seq_tie),
                     ("place_rounds N=16384 count=1000 k=1024", rnd),
                     ("place_rounds N=16384 random rounds=2", rnd_rand),
                     ("place_rounds N=131072 count=1000 k=1024", rnd_big),
-                    ("scatter_rows N=16384 R=1024", sct)):
+                    ("scatter_rows N=16384 R=1024", sct),
+                    ("place_rounds_batch N=16384 B=64 count=1000 k=1024",
+                     rb),
+                    ("place_rounds_batch N=16384 B=16 random rounds=2",
+                     rb_rand),
+                    ("place_sequence_batch N=16384 B=8 P=256", sb)):
         print(f"kernel {name}: " + json.dumps(r), flush=True)
 
     sl = run_slice(torch)
     print("slice: " + json.dumps(sl), flush=True)
+    st = run_storm(torch)
+    print("storm: " + json.dumps(st), flush=True)
+    # Launches on the main path: the slice's run and the storm's run,
+    # each counted from 0.
+    launches = {k: sl["launches"].get(k, 0) + st["launches"][k]
+                for k in st["launches"]}
 
     kernels_line = {"kernels": [
         dict(name="place_sequence", route="cuda",
              source="nomad_tpu_torch/csrc/binpack.cu",
              replaces="nomad_tpu/ops/binpack.py:78",
-             launches=sl["launches"]["place_sequence"],
+             launches=launches["place_sequence"],
              max_abs_err=max(seq["err"], seq_tie["err"]), ms=seq["ms"],
              plain_ms=seq["plain_ms"], bound_ms=seq["bound_ms"],
              bound_by=seq["bound_by"], library_ms=None),
         dict(name="place_rounds", route="cuda",
              source="nomad_tpu_torch/csrc/binpack.cu",
              replaces="nomad_tpu/ops/binpack.py:123",
-             launches=sl["launches"]["place_rounds"],
+             launches=launches["place_rounds"],
              max_abs_err=max(rnd["err"], rnd_rand["err"], rnd_big["err"]),
              ms=rnd["ms"], plain_ms=rnd["plain_ms"],
              bound_ms=rnd["bound_ms"], bound_by=rnd["bound_by"],
@@ -505,10 +884,24 @@ def main() -> int:
         dict(name="scatter_rows", route="cuda",
              source="nomad_tpu_torch/csrc/scatter_rows.cu",
              replaces="nomad_tpu/models/fleet.py:1108",
-             launches=sl["launches"]["scatter_rows"],
+             launches=launches["scatter_rows"],
              max_abs_err=sct["err"], ms=sct["ms"],
              plain_ms=sct["plain_ms"], bound_ms=sct["bound_ms"],
              bound_by=sct["bound_by"], library_ms=sct["library_ms"]),
+        dict(name="place_rounds_batch", route="cuda",
+             source="nomad_tpu_torch/csrc/binpack.cu",
+             replaces="nomad_tpu/ops/binpack.py:185",
+             launches=launches["place_rounds_batch"],
+             max_abs_err=max(rb["err"], rb_rand["err"]), ms=rb["ms"],
+             plain_ms=rb["plain_ms"], bound_ms=rb["bound_ms"],
+             bound_by=rb["bound_by"], library_ms=None),
+        dict(name="place_sequence_batch", route="cuda",
+             source="nomad_tpu_torch/csrc/binpack.cu",
+             replaces="nomad_tpu/ops/binpack.py:203",
+             launches=launches["place_sequence_batch"],
+             max_abs_err=sb["err"], ms=sb["ms"], plain_ms=sb["plain_ms"],
+             bound_ms=sb["bound_ms"], bound_by=sb["bound_by"],
+             library_ms=None),
     ]}
     print(json.dumps(kernels_line), flush=True)
     print(card_line(), flush=True)  # as nvidia-smi prints it

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 from typing import Iterable
 
-from nomad_tpu_torch.structs import Allocation, Job, Node
+from nomad_tpu_torch.structs import Allocation, Job, Node, Plan
 
 
 def _plain(obj) -> dict:
@@ -32,3 +32,11 @@ def jobs_from_reference(jobs: Iterable) -> list:
 def allocs_from_reference(allocs: Iterable) -> list:
     """Port ``Allocation`` objects equal, field by field, to ``allocs``."""
     return [Allocation.from_dict(_plain(a)) for a in allocs]
+
+
+def plans_from_reference(plans: Iterable) -> list:
+    """Port ``Plan`` objects equal, field by field, to ``plans``: the
+    same evictions, placements and failed allocs under the same alloc
+    ids, so one recorded plan stream can be verified by both
+    packages."""
+    return [Plan.from_dict(_plain(p)) for p in plans]

@@ -4,7 +4,18 @@
 //   score_all_nodes  (K1)  -> score_node, a __device__ routine fused into
 //                             both kernels below;
 //   _place_sequence  (K2)  -> place_sequence_kernel;
-//   _place_rounds    (K3)  -> place_rounds_kernel.
+//   _place_rounds    (K3)  -> place_rounds_kernel;
+//   place_rounds_batch    (K4a, a vmap of K3) -> place_rounds_batch_kernel;
+//   place_sequence_batch  (K4b, a vmap of K2) -> place_sequence_batch_kernel.
+//
+// One code path: the body of each placement walk is a __device__
+// function over one lane's pointers (place_sequence_lane,
+// place_rounds_lane).  The single-eval kernels run it in one block; the
+// batch kernels run one block per lane (blockIdx.x = lane), each lane
+// reading its own slices of the per-lane operands and the SHARED
+// capacity / reserved / usage0, and evolving its own copy of the usage
+// in its slice of the f32[B, N, D] output.  So K2/K3 and K4 cannot
+// drift apart.
 //
 // Bound on an H100: the work per dispatch is tiny next to the card
 // (K2 at N = 16,384 nodes and P = 1,024 placements is ~5e8 fp32
@@ -79,8 +90,8 @@ __device__ __forceinline__ void copy_state(
   for (int i = threadIdx.x; i < n; i += THREADS) jc[i] = jc0[i];
 }
 
-// K2: one placement per step, P steps in one block.
-__global__ void __launch_bounds__(THREADS) place_sequence_kernel(
+// K2 body: one placement per step, P steps in one block, for one lane.
+__device__ __forceinline__ void place_sequence_lane(
     const float* __restrict__ cap, const float* __restrict__ res,
     const float* __restrict__ usage0, const int* __restrict__ jc0,
     const uint8_t* __restrict__ feas, const float* __restrict__ asks,
@@ -198,30 +209,28 @@ __device__ void bitonic_sort_desc(unsigned long long* keys, int n) {
 // up to min(remaining, k_cap) distinct winners.  The top-k is a full
 // sort of 64-bit keys (ordered score bits, inverted node index), so it
 // returns the k largest with ties to the lower index, as lax.top_k.
-__global__ void __launch_bounds__(THREADS) place_rounds_kernel(
+__device__ __forceinline__ void place_rounds_lane(
     const float* __restrict__ cap, const float* __restrict__ res,
     const float* __restrict__ usage0, const int* __restrict__ jc0,
     const uint8_t* __restrict__ feas, const float* __restrict__ asks,
     const uint8_t* __restrict__ distinct, const int* __restrict__ counts,
     float penalty, int n, int g_len, int k_cap, int rounds,
     int* __restrict__ chosen, float* __restrict__ scores, float* usage,
-    int* jc, unsigned long long* scratch) {
-  extern __shared__ unsigned long long s_keys[];
+    int* jc, unsigned long long* keys) {
   __shared__ float s_ask[NDIMS];
-  unsigned long long* keys = scratch != nullptr ? scratch : s_keys;
   const int tid = threadIdx.x;
   const size_t stream_len = (size_t)rounds * k_cap;
   copy_state(usage0, jc0, usage, jc, n);
   __syncthreads();
   for (int s = 0; s < g_len; ++s) {
-    if (tid < NDIMS) s_ask[tid] = asks[s * NDIMS + tid];
+    if (tid < NDIMS) s_ask[tid] = asks[(size_t)s * NDIMS + tid];
     __syncthreads();
     const uint8_t* feas_s = feas + (size_t)s * n;
     const bool dist = distinct[s] != 0;
     int m = counts[s];
     for (int r = 0; r < rounds; ++r) {
-      int* out_c = chosen + s * stream_len + (size_t)r * k_cap;
-      float* out_s = scores + s * stream_len + (size_t)r * k_cap;
+      int* out_c = chosen + (size_t)s * stream_len + (size_t)r * k_cap;
+      float* out_s = scores + (size_t)s * stream_len + (size_t)r * k_cap;
       if (m <= 0) {  // uniform across the block: nothing left to place
         for (int pos = tid; pos < k_cap; pos += THREADS) {
           out_c[pos] = -1;
@@ -264,6 +273,109 @@ __global__ void __launch_bounds__(THREADS) place_rounds_kernel(
   }
 }
 
+
+// The four kernels.  Sort keys of N <= SMEM_SORT_MAX nodes live in the
+// block's dynamic shared memory; above that, in the caller's scratch
+// (one row of N keys per lane).
+__global__ void __launch_bounds__(THREADS) place_sequence_kernel(
+    const float* __restrict__ cap, const float* __restrict__ res,
+    const float* __restrict__ usage0, const int* __restrict__ jc0,
+    const uint8_t* __restrict__ feas, const float* __restrict__ asks,
+    const uint8_t* __restrict__ distinct, const int* __restrict__ group_idx,
+    const uint8_t* __restrict__ valid, float penalty, int n, int p_len,
+    int* __restrict__ chosen, float* __restrict__ scores, float* usage,
+    int* jc) {
+  place_sequence_lane(cap, res, usage0, jc0, feas, asks, distinct, group_idx,
+                      valid, penalty, n, p_len, chosen, scores, usage, jc);
+}
+
+__global__ void __launch_bounds__(THREADS) place_rounds_kernel(
+    const float* __restrict__ cap, const float* __restrict__ res,
+    const float* __restrict__ usage0, const int* __restrict__ jc0,
+    const uint8_t* __restrict__ feas, const float* __restrict__ asks,
+    const uint8_t* __restrict__ distinct, const int* __restrict__ counts,
+    float penalty, int n, int g_len, int k_cap, int rounds,
+    int* __restrict__ chosen, float* __restrict__ scores, float* usage,
+    int* jc, unsigned long long* scratch) {
+  extern __shared__ unsigned long long s_keys[];
+  place_rounds_lane(cap, res, usage0, jc0, feas, asks, distinct, counts,
+                    penalty, n, g_len, k_cap, rounds, chosen, scores, usage,
+                    jc, scratch != nullptr ? scratch : s_keys);
+}
+
+// K4b (nomad_tpu/ops/binpack.py place_sequence_batch): K2 over B lanes,
+// one block per lane.
+//
+// Bound on an H100: at B = 8 lanes, N = 16,384, P = 256 the work is
+// ~1.1e9 fp32 operations over ~2 MB of distinct input, ~16 us at
+// 67 TFLOP/s.  What bounds it is each lane's chain of P dependent steps
+// (K2's ~18 us a step on one SM); the lanes run side by side on their
+// own SMs, so B <= 132 lanes take about the time of one.
+__global__ void __launch_bounds__(THREADS) place_sequence_batch_kernel(
+    const float* __restrict__ cap, const float* __restrict__ res,
+    const float* __restrict__ usage0, const int* __restrict__ jc0,
+    const uint8_t* __restrict__ feas, const float* __restrict__ asks,
+    const uint8_t* __restrict__ distinct, const int* __restrict__ group_idx,
+    const uint8_t* __restrict__ valid, const float* __restrict__ penalty,
+    int n, int g_len, int p_len, int* __restrict__ chosen,
+    float* __restrict__ scores, float* usage, int* jc) {
+  const size_t b = blockIdx.x;
+  const size_t nn = (size_t)n;
+  place_sequence_lane(
+      cap, res, usage0, jc0 + b * nn, feas + b * (size_t)g_len * nn,
+      asks + b * (size_t)g_len * NDIMS, distinct + b * (size_t)g_len,
+      group_idx + b * (size_t)p_len, valid + b * (size_t)p_len, penalty[b],
+      n, p_len, chosen + b * (size_t)p_len, scores + b * (size_t)p_len,
+      usage + b * nn * NDIMS, jc + b * nn);
+}
+
+// K4a (nomad_tpu/ops/binpack.py place_rounds_batch): K3 over B lanes,
+// one block per lane.
+//
+// Bound on an H100: config 5 (B = 64 lanes, N = 16,384, one slot of
+// 1,000 copies, one round) reads ~1.5 MB of shared fleet tensors and
+// 1 MB of per-lane feasibility and writes 25 MB of per-lane usage:
+// ~8 us at 3.35 TB/s, bytes-bound.  K3's sort of 16,384 keys in one
+// block dominates each lane; the design runs the 64 lanes' sorts side
+// by side, one block with 128 KB of shared memory per SM, so the storm
+// costs about one K3 launch instead of 64.
+__global__ void __launch_bounds__(THREADS) place_rounds_batch_kernel(
+    const float* __restrict__ cap, const float* __restrict__ res,
+    const float* __restrict__ usage0, const int* __restrict__ jc0,
+    const uint8_t* __restrict__ feas, const float* __restrict__ asks,
+    const uint8_t* __restrict__ distinct, const int* __restrict__ counts,
+    const float* __restrict__ penalty, int n, int g_len, int k_cap,
+    int rounds, int* __restrict__ chosen, float* __restrict__ scores,
+    float* usage, int* jc, unsigned long long* scratch) {
+  extern __shared__ unsigned long long s_keys[];
+  const size_t b = blockIdx.x;
+  const size_t nn = (size_t)n;
+  const size_t stream = (size_t)g_len * rounds * k_cap;
+  place_rounds_lane(
+      cap, res, usage0, jc0 + b * nn, feas + b * (size_t)g_len * nn,
+      asks + b * (size_t)g_len * NDIMS, distinct + b * (size_t)g_len,
+      counts + b * (size_t)g_len, penalty[b], n, g_len, k_cap, rounds,
+      chosen + b * stream, scores + b * stream, usage + b * nn * NDIMS,
+      jc + b * nn, scratch != nullptr ? scratch + b * nn : s_keys);
+}
+
+// Dynamic shared memory for the sort of one block's keys: n keys when
+// they fit (and the attribute raised past 48 KB), 0 when the caller
+// passed a scratch buffer.  Returns a CUDA error code.
+template <typename Kernel>
+static int sort_smem(Kernel kernel, int n, const void* scratch,
+                     size_t* smem) {
+  *smem = 0;
+  if (scratch != nullptr) return 0;
+  if (n > SMEM_SORT_MAX) return (int)cudaErrorInvalidValue;
+  *smem = (size_t)n * sizeof(unsigned long long);
+  if (*smem > 48 * 1024) {
+    return (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  }
+  return 0;
+}
+
 extern "C" {
 
 const char* nomad_error_string(int code) {
@@ -290,17 +402,38 @@ int nomad_place_rounds(const float* cap, const float* res, const float* usage0,
                        int* chosen, float* scores, float* usage, int* jc,
                        unsigned long long* scratch, void* stream) {
   size_t smem = 0;
-  if (scratch == nullptr) {
-    if (n > SMEM_SORT_MAX) return (int)cudaErrorInvalidValue;
-    smem = (size_t)n * sizeof(unsigned long long);
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          place_rounds_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-  }
+  const int e = sort_smem(place_rounds_kernel, n, scratch, &smem);
+  if (e != 0) return e;
   place_rounds_kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(
+      cap, res, usage0, jc0, feas, asks, distinct, counts, penalty, n, g_len,
+      k_cap, rounds, chosen, scores, usage, jc, scratch);
+  return (int)cudaGetLastError();
+}
+
+int nomad_place_sequence_batch(
+    const float* cap, const float* res, const float* usage0, const int* jc0,
+    const uint8_t* feas, const float* asks, const uint8_t* distinct,
+    const int* group_idx, const uint8_t* valid, const float* penalty,
+    int lanes, int n, int g_len, int p_len, int* chosen, float* scores,
+    float* usage, int* jc, void* stream) {
+  if (lanes < 1) return (int)cudaErrorInvalidValue;
+  place_sequence_batch_kernel<<<lanes, THREADS, 0, (cudaStream_t)stream>>>(
+      cap, res, usage0, jc0, feas, asks, distinct, group_idx, valid, penalty,
+      n, g_len, p_len, chosen, scores, usage, jc);
+  return (int)cudaGetLastError();
+}
+
+int nomad_place_rounds_batch(
+    const float* cap, const float* res, const float* usage0, const int* jc0,
+    const uint8_t* feas, const float* asks, const uint8_t* distinct,
+    const int* counts, const float* penalty, int lanes, int n, int g_len,
+    int k_cap, int rounds, int* chosen, float* scores, float* usage, int* jc,
+    unsigned long long* scratch, void* stream) {
+  if (lanes < 1) return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  const int e = sort_smem(place_rounds_batch_kernel, n, scratch, &smem);
+  if (e != 0) return e;
+  place_rounds_batch_kernel<<<lanes, THREADS, smem, (cudaStream_t)stream>>>(
       cap, res, usage0, jc0, feas, asks, distinct, counts, penalty, n, g_len,
       k_cap, rounds, chosen, scores, usage, jc, scratch);
   return (int)cudaGetLastError();

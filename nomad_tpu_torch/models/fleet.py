@@ -205,6 +205,50 @@ def net_base_for(statics: FleetStatics, node_index: int, node):
     return base
 
 
+# Sentinel net key for allocs whose offers span ips/devices (or carry
+# in-alloc oddities): forces the exact NetworkIndex path for their node.
+NET_KEY_ODD = ("__odd__", "__odd__")
+
+
+def _net_row(alloc: Allocation):
+    """The plan verifier's network row for one alloc: ``(ports, mbits,
+    (ip, device))`` aggregated over the FIRST network of each task —
+    exactly the set NetworkIndex.add_allocs accounts (reference
+    nomad/structs/network.go AddAllocs) — or None when the alloc
+    reserves no network.  Offers spanning multiple ips or devices get
+    NET_KEY_ODD.  Cached on the alloc under the same immutability
+    contract as ``alloc_vec`` (store objects are replaced, never
+    mutated)."""
+    d = alloc.__dict__
+    row = d.get("_net_row")
+    if row is not None:
+        return row[0]
+    built = _net_row_build(alloc)
+    d["_net_row"] = (built,)
+    return built
+
+
+def _net_row_build(alloc: Allocation):
+    ports: list = []
+    mbits = 0
+    key = None
+    for task_res in alloc.task_resources.values():
+        nets = task_res.networks
+        if not nets:
+            continue
+        n0 = nets[0]
+        ports.extend(n0.reserved_ports)
+        mbits += n0.mbits
+        k = (n0.ip, n0.device)
+        if key is None:
+            key = k
+        elif k != key:
+            key = NET_KEY_ODD
+    if key is None and not mbits:
+        return None
+    return (tuple(ports), mbits, key or NET_KEY_ODD)
+
+
 # Sentinel: a freshly-built mirror view whose device-usage attachment
 # has not resolved yet (UsageMirror._attach_device runs outside the
 # mirror lock and replaces it with a real buffer or None).  Never
@@ -300,12 +344,42 @@ class UsageMirror:
         # Invariant: _usage_d is None or exactly equals self.usage.
         self._usage_d = None
         self._scatters_since_upload = 0
+        # Per-node port/bandwidth tracking for the vectorized plan
+        # verifier (server/plan_apply).  Disabled until sync_net() is
+        # first called so scheduler-only users pay nothing; once
+        # enabled, maintained incrementally by the same delta walk as
+        # usage.  All keyed by node index, empties pruned:
+        #   net_rows:   alloc_id -> (ni, ports, mbits, (ip, device))
+        #   node_ports: ni -> {port: live count}
+        #   node_dup:   ni -> number of ports with count > 1
+        #   node_bw:    ni -> sum of live offer mbits
+        #   node_net_keys: ni -> {(ip, device): count} (NET_KEY_ODD rows
+        #                  force the exact path for their node)
+        self._net_ready = False
+        self.net_rows: dict = {}
+        self.node_ports: dict = {}
+        self.node_dup: dict = {}
+        self.node_bw: dict = {}
+        self.node_net_keys: dict = {}
+        # Reentrant so a caller can hold the mirror across a composite
+        # read (sync_net + the plan verifier's verdict loop) while the
+        # internal sync paths re-acquire: the net dicts are mutated in
+        # place by _apply_deltas, so unlike the copy-on-write usage
+        # array they must not be read unlocked.
         self._lock = threading.RLock()
-        # Published fence (index, lineage): ONE CopySwap tuple rebound
-        # under the lock by _publish_fence, read lock-free by the sync
-        # fast path — an already-current caller must never block behind
-        # another thread's O(allocs) rebuild.
-        self._fence: CopySwap = (-1, None)
+        # Published fence (index, lineage, net_ready): ONE CopySwap
+        # tuple rebound under the lock by _publish_fence, read lock-free
+        # by the sync fast paths — an already-current caller must never
+        # block behind another thread's O(allocs) rebuild.
+        self._fence: CopySwap = (-1, None, False)
+
+    @property
+    def lock(self):
+        """Hold this across any multi-step read of the in-place-mutated
+        net structures (node_ports/node_net_keys/net_rows/alloc_rows);
+        the usage array itself is replaced copy-on-write and may be
+        taken by reference."""
+        return self._lock
 
     # -- sync --------------------------------------------------------------
     def _current(self, t) -> bool:
@@ -345,8 +419,8 @@ class UsageMirror:
 
     def _publish_fence(self) -> None:
         """Rebind the lock-free fence tuple (called under the lock
-        after any index/lineage move)."""
-        self._fence = (self.index, self._lineage)
+        after any index/lineage/net_ready move)."""
+        self._fence = (self.index, self._lineage, self._net_ready)
 
     def sync(self, state) -> bool:
         """Bring the mirror to ``state``'s allocs table (store or
@@ -359,11 +433,29 @@ class UsageMirror:
         returns immediately even while another thread holds the lock
         through a full O(allocs) rebuild."""
         t = state._t
-        index, lineage = self._fence
+        index, lineage, _net = self._fence
         if index == t.indexes["allocs"] and lineage is t.lineage:
             return True
         with self._lock:
             return self._sync_locked(t)
+
+    def sync_net(self, state) -> bool:
+        """sync() plus per-node port/bandwidth tracking: enabled (full
+        net rebuild) on first call, maintained incrementally by every
+        later sync.  Same monotonicity and fast-path contract as
+        sync()."""
+        t = state._t
+        index, lineage, net_ready = self._fence
+        if net_ready and index == t.indexes["allocs"] and \
+                lineage is t.lineage:
+            return True
+        with self._lock:
+            ok = self._sync_locked(t)
+            if ok and not self._net_ready:
+                self._rebuild_net(t.tables["allocs"])
+                self._net_ready = True
+                self._publish_fence()
+            return ok
 
     def _changed_ids(self, log: list, target: int) -> set:
         start = self._log_pos if log is self._log_ref else 0
@@ -408,6 +500,86 @@ class UsageMirror:
         self.alloc_rows = rows
         self.rebuilds += 1
         self._usage_d = None
+        if self._net_ready:
+            self._rebuild_net(table)
+
+    # -- net tracking (vectorized plan verifier) ---------------------------
+    def _rebuild_net(self, table: dict) -> None:
+        index_of = self.statics.index_of
+        self.net_rows = {}
+        self.node_ports = {}
+        self.node_dup = {}
+        self.node_bw = {}
+        self.node_net_keys = {}
+        for alloc in table.values():
+            if alloc.terminal_status():
+                continue
+            ni = index_of.get(alloc.node_id, -1)
+            if ni < 0:
+                continue
+            self._net_add(alloc.id, ni, alloc)
+
+    def _net_add(self, aid: str, ni: int, alloc: Allocation) -> None:
+        row = _net_row(alloc)
+        if row is None:
+            return
+        ports, mbits, key = row
+        self.net_rows[aid] = (ni, ports, mbits, key)
+        if mbits:
+            self.node_bw[ni] = self.node_bw.get(ni, 0) + mbits
+        keys = self.node_net_keys.setdefault(ni, {})
+        keys[key] = keys.get(key, 0) + 1
+        if ports:
+            pc = self.node_ports.setdefault(ni, {})
+            dup = 0
+            for p in ports:
+                c = pc.get(p, 0) + 1
+                pc[p] = c
+                if c == 2:
+                    dup += 1
+            if dup:
+                self.node_dup[ni] = self.node_dup.get(ni, 0) + dup
+
+    def _net_remove(self, aid: str) -> None:
+        row = self.net_rows.pop(aid, None)
+        if row is None:
+            return
+        ni, ports, mbits, key = row
+        if mbits:
+            bw = self.node_bw.get(ni, 0) - mbits
+            if bw:
+                self.node_bw[ni] = bw
+            else:
+                self.node_bw.pop(ni, None)
+        keys = self.node_net_keys.get(ni)
+        if keys is not None:
+            c = keys.get(key, 0) - 1
+            if c > 0:
+                keys[key] = c
+            else:
+                keys.pop(key, None)
+                if not keys:
+                    self.node_net_keys.pop(ni, None)
+        if ports:
+            pc = self.node_ports.get(ni)
+            if pc is not None:
+                dup = 0
+                for p in ports:
+                    c = pc.get(p, 0) - 1
+                    if c > 0:
+                        pc[p] = c
+                        if c == 1:
+                            dup += 1
+                    else:
+                        pc.pop(p, None)
+                if dup:
+                    d = self.node_dup.get(ni, 0) - dup
+                    if d > 0:
+                        self.node_dup[ni] = d
+                    else:
+                        self.node_dup.pop(ni, None)
+                if not pc:
+                    self.node_ports.pop(ni, None)
 
     def _apply_deltas(self, table: dict, changed: set) -> None:
         statics = self.statics
@@ -428,6 +600,8 @@ class UsageMirror:
                 jc[ni] = jc.get(ni, 0) - 1
                 del self.alloc_rows[aid]
                 touched_rows.add(ni)
+            if self._net_ready:
+                self._net_remove(aid)
             new = table.get(aid)
             if new is not None and not new.terminal_status():
                 ni = index_of.get(new.node_id, -1)
@@ -443,6 +617,8 @@ class UsageMirror:
                 jc[ni] = jc.get(ni, 0) + 1
                 self.alloc_rows[aid] = (ni, vec, jid)
                 touched_rows.add(ni)
+                if self._net_ready:
+                    self._net_add(aid, ni, new)
         for jid, jc in touched_jobs.items():
             jc = {ni: c for ni, c in jc.items() if c > 0}
             if jc:

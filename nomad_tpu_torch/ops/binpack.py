@@ -22,6 +22,13 @@ Shapes (N nodes padded to a power of two, D = 6 dims, G slots, P
 placements): capacity/reserved/usage f32[N, D], job_counts i32[N],
 feasible bool[G, N], asks f32[G, D], distinct bool[G], group_idx
 i32[P], valid bool[P], counts i32[G].  ``penalty`` is a Python number.
+
+The batch kernels (K4: ``place_rounds_batch``, ``place_sequence_batch``)
+plan B independent evaluations at once from ONE shared capacity,
+reserved and base usage f32[N, D]; every other operand carries a
+leading lane axis B, and ``penalty`` is a per-lane tensor f32[B].  Each
+lane evolves its own copy of the base usage (optimistic concurrency:
+conflicts between lanes are the plan applier's to resolve).
 """
 from __future__ import annotations
 
@@ -254,3 +261,139 @@ def place_rounds(capacity, reserved, usage0, jc0, feasible, asks, distinct,
 
 
 place_rounds.launches = 0
+
+
+# -- K4: the batch kernels (a vmap of K3 / K2 over B lanes) ---------------
+
+
+def place_rounds_batch_plain(capacity, reserved, usage0, job_counts,
+                             feasible, asks, distinct, counts, penalty,
+                             k_cap: int, rounds: int):
+    """Plain version of K4a: :func:`place_rounds_plain` for each lane
+    from the shared base usage, stacked.  Returns chosen
+    i32[B, G, rounds * k_cap], scores alike and usage f32[B, N, D]."""
+    outs = [place_rounds_plain(capacity, reserved, usage0, job_counts[b],
+                               feasible[b], asks[b], distinct[b], counts[b],
+                               float(penalty[b]), k_cap=k_cap, rounds=rounds)
+            for b in range(feasible.shape[0])]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def place_sequence_batch_plain(capacity, reserved, usage0, job_counts,
+                               feasible, asks, distinct, group_idx, valid,
+                               penalty):
+    """Plain version of K4b: :func:`place_sequence_plain` for each lane
+    from the shared base usage, stacked.  Returns chosen i32[B, P],
+    scores f32[B, P] and usage f32[B, N, D]."""
+    outs = [place_sequence_plain(capacity, reserved, usage0, job_counts[b],
+                                 feasible[b], asks[b], distinct[b],
+                                 group_idx[b], valid[b], float(penalty[b]))
+            for b in range(feasible.shape[0])]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def _batch_specs(n, lanes, g, lane_specs: dict) -> dict:
+    specs = dict(
+        capacity=(torch.float32, (n, NDIMS)),
+        reserved=(torch.float32, (n, NDIMS)),
+        usage0=(torch.float32, (n, NDIMS)),
+        job_counts=(torch.int32, (lanes, n)),
+        feasible=(torch.bool, (lanes, g, n)),
+        asks=(torch.float32, (lanes, g, NDIMS)),
+        distinct=(torch.bool, (lanes, g)),
+        penalty=(torch.float32, (lanes,)))
+    specs.update(lane_specs)
+    return specs
+
+
+def place_rounds_batch(capacity, reserved, usage0, job_counts, feasible,
+                       asks, distinct, counts, penalty, k_cap: int,
+                       rounds: int):
+    """K4a (``nomad_tpu/ops/binpack.py`` place_rounds_batch): the plain
+    version for CPU tensors, the ``place_rounds_batch_kernel`` launch
+    (one block per lane) for CUDA tensors.  Same arguments and results
+    as :func:`place_rounds_batch_plain`; ``usage0`` is never written."""
+    args = dict(capacity=capacity, reserved=reserved, usage0=usage0,
+                job_counts=job_counts, feasible=feasible, asks=asks,
+                distinct=distinct, counts=counts, penalty=penalty)
+    device = kernels.route(args)
+    n = capacity.shape[0]
+    if not 1 <= k_cap <= n or rounds < 1:
+        raise ValueError(f"k_cap {k_cap} must lie in [1, {n}] and rounds "
+                         f"{rounds} be >= 1")
+    if device.type == "cpu":
+        return place_rounds_batch_plain(
+            capacity, reserved, usage0, job_counts, feasible, asks,
+            distinct, counts, penalty, k_cap=k_cap, rounds=rounds)
+    n = _node_axis(capacity)
+    lanes, g = feasible.shape[0], feasible.shape[1]
+    kernels.check_args(args, _batch_specs(n, lanes, g, dict(
+        counts=(torch.int32, (lanes, g)))))
+    chosen = torch.empty((lanes, g, rounds * k_cap), dtype=torch.int32,
+                         device=device)
+    scores = torch.empty((lanes, g, rounds * k_cap), dtype=torch.float32,
+                         device=device)
+    usage = torch.empty((lanes, n, NDIMS), dtype=torch.float32,
+                        device=device)
+    jc = torch.empty((lanes, n), dtype=torch.int32, device=device)
+    # One row of sort keys per lane when they do not fit in shared memory.
+    scratch = None if n <= SMEM_SORT_MAX else \
+        torch.empty((lanes, n), dtype=torch.int64, device=device)
+    lib = kernels.library("binpack")
+    code = lib.nomad_place_rounds_batch(
+        capacity.data_ptr(), reserved.data_ptr(), usage0.data_ptr(),
+        job_counts.data_ptr(), feasible.data_ptr(), asks.data_ptr(),
+        distinct.data_ptr(), counts.data_ptr(), penalty.data_ptr(), lanes,
+        n, g, k_cap, rounds, chosen.data_ptr(), scores.data_ptr(),
+        usage.data_ptr(), jc.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        kernels.stream_handle(device))
+    kernels.check(lib, "place_rounds_batch", code)
+    place_rounds_batch.launches += 1
+    return chosen, scores, usage
+
+
+place_rounds_batch.launches = 0
+
+
+def place_sequence_batch(capacity, reserved, usage0, job_counts, feasible,
+                         asks, distinct, group_idx, valid, penalty):
+    """K4b (``nomad_tpu/ops/binpack.py`` place_sequence_batch): the
+    plain version for CPU tensors, the ``place_sequence_batch_kernel``
+    launch (one block per lane) for CUDA tensors.  Same arguments and
+    results as :func:`place_sequence_batch_plain`; ``usage0`` is never
+    written."""
+    args = dict(capacity=capacity, reserved=reserved, usage0=usage0,
+                job_counts=job_counts, feasible=feasible, asks=asks,
+                distinct=distinct, group_idx=group_idx, valid=valid,
+                penalty=penalty)
+    device = kernels.route(args)
+    if device.type == "cpu":
+        return place_sequence_batch_plain(
+            capacity, reserved, usage0, job_counts, feasible, asks,
+            distinct, group_idx, valid, penalty)
+    n = _node_axis(capacity)
+    lanes, g = feasible.shape[0], feasible.shape[1]
+    p = group_idx.shape[-1]
+    kernels.check_args(args, _batch_specs(n, lanes, g, dict(
+        group_idx=(torch.int32, (lanes, p)),
+        valid=(torch.bool, (lanes, p)))))
+    chosen = torch.empty((lanes, p), dtype=torch.int32, device=device)
+    scores = torch.empty((lanes, p), dtype=torch.float32, device=device)
+    usage = torch.empty((lanes, n, NDIMS), dtype=torch.float32,
+                        device=device)
+    jc = torch.empty((lanes, n), dtype=torch.int32, device=device)
+    lib = kernels.library("binpack")
+    code = lib.nomad_place_sequence_batch(
+        capacity.data_ptr(), reserved.data_ptr(), usage0.data_ptr(),
+        job_counts.data_ptr(), feasible.data_ptr(), asks.data_ptr(),
+        distinct.data_ptr(), group_idx.data_ptr(), valid.data_ptr(),
+        penalty.data_ptr(), lanes, n, g, p, chosen.data_ptr(),
+        scores.data_ptr(), usage.data_ptr(), jc.data_ptr(),
+        kernels.stream_handle(device))
+    kernels.check(lib, "place_sequence_batch", code)
+    place_sequence_batch.launches += 1
+    return chosen, scores, usage
+
+
+place_sequence_batch.launches = 0

@@ -46,6 +46,8 @@ PROTOTYPES = {
     "binpack": {
         "nomad_place_sequence": (_P,) * 9 + (_F, _I, _I) + (_P,) * 5,
         "nomad_place_rounds": (_P,) * 8 + (_F, _I, _I, _I, _I) + (_P,) * 6,
+        "nomad_place_sequence_batch": (_P,) * 10 + (_I,) * 4 + (_P,) * 5,
+        "nomad_place_rounds_batch": (_P,) * 9 + (_I,) * 5 + (_P,) * 6,
     },
     "scatter_rows": {
         "nomad_scatter_rows": (_P, _P, _P, _I, _I, _I, _P),

@@ -1,7 +1,9 @@
 """Scheduler layer: pure placement logic behind the State/Planner seams.
 
 Registry carries the sequential ``service``/``batch`` schedulers and the
-device backend ``torch-binpack`` / ``torch-binpack-batch``.
+device backend ``torch-binpack`` / ``torch-binpack-batch``;
+``BatchEvalRunner`` fuses a storm of evals into one kernel launch and
+``VerifyingPlanner`` verifies and group-commits their plans.
 """
 from .interfaces import (  # noqa: F401
     BUILTIN_SCHEDULERS,
@@ -19,7 +21,8 @@ from .generic import (  # noqa: F401
     new_batch_scheduler,
     new_service_scheduler,
 )
-from .harness import Harness, RejectPlan  # noqa: F401
+from .batch import BatchEvalRunner, pad_lanes  # noqa: F401
+from .harness import Harness, RejectPlan, VerifyingPlanner  # noqa: F401
 from .stack import GenericStack  # noqa: F401
 from .torch_binpack import (  # noqa: F401
     TorchBinPackScheduler,

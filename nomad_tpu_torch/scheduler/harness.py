@@ -4,8 +4,10 @@ Capability parity with the reference's Harness rig
 (reference scheduler/scheduler_test.go:14-177): a real StateStore plus
 an in-memory Planner that applies plans directly to state and records
 Plans/Evals/CreateEvals; `RejectPlan` injects plan-rejection faults to
-exercise the refresh/retry path.  This is the primary test loop for both
-the sequential and the device schedulers.
+exercise the refresh/retry path, and `VerifyingPlanner` puts the
+leader's plan verification (partial accept + RefreshIndex, group
+commit) between the schedulers and the store.  This is the primary test
+loop for both the sequential and the device schedulers.
 
 ``Harness(device=None)`` computes on the card: ``device`` is handed to
 the device schedulers it runs, ``None`` means ``cuda`` and raises
@@ -40,6 +42,20 @@ class Harness:
         return next(self._next_index)
 
     # -- Planner interface ------------------------------------------------
+    def submit_plans(self, plans: list) -> list:
+        """Group submit: one window of plans, results in plan order —
+        identical to per-plan ``submit_plan`` calls in that order.
+        Delegates to an interceptor's group path when it has one (the
+        VerifyingPlanner's vectorized conflict window)."""
+        with self._lock:
+            self.plans.extend(plans)
+        if self.planner is not None:
+            group = getattr(self.planner, "submit_plans", None)
+            if group is not None:
+                return group(plans)
+            return [self.planner.submit_plan(p) for p in plans]
+        return [self._apply_direct(p) for p in plans]
+
     def submit_plan(self, plan: Plan) -> tuple[PlanResult, Optional[object]]:
         with self._lock:
             self.plans.append(plan)
@@ -101,3 +117,92 @@ class RejectPlan:
 
     def create_eval(self, ev: Evaluation) -> None:
         pass
+
+
+class VerifyingPlanner:
+    """Leader plan-applier semantics over a Harness: verify each node's
+    placements against live state (partial accept + RefreshIndex,
+    server/plan_apply.evaluate_plan), commit only the accepted portion,
+    and hand back a fresh snapshot when the scheduler must retry — the
+    serialization point optimistic eval storms rely on in the real
+    server.  Computes on its harness's ``device``."""
+
+    def __init__(self, h: Harness) -> None:
+        self.h = h
+        self.conflicts = 0  # plans that came back partial/rejected
+        # Group-commit observability:
+        self.commits = 0            # commit operations (group or single)
+        self.committed_plans = 0    # plans those commits carried
+        self.conflict_fallbacks = 0  # window plans needing the exact
+        #                              per-plan walk (prefix conflicts)
+
+    @property
+    def device(self):
+        return self.h.device
+
+    def submit_plans(self, plans: list):
+        """Group-commit twin of per-plan ``submit_plan``: one vectorized
+        cross-plan conflict window (ops/plan_conflict.evaluate_window)
+        plus ONE batched store upsert, with one index consumed per plan
+        — results and final state identical to calling ``submit_plan``
+        per plan in order."""
+        from nomad_tpu_torch.ops.plan_conflict import (_accepted_allocs,
+                                                       evaluate_window)
+
+        with self.h._lock:
+            outcomes = evaluate_window(self.h.state, plans)
+            items = []
+            out = []
+            for outcome in outcomes:
+                result = outcome.result
+                allocs = _accepted_allocs(result)
+                index = self.h.next_index()
+                if allocs:
+                    items.append((index, allocs))
+                result.alloc_index = index
+                if result.refresh_index:
+                    self.conflicts += 1
+                if outcome.fallback:
+                    self.conflict_fallbacks += 1
+                out.append(result)
+            if items:
+                self.h.state.upsert_allocs_batched(items)
+                self.commits += 1
+                self.committed_plans += len(items)
+        # ONE post-commit snapshot shared by every refreshing plan —
+        # the same view a retrying scheduler would get from the
+        # sequential path's state_refresh hook.
+        refreshed = None
+        results = []
+        for r in out:
+            if r.refresh_index and refreshed is None:
+                refreshed = self.h.state.snapshot()
+            results.append((r, refreshed if r.refresh_index else None))
+        return results
+
+    def submit_plan(self, plan: Plan):
+        from nomad_tpu_torch.ops.plan_conflict import _accepted_allocs
+        from nomad_tpu_torch.server.plan_apply import evaluate_plan
+
+        # No h.plans bookkeeping here: when reached through
+        # Harness.submit_plan (h.planner delegation) the harness has
+        # already recorded the plan.
+        with self.h._lock:
+            result = evaluate_plan(self.h.state, plan)
+            allocs = _accepted_allocs(result)
+            index = self.h.next_index()
+            if allocs:
+                self.h.state.upsert_allocs(index, allocs)
+                self.commits += 1
+                self.committed_plans += 1
+            result.alloc_index = index
+            if result.refresh_index:
+                self.conflicts += 1
+        state = self.h.state.snapshot() if result.refresh_index else None
+        return result, state
+
+    def update_eval(self, ev: Evaluation) -> None:
+        self.h.update_eval(ev)
+
+    def create_eval(self, ev: Evaluation) -> None:
+        self.h.create_eval(ev)

@@ -30,6 +30,7 @@ from __future__ import annotations
 import time
 
 import numpy as np
+import torch
 
 from random import randrange as _randrange
 
@@ -165,7 +166,7 @@ class DeviceArgs:
 
     __slots__ = ("statics", "view", "feasible_d", "feasible_h", "asks",
                  "distinct", "group_idx", "valid", "sizes", "slot_of_tg",
-                 "penalty", "p_pad", "start", "net_plans",
+                 "penalty", "g_pad", "p_pad", "start", "net_plans",
                  # rounds-mode plan (see ops/binpack.py place_rounds):
                  "counts", "slot_placements", "k_cap", "rounds",
                  "rounds_eligible",
@@ -382,14 +383,24 @@ class TorchBinPackScheduler(GenericScheduler, FastPlacementMixin):
     ``device`` is where the placement kernels run: ``None`` means the
     process default (``cuda``; ``RuntimeError`` when no CUDA device is
     present), ``"cpu"`` runs the kernels' plain versions.
+
+    ``defer_device=True`` pauses after argument preparation so a batch
+    driver (scheduler/batch.py) can fuse many evals into one device
+    dispatch; ``finish_deferred`` resumes with the device results.
     """
+
+    defer_device = False
 
     def __init__(self, state, planner, batch: bool, device=None) -> None:
         super().__init__(state, planner, batch)
         self.device = resolve_device(device)
+        self.deferred: tuple | None = None  # (place, DeviceArgs)
 
     def _compute_placements(self, place: list) -> None:
         args = self._prepare_device(place)
+        if self.defer_device:
+            self.deferred = (place, args)
+            return
         handles = self.dispatch_device(args)
         chosen, scores = self.collect_device(args, handles)
         self.finish_deferred(place, args, chosen, scores)
@@ -654,7 +665,7 @@ class TorchBinPackScheduler(GenericScheduler, FastPlacementMixin):
         kw = dict(
             asks=asks, distinct=distinct,
             group_idx=group_idx, valid=valid, sizes=sizes,
-            slot_of_tg=slot_of_tg, penalty=penalty,
+            slot_of_tg=slot_of_tg, penalty=penalty, g_pad=g_pad,
             p_pad=p_pad, net_plans=net_plans, counts=counts,
             slot_placements=slot_placements, k_cap=k_cap, rounds=rounds,
             rounds_eligible=eligible,
@@ -902,6 +913,15 @@ class TorchBinPackScheduler(GenericScheduler, FastPlacementMixin):
                                    dtype=np.int32), device),
             put_counted(np.ones(rem, dtype=bool), device), args.penalty)
         return fetch_host(chosen).tolist(), fetch_host(scores).tolist()
+
+
+def fetch_results(*tensors) -> list:
+    """Fetch device outputs with overlapped copies: start every
+    device->host copy, then wait once per copy through the one
+    sanctioned seam (devices.fetch_host).  Host values pass through."""
+    pending = [copy_to_host_async(t) if isinstance(t, torch.Tensor) else t
+               for t in tensors]
+    return [fetch_host(p) for p in pending]
 
 
 def rounds_to_placements(args: DeviceArgs, chosen_slots: np.ndarray,

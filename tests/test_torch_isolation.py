@@ -52,6 +52,10 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "import sys\n"
         "import nomad_tpu_torch, nomad_tpu_torch.scheduler\n"
         "import nomad_tpu_torch.convert, nomad_tpu_torch.mock\n"
+        "import nomad_tpu_torch.scheduler.batch\n"
+        "import nomad_tpu_torch.ops.plan_conflict\n"
+        "import nomad_tpu_torch.server.plan_apply\n"
+        "import nomad_tpu_torch.utils.gctune, nomad_tpu_torch.utils.metrics\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'nomad_tpu')]\n"
         "assert not bad, bad\n"
