@@ -91,6 +91,38 @@ def bound(nbytes: float, ops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# Bytes a placement kernel must move, for its bound: the shared fleet
+# tensors (capacity, reserved, usage0) once, and per lane what that
+# lane reads and writes.  Only rows the kernel reads are counted: a
+# rounds slot of count 0 and a group no valid step names leave their
+# feasibility rows unread.
+def shared_fleet_bytes(n) -> int:
+    return 3 * n * 6 * 4
+
+
+def rounds_lane_bytes(n, counts, out_len) -> int:
+    """One lane of K3/K4a: job counts; every slot's ask, distinct flag
+    and count; the feasibility row of each slot with copies to place;
+    chosen and scores (``out_len`` each); the lane's usage."""
+    g = len(counts)
+    active = int((np.asarray(counts) > 0).sum())
+    return (4 * n + g * (6 * 4 + 1 + 4) + active * n + 8 * out_len
+            + n * 6 * 4)
+
+
+def sequence_lane_bytes(n, group_idx, valid) -> int:
+    """One lane of K2/K4b: job counts; the valid flags; the group index
+    of each valid step; the feasibility row, ask and distinct flag of
+    each group a valid step names; chosen and scores; the lane's
+    usage."""
+    valid = np.asarray(valid, dtype=bool)
+    steps = int(valid.sum())
+    named = len(set(np.asarray(group_idx)[valid].tolist()))
+    p = len(valid)
+    return (4 * n + p + 4 * steps + named * (n + 6 * 4 + 1) + 8 * p
+            + n * 6 * 4)
+
+
 def time_ms(torch, fn, reps: int) -> float:
     """Mean ms of ``fn`` over ``reps`` calls, CUDA events, after one
     warm-up call."""
@@ -164,7 +196,6 @@ def compare(torch, what, got, want) -> float:
 
 def check_sequence(torch, binpack, n, p, rng, uniform, reps):
     c = fleet_case(torch, n, rng, uniform=uniform)
-    g = c["feasible"].shape[0]
     group_idx = torch.from_numpy(
         rng.integers(0, 3 if not uniform else 1, p).astype(np.int32)).to(DEV)
     valid = torch.ones(p, dtype=torch.bool, device=DEV)
@@ -181,8 +212,8 @@ def check_sequence(torch, binpack, n, p, rng, uniform, reps):
     ms = time_ms(torch, lambda: binpack.place_sequence(*args), reps)
     plain_ms = time_ms(torch, lambda: binpack.place_sequence_plain(*args), 1)
     steps = int(valid.sum())
-    nbytes = (3 * n * 6 * 4 + 4 * n + g * n + g * 6 * 4 + g + 5 * p
-              + 8 * p + n * 6 * 4)
+    nbytes = shared_fleet_bytes(n) + sequence_lane_bytes(
+        n, group_idx.cpu().numpy(), valid.cpu().numpy())
     b_ms, b_by = bound(nbytes, steps * n * OPS_PER_NODE)
     placed = int((got[0] >= 0).sum())
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -225,9 +256,8 @@ def check_rounds(torch, binpack, n, count, k_cap, rounds, rng, uniform,
     plain_ms = time_ms(torch, lambda: binpack.place_rounds_plain(*args, **kw),
                        1)
     ran = rounds_run(counts_h, want[0].cpu().numpy(), rounds, k_cap)
-    out = g * rounds * k_cap
-    nbytes = 3 * n * 6 * 4 + 4 * n + g * n + g * 6 * 4 + 5 * g + 8 * out \
-        + n * 6 * 4
+    nbytes = shared_fleet_bytes(n) + rounds_lane_bytes(
+        n, counts_h, g * rounds * k_cap)
     b_ms, b_by = bound(nbytes, ran * n * OPS_PER_NODE)
     placed = int((got[0] >= 0).sum())
     require(placed == int(counts_h.sum()) or not uniform,
@@ -324,9 +354,9 @@ def check_rounds_batch(torch, binpack, n, lanes, counts0, k_cap, rounds, rng,
     chosen = want[0].cpu().numpy()
     ran = sum(rounds_run(counts_h[b], chosen[b], rounds, k_cap)
               for b in range(lanes))
-    out = lanes * g * rounds * k_cap
-    nbytes = (3 * n * 6 * 4 + lanes * (4 * n + g * n + g * 6 * 4 + 5 * g + 4)
-              + 8 * out + lanes * n * 6 * 4)
+    nbytes = shared_fleet_bytes(n) + sum(
+        4 + rounds_lane_bytes(n, counts_h[b], g * rounds * k_cap)
+        for b in range(lanes))  # 4: the lane's penalty
     b_ms, b_by = bound(nbytes, ran * n * OPS_PER_NODE)
     placed = int((got[0] >= 0).sum())
     require(placed == int(counts_h.sum()) or not uniform,
@@ -345,7 +375,6 @@ def check_rounds_batch(torch, binpack, n, lanes, counts0, k_cap, rounds, rng,
 def check_sequence_batch(torch, binpack, n, lanes, p, rng, reps):
     """K4b against its plain version and, lane by lane, against K2."""
     c = lanes_case(torch, n, lanes, rng, uniform=False)
-    g = c["feasible"].shape[1]
     group_idx = torch.from_numpy(
         rng.integers(0, 3, (lanes, p)).astype(np.int32)).to(DEV)
     valid = torch.ones((lanes, p), dtype=torch.bool, device=DEV)
@@ -375,8 +404,10 @@ def check_sequence_batch(torch, binpack, n, lanes, p, rng, reps):
     plain_ms = time_ms(torch,
                        lambda: binpack.place_sequence_batch_plain(*args), 1)
     steps = int(valid.sum())
-    nbytes = (3 * n * 6 * 4 + lanes * (4 * n + g * n + g * 6 * 4 + g + 4
-                                       + 5 * p + 8 * p + n * 6 * 4))
+    gi_h, valid_h = group_idx.cpu().numpy(), valid.cpu().numpy()
+    nbytes = shared_fleet_bytes(n) + sum(
+        4 + sequence_lane_bytes(n, gi_h[b], valid_h[b])
+        for b in range(lanes))  # 4: the lane's penalty
     b_ms, b_by = bound(nbytes, steps * n * OPS_PER_NODE)
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, placed=int((got[0] >= 0).sum()))

@@ -608,7 +608,6 @@ def _evaluate_window_vec(overlay, plans: list, executor,
     else:
         order = list(range(len(comps)))
 
-    wall0 = time.perf_counter()
     tasks = [(lambda comp=comps[k]: _walk_component(prep, comp))
              for k in order]
     if executor is not None and len(tasks) > 1 and \
@@ -620,15 +619,10 @@ def _evaluate_window_vec(overlay, plans: list, executor,
                           for k in order])
     else:
         results = [t() for t in tasks]
-    wall = time.perf_counter() - wall0
 
     slots: list = [None] * len(plans)
-    comp_walls: list = []
-    comp_t0s: list = []
     accepted_by_plan: list = [None] * len(plans)
-    for ordinal, (entries, comp_t0, comp_wall) in enumerate(results):
-        comp_walls.append(comp_wall)
-        comp_t0s.append(comp_t0)
+    for ordinal, entries in enumerate(results):
         for i, outcome, accepted in entries:
             outcome.component = ordinal
             slots[i] = outcome
@@ -637,32 +631,24 @@ def _evaluate_window_vec(overlay, plans: list, executor,
     # order — the exact end state sequential application leaves.
     for i in range(len(plans)):
         overlay.upsert_allocs(accepted_by_plan[i])
-    info = {
-        "components": len(comps),
-        "sizes": [len(c) for c in comps],
-        "order": order,
-        "comp_walls": comp_walls,
-        "comp_t0s": comp_t0s,  # perf_counter epoch (span conversion)
-        "wall": wall,
-        # How much wall the partition saved vs walking the same
-        # components serially (1.0 = none; GIL-bound walks cap this).
-        "speedup": (sum(comp_walls) / wall) if wall > 0 else 1.0,
-    }
+    # The reference's per-component walls and span epochs feed its
+    # trace spans and bench, neither of which is ported.
+    info = {"components": len(comps), "sizes": [len(c) for c in comps],
+            "order": order}
     return WindowVerdicts(slots, info)
 
 
-def _walk_component(prep, comp: list) -> tuple:
+def _walk_component(prep, comp: list) -> list:
     """In-order verdict walk of one claim-graph component against its
-    own overlay.  Returns ([(plan_index, WindowOutcome, accepted)],
-    t0_perf_counter, wall_seconds).  Reads only frozen prep state + the
-    base snapshot — safe on an executor thread."""
+    own overlay.  Returns [(plan_index, WindowOutcome, accepted)].
+    Reads only frozen prep state + the base snapshot — safe on an
+    executor thread."""
     from nomad_tpu_torch.server.plan_apply import (
         OptimisticSnapshot,
         _evaluate_node_plan,
         _verify_node_net,
     )
 
-    t0 = time.perf_counter()
     plans = prep.plans
     statics = prep.statics
     inflight_nodes = prep.inflight_nodes
@@ -773,4 +759,4 @@ def _walk_component(prep, comp: list) -> tuple:
                 wm.fold(alloc)
         claimed |= nodes
         entries.append((i, WindowOutcome(result, fallback), accepted))
-    return entries, t0, time.perf_counter() - t0
+    return entries

@@ -1,55 +1,30 @@
-"""Timers with an in-memory sink.
+"""Timers: a count and a sum of seconds per key.
 
 Counterpart of the part of ``nomad_tpu/utils/metrics.py`` that the plan
-verifier calls: ``metrics.measure_since(key, start)`` records the
-seconds since ``start`` (a ``time.perf_counter()`` reading) under
-``key`` (armon/go-metrics MeasureSince, as the reference uses it).
+verifier calls: ``metrics.measure_since(key, start)`` adds the seconds
+since ``start`` (a ``time.perf_counter()`` reading) to ``key``'s total
+(armon/go-metrics MeasureSince, as the reference uses it).  The
+reference's windowed in-memory sink feeds its agent's metrics endpoint,
+which is not ported; here a plain accumulator is enough.
 """
 from __future__ import annotations
 
 import threading
 import time
-from collections import defaultdict
-
-
-class InmemSink:
-    """In-memory sink with interval-windowed samples: samples are
-    bucketed into INTERVAL-second windows, only the newest RETAIN
-    windows are kept, and each window keeps its newest
-    MAX_PER_INTERVAL samples, so a storm cannot grow the sink without
-    bound."""
-
-    INTERVAL = 10.0
-    RETAIN = 6
-    MAX_PER_INTERVAL = 4096
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        # key -> [[interval_index, [values...]], ...] newest last.
-        self.samples: dict = defaultdict(list)
-
-    def add_sample(self, key: str, value: float) -> None:
-        now_idx = int(time.monotonic() / self.INTERVAL)
-        with self._lock:
-            windows = self.samples[key]
-            if not windows or windows[-1][0] != now_idx:
-                windows.append([now_idx, []])
-                if len(windows) > self.RETAIN:
-                    del windows[: len(windows) - self.RETAIN]
-            bucket = windows[-1][1]
-            bucket.append(value)
-            if len(bucket) > self.MAX_PER_INTERVAL:
-                del bucket[: len(bucket) - self.MAX_PER_INTERVAL]
 
 
 class Metrics:
     def __init__(self) -> None:
-        self.sinks: list = [InmemSink()]
+        self._lock = threading.Lock()
+        # key -> [count, total seconds]
+        self.timers: dict = {}
 
     def measure_since(self, key: str, start: float) -> None:
         elapsed = time.perf_counter() - start
-        for sink in self.sinks:
-            sink.add_sample(key, elapsed)
+        with self._lock:
+            entry = self.timers.setdefault(key, [0, 0.0])
+            entry[0] += 1
+            entry[1] += elapsed
 
 
 # Global registry, mirroring go-metrics' package-level default.

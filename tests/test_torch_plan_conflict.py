@@ -11,6 +11,8 @@ the accepted evictions, placements and failed allocs by alloc id and
 whether a refresh was asked for, the fallback flags, and the final
 store (every alloc's fields and the table indexes).
 """
+from concurrent.futures import ThreadPoolExecutor
+
 import pytest
 import torch
 
@@ -40,6 +42,7 @@ from nomad_tpu.structs import (
     generate_uuid,
 )
 from nomad_tpu_torch import convert
+from nomad_tpu_torch.ops.plan_conflict import MIN_CONCURRENT_COMPONENT
 from nomad_tpu_torch.ops.plan_conflict import evaluate_window as t_window
 from nomad_tpu_torch.ops.plan_conflict import partition_window
 from nomad_tpu_torch.server.plan_apply import OptimisticSnapshot as TOverlay
@@ -121,9 +124,10 @@ def _worlds(nodes, existing=()):
     return js, ts
 
 
-def grouped_apply(window, store, plans, base_index, partition=True):
+def grouped_apply(window, store, plans, base_index, partition=True,
+                  executor=None):
     """One window verify, one batched upsert, one index per plan."""
-    outcomes = window(store, plans, partition=partition)
+    outcomes = window(store, plans, executor=executor, partition=partition)
     items = [(base_index + i, _accepted(o.result))
              for i, o in enumerate(outcomes) if _accepted(o.result)]
     if items:
@@ -143,17 +147,30 @@ def sequential_apply(evaluate, store, plans, base_index):
     return results
 
 
-def _both_windows(nodes, plans, existing=(), partition=True):
+def partition_info(outcomes):
+    """The claim-graph partition a window reported, or None."""
+    if outcomes.info is None:
+        return None
+    return {k: outcomes.info[k] for k in ("components", "sizes", "order")}
+
+
+def _both_windows(nodes, plans, existing=(), partition=True,
+                  executors=(None, None)):
     """The window through both packages on twin worlds; asserts equal
-    verdicts, fallbacks and stores and returns the port's outcomes."""
+    verdicts, fallbacks, component indexes, partitions and stores and
+    returns the port's outcomes."""
     js, ts = _worlds(nodes, existing)
     tplans = convert.plans_from_reference(plans)
     with verify_override("host"):
-        j_out = grouped_apply(j_window, js, plans, 2000, partition)
-    t_out = grouped_apply(t_window, ts, tplans, 2000, partition)
+        j_out = grouped_apply(j_window, js, plans, 2000, partition,
+                              executors[0])
+    t_out = grouped_apply(t_window, ts, tplans, 2000, partition,
+                          executors[1])
     assert [result_key(o.result) for o in t_out] == \
         [result_key(o.result) for o in j_out]
     assert [o.fallback for o in t_out] == [o.fallback for o in j_out]
+    assert [o.component for o in t_out] == [o.component for o in j_out]
+    assert partition_info(t_out) == partition_info(j_out)
     assert store_image(ts) == store_image(js)
     return t_out
 
@@ -251,11 +268,61 @@ def test_evaluate_plan_matches_jax():
                       net_alloc(nodes[2], ports=[7000]))
     js, ts = _worlds(nodes, existing)
     j_res = j_evaluate_plan(js, plan)
+    before = metrics.timers.get("nomad.plan.evaluate", [0, 0.0])[0]
     t_res = t_evaluate_plan(ts, convert.plans_from_reference([plan])[0])
     assert result_key(t_res) == result_key(j_res)
     assert set(t_res.node_allocation) == {nodes[0].id}
-    # the verify time went to the metrics sink
-    assert metrics.sinks[0].samples["nomad.plan.evaluate"]
+    # the verify time went to the metrics timer
+    count, seconds = metrics.timers["nomad.plan.evaluate"]
+    assert count == before + 1 and seconds > 0
+
+
+class _PoolExecutor:
+    """A component executor: runs the walks on a thread pool and
+    returns their results in task order."""
+
+    def __init__(self) -> None:
+        self.pool = ThreadPoolExecutor(max_workers=2)
+        self.batches = 0
+        self.components_run = 0
+
+    def run_components(self, tasks, descs=None):
+        self.batches += 1
+        self.components_run += len(tasks)
+        return [f.result() for f in [self.pool.submit(t) for t in tasks]]
+
+
+def test_big_component_rides_the_executor_like_jax():
+    """Twin of tests/test_plan_batch.py test_big_component_rides_the_
+    executor: a contended component of MIN_CONCURRENT_COMPONENT plans on
+    one node sends the window's walks to the executor in both packages,
+    and the verdicts equal the JAX package's and sequential
+    application."""
+    from nomad_tpu.server.plan_apply import ComponentExecutor
+
+    shared = mock.node()
+    others = [mock.node(i + 1) for i in range(4)]
+    nodes = [shared] + others
+    plans = [place_plan(make_alloc(shared, cpu=600))
+             for _ in range(MIN_CONCURRENT_COMPONENT)]
+    plans += [place_plan(make_alloc(n)) for n in others]
+    j_exec, t_exec = ComponentExecutor(workers=2), _PoolExecutor()
+    try:
+        out = _both_windows(nodes, plans, executors=(j_exec, t_exec))
+        assert j_exec.stats()["batches"] >= 1
+    finally:
+        j_exec.stop()
+        t_exec.pool.shutdown()
+    assert (t_exec.batches, t_exec.components_run) == (1, 5)
+    assert partition_info(out)["sizes"] == [MIN_CONCURRENT_COMPONENT,
+                                            1, 1, 1, 1]
+    assert any(o.result.refresh_index for o in out), \
+        "the shared node was meant to overflow"
+    _js, ts_seq = _worlds(nodes)
+    seq = sequential_apply(t_evaluate_plan, ts_seq,
+                           convert.plans_from_reference(plans), 2000)
+    assert [result_key(r) for r in seq] == \
+        [result_key(o.result) for o in out]
 
 
 def test_partition_window_components():
