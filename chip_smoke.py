@@ -10,10 +10,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
   3. kernels  each kernel against its plain PyTorch version on the card,
               same inputs, same tolerances as the CPU tests (chosen nodes
               exactly equal, scores rtol=1e-4 atol=1e-4 where placed,
-              usage rtol=1e-5 atol=1e-3, scatter exact), timed with CUDA
-              events;
+              usage rtol=1e-5 atol=1e-3, scatter and window verify
+              exact), timed with CUDA events;
               The batch kernels (K4a/K4b) are also held lane by lane
-              against the single-eval kernels (K3/K2), exactly;
+              against the single-eval kernels (K3/K2), exactly; the
+              window verify (K6) at the fleet-scaling window (B=64 on a
+              1,048,576-row fleet) and at a contended config-5b-sized
+              window (B=8,192);
   4. slice    the torch-binpack path through Harness.process on cuda:
               10,000 mock nodes with a 1,000-task-group job (bench.py
               config 4 shape), then 1,000 nodes with config-2 batch jobs
@@ -31,7 +34,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
               no node oversubscribed, placements equal to a rerun
               through the plain versions on the card; (c) 8 jobs that
               are not rounds-eligible on 1,000 nodes: place_sequence_batch;
-  6. report   one ``{"kernels": [...]}`` line, then the card's name and
+              (d) config 5b again under the ``device`` verify policy:
+              K6 runs every window's base fit, and the storm must commit
+              what (b) committed;
+  6. verify   bench.py's 5f fleet-scaling sub-table on the port: NodeSlab
+              fleets of 10,000, 131,072 and 1,000,000 nodes, 64
+              single-placement plans a window, 8 measured windows under
+              the host engine and under the device engine (K6); every
+              device window must dispatch and give the host's verdicts;
+  7. report   one ``{"kernels": [...]}`` line, then the card's name and
               power limit exactly as nvidia-smi prints them, then the
               result line ``{"ok": true, "device": {...}}`` last.
 
@@ -264,6 +275,142 @@ def check_rounds(torch, binpack, n, count, k_cap, rounds, rng, uniform,
             "place_rounds left copies unplaced on an empty uniform fleet")
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, placed=placed, rounds_run=ran)
+
+
+def window_case(rng, n_real, n_plans, per_plan, n_comps, removals):
+    """Host descriptors of one verify window as the device engine builds
+    them (ops/plan_conflict._window_device_args): plan i lies in
+    component i % n_comps, whose nodes are its own slice of the fleet;
+    each placement is a placement row of its (plan, node) pair and a
+    fold entry; a pair evicts an alloc with probability ``removals`` (a
+    negative fold entry and the pair's removed sum).  ``per_plan`` 1
+    puts every plan on its own node (the fleet-scaling window).  Returns
+    (descriptors padded to one bucket, real counts)."""
+    from nomad_tpu_torch.models.fleet import _pad_to
+
+    span = n_real // n_comps
+    single = rng.choice(n_real, n_plans, replace=False)
+    pair_ni, pair_order, pair_comp, pair_removed = [], [], [], []
+    row_pair, row_vec = [], []
+    seq_ni, seq_vec, seq_order, seq_comp = [], [], [], []
+    for i in range(n_plans):
+        c = i % n_comps
+        picks = [int(single[i])] if per_plan == 1 else \
+            rng.integers(c * span, (c + 1) * span, per_plan).tolist()
+        for ni in dict.fromkeys(picks):
+            p = len(pair_ni)
+            pair_ni.append(ni)
+            pair_order.append(i)
+            pair_comp.append(c)
+            removed = [0.0] * 4
+            if rng.random() < removals:
+                v = [float(rng.integers(50, 700)),
+                     float(rng.integers(40, 900)), 0.0, 0.0]
+                seq_ni.append(ni)
+                seq_vec.append([-x for x in v])
+                seq_order.append(i)
+                seq_comp.append(c)
+                removed = v
+            pair_removed.append(removed)
+            for _ in range(picks.count(ni)):
+                v = [float(rng.integers(50, 700)),
+                     float(rng.integers(40, 900)), 0.0,
+                     float(rng.integers(0, 5))]
+                row_pair.append(p)
+                row_vec.append(v)
+                seq_ni.append(ni)
+                seq_vec.append(v)
+                seq_order.append(i)
+                seq_comp.append(c)
+    counts = dict(pairs=len(pair_ni), rows=len(row_pair), seq=len(seq_ni))
+    b = _pad_to(max(counts.values()))
+
+    def pad_i(vals, fill):
+        out = np.full(b, fill, dtype=np.int32)
+        out[:len(vals)] = vals
+        return out
+
+    def pad_v(vals):
+        out = np.zeros((b, 4), dtype=np.float32)
+        out[:len(vals)] = vals
+        return out
+    desc = dict(pair_ni=pad_i(pair_ni, 0), row_pair=pad_i(row_pair, 0),
+                row_vec=pad_v(row_vec), seq_ni=pad_i(seq_ni, -1),
+                seq_vec=pad_v(seq_vec), seq_order=pad_i(seq_order, 0),
+                seq_comp=pad_i(seq_comp, -1),
+                pair_order=pad_i(pair_order, 0),
+                pair_comp=pad_i(pair_comp, 0),
+                pair_removed=pad_v(pair_removed))
+    return desc, counts
+
+
+def window_bound(counts) -> tuple:
+    """K6's bound from a window's real counts.  Bytes, each read or
+    written once: per pair the three gathered rows (4 values each), its
+    node/order/component and removed sum, and its used, caps and fits;
+    per placement row its pair and vector; per fold entry its node,
+    order, component and vector.  Operations: 8 per (pair, fold entry)
+    (three compares, two ands, a select and the adds of the fold, the
+    kernel's inner loop), 4 adds per placement row, and 16 per pair
+    (the base sum, the fold, the removal and the compare on 4 dims)."""
+    pairs, rows, seq = counts["pairs"], counts["rows"], counts["seq"]
+    nbytes = pairs * (3 * 16 + 12 + 16 + 16 + 16 + 1) + rows * (4 + 16) \
+        + seq * (12 + 16)
+    ops = 8 * pairs * seq + 4 * rows + 16 * pairs
+    return bound(nbytes, ops)
+
+
+def check_window_verify(torch, mesh, n_real, n_pad, n_plans, per_plan,
+                        n_comps, removals, rng, reps):
+    """K6 against its plain version on the card: used and caps bit for
+    bit, fits equal.  ``ms`` times the kernel launch alone on
+    descriptors already on the card (CUDA events), ``device_ms`` the
+    kernel's own device time (torch.profiler), ``wrapper_ms`` the
+    wrapper as the engine calls it (host checks, one packed upload, the
+    launch)."""
+    from nomad_tpu_torch.parallel.devices import put_counted
+
+    cap = np.zeros((n_pad, 6), dtype=np.float32)
+    cap[:n_real, :5] = (4000, 8192, 102400, 150, 1000)
+    cap[:n_real, 5] = 40000.0
+    res = np.zeros((n_pad, 6), dtype=np.float32)
+    res[:n_real, :5] = (100, 256, 4096, 0, 1)
+    usage = np.zeros((n_pad, 6), dtype=np.float32)
+    usage[:n_real, 0] = rng.integers(0, 3000, n_real)
+    usage[:n_real, 1] = rng.integers(0, 6000, n_real)
+    usage[:n_real, 3] = rng.integers(0, 100, n_real)
+    t = [torch.from_numpy(x).to(DEV) for x in (cap, res, usage)]
+    desc, counts = window_case(rng, n_real, n_plans, per_plan, n_comps,
+                               removals)
+    b = desc["pair_ni"].shape[0]
+    usage_before = t[2].clone()
+    got = mesh.window_verify(*t, **desc)
+    torch.cuda.synchronize()
+    dd = {k: torch.from_numpy(v).to(DEV) for k, v in desc.items()}
+    want = mesh.window_verify_plain(*t, **dd)
+    require(torch.equal(t[2], usage_before), "window_verify wrote to usage")
+    what = f"window_verify N={n_pad} B={b}"
+    for name, g, w in zip(("used", "caps", "fits"), got, want):
+        require(g.dtype == w.dtype and torch.equal(g, w),
+                f"{what}: {name} differs from the plain version")
+    fits = got[2][:counts["pairs"]]
+    packed = put_counted(mesh.pack_descriptors(desc, b), DEV)
+    ms = time_ms(torch, lambda: mesh.launch_window_verify(*t, packed, b),
+                 reps)
+    device_ms = kernel_device_ms(
+        torch, lambda: mesh.launch_window_verify(*t, packed, b), reps,
+        "window_verify_kernel")
+    wrapper_ms = time_ms(torch, lambda: mesh.window_verify(*t, **desc),
+                         reps)
+    plain_ms = time_ms(torch, lambda: mesh.window_verify_plain(*t, **dd),
+                       max(1, reps // 10))
+    b_ms, b_by = window_bound(counts)
+    return dict(err=float(max((g.float() - w.float()).abs().max()
+                              for g, w in zip(got, want))),
+                ms=ms, device_ms=device_ms, wrapper_ms=wrapper_ms,
+                plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, bucket=b, **counts,
+                fits=int(fits.sum()))
 
 
 def check_scatter(torch, fleet, n, r, rng, reps):
@@ -524,14 +671,33 @@ def device_busy_ms(torch, fn):
         result = fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-    busy_us = sum(dev_us(e) for e in events)
-    top = sorted(((e.key, dev_us(e) / 1e3) for e in events
-                  if dev_us(e) > 0), key=lambda kv: -kv[1])[:6]
+    busy_us = sum(device_us(e) for e in events)
+    top = sorted(((e.key, device_us(e) / 1e3) for e in events
+                  if device_us(e) > 0), key=lambda kv: -kv[1])[:6]
     return (busy_us / 1e3 if busy_us > 0 else None), top, result
+
+
+def device_us(event) -> float:
+    """A profiler entry's own device time, microseconds."""
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0.0))
+
+
+def kernel_device_ms(torch, fn, reps, name):
+    """Mean device time, per call of ``fn``, of the kernels whose name
+    holds ``name``, from torch.profiler (None when it saw none): the
+    kernel's own time where CUDA events over back-to-back calls measure
+    the host's launch rate instead."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(device_us(e) for e in prof.key_averages() if name in e.key)
+    return total / 1e3 / reps if total > 0 else None
 
 
 def phase_breakdown(torch, structs, h, job):
@@ -795,6 +961,25 @@ def storm_sequence(mock, structs, Harness, BatchEvalRunner, nodes):
     return dict(evals=8, wall_s=wall, placed=placed)
 
 
+def window_records():
+    """Wrap the port's evaluate_window to record each window's
+    ``info["device"]``; returns (records, restore function)."""
+    from nomad_tpu_torch.ops import plan_conflict
+
+    records: list = []
+    orig = plan_conflict.evaluate_window
+
+    def recorded(*a, **kw):
+        out = orig(*a, **kw)
+        records.append(out.info.get("device") if out.info else None)
+        return out
+    plan_conflict.evaluate_window = recorded
+
+    def restore():
+        plan_conflict.evaluate_window = orig
+    return records, restore
+
+
 def run_storm(torch, sizes5=(), sizes5b=(), n_seq_nodes=1000):
     """The storm phase.  The sizes default to the configurations'; a
     rehearsal passes smaller ones."""
@@ -802,6 +987,8 @@ def run_storm(torch, sizes5=(), sizes5b=(), n_seq_nodes=1000):
     import nomad_tpu_torch.structs as structs
     from nomad_tpu_torch.models import fleet
     from nomad_tpu_torch.ops import binpack
+    from nomad_tpu_torch.ops.verify_policy import verify_override
+    from nomad_tpu_torch.parallel import mesh
     from nomad_tpu_torch.scheduler import (BatchEvalRunner, Harness,
                                            VerifyingPlanner)
 
@@ -839,8 +1026,159 @@ def run_storm(torch, sizes5=(), sizes5b=(), n_seq_nodes=1000):
          binpack.place_rounds_batch, binpack.place_sequence_batch) = saved
     require(placed5b == plain5b,
             "config 5b placements differ from the plain versions' run")
+
+    # Config 5b under the device verify policy: every window's base fit
+    # and overlay fold in K6 on the card; the same commits as (b).
+    mesh.window_verify.launches = 0
+    records, restore = window_records()
+    try:
+        with verify_override("device"):
+            dev5b_placed, dev5b = storm_config5b(
+                mock, structs, Harness, VerifyingPlanner, BatchEvalRunner,
+                *sizes5b)
+    finally:
+        restore()
+    launches["window_verify"] = mesh.window_verify.launches
+    require(launches["window_verify"] > 0,
+            "config 5b under device: window_verify was not launched")
+    require(dev5b_placed == placed5b,
+            "config 5b under device commits other placements than host")
+    for k in ("placed", "conflicts", "commits", "conflict_fallbacks"):
+        require(dev5b[k] == c5b[k], f"config 5b under device: {k} "
+                f"{dev5b[k]}, host {c5b[k]}")
+    dev5b["windows"] = len(records)
+    dev5b["dispatched"] = sum(1 for r in records if r and r["dispatched"])
+    fallbacks: dict = {}
+    for r in records:
+        if r and not r["dispatched"]:
+            fallbacks[r["fallback"]] = fallbacks.get(r["fallback"], 0) + 1
+    dev5b["fallbacks"] = fallbacks
+    dev5b["buckets"] = sorted({r["bucket"] for r in records
+                               if r and r["dispatched"]})
     return dict(launches=launches, config5=c5, config5b=c5b,
-                sequence_storm=seq)
+                config5b_device=dev5b, sequence_storm=seq)
+
+
+# -- phase 6: the verify engines over a growing fleet ----------------------
+
+
+def result_key(result) -> tuple:
+    return (
+        {n: [a.id for a in v] for n, v in result.node_update.items()},
+        {n: [a.id for a in v] for n, v in result.node_allocation.items()},
+        [a.id for a in result.failed_allocs],
+        result.refresh_index > 0)
+
+
+def verify_fleet_size(n_nodes, windows, window_plans, seed, warm=2):
+    """bench.py _verify_fleet_phase on the port, both engines on ONE
+    store: a NodeSlab fleet of ``n_nodes`` with standing usage on
+    min(2048, n/4) rng-sampled nodes, and ``warm + windows`` windows of
+    ``window_plans`` single-placement plans on rng-sampled distinct
+    nodes, made once.  Each engine verifies every window (nothing is
+    committed, so both see the same state): the warm ones untimed, the
+    rest timed with the heap frozen (gc.freeze, as bench.py does).
+    Every timed device window must dispatch K6, and both engines must
+    give the same verdicts and accepted alloc ids."""
+    import gc
+
+    import nomad_tpu_torch.mock as mock
+    import nomad_tpu_torch.structs as structs
+    from nomad_tpu_torch.ops.plan_conflict import evaluate_window
+    from nomad_tpu_torch.ops.verify_policy import verify_override
+    from nomad_tpu_torch.parallel import mesh
+    from nomad_tpu_torch.state import StateStore
+
+    t0 = time.perf_counter()
+    store = StateStore()
+    slab = mock.node_slab(n_nodes)
+    store.upsert_node_slab(1, slab)
+    node_ids = list(slab.ids)
+
+    def alloc_on(nid):
+        return structs.Allocation(
+            id=structs.generate_uuid(), node_id=nid,
+            job_id="bench-5f-fleet", task_group="web",
+            resources=structs.Resources(cpu=100, memory_mb=64),
+            desired_status=structs.ALLOC_DESIRED_STATUS_RUN,
+            client_status=structs.ALLOC_CLIENT_STATUS_PENDING)
+
+    rng = random.Random(seed)
+    store.upsert_allocs(2, [alloc_on(nid) for nid in rng.sample(
+        node_ids, min(2048, n_nodes // 4))])
+
+    def window():
+        plans = []
+        for nid in rng.sample(node_ids, window_plans):
+            plan = structs.Plan(eval_id=structs.generate_uuid())
+            plan.append_alloc(alloc_on(nid))
+            plans.append(plan)
+        return plans
+    wins = [window() for _ in range(warm + windows)]
+    setup_s = time.perf_counter() - t0
+
+    out: dict = {"fleet_nodes": n_nodes, "setup_s": setup_s}
+    verdicts: dict = {}
+    for policy in ("host", "device"):
+        keys: list = []
+        h2d = d2h = dispatched = 0
+        with verify_override(policy):
+            for w in wins[:warm]:
+                evaluate_window(store, w, device=DEV)
+            launches0 = mesh.window_verify.launches
+            gc.collect()
+            gc.freeze()
+            try:
+                t = time.perf_counter()
+                for w in wins[warm:]:
+                    res = evaluate_window(store, w, device=DEV)
+                    dev = res.info.get("device") if res.info else None
+                    if policy == "device":
+                        require(dev is not None and dev["dispatched"],
+                                f"verify fleet {n_nodes}: a device window "
+                                f"did not dispatch: {dev}")
+                        dispatched += 1
+                        h2d += dev["h2d"]
+                        d2h += dev["d2h"]
+                    keys.append([result_key(o.result) for o in res])
+                wall = time.perf_counter() - t
+            finally:
+                gc.unfreeze()
+        verdicts[policy] = keys
+        out[policy] = dict(
+            serial_ms_per_plan=wall * 1e3 / (windows * window_plans),
+            verify_ms=wall * 1e3 / windows, device_dispatches=dispatched,
+            h2d_per_window=h2d / windows, d2h_per_window=d2h / windows,
+            k6_launches=mesh.window_verify.launches - launches0)
+    require(verdicts["host"] == verdicts["device"],
+            f"verify fleet {n_nodes}: device verdicts differ from host")
+    accepted = sum(1 for w in verdicts["host"] for k in w if k[1])
+    require(accepted == windows * window_plans,
+            f"verify fleet {n_nodes}: {accepted} plans accepted of "
+            f"{windows * window_plans}")
+    return out
+
+
+def run_verify_fleet(sizes=(10_000, 131_072, 1_000_000), windows=8,
+                     window_plans=64):
+    """The fleet-scaling phase (bench.py 5f sub-table sizes).  Reports
+    the JAX bench's flatness ratio — device ms per plan at the largest
+    fleet over the smallest (its bar was 1.5) — as a number only."""
+    from nomad_tpu_torch.parallel import mesh
+
+    mesh.window_verify.launches = 0
+    table = {}
+    for k, n in enumerate(sizes):
+        table[str(n)] = row = verify_fleet_size(n, windows, window_plans,
+                                                seed=9000 + k)
+        print(f"verify fleet {n}: " + json.dumps(row), flush=True)
+    launches = mesh.window_verify.launches
+    require(launches > 0, "the verify-fleet phase launched no window_verify")
+    first = table[str(sizes[0])]["device"]["serial_ms_per_plan"]
+    last = table[str(sizes[-1])]["device"]["serial_ms_per_plan"]
+    return dict(sizes=list(sizes), windows=windows,
+                window_plans=window_plans, launches=launches,
+                device_flatness=last / first, table=table)
 
 
 def main() -> int:
@@ -851,6 +1189,7 @@ def main() -> int:
         return 2
     from nomad_tpu_torch.models import fleet
     from nomad_tpu_torch.ops import binpack, kernels
+    from nomad_tpu_torch.parallel import mesh
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -869,6 +1208,14 @@ def main() -> int:
     rnd_big = check_rounds(torch, binpack, 131072, 1000, 1024, 1, rng,
                            True, 3)
     sct = check_scatter(torch, fleet, 16384, 1024, rng, 50)
+    # K6: the fleet-scaling window (64 single-placement plans, each its
+    # own component, on the 1,000,000-node fleet's 1,048,576 rows) and a
+    # contended window at config-5b scale (64 plans of 100 placements on
+    # 160 nodes in 4 components, evictions on a tenth of the pairs).
+    wv5f = check_window_verify(torch, mesh, 1_000_000, 1_048_576, 64, 1, 64,
+                               0.0, rng, 200)
+    wv5b = check_window_verify(torch, mesh, 160, 256, 64, 100, 4, 0.1, rng,
+                               50)
     rb = check_rounds_batch(torch, binpack, 16384, 64, 1000, 1024, 1, rng,
                             True, 10)
     rb_rand = check_rounds_batch(torch, binpack, 16384, 16, 1000, 1024, 2,
@@ -884,17 +1231,25 @@ def main() -> int:
                      rb),
                     ("place_rounds_batch N=16384 B=16 random rounds=2",
                      rb_rand),
-                    ("place_sequence_batch N=16384 B=8 P=256", sb)):
+                    ("place_sequence_batch N=16384 B=8 P=256", sb),
+                    ("window_verify N=1048576 B=64 (5f window)", wv5f),
+                    ("window_verify N=256 B=8192 (config-5b scale)",
+                     wv5b)):
         print(f"kernel {name}: " + json.dumps(r), flush=True)
 
     sl = run_slice(torch)
     print("slice: " + json.dumps(sl), flush=True)
     st = run_storm(torch)
     print("storm: " + json.dumps(st), flush=True)
-    # Launches on the main path: the slice's run and the storm's run,
-    # each counted from 0.
+    vf = run_verify_fleet()
+    print("verify fleet: " + json.dumps(
+        {k: v for k, v in vf.items() if k != "table"}), flush=True)
+    # Launches on the main paths, each path counted from 0: the slice,
+    # the storm (K6 in config 5b under the device policy) and the
+    # verify-fleet phase.
     launches = {k: sl["launches"].get(k, 0) + st["launches"][k]
                 for k in st["launches"]}
+    launches["window_verify"] += vf["launches"]
 
     kernels_line = {"kernels": [
         dict(name="place_sequence", route="cuda",
@@ -933,6 +1288,13 @@ def main() -> int:
              max_abs_err=sb["err"], ms=sb["ms"], plain_ms=sb["plain_ms"],
              bound_ms=sb["bound_ms"], bound_by=sb["bound_by"],
              library_ms=None),
+        dict(name="window_verify", route="cuda",
+             source="nomad_tpu_torch/csrc/window_verify.cu",
+             replaces="nomad_tpu/parallel/mesh.py:357",
+             launches=launches["window_verify"],
+             max_abs_err=max(wv5f["err"], wv5b["err"]), ms=wv5f["ms"],
+             plain_ms=wv5f["plain_ms"], bound_ms=wv5f["bound_ms"],
+             bound_by=wv5f["bound_by"], library_ms=None),
     ]}
     print(json.dumps(kernels_line), flush=True)
     print(card_line(), flush=True)  # as nvidia-smi prints it

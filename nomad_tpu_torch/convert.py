@@ -12,7 +12,7 @@ from __future__ import annotations
 
 from typing import Iterable
 
-from nomad_tpu_torch.structs import Allocation, Job, Node, Plan
+from nomad_tpu_torch.structs import Allocation, Job, Node, NodeSlab, Plan
 
 
 def _plain(obj) -> dict:
@@ -40,3 +40,17 @@ def plans_from_reference(plans: Iterable) -> list:
     ids, so one recorded plan stream can be verified by both
     packages."""
     return [Plan.from_dict(_plain(p)) for p in plans]
+
+
+def node_slab_from_reference(slab) -> NodeSlab:
+    """A port ``NodeSlab`` with the columns of ``slab`` (a JAX-package
+    ``NodeSlab``): the same ids, names, datacenters, per-row cidrs and
+    ips, and a template equal field by field, so twin stores hold the
+    same node ids."""
+    def col(c):
+        return c if c is None or isinstance(c, str) else list(c)
+    return NodeSlab(
+        ids=list(slab.ids), names=list(slab.names),
+        datacenters=col(slab.datacenters),
+        template=Node.from_dict(_plain(slab.template)),
+        cidrs=col(slab.cidrs), ips=col(slab.ips))

@@ -65,6 +65,26 @@ def node(idx: int | None = None) -> Node:
     )
 
 
+
+def node_slab(n: int) -> "NodeSlab":
+    """A columnar n-row fleet of exactly the mock ``node`` shape
+    (structs/node_slab.py): one template node + dense id/name/endpoint
+    columns, no per-row Node/Resources/NetworkResource construction.
+    Row r materializes equal to ``node(r)`` except for its random
+    uuid."""
+    from nomad_tpu_torch.structs import NodeSlab, generate_uuids
+
+    template = node(0)
+    octets = [(i % 250) + 1 for i in range(n)]
+    return NodeSlab(
+        ids=generate_uuids(n),
+        names=[f"node-{i}" for i in range(n)],
+        datacenters="dc1",
+        template=template,
+        cidrs=[f"192.168.0.{o}/32" for o in octets],
+        ips=[f"192.168.0.{o}" for o in octets],
+    )
+
 def job() -> Job:
     return Job(
         region="global",

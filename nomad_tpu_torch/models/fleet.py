@@ -101,6 +101,11 @@ class FleetStatics:
     # Host-side attribute/meta mirrors for constraint compilation:
     attr_rows: list                     # index -> node.attributes dict
     meta_rows: list                     # index -> node.meta dict
+    # True when the fleet came off a NodeSlab declaring row uniformity
+    # (shared attributes/meta/class/datacenter): constraint masks then
+    # compile against ONE representative row and broadcast
+    # (models/constraints.py) instead of walking 100k-1M nodes.
+    uniform: bool = False
     mask_cache: dict = field(default_factory=dict)   # constraint-key -> bool[n_pad]
     # Device-resident mirrors, populated lazily (torch tensors).  Keys:
     # "capres" -> (capacity, reserved); ("feas", group-keys) -> bool[G, N].
@@ -121,18 +126,39 @@ class FleetStatics:
     def device_capacity_reserved(self, device):
         """(capacity, reserved) resident on ``device``, uploaded once per
         fleet generation and device."""
-        from nomad_tpu_torch.parallel.devices import ensure_on_default, \
-            on_default_platform
+        from nomad_tpu_torch.parallel.devices import put_counted
+        hit = self.capres_lease(device)
+        if hit is None:
+            hit = (put_counted(self.capacity, device),
+                   put_counted(self.reserved, device))
+            self.device_cache["capres"] = hit
+        return hit
+
+    def capres_lease(self, device):
+        """(capacity, reserved) when already resident on ``device``,
+        else None.  Never uploads: the window verify calls it under the
+        mirror lock, where a fleet-sized transfer would park every
+        other sync; ``device_capacity_reserved`` warms it outside."""
+        from nomad_tpu_torch.parallel.devices import on_default_platform
         hit = self.device_cache.get("capres")
         if hit is None or not on_default_platform(hit[0], device):
-            hit = (ensure_on_default(None, self.capacity, device),
-                   ensure_on_default(None, self.reserved, device))
-            self.device_cache["capres"] = hit
+            return None
         return hit
 
 
 def build_fleet(nodes: list[Node]) -> FleetStatics:
-    """State -> fleet tensors (host numpy; uploaded on first use)."""
+    """State -> fleet tensors (host numpy; uploaded on first use).
+    Columnar fast path: when every node is an unmutated row of ONE
+    NodeSlab (structs/node_slab.py — the 100k-1M-node bulk-load
+    shape), the static tensors come straight off the slab's dense
+    vectors and shared template, with no per-node Python walk; a
+    single mutated or foreign row falls the whole build back to the
+    exact object path."""
+    from nomad_tpu_torch.structs import node_slab_of
+
+    slab = node_slab_of(nodes)
+    if slab is not None:
+        return _build_fleet_slab(nodes, slab)
     n_real = len(nodes)
     n_pad = _pad_to(n_real)
 
@@ -168,6 +194,68 @@ def build_fleet(nodes: list[Node]) -> FleetStatics:
         attr_rows=attr_rows,
         meta_rows=meta_rows,
     )
+
+
+def _build_fleet_slab(nodes: list, slab) -> FleetStatics:
+    """FleetStatics off one NodeSlab's columns: broadcast vectors, the
+    shared attribute/meta template per row, and ``uniform=True`` when
+    the slab's rows share one datacenter — the flag the constraint
+    compiler uses to judge ONE representative row for the whole
+    fleet."""
+    n_real = slab.n
+    n_pad = _pad_to(n_real)
+    capacity = np.zeros((n_pad, NDIMS), dtype=np.float32)
+    capacity[:n_real] = slab.capacity_vec()
+    capacity[:n_real, 5] = PORT_SLOTS_CAPACITY
+    reserved = np.zeros((n_pad, NDIMS), dtype=np.float32)
+    reserved[:n_real] = slab.reserved_vec()
+    ready = np.zeros(n_pad, dtype=bool)
+    ready[:n_real] = slab.ready()
+    datacenters = np.empty(n_pad, dtype=object)
+    uniform = isinstance(slab.datacenters, str)
+    if uniform:
+        datacenters[:n_real] = slab.datacenters
+    else:
+        for i in range(n_real):
+            datacenters[i] = slab.datacenters[i]
+    attrs = slab.template.attributes
+    meta = slab.template.meta
+    return FleetStatics(
+        n_real=n_real,
+        n_pad=n_pad,
+        node_ids=list(slab.ids),
+        index_of={nid: i for i, nid in enumerate(slab.ids)},
+        nodes=list(nodes),
+        capacity=capacity,
+        reserved=reserved,
+        ready=ready,
+        datacenters=datacenters,
+        # Shared template per row: mask compilation treats these as
+        # read-only (the store immutability contract), and the uniform
+        # flag means it rarely reads past row 0 anyway.
+        attr_rows=_SharedRows(attrs, n_real),
+        meta_rows=_SharedRows(meta, n_real),
+        uniform=uniform,
+    )
+
+
+class _SharedRows:
+    """A list-shaped view serving ONE shared row dict for every index —
+    the uniform fleet's attr/meta mirror without n_real pointers."""
+
+    __slots__ = ("row", "n")
+
+    def __init__(self, row, n: int) -> None:
+        self.row = row
+        self.n = n
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i):
+        if isinstance(i, int) and -self.n <= i < self.n:
+            return self.row
+        raise IndexError(i)
 
 
 def net_base_for(statics: FleetStatics, node_index: int, node):
@@ -667,6 +755,27 @@ class UsageMirror:
         fresh = put_counted(host, device)
         self._install(host, fresh, device)
         return fresh
+
+    def window_lease(self, device):
+        """Residency LEASE for a window verify: the usage copy resident
+        on ``device`` for the mirror's CURRENT generation, or None.
+        Must be called under ``self.lock``.  Never uploads (that would
+        be a fleet-sized transfer under the lock); cold callers warm
+        the copy through ``device_usage`` OUTSIDE the lock and take the
+        lease on a later window.
+
+        The returned tensor stays valid for the whole window after the
+        lock releases only because nothing writes ``_usage_d`` in
+        place: ``_update_device`` keeps it equal to ``self.usage`` by
+        scattering the touched rows into a NEW buffer (K5,
+        ``scatter_rows``) and rebinding, or by dropping it.  A later
+        sync therefore replaces the copy the lease holds and never
+        mutates it."""
+        from nomad_tpu_torch.parallel.devices import on_default_platform
+        buf = self._usage_d
+        if buf is not None and on_default_platform(buf, device):
+            return buf
+        return None
 
     def _install(self, host: np.ndarray, fresh, device) -> None:
         """Adopt ``fresh`` (a device copy of ``host``) as the resident

@@ -52,6 +52,9 @@ PROTOTYPES = {
     "scatter_rows": {
         "nomad_scatter_rows": (_P, _P, _P, _I, _I, _I, _P),
     },
+    "window_verify": {
+        "nomad_window_verify": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P),
+    },
 }
 
 _LIBS: dict = {}

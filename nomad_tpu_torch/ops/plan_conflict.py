@@ -51,15 +51,23 @@ order with the accepted portion of each plan folded into the view before
 the next — for both the partitioned and the ``partition=False``
 sequential path.
 
-Counterpart of ``nomad_tpu/ops/plan_conflict.py`` with its host dense-fit
-engine only.  The device-verify engine of the JAX package (one window
-verify kernel against mesh-resident twins, the ``verify_policy``
-switch, the mirror's residency lease) is not ported: the JAX package
-runs it only on a mesh of two or more devices, so on one card the
-window always verifies on the host, as here.  ``executor`` is any
-object with ``run_components(tasks, descs)`` returning each task's
-result in order (the leader applier's component executor, which comes
-with the server slice); without one every component walks inline.
+Counterpart of ``nomad_tpu/ops/plan_conflict.py``, with both of its
+engines for the base fit (ops/verify_policy.py).  The host engine is the
+dense numpy pass against the mirror.  The device engine launches the
+window-verify kernel (K6, parallel/mesh.window_verify) once per window
+against the usage copy and capacity/reserved resident on the caller's
+``device``: the kernel returns the base fit and, per claim, the verdict
+of the optimistic overlay fold, which a component walk takes wherever it
+can prove the fold's all-accepted prefix held.  Verdicts, accepted
+alloc sets and store fingerprints are byte-identical under either
+engine.  The JAX package reaches its device engine only on a mesh of
+two or more devices; the port treats the caller's one device as that
+mesh (the ``device`` policy), and ``auto`` stays on the host.  A K6
+build, launch or fetch failure on the CUDA path raises; it does not
+fall back to the host engine.  ``executor`` is any object with
+``run_components(tasks, descs)`` returning each task's result in order
+(the leader applier's component executor, which comes with the server
+slice); without one every component walks inline.
 """
 from __future__ import annotations
 
@@ -377,7 +385,8 @@ def partition_window(plans: list) -> list:
 
 
 def evaluate_window(snap, plans: list, executor=None,
-                    partition: bool = True) -> WindowVerdicts:
+                    partition: bool = True,
+                    device=None) -> WindowVerdicts:
     """Verify a window of plans; returns one WindowOutcome per plan,
     results identical to sequential ``evaluate_plan`` + fold-into-
     overlay per plan in eval order.
@@ -392,6 +401,11 @@ def evaluate_window(snap, plans: list, executor=None,
     is given); ``partition=False`` keeps the flat one-overlay walk —
     the pre-partition behavior, kept as the bench's in-run sequential
     baseline and exercised by the parity rigs.
+
+    ``device`` is where the ``device`` verify policy launches K6 (a
+    CUDA device: the kernel; ``cpu``: its plain version); with None
+    that policy reports the ``no-mesh`` fallback and the host engine
+    runs.  ``info["device"]`` records what happened.
     """
     from nomad_tpu_torch.server.plan_apply import (
         OptimisticSnapshot,
@@ -415,7 +429,8 @@ def evaluate_window(snap, plans: list, executor=None,
         return WindowVerdicts([WindowOutcome(result, fallback)])
 
     start = time.perf_counter()
-    outcomes = _evaluate_window_vec(overlay, plans, executor, partition)
+    outcomes = _evaluate_window_vec(overlay, plans, executor, partition,
+                                    device)
     if outcomes is None:
         # No incremental mirror for this snapshot: per-plan exact path
         # against the running overlay, still in eval order.
@@ -437,16 +452,180 @@ def evaluate_window(snap, plans: list, executor=None,
 class _Prep:
     """Everything the component walks share, frozen by the coordinator
     before any component starts: the dense base-fit results, the frame,
-    and the in-flight overlay's contents.  Read-only once built."""
+    and the in-flight overlay's contents.  Read-only once built.
+
+    ``devfit`` is None on the host engine; after a K6 launch it carries
+    the kernel's optimistic fold verdicts (``base_used``/``caps`` then
+    hold the FETCHED device numbers — byte-identical to the host
+    gather, so the walks don't care which engine filled them)."""
 
     __slots__ = ("plans", "plan_nodes", "verdicts", "pairs", "pair_of",
                  "base_used", "caps", "frame", "index_of", "statics",
                  "base", "refresh_index", "inflight", "inflight_nodes",
-                 "inflight_by_node", "inflight_by_id")
+                 "inflight_by_node", "inflight_by_id", "devfit")
 
 
-def _evaluate_window_vec(overlay, plans: list, executor,
-                         partition: bool) -> Optional[WindowVerdicts]:
+class _DeviceFit:
+    """Fetched per-pair results of one K6 launch.
+
+    ``fits_seq[pair]`` is the kernel's optimistic overlay-fold verdict
+    — base fit plus ALL earlier same-component window plans' deltas
+    under the all-accepted assumption.  ``seq_ok`` is the window-level
+    eligibility: False when any alloc id is referenced by two claims
+    (double-evict / replace-after-place), where the optimistic prefix
+    cannot equal the host fold order.  _walk_component additionally
+    requires its own ``clean`` proof before trusting a verdict."""
+
+    __slots__ = ("fits_seq", "seq_ok")
+
+
+def _window_device_args(plans, plan_nodes, verdicts, pairs, mirror,
+                        index_of, frame_ids, plan_comp, alloc_vec):
+    """Per-window fold descriptors for K6, built under the mirror lock
+    (reads ``mirror.alloc_rows`` — the same rows the ``_Frame``
+    copies).  Simulates ``_WindowState.fold`` for every claim that can
+    still be accepted (pass-1 rejections excluded, ``failed_allocs``
+    included — the walk folds those even on rejection), tagging each
+    entry with its window plan index and claim-graph component so the
+    kernel's prefix mask reproduces the component-local host fold order
+    exactly."""
+    m_rows = mirror.alloc_rows
+    seq_ni: list = []
+    seq_vec: list = []
+    seq_order: list = []
+    seq_comp: list = []
+    ref_count: dict = {}
+
+    def sim_fold(a, i, ci) -> None:
+        aid = a.id
+        ref_count[aid] = ref_count.get(aid, 0) + 1
+        # Frame-restricted like _WindowState.alloc_row: an id outside
+        # the window's frame reads None on the host walk too.
+        row = m_rows.get(aid) if aid in frame_ids else None
+        if row is not None:
+            v = row[1]
+            seq_ni.append(row[0])
+            seq_vec.append([-float(v[0]), -float(v[1]), -float(v[2]),
+                           -float(v[3])])
+            seq_order.append(i)
+            seq_comp.append(ci)
+        if a.terminal_status():
+            return
+        ni = index_of.get(a.node_id, -1)
+        if ni < 0:
+            return
+        v = alloc_vec(a)
+        seq_ni.append(ni)
+        seq_vec.append([float(v[0]), float(v[1]), float(v[2]),
+                        float(v[3])])
+        seq_order.append(i)
+        seq_comp.append(ci)
+
+    for i, plan in enumerate(plans):
+        ci = plan_comp[i]
+        pv = verdicts[i]
+        for nid in plan_nodes[i]:
+            if pv.get(nid, _MISS) is False:
+                continue  # pass-1 rejection: none of its allocs fold
+            for a in plan.node_update.get(nid, ()):
+                sim_fold(a, i, ci)
+            for a in plan.node_allocation.get(nid, ()):
+                sim_fold(a, i, ci)
+        for a in plan.failed_allocs:
+            sim_fold(a, i, ci)
+    seq_ok = all(c == 1 for c in ref_count.values())
+
+    pair_removed: list = []
+    for (_i, _nid, ni, _node, _placements, removed) in pairs:
+        r0 = r1 = r2 = r3 = 0.0
+        for aid in removed:
+            row = m_rows.get(aid)
+            if row is not None and row[0] == ni:
+                v = row[1]
+                r0 += float(v[0])
+                r1 += float(v[1])
+                r2 += float(v[2])
+                r3 += float(v[3])
+        pair_removed.append([r0, r1, r2, r3])
+
+    return {
+        "pair_ni": [p[2] for p in pairs],
+        "pair_order": [p[0] for p in pairs],
+        "pair_comp": [plan_comp[p[0]] for p in pairs],
+        "pair_removed": pair_removed,
+        "seq_ni": seq_ni,
+        "seq_vec": seq_vec,
+        "seq_order": seq_order,
+        "seq_comp": seq_comp,
+        "seq_ok": seq_ok,
+    }
+
+
+def _dispatch_window_fit(capres, lease, dargs, vec_pair, vec_rows,
+                         n_pairs):
+    """ONE K6 launch for the whole window's base fit + overlay fold,
+    against the resident tensors (``capres`` from the statics,
+    ``lease`` from UsageMirror.window_lease).  Runs OUTSIDE the mirror
+    lock — the descriptors are tiny host arrays, padded to one shared
+    power-of-two bucket.  Returns (used_rows, caps_rows, _DeviceFit,
+    devinfo); used/caps come back through the counted fetch seam and
+    drop into ``prep.base_used``/``prep.caps`` exactly where the host
+    gather's ``.tolist()`` sat.  Any failure raises."""
+    from nomad_tpu_torch.models.fleet import _pad_to
+    from nomad_tpu_torch.parallel.devices import (copy_to_host_async,
+                                                  fetch_host,
+                                                  transfer_counts)
+    from nomad_tpu_torch.parallel.mesh import window_verify
+
+    bucket = _pad_to(max(n_pairs, len(vec_rows), len(dargs["seq_ni"])))
+
+    def pad_i(vals, fill):
+        arr = np.full(bucket, fill, dtype=np.int32)
+        if vals:
+            arr[:len(vals)] = vals
+        return arr
+
+    def pad_v(vals):
+        arr = np.zeros((bucket, 4), dtype=np.float32)
+        if len(vals):
+            arr[:len(vals)] = np.asarray(vals, dtype=np.float32)[:, :4]
+        return arr
+
+    t0 = time.perf_counter()
+    before = transfer_counts()
+    out = window_verify(
+        capres[0], capres[1], lease,
+        pair_ni=pad_i(dargs["pair_ni"], 0), row_pair=pad_i(vec_pair, 0),
+        row_vec=pad_v(vec_rows), seq_ni=pad_i(dargs["seq_ni"], -1),
+        seq_vec=pad_v(dargs["seq_vec"]),
+        seq_order=pad_i(dargs["seq_order"], 0),
+        seq_comp=pad_i(dargs["seq_comp"], -1),
+        pair_order=pad_i(dargs["pair_order"], 0),
+        pair_comp=pad_i(dargs["pair_comp"], 0),
+        pair_removed=pad_v(dargs["pair_removed"]))
+    pending = [copy_to_host_async(x) for x in out]  # all three in flight
+    used, caps, fits = (fetch_host(p) for p in pending)
+    after = transfer_counts()
+    devfit = _DeviceFit()
+    devfit.fits_seq = fits[:n_pairs]
+    devfit.seq_ok = dargs["seq_ok"]
+    devinfo = {
+        "dispatched": True,
+        "fallback": None,
+        "pairs": n_pairs,
+        "bucket": int(bucket),
+        "seq_ok": dargs["seq_ok"],
+        "h2d": after["h2d"] - before["h2d"],
+        "d2h": after["d2h"] - before["d2h"],
+        "wall": time.perf_counter() - t0,
+    }
+    return (np.asarray(used[:n_pairs], dtype=np.float32).tolist(),
+            np.asarray(caps[:n_pairs], dtype=np.float32).tolist(),
+            devfit, devinfo)
+
+
+def _evaluate_window_vec(overlay, plans: list, executor, partition: bool,
+                         device) -> Optional[WindowVerdicts]:
     """The vectorized window pass: dense base fit for every claim under
     the mirror lock, then per-component in-order verdict walks against
     the released frame.  Returns None when the snapshot cannot take the
@@ -483,11 +662,38 @@ def _evaluate_window_vec(overlay, plans: list, executor,
     capacity = statics.capacity
     index_of = statics.index_of
 
-    # Pass-2 components are computed up front (pure on the plans).
+    # Pass-2 components are computed up front (pure on the plans): the
+    # device fold descriptors need each plan's component id so the
+    # kernel's prefix mask stays component-local — exactly the overlay
+    # each host walk sees.
     if partition:
         comps = partition_window(plans)
     else:
         comps = [list(range(len(plans)))]
+    plan_comp = [0] * len(plans)
+    for ci, comp in enumerate(comps):
+        for i in comp:
+            plan_comp[i] = ci
+
+    # Verify policy (ops/verify_policy.py): device resolution and the
+    # warm-up of the resident copies happen OUTSIDE the mirror lock;
+    # under the lock the device path only LOOKS UP residency (the
+    # window-lease rule).  ``auto`` stays on the host on one device.
+    from nomad_tpu_torch.ops.verify_policy import VERIFY_DEVICE, \
+        verify_policy
+
+    dev = None
+    devinfo = None
+    if verify_policy() == VERIFY_DEVICE:
+        if device is None:
+            devinfo = {"dispatched": False, "fallback": "no-mesh"}
+        else:
+            from nomad_tpu_torch.parallel.devices import resolve_device
+            dev = resolve_device(device)
+            # Forced intent: warm the copies now (no-op when resident)
+            # so this window — or the next — holds the lease.
+            statics.device_capacity_reserved(dev)
+            mirror.device_usage(dev)
 
     prep = _Prep()
     prep.plans = plans
@@ -560,20 +766,41 @@ def _evaluate_window_vec(overlay, plans: list, executor,
 
         base_used: list = []
         caps: list = []
+        dev_args = None
+        dev_capres = None
+        dev_lease = None
         if pairs:
-            # Host engine — dense fit inputs over every claim at once:
-            # the 4 dims Resources.superset checks, float32 like the
-            # mirror rows (exact for values < 2^24, i.e. any realistic
-            # node).
-            ni_arr = np.fromiter((p[2] for p in pairs),
-                                 dtype=np.int64, count=len(pairs))
-            delta = np.zeros((len(pairs), 4), dtype=np.float32)
-            np.add.at(delta, np.asarray(vec_pair, dtype=np.int64),
-                      np.asarray(vec_rows, dtype=np.float32)[:, :4])
-            used = usage[ni_arr, :4] \
-                + statics.reserved[ni_arr, :4] + delta
-            base_used = used.tolist()
-            caps = capacity[ni_arr, :4].tolist()
+            if dev is not None:
+                # Residency lease: references to the resident copies
+                # of THIS generation, or None — never an upload under
+                # the lock.
+                dev_lease = mirror.window_lease(dev)
+                dev_capres = statics.capres_lease(dev)
+            if dev_lease is not None and dev_capres is not None:
+                # Device engine: only the tiny fold descriptors are
+                # built under the lock; the launch (and every counted
+                # transfer) runs after release.
+                dev_args = _window_device_args(
+                    plans, prep.plan_nodes, verdicts, pairs, mirror,
+                    index_of, frame_ids, plan_comp, alloc_vec)
+            else:
+                if dev is not None:
+                    devinfo = {"dispatched": False,
+                               "fallback": "lease-miss"
+                               if dev_lease is None else "capres-miss"}
+                # Host engine — dense fit inputs over every claim at
+                # once: the 4 dims Resources.superset checks, float32
+                # like the mirror rows (exact for values < 2^24, i.e.
+                # any realistic node).
+                ni_arr = np.fromiter((p[2] for p in pairs),
+                                     dtype=np.int64, count=len(pairs))
+                delta = np.zeros((len(pairs), 4), dtype=np.float32)
+                np.add.at(delta, np.asarray(vec_pair, dtype=np.int64),
+                          np.asarray(vec_rows, dtype=np.float32)[:, :4])
+                used = usage[ni_arr, :4] \
+                    + statics.reserved[ni_arr, :4] + delta
+                base_used = used.tolist()
+                caps = capacity[ni_arr, :4].tolist()
 
         # The in-flight apply's allocs fold into component overlays, so
         # their frame rows (and nodes) must ride along too.
@@ -583,6 +810,12 @@ def _evaluate_window_vec(overlay, plans: list, executor,
             if ni >= 0:
                 touched_nis.add(ni)
         prep.frame = _Frame(mirror, frame_ids, touched_nis)
+
+    prep.devfit = None
+    if dev_args is not None:
+        base_used, caps, prep.devfit, devinfo = _dispatch_window_fit(
+            dev_capres, dev_lease, dev_args, vec_pair, vec_rows,
+            len(pairs))
 
     prep.verdicts = verdicts
     prep.pairs = pairs
@@ -632,9 +865,11 @@ def _evaluate_window_vec(overlay, plans: list, executor,
     for i in range(len(plans)):
         overlay.upsert_allocs(accepted_by_plan[i])
     # The reference's per-component walls and span epochs feed its
-    # trace spans and bench, neither of which is ported.
+    # trace spans and bench, neither of which is ported.  ``device`` is
+    # None when the host engine ran by policy, else the K6 dispatch or
+    # fallback record.
     info = {"components": len(comps), "sizes": [len(c) for c in comps],
-            "order": order}
+            "order": order, "device": devinfo}
     return WindowVerdicts(slots, info)
 
 
@@ -655,6 +890,15 @@ def _walk_component(prep, comp: list) -> list:
     wm = _WindowState(prep.frame, prep.index_of)
     comp_view: Optional[OptimisticSnapshot] = None
     accepted_log: list = []
+    # Device fold verdicts apply only while the walk can PROVE the
+    # kernel's optimistic all-accepted prefix held for this component:
+    # window-unique alloc ids (seq_ok), no in-flight overlay folded in,
+    # and every earlier plan of the component fully accepted.  Any
+    # breach downgrades the REST of the component to the host
+    # arithmetic — which reads prep.base_used/prep.caps, numbers that
+    # are byte-identical under either engine.
+    dev = prep.devfit
+    dev_clean = dev is not None and dev.seq_ok
 
     comp_nodes: set = set()
     for i in comp:
@@ -677,6 +921,8 @@ def _walk_component(prep, comp: list) -> list:
                     picked[entry[0]] = entry[1]
         for k in sorted(picked):
             wm.fold(picked[k])  # in-flight apply: committed state
+        if picked:
+            dev_clean = False  # overlay state the kernel never saw
 
     def view() -> OptimisticSnapshot:
         # Exact-walk punts are rare; the component's OptimisticSnapshot
@@ -711,24 +957,30 @@ def _walk_component(prep, comp: list) -> list:
                 pair = prep.pair_of[(i, nid)]
                 _i, _nid, ni, node, placements, removed = \
                     prep.pairs[pair]
-                u0, u1, u2, u3 = prep.base_used[pair]
-                d = wm.usage_delta.get(ni)
-                if d is not None:
-                    u0 += d[0]
-                    u1 += d[1]
-                    u2 += d[2]
-                    u3 += d[3]
-                for aid in removed:
-                    row = wm.alloc_row(aid)
-                    if row is not None and row[0] == ni:
-                        vec = row[1]
-                        u0 -= float(vec[0])
-                        u1 -= float(vec[1])
-                        u2 -= float(vec[2])
-                        u3 -= float(vec[3])
-                c = prep.caps[pair]
-                ok = (u0 <= c[0] and u1 <= c[1] and u2 <= c[2]
-                      and u3 <= c[3])
+                if dev_clean:
+                    # The kernel's overlay fold IS this arithmetic
+                    # (proof obligations met): take its verdict, keep
+                    # the exact net checks.
+                    ok = bool(dev.fits_seq[pair])
+                else:
+                    u0, u1, u2, u3 = prep.base_used[pair]
+                    d = wm.usage_delta.get(ni)
+                    if d is not None:
+                        u0 += d[0]
+                        u1 += d[1]
+                        u2 += d[2]
+                        u3 += d[3]
+                    for aid in removed:
+                        row = wm.alloc_row(aid)
+                        if row is not None and row[0] == ni:
+                            vec = row[1]
+                            u0 -= float(vec[0])
+                            u1 -= float(vec[1])
+                            u2 -= float(vec[2])
+                            u3 -= float(vec[3])
+                    c = prep.caps[pair]
+                    ok = (u0 <= c[0] and u1 <= c[1] and u2 <= c[2]
+                          and u3 <= c[3])
                 if ok:
                     # Port collisions + bandwidth: exact, against
                     # frame + component overlay (None punts the node
@@ -750,6 +1002,11 @@ def _walk_component(prep, comp: list) -> list:
                 result.node_update = {}
                 result.node_allocation = {}
                 break
+        if not plan_ok:
+            # A rejected claim (or an aborted all_at_once plan) means
+            # later plans in the component see an overlay the kernel's
+            # all-accepted prefix did not model.
+            dev_clean = False
         accepted = _accepted_allocs(result)
         accepted_log.append(accepted)
         if comp_view is not None:

@@ -1,2 +1,2 @@
-"""Device seams: which device the port computes on, and the counted
-host<->device transfers."""
+"""Device seams (which device the port computes on, and the counted
+host<->device transfers) and the window-verify kernel (K6)."""

@@ -125,7 +125,9 @@ class VerifyingPlanner:
     server/plan_apply.evaluate_plan), commit only the accepted portion,
     and hand back a fresh snapshot when the scheduler must retry — the
     serialization point optimistic eval storms rely on in the real
-    server.  Computes on its harness's ``device``."""
+    server.  Computes on its harness's ``device``: under the ``device``
+    verify policy (ops/verify_policy.py) each window's base fit runs in
+    the window-verify kernel there."""
 
     def __init__(self, h: Harness) -> None:
         self.h = h
@@ -150,7 +152,8 @@ class VerifyingPlanner:
                                                        evaluate_window)
 
         with self.h._lock:
-            outcomes = evaluate_window(self.h.state, plans)
+            outcomes = evaluate_window(self.h.state, plans,
+                                       device=self.device)
             items = []
             out = []
             for outcome in outcomes:

@@ -551,6 +551,36 @@ class StateStore(_ReadMixin):
             self._bump("nodes", index)
         self.watch.notify(("nodes",), ("node", node.id), index=index)
 
+    def upsert_node_slab(self, index: int, slab) -> None:
+        """Bulk-register a columnar node table (structs/node_slab.py):
+        every slab row lands in one lock hold with ONE coalesced watch
+        notification, and rows are stored as the slab's lazy SlabNode
+        objects WITHOUT the per-node defensive copy — the caller hands
+        the slab over and its columns are immutable from then on.  This
+        is the 100k-1M-node fleet load path: per-row cost is one small
+        lazy object, not ~8 (Resources/NetworkResource/attr dicts).
+
+        Rows replace any existing node with the same id wholesale
+        (fresh create_index) — the intended use is initial fleet load
+        or whole-generation extension, not the incremental per-node
+        upsert contract, which stays on ``upsert_node``."""
+        slab.index = index
+        with self._lock:
+            table = self._writable_table("nodes")
+            for r in range(slab.n):
+                node = slab.node(r)
+                # Rows materialized BEFORE this upsert carry the
+                # slab's previous index in their eager dict: stamp
+                # every stored row explicitly.  Dict pokes, not
+                # attribute writes — a public-field setattr would flag
+                # the row mutated and disqualify the fleet fast path.
+                d = node.__dict__
+                d["create_index"] = index
+                d["modify_index"] = index
+                table[node.id] = node
+            self._bump("nodes", index)
+        self.watch.notify(("nodes",), index=index)
+
     def delete_node(self, index: int, node_id: str) -> None:
         with self._lock:
             table = self._writable_table("nodes")

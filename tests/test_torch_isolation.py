@@ -56,6 +56,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "import nomad_tpu_torch.ops.plan_conflict\n"
         "import nomad_tpu_torch.server.plan_apply\n"
         "import nomad_tpu_torch.utils.gctune, nomad_tpu_torch.utils.metrics\n"
+        "import nomad_tpu_torch.parallel.mesh, nomad_tpu_torch.ops.verify_policy\n"
+        "import nomad_tpu_torch.structs.node_slab\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'nomad_tpu')]\n"
         "assert not bad, bad\n"
