@@ -344,19 +344,43 @@ def window_case(rng, n_real, n_plans, per_plan, n_comps, removals):
     return desc, counts
 
 
-def window_bound(counts) -> tuple:
+def fold_matches(desc, counts) -> int:
+    """The (pair, fold entry) matches of one window: entries on the
+    pair's node, in its component and strictly earlier in the window,
+    the adds the fold must make.  Counted by sorting the real entries
+    on (node, component, order) and searching each pair's key."""
+    s, p = counts["seq"], counts["pairs"]
+    span = int(max(desc["seq_order"][:s].max(initial=0),
+                   desc["pair_order"][:p].max(initial=0))) + 1
+    comps = int(max(desc["seq_comp"][:s].max(initial=0),
+                    desc["pair_comp"][:p].max(initial=0))) + 2
+
+    def key(ni, comp):
+        return (ni.astype(np.int64) * comps + comp + 1) * span
+
+    entries = np.sort(key(desc["seq_ni"][:s], desc["seq_comp"][:s])
+                      + desc["seq_order"][:s])
+    pair = key(desc["pair_ni"][:p], desc["pair_comp"][:p])
+    return int((np.searchsorted(entries, pair + desc["pair_order"][:p])
+                - np.searchsorted(entries, pair)).sum())
+
+
+def window_bound(desc, counts) -> tuple:
     """K6's bound from a window's real counts.  Bytes, each read or
     written once: per pair the three gathered rows (4 values each), its
     node/order/component and removed sum, and its used, caps and fits;
     per placement row its pair and vector; per fold entry its node,
-    order, component and vector.  Operations: 8 per (pair, fold entry)
-    (three compares, two ands, a select and the adds of the fold, the
-    kernel's inner loop), 4 adds per placement row, and 16 per pair
-    (the base sum, the fold, the removal and the compare on 4 dims)."""
+    order, component and vector.  Operations, only those the function
+    needs: 4 adds per placement row, 4 per fold match
+    (``fold_matches``), a sort of the fold entries by node
+    (log2 compares each), and 16 per pair (the base sum, the fold, the
+    removal and the compare on 4 dims).  The kernel's walk of every
+    (pair, fold entry) is its own cost, not the function's."""
     pairs, rows, seq = counts["pairs"], counts["rows"], counts["seq"]
     nbytes = pairs * (3 * 16 + 12 + 16 + 16 + 16 + 1) + rows * (4 + 16) \
         + seq * (12 + 16)
-    ops = 8 * pairs * seq + 4 * rows + 16 * pairs
+    ops = 4 * rows + 4 * fold_matches(desc, counts) \
+        + seq * max(1, int(np.ceil(np.log2(max(seq, 2))))) + 16 * pairs
     return bound(nbytes, ops)
 
 
@@ -404,7 +428,7 @@ def check_window_verify(torch, mesh, n_real, n_pad, n_plans, per_plan,
                          reps)
     plain_ms = time_ms(torch, lambda: mesh.window_verify_plain(*t, **dd),
                        max(1, reps // 10))
-    b_ms, b_by = window_bound(counts)
+    b_ms, b_by = window_bound(desc, counts)
     return dict(err=float(max((g.float() - w.float()).abs().max()
                               for g, w in zip(got, want))),
                 ms=ms, device_ms=device_ms, wrapper_ms=wrapper_ms,

@@ -29,11 +29,13 @@
 // deterministic, and every add is a full fp32 add (-fmad=false, no fast
 // math).
 //
-// Bound on an H100: at the fleet-scaling window (B = 64 single-placement
-// plans) the work is a few kilobytes and the launch is the cost.  At a
-// contended config-5b window (B = 8,192) it is operations: about 8 fp32
-// operations per (pair, fold entry) of the real counts, against bytes
-// that are only the gathered rows and the descriptors, each read once.
+// Bound on an H100: bytes at both windows, the gathered rows and the
+// descriptors each read once.  At the fleet-scaling window (B = 64
+// single-placement plans) they are a few kilobytes and the launch is the
+// cost.  At a contended config-5b window (B = 8,192) the function needs
+// only the adds of the fold entries that match a pair, but this kernel
+// walks every (pair, fold entry), about 8 fp32 operations each: that
+// walk, not the bound, sets its time.
 // A block owns kPairs pairs with kSlices threads each (1,024 threads, so
 // a config-5b window fills 128 SMs with 32 warps apiece to hide the
 // shared-memory latency of the inner loop); the block streams the

@@ -124,12 +124,11 @@ def window_verify(capacity, reserved, usage, **desc):
     from nomad_tpu_torch.parallel.devices import put_counted
 
     packed = put_counted(pack_descriptors(desc, b), device)
-    used, caps, fits = launch_window_verify(capacity, reserved, usage,
-                                            packed, b)
-    window_verify.launches += 1
-    return used, caps, fits
+    return launch_window_verify(capacity, reserved, usage, packed, b)
 
 
+# K6's launches, counted in ``launch_window_verify`` where the kernel
+# launches, whichever caller launched it.
 window_verify.launches = 0
 
 
@@ -153,4 +152,5 @@ def launch_window_verify(capacity, reserved, usage, packed, b: int):
         packed.data_ptr(), b, used.data_ptr(), caps.data_ptr(),
         fits.data_ptr(), kernels.stream_handle(device))
     kernels.check(lib, "window_verify", code)
+    window_verify.launches += 1
     return used, caps, fits
