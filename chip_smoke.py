@@ -8,10 +8,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
   1. card     the card's name and power limit (nvidia-smi);
   2. build    nvcc builds every kernel from nomad_tpu_torch/csrc;
   3. kernels  each kernel against its plain PyTorch version on the card,
-              same inputs, same tolerances as the CPU tests (chosen nodes
-              exactly equal, scores rtol=1e-4 atol=1e-4 where placed,
-              usage rtol=1e-5 atol=1e-3, scatter and window verify
-              exact), timed with CUDA events;
+              same inputs, bit for bit (chosen nodes, the scores of
+              every step and round, usage, K2's job counts, the scatter
+              and window-verify outputs under torch.equal), timed with
+              CUDA events; K2 at eight shapes and under each launch plan
+              it takes (cluster size, score caches); K5 beside
+              ``usage.index_copy`` with both device times;
               The batch kernels (K4a/K4b) are also held lane by lane
               against the single-eval kernels (K3/K2), exactly; the
               window verify (K6) at the fleet-scaling window (B=64 on a
@@ -24,7 +26,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
               a job that is not rounds-eligible (place_sequence); every
               kernel's launch count must move, and the config-2
               placements must equal a rerun through the plain versions
-              on the card;
+              on the card; the main path's K2 launch is replayed from
+              that rerun's inputs, bit for bit, and timed beside the
+              one-block lane body (K4b at B=1);
   5. storm    the fused eval storm through BatchEvalRunner on cuda:
               (a) bench.py config 5, 64 jobs x 1,000 groups on 10,000
               nodes with a record-only planner: ONE place_rounds_batch
@@ -36,7 +40,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
               are not rounds-eligible on 1,000 nodes: place_sequence_batch;
               (d) config 5b again under the ``device`` verify policy:
               K6 runs every window's base fit, and the storm must commit
-              what (b) committed;
+              what (b) committed; (c)'s K4b launch is replayed from a
+              plain rerun's inputs, bit for bit, and timed;
   6. verify   bench.py's 5f fleet-scaling sub-table on the port: NodeSlab
               fleets of 10,000, 131,072 and 1,000,000 nodes, 64
               single-placement plans a window, 8 measured windows under
@@ -69,14 +74,20 @@ FP32_OPS_PER_S = 67e12
 # fp32 operations to score one node for one ask (score_node in
 # csrc/binpack.cu: 12 adds + 6 compares for AllocsFit, 4 subtracts, 2
 # divides, 2 powers, 2 adds/subtracts, 2 clamps, 1 multiply + 1
-# subtract for the penalty) and 1 more to take it into an argmax or a
-# top-k selection.
-OPS_PER_NODE = 33
+# subtract for the penalty), and 1 more to take it into a top-k
+# selection.
+SCORE_OPS = 32
+OPS_PER_NODE = SCORE_OPS + 1
+# Score slots K2 keeps per CTA, one per group up to this many groups
+# (csrc/binpack.cu MAX_SLOTS); above it, one slot.
+SEQ_SLOTS = 32
 
 DEV = "cuda"  # where the checks put their tensors and run the port
 
-TOL = dict(rtol=1e-4, atol=1e-4)         # scores where placed
-USAGE_TOL = dict(rtol=1e-5, atol=1e-3)   # usage
+# What config 5b commits on the port (its placements are also held
+# against a rerun through the plain versions).
+CONFIG5B_COUNTS = dict(placed=6240, conflicts=36, commits=11,
+                       conflict_fallbacks=87)
 
 
 class SmokeError(RuntimeError):
@@ -105,32 +116,28 @@ def bound(nbytes: float, ops: float) -> tuple:
 # Bytes a placement kernel must move, for its bound: the shared fleet
 # tensors (capacity, reserved, usage0) once, and per lane what that
 # lane reads and writes.  Only rows the kernel reads are counted: a
-# rounds slot of count 0 and a group no valid step names leave their
-# feasibility rows unread.
+# sequence group no step names leaves its feasibility row unread.
 def shared_fleet_bytes(n) -> int:
     return 3 * n * 6 * 4
 
 
 def rounds_lane_bytes(n, counts, out_len) -> int:
-    """One lane of K3/K4a: job counts; every slot's ask, distinct flag
-    and count; the feasibility row of each slot with copies to place;
-    chosen and scores (``out_len`` each); the lane's usage."""
+    """One lane of K3/K4a: job counts; every slot's ask, distinct flag,
+    count and feasibility row (a slot of count 0 is scored too, or its
+    row read to find no feasible node); chosen and scores (``out_len``
+    each); the lane's usage."""
     g = len(counts)
-    active = int((np.asarray(counts) > 0).sum())
-    return (4 * n + g * (6 * 4 + 1 + 4) + active * n + 8 * out_len
-            + n * 6 * 4)
+    return 4 * n + g * (6 * 4 + 1 + 4 + n) + 8 * out_len + n * 6 * 4
 
 
 def sequence_lane_bytes(n, group_idx, valid) -> int:
     """One lane of K2/K4b: job counts; the valid flags; the group index
-    of each valid step; the feasibility row, ask and distinct flag of
-    each group a valid step names; chosen and scores; the lane's
-    usage."""
-    valid = np.asarray(valid, dtype=bool)
-    steps = int(valid.sum())
-    named = len(set(np.asarray(group_idx)[valid].tolist()))
+    of each step; the feasibility row, ask and distinct flag of each
+    group a step names (every step is scored, valid or not); chosen and
+    scores; the lane's usage."""
     p = len(valid)
-    return (4 * n + p + 4 * steps + named * (n + 6 * 4 + 1) + 8 * p
+    named = len(set(np.asarray(group_idx).tolist()))
+    return (4 * n + p + 4 * p + named * (n + 6 * 4 + 1) + 8 * p
             + n * 6 * 4)
 
 
@@ -191,63 +198,161 @@ def fleet_case(torch, n, rng, *, uniform=False, g=8):
 
 def compare(torch, what, got, want) -> float:
     """Hold a kernel's (chosen, scores, usage) against the plain
-    version's; returns the largest absolute score/usage difference."""
-    gc, gs, gu = (x.cpu().numpy() for x in got)
-    wc, ws, wu = (x.cpu().numpy() for x in want)
-    require(np.array_equal(gc, wc),
-            f"{what}: chosen differs at {int((gc != wc).sum())} positions")
-    placed = wc >= 0
-    require(np.isfinite(gs[placed]).all(), f"{what}: non-finite scores")
-    np.testing.assert_allclose(gs[placed], ws[placed], **TOL,
-                               err_msg=what)
-    np.testing.assert_allclose(gu, wu, **USAGE_TOL, err_msg=what)
-    return float(max(np.abs(gs[placed] - ws[placed]).max(initial=0.0),
-                     np.abs(gu - wu).max(initial=0.0)))
+    version's, bit for bit: chosen nodes, the scores of every step or
+    round (placed or not) and the final usage, sign of zero included.
+    Returns the largest
+    absolute score/usage difference (0.0 when they agree)."""
+    for name, x, y in zip(("chosen", "scores", "usage"), got, want):
+        # int32 views: -0.0 and +0.0 differ too
+        require(torch.equal(x.view(torch.int32), y.view(torch.int32)),
+                f"{what}: {name} differ from the plain version at "
+                f"{int((x.view(torch.int32) != y.view(torch.int32)).sum())}"
+                " entries")
+    return max(float((x.float() - y.float()).abs().max()) if x.numel()
+               else 0.0 for x, y in zip(got[1:], want[1:]))
 
 
-def check_sequence(torch, binpack, n, p, rng, uniform, reps):
-    c = fleet_case(torch, n, rng, uniform=uniform)
-    group_idx = torch.from_numpy(
-        rng.integers(0, 3 if not uniform else 1, p).astype(np.int32)).to(DEV)
-    valid = torch.ones(p, dtype=torch.bool, device=DEV)
-    valid[-8:] = False
+def sequence_ops(n, g, group_idx, chosen) -> int:
+    """fp32 operations one K2/K4b lane's function needs, for G groups.
+    With a score slot per group (G up to SEQ_SLOTS, as K2 keeps them): a
+    scoring of all N nodes the first time a group is named, and after
+    each placed step one node's rescoring in every group scored so far
+    (only the chosen node's inputs changed).  With more groups than
+    slots, one slot: a scoring of all N nodes at every group change and
+    one node after each placed step.  Plus log2 N compares a step for
+    the argmax."""
+    per_group = g <= SEQ_SLOTS
+    ops, scored, last = 0, set(), None
+    for grp, c in zip(np.asarray(group_idx).tolist(),
+                      np.asarray(chosen).tolist()):
+        if (grp not in scored) if per_group else (grp != last):
+            ops += n * SCORE_OPS
+        scored.add(grp)
+        last = grp
+        if c >= 0:
+            ops += SCORE_OPS * (len(scored) if per_group else 1)
+        ops += int(np.log2(n))
+    return ops
+
+
+def sequence_groups(rng, p, groups, order):
+    """Group of each step: ``random`` (drawn), ``runs`` (contiguous runs
+    of each group, as torch_binpack lays out a job's placements) or
+    ``cycle`` (a group change at every step)."""
+    if order == "random":
+        return rng.integers(0, groups, p).astype(np.int32)
+    if order == "runs":
+        return np.repeat(np.arange(groups, dtype=np.int32),
+                         -(-p // groups))[:p]
+    return (np.arange(p) % groups).astype(np.int32)
+
+
+def check_sequence(torch, binpack, n, p, rng, *, uniform=False, groups=3,
+                   order="random", tail=8, gaps=0, neg_zero=False, reps=10,
+                   other_plans=False):
+    """K2 against its plain version on the card, bit for bit (chosen,
+    scores, usage and job counts under torch.equal).  ``tail`` invalid
+    steps at the end, an invalid step every ``gaps`` steps before them,
+    ``neg_zero`` makes every zero usage entry -0.0.  ``other_plans``
+    forces, on the same inputs, the launch plans (cluster, slots, mode)
+    the kernel takes at other sizes: one score slot, the state and
+    slots in device memory, a half and a quarter of the cluster; each
+    must agree too, and is timed."""
+    c = fleet_case(torch, n, rng, uniform=uniform, g=max(groups, 8))
+    if neg_zero:
+        c["usage0"] = torch.where(c["usage0"] == 0, -0.0, c["usage0"])
+    gi_h = sequence_groups(rng, p, groups, order)
+    valid_h = np.ones(p, dtype=bool)
+    if gaps:
+        valid_h[gaps - 1::gaps] = False
+    if tail:
+        valid_h[-tail:] = False
+    group_idx = torch.from_numpy(gi_h).to(DEV)
+    valid = torch.from_numpy(valid_h).to(DEV)
     args = (c["capacity"], c["reserved"], c["usage0"], c["jc0"],
             c["feasible"], c["asks"], c["distinct"], group_idx, valid, 10.0)
+    what = f"place_sequence N={n} P={p} {order}"
     usage_before = c["usage0"].clone()
-    got = binpack.place_sequence(*args)
+    got = binpack.place_sequence(*args, with_job_counts=True)
     torch.cuda.synchronize()
-    want = binpack.place_sequence_plain(*args)
+    want = binpack.place_sequence_plain(*args, with_job_counts=True)
     require(torch.equal(c["usage0"], usage_before),
             "place_sequence wrote to its input usage")
-    err = compare(torch, f"place_sequence N={n} P={p}", got, want)
+    err = compare(torch, what, got[:3], want[:3])
+    require(torch.equal(got[3], want[3]),
+            f"{what}: job counts differ from the plain version")
+    if neg_zero:  # the +0.0 adds reached the card: -0.0 rows went +0.0
+        before = int(torch.signbit(usage_before[usage_before == 0]).sum())
+        after = int(torch.signbit(got[2][got[2] == 0]).sum())
+        require(after < before, f"{what}: no -0.0 usage entry turned +0.0")
     ms = time_ms(torch, lambda: binpack.place_sequence(*args), reps)
     plain_ms = time_ms(torch, lambda: binpack.place_sequence_plain(*args), 1)
-    steps = int(valid.sum())
-    nbytes = shared_fleet_bytes(n) + sequence_lane_bytes(
-        n, group_idx.cpu().numpy(), valid.cpu().numpy())
-    b_ms, b_by = bound(nbytes, steps * n * OPS_PER_NODE)
-    placed = int((got[0] >= 0).sum())
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, placed=placed)
+    g = c["feasible"].shape[0]
+    plan = binpack.sequence_plan(n, g, DEV)
+    key = (torch.cuda.current_device(), n, g)
+    forced = {}
+    cl = plan[0]
+    alternates = [(cl, 1, 0), (cl, g, 1), (cl, 1, 1),
+                  (max(1, cl // 2), 1, 0), (max(1, cl // 4), 1, 1)]
+    for alt in alternates if other_plans else ():
+        binpack._SEQUENCE_PLANS[key] = alt
+        try:
+            try:
+                alt_out = binpack.place_sequence(*args, with_job_counts=True)
+            except RuntimeError as e:  # shared memory too small for it
+                require("invalid argument" in str(e), str(e))
+                forced[str(list(alt))] = "refused"
+                continue
+            torch.cuda.synchronize()
+            require(all(torch.equal(x, y) for x, y in zip(alt_out, want)),
+                    f"{what}: plan {alt} differs from the plain version")
+            forced[str(list(alt))] = time_ms(
+                torch, lambda: binpack.place_sequence(*args), reps)
+        finally:
+            binpack._SEQUENCE_PLANS[key] = plan
+    chosen_h = want[0].cpu().numpy()
+    nbytes = shared_fleet_bytes(n) + sequence_lane_bytes(n, gi_h, valid_h)
+    b_ms, b_by = bound(nbytes, sequence_ops(n, g, gi_h, chosen_h))
+    out = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, placed=int((chosen_h >= 0).sum()),
+               group_changes=int(1 + (np.diff(gi_h) != 0).sum()),
+               cluster=plan[0], slots=plan[1],
+               mode=binpack.SEQ_MODES[plan[2]])
+    if forced:
+        out["forced_plans_ms"] = forced
+    return out
 
 
 def rounds_run(counts, chosen, rounds, k_cap) -> int:
-    """Rounds the kernel actually scored: those entered with copies
-    left to place (the data-dependent work of this run)."""
+    """Rounds whose scoring the function needs: each slot's first round
+    and every round after one that placed something (a round after one
+    that placed nothing has the same top-k: the state changed only by
+    +0.0 adds)."""
     ran = 0
-    for s, count in enumerate(counts):
-        m = int(count)
+    for s in range(len(counts)):
+        fresh = True
         for r in range(rounds):
-            if m <= 0:
-                break
-            ran += 1
-            m -= int((chosen[s, r * k_cap:(r + 1) * k_cap] >= 0).sum())
+            ran += fresh
+            fresh = bool((chosen[s, r * k_cap:(r + 1) * k_cap] >= 0).any())
     return ran
 
 
+def pad_slots(c, first, axis):
+    """Slots ``first``.. of the case made padding, as the scheduler pads
+    a job's slots to a power of two: no feasible node, a zero ask."""
+    idx = (slice(None),) * axis + (slice(first, None),)
+    c["feasible"][idx] = False
+    c["asks"][idx] = 0.0
+    c["distinct"][idx] = False
+
+
 def check_rounds(torch, binpack, n, count, k_cap, rounds, rng, uniform,
-                 reps):
+                 reps, padded=False):
+    """K3 against its plain version; ``padded`` makes slots 2.. padding
+    (count 0, no feasible node), as on the main path."""
     c = fleet_case(torch, n, rng, uniform=uniform)
+    if padded:
+        pad_slots(c, 2, 0)
     g = c["feasible"].shape[0]
     counts_h = np.zeros(g, dtype=np.int32)
     counts_h[0] = count
@@ -437,32 +542,81 @@ def check_window_verify(torch, mesh, n_real, n_pad, n_plans, per_plan,
                 fits=int(fits.sum()))
 
 
+def device_per_call(torch, fn, reps):
+    """torch.profiler over ``reps`` calls of ``fn`` (after one warm-up):
+    the device time per call, ms, summed over every kernel it ran
+    (None when the profiler saw no device time), and the kernels it
+    launched per call."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if device_us(e) > 0]
+    total = sum(device_us(e) for e in events)
+    if total <= 0:
+        return None, None
+    return total / 1e3 / reps, sum(e.count for e in events) / reps
+
+
 def check_scatter(torch, fleet, n, r, rng, reps):
-    usage = torch.from_numpy(rng.random((n, 6)).astype(np.float32)).to(DEV)
+    """K5 against its plain version, bit for bit, with and without
+    padded duplicates and with -0.0 entries; timed with CUDA events
+    beside ``usage.index_copy`` in the same loop, and each one's device
+    time and kernels per call from torch.profiler."""
+    usage_h = rng.random((n, 6)).astype(np.float32)
+    usage_h[rng.random((n, 6)) > 0.9] = np.float32(-0.0)
+    usage = torch.from_numpy(usage_h).to(DEV)
     idx = torch.from_numpy(rng.choice(n, r, replace=False).astype(
         np.int32)).to(DEV)
     rows = torch.from_numpy(rng.random((r, 6)).astype(np.float32)).to(DEV)
+    rows[:, 0] = -0.0
     before = usage.clone()
     got = fleet.scatter_rows(usage, idx, rows)
     torch.cuda.synchronize()
     want = fleet.scatter_rows_plain(usage, idx, rows)
-    require(torch.equal(usage, before), "scatter_rows modified the old buffer")
-    require(torch.equal(got, want), "scatter_rows differs from plain")
+    require(torch.equal(usage.view(torch.int32), before.view(torch.int32)),
+            "scatter_rows modified the old buffer")
+    require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+            "scatter_rows differs from plain")
     # padded duplicates (idx[0] repeated with its own row)
     pad_idx = torch.cat([idx, idx[:1].repeat(7)])
     pad_rows = torch.cat([rows, rows[:1].repeat(7, 1)])
-    require(torch.equal(fleet.scatter_rows(usage, pad_idx, pad_rows), want),
-            "scatter_rows with padded duplicates differs")
-    ms = time_ms(torch, lambda: fleet.scatter_rows(usage, idx, rows), reps)
+    require(torch.equal(fleet.scatter_rows(usage, pad_idx, pad_rows).view(
+        torch.int32), want.view(torch.int32)),
+        "scatter_rows with padded duplicates differs")
+    idx64 = idx.long()
+
+    def kernel():
+        return fleet.scatter_rows(usage, idx, rows)
+
+    def library():
+        return usage.index_copy(0, idx64, rows)
+
+    # kernel, library, library, kernel: the two share one loop's state.
+    ms_a = time_ms(torch, kernel, reps)
+    library_a = time_ms(torch, library, reps)
+    library_b = time_ms(torch, library, reps)
+    ms_b = time_ms(torch, kernel, reps)
     plain_ms = time_ms(
         torch, lambda: fleet.scatter_rows_plain(usage, idx, rows), reps)
-    idx64 = idx.long()
-    library_ms = time_ms(torch, lambda: usage.index_copy(0, idx64, rows),
-                         reps)
+    device_ms, kernels_per_call = device_per_call(torch, kernel, reps)
+    library_device_ms, library_kernels = device_per_call(torch, library,
+                                                         reps)
+    require(kernels_per_call in (None, 1.0),
+            f"scatter_rows ran {kernels_per_call} kernels a call, not one")
     nbytes = 2 * n * 6 * 4 + 4 * r + r * 6 * 4
     b_ms, b_by = bound(nbytes, 0)
-    return dict(err=float((got - want).abs().max()), ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+    return dict(err=float((got - want).abs().max()), ms=(ms_a + ms_b) / 2,
+                ms_runs=[ms_a, ms_b], plain_ms=plain_ms,
+                library_ms=(library_a + library_b) / 2,
+                library_runs=[library_a, library_b], device_ms=device_ms,
+                kernels_per_call=kernels_per_call,
+                library_device_ms=library_device_ms,
+                library_kernels_per_call=library_kernels, bound_ms=b_ms,
                 bound_by=b_by)
 
 
@@ -491,11 +645,14 @@ def batch_compare(torch, what, got, want, lanes_alone) -> float:
 
 
 def check_rounds_batch(torch, binpack, n, lanes, counts0, k_cap, rounds, rng,
-                       uniform, reps):
+                       uniform, reps, padded=False):
     """K4a against its plain version and, lane by lane, against K3.
     ``counts0`` is slot 0's copies in every lane; random cases add a
-    second slot of a seventh of it."""
+    second slot of a seventh of it; ``padded`` makes slots 2.. padding
+    (count 0, no feasible node), as on the main path."""
     c = lanes_case(torch, n, lanes, rng, uniform=uniform)
+    if padded:
+        pad_slots(c, 2, 1)
     g = c["feasible"].shape[1]
     counts_h = np.zeros((lanes, g), dtype=np.int32)
     counts_h[:, 0] = counts0
@@ -574,12 +731,14 @@ def check_sequence_batch(torch, binpack, n, lanes, p, rng, reps):
     ms = time_ms(torch, lambda: binpack.place_sequence_batch(*args), reps)
     plain_ms = time_ms(torch,
                        lambda: binpack.place_sequence_batch_plain(*args), 1)
-    steps = int(valid.sum())
     gi_h, valid_h = group_idx.cpu().numpy(), valid.cpu().numpy()
+    chosen_h = want[0].cpu().numpy()
     nbytes = shared_fleet_bytes(n) + sum(
         4 + sequence_lane_bytes(n, gi_h[b], valid_h[b])
         for b in range(lanes))  # 4: the lane's penalty
-    b_ms, b_by = bound(nbytes, steps * n * OPS_PER_NODE)
+    g = c["feasible"].shape[1]
+    b_ms, b_by = bound(nbytes, sum(sequence_ops(n, g, gi_h[b], chosen_h[b])
+                                   for b in range(lanes)))
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, placed=int((got[0] >= 0).sum()))
 
@@ -800,10 +959,14 @@ def run_slice(torch):
     require(len(big.plans[-1].failed_allocs) == 0,
             "second config-4 job left allocs unplaced")
 
-    # The same 1,000-node run through the plain versions on the card.
+    # The same 1,000-node run through the plain versions on the card,
+    # keeping the inputs of its sequence walks: the placements are the
+    # same, so they are those of the main path's K2 launch.
+    seq_calls: list = []
     saved = (binpack.place_sequence, binpack.place_rounds,
              fleet.scatter_rows)
-    binpack.place_sequence = binpack.place_sequence_plain
+    binpack.place_sequence = recording(binpack.place_sequence_plain,
+                                       seq_calls)
     binpack.place_rounds = binpack.place_rounds_plain
     fleet.scatter_rows = fleet.scatter_rows_plain
     try:
@@ -813,12 +976,68 @@ def run_slice(torch):
          fleet.scatter_rows) = saved
     require([p for p, _f in small] == [p for p, _f in plain],
             "slice placements differ from the plain versions' run")
+    require(len(seq_calls) == launches["place_sequence"],
+            f"the plain rerun walked {len(seq_calls)} sequences, the "
+            f"main path {launches['place_sequence']}")
+    main_seq = main_path_sequence(torch, binpack, seq_calls[0])
     return dict(launches=launches, evals=len(times),
                 placements=len(placed4) + sum(len(p) for p, _f in small),
                 eval_ms_median=statistics.median(times) * 1e3,
                 eval_ms_max=max(times) * 1e3,
                 config4_eval_ms=times[0] * 1e3, node_setup_s=setup_s,
-                profiled_config4_eval=profile)
+                profiled_config4_eval=profile,
+                main_path_sequence=main_seq)
+
+
+def recording(fn, calls):
+    """``fn``, keeping a copy of each call's positional inputs in
+    ``calls``."""
+    def recorded(*a, **kw):
+        calls.append(tuple(x.clone() if hasattr(x, "clone") else x
+                           for x in a))
+        return fn(*a, **kw)
+    return recorded
+
+
+def main_path_sequence(torch, binpack, args, reps=50):
+    """K2 at the main path's own launch (``args``, recorded from the
+    slice's sequence job) beside the one-block lane body that K2 ran
+    until it moved onto a cluster and K4b runs now, launched as K4b at
+    B=1 on the same inputs.  Both are held to the plain version bit for
+    bit and timed with CUDA events in one loop order (K2, one block,
+    one block, K2)."""
+    (cap, res, usage0, jc0, feas, asks, dist, group_idx, valid,
+     penalty) = args
+    n, g, p = cap.shape[0], feas.shape[0], group_idx.shape[0]
+    want = binpack.place_sequence_plain(*args, with_job_counts=True)
+    got = binpack.place_sequence(*args, with_job_counts=True)
+    pen = torch.tensor([float(penalty)], dtype=torch.float32, device=DEV)
+    lane = (cap, res, usage0, jc0[None], feas[None], asks[None], dist[None],
+            group_idx[None], valid[None], pen)
+    one = binpack.place_sequence_batch(*lane)
+    torch.cuda.synchronize()
+    what = f"place_sequence main path N={n} G={g} P={p}"
+    compare(torch, what, got[:3], want[:3])
+    require(torch.equal(got[3], want[3]), f"{what}: job counts differ")
+    compare(torch, what + " one block", [x[0] for x in one], want[:3])
+    k2_a = time_ms(torch, lambda: binpack.place_sequence(*args), reps)
+    one_a = time_ms(torch, lambda: binpack.place_sequence_batch(*lane),
+                    reps)
+    one_b = time_ms(torch, lambda: binpack.place_sequence_batch(*lane),
+                    reps)
+    k2_b = time_ms(torch, lambda: binpack.place_sequence(*args), reps)
+    gi_h = group_idx.cpu().numpy()
+    chosen_h = want[0].cpu().numpy()
+    nbytes = shared_fleet_bytes(n) + sequence_lane_bytes(
+        n, gi_h, valid.cpu().numpy())
+    b_ms, b_by = bound(nbytes, sequence_ops(n, g, gi_h, chosen_h))
+    plan = binpack.sequence_plan(n, g, DEV)
+    return dict(n=n, groups=g, steps=p, placed=int((chosen_h >= 0).sum()),
+                cluster=plan[0], slots=plan[1],
+                mode=binpack.SEQ_MODES[plan[2]], ms=(k2_a + k2_b) / 2,
+                ms_runs=[k2_a, k2_b], one_block_ms=(one_a + one_b) / 2,
+                one_block_runs=[one_a, one_b], bound_ms=b_ms,
+                bound_by=b_by)
 
 
 # -- phase 5: the fused storm ----------------------------------------------
@@ -1026,6 +1245,9 @@ def run_storm(torch, sizes5=(), sizes5b=(), n_seq_nodes=1000):
     placed5b, c5b = storm_config5b(mock, structs, Harness, VerifyingPlanner,
                                    BatchEvalRunner, *sizes5b)
     require(c5b["conflicts"] > 0, "config 5b was not contended")
+    if not sizes5b:
+        for k, v in CONFIG5B_COUNTS.items():
+            require(c5b[k] == v, f"config 5b: {k} {c5b[k]}, expected {v}")
     nodes = [mock.node(i) for i in range(n_seq_nodes)]
     seq = storm_sequence(mock, structs, Harness, BatchEvalRunner, nodes)
     launches = {fn.__name__: fn.launches for fn in counters}
@@ -1079,8 +1301,45 @@ def run_storm(torch, sizes5=(), sizes5b=(), n_seq_nodes=1000):
     dev5b["fallbacks"] = fallbacks
     dev5b["buckets"] = sorted({r["bucket"] for r in records
                                if r and r["dispatched"]})
+    # The sequence storm's K4b launch, its inputs kept from a rerun of
+    # (c) through the plain version (the same fresh snapshot, so the
+    # same inputs), replayed and timed.
+    batch_calls: list = []
+    binpack.place_sequence_batch = recording(
+        binpack.place_sequence_batch_plain, batch_calls)
+    try:
+        storm_sequence(mock, structs, Harness, BatchEvalRunner, nodes)
+    finally:
+        binpack.place_sequence_batch = saved[4]
+    require(len(batch_calls) == launches["place_sequence_batch"],
+            f"the plain rerun made {len(batch_calls)} K4b calls, the main "
+            f"path {launches['place_sequence_batch']}")
+    seq["main_path_sequence_batch"] = main_path_sequence_batch(
+        torch, binpack, batch_calls[0])
     return dict(launches=launches, config5=c5, config5b=c5b,
                 config5b_device=dev5b, sequence_storm=seq)
+
+
+def main_path_sequence_batch(torch, binpack, args, reps=50):
+    """K4b at the main path's own launch (``args``, recorded from the
+    sequence storm), held to its plain version bit for bit and timed
+    with CUDA events."""
+    n, (b, g), p = args[0].shape[0], args[4].shape[:2], args[7].shape[1]
+    want = binpack.place_sequence_batch_plain(*args)
+    got = binpack.place_sequence_batch(*args)
+    torch.cuda.synchronize()
+    compare(torch, f"place_sequence_batch main path N={n} B={b} G={g} "
+            f"P={p}", got, want)
+    ms = time_ms(torch, lambda: binpack.place_sequence_batch(*args), reps)
+    gi_h, valid_h = args[7].cpu().numpy(), args[8].cpu().numpy()
+    chosen_h = want[0].cpu().numpy()
+    nbytes = shared_fleet_bytes(n) + sum(
+        4 + sequence_lane_bytes(n, gi_h[k], valid_h[k]) for k in range(b))
+    b_ms, b_by = bound(nbytes, sum(sequence_ops(n, g, gi_h[k], chosen_h[k])
+                                   for k in range(b)))
+    return dict(n=n, lanes=b, groups=g, steps=p,
+                placed=int((chosen_h >= 0).sum()), ms=ms, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 # -- phase 6: the verify engines over a growing fleet ----------------------
@@ -1224,13 +1483,45 @@ def main() -> int:
           f"({', '.join(sorted(built)) or 'up to date'})", flush=True)
 
     rng = np.random.default_rng(1234)
-    seq = check_sequence(torch, binpack, 16384, 1024, rng, False, 5)
-    seq_tie = check_sequence(torch, binpack, 16384, 1024, rng, True, 5)
+    # K2, bit for bit, at: its timed shape (three groups drawn at
+    # random, the last 8 steps invalid) and its tie case; contiguous
+    # group runs, as the main path lays a job out; a group change every
+    # step over 8 groups (also under the one-cache and the scratch plans
+    # the kernel takes at other sizes); the config-2 size the slice
+    # launches; 131,072 nodes; invalid steps inside the walk and a long
+    # invalid tail; -0.0 usage entries.
+    seq = check_sequence(torch, binpack, 16384, 1024, rng)
+    seq_cases = {
+        "N=16384 P=1024 ties": dict(n=16384, p=1024, uniform=True,
+                                    groups=1),
+        "N=16384 P=1024 runs G=8": dict(n=16384, p=1024, groups=8,
+                                        order="runs"),
+        "N=16384 P=1024 cycle G=8": dict(n=16384, p=1024, groups=8,
+                                         order="cycle", other_plans=True),
+        "N=1024 P=40 runs G=10": dict(n=1024, p=40, groups=10,
+                                      order="runs", tail=0),
+        "N=131072 P=256": dict(n=131072, p=256),
+        "N=16384 P=1024 runs G=8 gaps": dict(n=16384, p=1024, groups=8,
+                                             order="runs", gaps=50,
+                                             tail=100),
+        "N=16384 P=1024 -0.0": dict(n=16384, p=1024, neg_zero=True),
+    }
+    seq_more = {}
+    for name, kw in seq_cases.items():
+        kw = dict(kw)
+        seq_more[name] = check_sequence(torch, binpack, kw.pop("n"),
+                                        kw.pop("p"), rng, **kw)
+        print(f"kernel place_sequence {name}: "
+              + json.dumps(seq_more[name]), flush=True)
     rnd = check_rounds(torch, binpack, 16384, 1000, 1024, 1, rng, True, 10)
     rnd_rand = check_rounds(torch, binpack, 16384, 1000, 1024, 2, rng,
                             False, 10)
     rnd_big = check_rounds(torch, binpack, 131072, 1000, 1024, 1, rng,
                            True, 3)
+    # K3 and K4a with the slots past the job's padded, as the main path
+    # launches them (config 4: one slot of 1,000; config 5's lanes).
+    rnd_pad = check_rounds(torch, binpack, 16384, 1000, 1024, 1, rng, True,
+                           10, padded=True)
     sct = check_scatter(torch, fleet, 16384, 1024, rng, 50)
     # K6: the fleet-scaling window (64 single-placement plans, each its
     # own component, on the 1,000,000-node fleet's 1,048,576 rows) and a
@@ -1244,17 +1535,22 @@ def main() -> int:
                             True, 10)
     rb_rand = check_rounds_batch(torch, binpack, 16384, 16, 1000, 1024, 2,
                                  rng, False, 10)
+    rb_pad = check_rounds_batch(torch, binpack, 16384, 64, 1000, 1024, 1, rng,
+                                True, 10, padded=True)
     sb = check_sequence_batch(torch, binpack, 16384, 8, 256, rng, 3)
     for name, r in (("place_sequence N=16384 P=1024", seq),
-                    ("place_sequence N=16384 P=1024 ties", seq_tie),
                     ("place_rounds N=16384 count=1000 k=1024", rnd),
                     ("place_rounds N=16384 random rounds=2", rnd_rand),
                     ("place_rounds N=131072 count=1000 k=1024", rnd_big),
+                    ("place_rounds N=16384 count=1000 k=1024 padded",
+                     rnd_pad),
                     ("scatter_rows N=16384 R=1024", sct),
                     ("place_rounds_batch N=16384 B=64 count=1000 k=1024",
                      rb),
                     ("place_rounds_batch N=16384 B=16 random rounds=2",
                      rb_rand),
+                    ("place_rounds_batch N=16384 B=64 count=1000 padded",
+                     rb_pad),
                     ("place_sequence_batch N=16384 B=8 P=256", sb),
                     ("window_verify N=1048576 B=64 (5f window)", wv5f),
                     ("window_verify N=256 B=8192 (config-5b scale)",
@@ -1280,14 +1576,16 @@ def main() -> int:
              source="nomad_tpu_torch/csrc/binpack.cu",
              replaces="nomad_tpu/ops/binpack.py:78",
              launches=launches["place_sequence"],
-             max_abs_err=max(seq["err"], seq_tie["err"]), ms=seq["ms"],
+             max_abs_err=max(r["err"] for r in (seq, *seq_more.values())),
+             ms=seq["ms"],
              plain_ms=seq["plain_ms"], bound_ms=seq["bound_ms"],
              bound_by=seq["bound_by"], library_ms=None),
         dict(name="place_rounds", route="cuda",
              source="nomad_tpu_torch/csrc/binpack.cu",
              replaces="nomad_tpu/ops/binpack.py:123",
              launches=launches["place_rounds"],
-             max_abs_err=max(rnd["err"], rnd_rand["err"], rnd_big["err"]),
+             max_abs_err=max(rnd["err"], rnd_rand["err"], rnd_big["err"],
+                             rnd_pad["err"]),
              ms=rnd["ms"], plain_ms=rnd["plain_ms"],
              bound_ms=rnd["bound_ms"], bound_by=rnd["bound_by"],
              library_ms=None),
@@ -1297,12 +1595,15 @@ def main() -> int:
              launches=launches["scatter_rows"],
              max_abs_err=sct["err"], ms=sct["ms"],
              plain_ms=sct["plain_ms"], bound_ms=sct["bound_ms"],
-             bound_by=sct["bound_by"], library_ms=sct["library_ms"]),
+             bound_by=sct["bound_by"], library_ms=sct["library_ms"],
+             device_ms=sct["device_ms"],
+             library_device_ms=sct["library_device_ms"]),
         dict(name="place_rounds_batch", route="cuda",
              source="nomad_tpu_torch/csrc/binpack.cu",
              replaces="nomad_tpu/ops/binpack.py:185",
              launches=launches["place_rounds_batch"],
-             max_abs_err=max(rb["err"], rb_rand["err"]), ms=rb["ms"],
+             max_abs_err=max(rb["err"], rb_rand["err"], rb_pad["err"]),
+             ms=rb["ms"],
              plain_ms=rb["plain_ms"], bound_ms=rb["bound_ms"],
              bound_by=rb["bound_by"], library_ms=None),
         dict(name="place_sequence_batch", route="cuda",

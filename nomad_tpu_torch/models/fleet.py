@@ -38,6 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from nomad_tpu_torch.ops import kernels
 from nomad_tpu_torch.structs import (
     ALL_FIT_DIMS,
     NODE_STATUS_READY,
@@ -932,27 +933,36 @@ def scatter_rows_plain(usage, idx, rows):
 
 
 def scatter_rows(usage, idx, rows):
-    """K5: the plain version for CPU tensors, the ``scatter_rows_kernel``
-    launch (``csrc/scatter_rows.cu``) for CUDA tensors.  ``usage``
-    f32[N, D] is never modified; the result is a new buffer.  Indices
-    must lie in [0, N)."""
-    from nomad_tpu_torch.ops import kernels
-
-    args = dict(usage=usage, idx=idx, rows=rows)
-    device = kernels.route(args)
-    if device.type == "cpu":
-        return scatter_rows_plain(usage, idx, rows)
+    """K5: the plain version for CPU tensors, ONE ``scatter_rows_kernel``
+    launch (``csrc/scatter_rows.cu``) for CUDA tensors: it copies
+    ``usage`` into a new buffer and writes the replaced rows in the same
+    launch.  ``usage`` f32[N, D] is never modified.  Indices must lie in
+    [0, N).  The checks take one comparison each on the common path (the
+    call runs at the host's launch rate); anything off goes through
+    ``kernels.route`` / ``kernels.check_args`` for the error."""
+    device = usage.device
+    if device.type != "cuda" or idx.device != device or \
+            rows.device != device:
+        device = kernels.route(dict(usage=usage, idx=idx, rows=rows))
+        if device.type == "cpu":
+            return scatter_rows_plain(usage, idx, rows)
+    if usage.dim() != 2:
+        raise ValueError(f"usage: shape {tuple(usage.shape)}, kernel takes "
+                         "(N, D)")
     n, d = usage.shape
     r = idx.shape[0]
-    kernels.check_args(args, dict(
-        usage=(torch.float32, (n, d)), idx=(torch.int32, (r,)),
-        rows=(torch.float32, (r, d))))
+    if not (usage.dtype == torch.float32 and idx.dtype == torch.int32
+            and rows.dtype == torch.float32 and idx.dim() == 1
+            and rows.shape == (r, d) and usage.is_contiguous()
+            and idx.is_contiguous() and rows.is_contiguous()):
+        kernels.check_args(dict(usage=usage, idx=idx, rows=rows), dict(
+            usage=(torch.float32, (n, d)), idx=(torch.int32, (r,)),
+            rows=(torch.float32, (r, d))))
     out = torch.empty_like(usage)
-    out.copy_(usage)
     lib = kernels.library("scatter_rows")
     code = lib.nomad_scatter_rows(
-        out.data_ptr(), idx.data_ptr(), rows.data_ptr(), r, n, d,
-        kernels.stream_handle(device))
+        usage.data_ptr(), out.data_ptr(), idx.data_ptr(), rows.data_ptr(),
+        r, n, d, kernels.stream_handle(device))
     kernels.check(lib, "scatter_rows", code)
     scatter_rows.launches += 1
     return out

@@ -18,6 +18,13 @@ against); on a CUDA device it launches the hand-written kernel in
 ``csrc/binpack.cu``, or raises.  Each wrapper counts its launches in
 its ``launches`` attribute.
 
+Every step of the sequence walks (K2, K4b) and every round of the
+rounds walks (K3, K4a) is scored, as in the JAX scans, also where
+nothing is placed (an invalid step, a group no node fits, a round
+entered with no copies left): its best score or top-k values are
+returned, and the rows the JAX scan adds zero to get +0.0 (a -0.0
+usage entry comes out +0.0).  Chosen is -1 wherever nothing is placed.
+
 Shapes (N nodes padded to a power of two, D = 6 dims, G slots, P
 placements): capacity/reserved/usage f32[N, D], job_counts i32[N],
 feasible bool[G, N], asks f32[G, D], distinct bool[G], group_idx
@@ -31,6 +38,8 @@ lane evolves its own copy of the base usage (optimistic concurrency:
 conflicts between lanes are the plan applier's to resolve).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -73,33 +82,41 @@ def score_all_nodes(capacity, reserved, usage, job_counts, ask, feasible,
 
 
 def place_sequence_plain(capacity, reserved, usage0, job_counts0, feasible,
-                         asks, distinct, group_idx, valid, penalty):
+                         asks, distinct, group_idx, valid, penalty,
+                         with_job_counts: bool = False):
     """Plain version of K2: one placement per step, in the JAX scan's
     order, each step scoring against the usage the step before left.
+    Every step is scored, valid or not, as in the JAX scan: a step that
+    places nothing (invalid, or no node fits) still returns its best
+    score and adds ``ask * 0.0`` to its argmax row (row 0 when every
+    node is masked), which turns a -0.0 usage entry into +0.0.
 
-    Returns chosen i32[P] (-1 = unplaced), scores f32[P] (meaningless
-    where chosen == -1) and the final usage f32[N, D]."""
+    Returns chosen i32[P] (-1 = unplaced), scores f32[P] (each step's
+    best score) and the final usage f32[N, D]; with
+    ``with_job_counts``, also the final job counts i32[N]."""
     usage = usage0.clone()
     job_counts = job_counts0.clone()
     n_place = group_idx.shape[0]
     chosen = torch.full((n_place,), -1, dtype=torch.int32,
                         device=usage.device)
-    scores = torch.full((n_place,), NEG_INF, dtype=torch.float32,
-                        device=usage.device)
+    scores = torch.empty((n_place,), dtype=torch.float32,
+                         device=usage.device)
     for p, (g, is_valid) in enumerate(zip(group_idx.tolist(),
                                           valid.tolist())):
-        if not is_valid:
-            continue
         ask = asks[g]
         masked = score_all_nodes(capacity, reserved, usage, job_counts,
                                  ask, feasible[g], distinct[g], penalty)
         choice = torch.argmax(masked)  # the first maximum
         best = masked[choice]
         scores[p] = best
-        if best.item() > NEG_INF / 2:
+        if is_valid and best.item() > NEG_INF / 2:
             usage[choice] += ask
             job_counts[choice] += 1
             chosen[p] = choice.to(torch.int32)
+        else:
+            usage[choice] += ask * 0.0
+    if with_job_counts:
+        return chosen, scores, usage, job_counts
     return chosen, scores, usage
 
 
@@ -116,25 +133,25 @@ def place_rounds_plain(capacity, reserved, usage0, jc0, feasible, asks,
                        distinct, counts, penalty, k_cap: int, rounds: int):
     """Plain version of K3: for each slot, ``rounds`` rounds of score ->
     top-``k_cap`` -> place one copy on each of up to
-    ``min(remaining, k_cap)`` distinct winners.
+    ``min(remaining, k_cap)`` distinct winners.  Every round is scored,
+    also one entered with no copies left, and every top-k winner not
+    taken gets +0.0 added to its row, as in the JAX scan.
 
     Returns chosen i32[G, rounds * k_cap] (per-slot streams in placement
-    order, -1 = unplaced), scores alike (meaningless where chosen ==
-    -1) and the final usage f32[N, D]."""
+    order, -1 = unplaced), scores alike (the top-k values of every
+    round) and the final usage f32[N, D]."""
     usage = usage0.clone()
     jc = jc0.clone()
     n_slots = feasible.shape[0]
     device = usage.device
     chosen = torch.full((n_slots, rounds * k_cap), -1, dtype=torch.int32,
                         device=device)
-    scores = torch.full((n_slots, rounds * k_cap), NEG_INF,
-                        dtype=torch.float32, device=device)
+    scores = torch.empty((n_slots, rounds * k_cap), dtype=torch.float32,
+                         device=device)
     pos = torch.arange(k_cap, device=device)
     for s, m in enumerate(counts.tolist()):
         ask = asks[s]
         for r in range(rounds):
-            if m <= 0:
-                break
             masked = score_all_nodes(capacity, reserved, usage, jc, ask,
                                      feasible[s], distinct[s], penalty)
             vals, idx = topk_plain(masked, k_cap)
@@ -160,12 +177,45 @@ def _node_axis(capacity) -> int:
     return n
 
 
+# Where a K2 CTA keeps its node state and score slots
+# (``csrc/binpack.cu`` SEQ_*): in shared memory, or where they do not fit
+# in device memory (the slots in a scratch of slots * N floats).
+SEQ_MODES = ("shared", "scratch")
+
+# K2's launch plan per (device index, N, G): see sequence_plan.
+_SEQUENCE_PLANS: dict = {}
+
+
+def sequence_plan(n: int, g: int, device) -> tuple:
+    """K2's launch plan on the CUDA ``device`` for N nodes and G groups:
+    (CTAs in the cluster, score slots each CTA keeps, index into
+    :data:`SEQ_MODES`), from ``nomad_place_sequence_plan``: the largest
+    power of two up to 16, and up to N / 1,024, CTAs that the card can
+    co-schedule, with a score slot per group up to 32 groups.  Asked
+    once per (device, N, G); raises when no cluster size can launch."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    key = (index, n, g)
+    plan = _SEQUENCE_PLANS.get(key)
+    if plan is None:
+        lib = kernels.library("binpack")
+        out = (ctypes.c_int * 3)()
+        with torch.cuda.device(index):
+            code = lib.nomad_place_sequence_plan(n, g, out)
+        kernels.check(lib, "place_sequence plan", code)
+        plan = _SEQUENCE_PLANS[key] = tuple(out)
+    return plan
+
+
 def place_sequence(capacity, reserved, usage0, job_counts0, feasible, asks,
-                   distinct, group_idx, valid, penalty):
+                   distinct, group_idx, valid, penalty,
+                   with_job_counts: bool = False):
     """K2 (``nomad_tpu/ops/binpack.py`` place_sequence): the plain
-    version for CPU tensors, the ``place_sequence_kernel`` launch for
-    CUDA tensors.  Same arguments and results as
-    :func:`place_sequence_plain`."""
+    version for CPU tensors, the ``place_sequence_kernel`` launch (one
+    thread-block cluster, :func:`sequence_plan`) for CUDA tensors.  Same
+    arguments and results as :func:`place_sequence_plain`; ``usage0`` is
+    never written."""
     args = dict(capacity=capacity, reserved=reserved, usage0=usage0,
                 job_counts0=job_counts0, feasible=feasible, asks=asks,
                 distinct=distinct, group_idx=group_idx, valid=valid)
@@ -173,7 +223,7 @@ def place_sequence(capacity, reserved, usage0, job_counts0, feasible, asks,
     if device.type == "cpu":
         return place_sequence_plain(capacity, reserved, usage0, job_counts0,
                                     feasible, asks, distinct, group_idx,
-                                    valid, penalty)
+                                    valid, penalty, with_job_counts)
     n = _node_axis(capacity)
     g = feasible.shape[0]
     p = group_idx.shape[0]
@@ -187,19 +237,27 @@ def place_sequence(capacity, reserved, usage0, job_counts0, feasible, asks,
         distinct=(torch.bool, (g,)),
         group_idx=(torch.int32, (p,)),
         valid=(torch.bool, (p,))))
+    csize, slots, mode = sequence_plan(n, g, device)
     chosen = torch.empty(p, dtype=torch.int32, device=device)
     scores = torch.empty(p, dtype=torch.float32, device=device)
     usage = torch.empty_like(usage0)
     jc = torch.empty_like(job_counts0)
+    # Every CTA's score slots, when shared memory cannot hold them.
+    scratch = torch.empty(slots * n, dtype=torch.float32, device=device) \
+        if SEQ_MODES[mode] == "scratch" else None
     lib = kernels.library("binpack")
     code = lib.nomad_place_sequence(
         capacity.data_ptr(), reserved.data_ptr(), usage0.data_ptr(),
         job_counts0.data_ptr(), feasible.data_ptr(), asks.data_ptr(),
         distinct.data_ptr(), group_idx.data_ptr(), valid.data_ptr(),
-        float(penalty), n, p, chosen.data_ptr(), scores.data_ptr(),
-        usage.data_ptr(), jc.data_ptr(), kernels.stream_handle(device))
+        float(penalty), n, g, p, csize, slots, mode, chosen.data_ptr(),
+        scores.data_ptr(), usage.data_ptr(), jc.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        kernels.stream_handle(device))
     kernels.check(lib, "place_sequence", code)
     place_sequence.launches += 1
+    if with_job_counts:
+        return chosen, scores, usage, jc
     return chosen, scores, usage
 
 

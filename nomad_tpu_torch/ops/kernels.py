@@ -44,13 +44,14 @@ _F = ctypes.c_float
 # an int error code).  Pointers and the stream travel as c_void_p.
 PROTOTYPES = {
     "binpack": {
-        "nomad_place_sequence": (_P,) * 9 + (_F, _I, _I) + (_P,) * 5,
+        "nomad_place_sequence_plan": (_I, _I, _P),
+        "nomad_place_sequence": (_P,) * 9 + (_F,) + (_I,) * 6 + (_P,) * 6,
         "nomad_place_rounds": (_P,) * 8 + (_F, _I, _I, _I, _I) + (_P,) * 6,
         "nomad_place_sequence_batch": (_P,) * 10 + (_I,) * 4 + (_P,) * 5,
         "nomad_place_rounds_batch": (_P,) * 9 + (_I,) * 5 + (_P,) * 6,
     },
     "scatter_rows": {
-        "nomad_scatter_rows": (_P, _P, _P, _I, _I, _I, _P),
+        "nomad_scatter_rows": (_P, _P, _P, _P, _I, _I, _I, _P),
     },
     "window_verify": {
         "nomad_window_verify": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P),
@@ -114,6 +115,9 @@ def build(names=None) -> dict:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library ``name``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is not None:  # loaded: no lock on the launch path
+        return lib
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
@@ -137,9 +141,13 @@ def check(lib: ctypes.CDLL, what: str, code: int) -> None:
 
 
 def stream_handle(device) -> int:
-    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``."""
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``
+    (a ``torch.device`` with an index, as a CUDA tensor's is, takes
+    PyTorch's raw accessor: no Stream object per launch)."""
     import torch
 
+    if getattr(device, "index", None) is not None:
+        return torch._C._cuda_getCurrentRawStream(device.index)
     return torch.cuda.current_stream(device).cuda_stream
 
 

@@ -202,6 +202,93 @@ def test_batch_wrappers_count_no_launch_on_the_cpu():
                                k_cap=fleet.n_pad + 1, rounds=1)
 
 
+# -- where nothing is placed: every step and round scored, +0.0 added --------
+#
+# As tests/test_torch_binpack.py holds K2/K3: from a base usage whose
+# zero entries are all -0.0, scores at every step and round (invalid
+# steps, the all-infeasible slot 3, exhausted rounds, the pad lane) and
+# the lanes' final usage bit for bit (int32 views).
+
+_ORDERS = {
+    "contiguous": [0] * 5 + [1] * 4 + [3] * 2 + [2] * 5,
+    "interleaved": [0, 1, 2, 3] * 4,
+}
+
+
+def _negative_zero(usage):
+    usage = usage.copy()
+    usage[usage == 0] = np.float32(-0.0)
+    return usage
+
+
+def _neg_zeros(x) -> int:
+    x = np.asarray(x)
+    return int(((x == 0) & np.signbit(x)).sum())
+
+
+def _check_every(j_out, t_out):
+    j_chosen, j_scores, j_usage = (np.asarray(x) for x in j_out)
+    t_chosen, t_scores, t_usage = (x.numpy() for x in t_out)
+    assert np.array_equal(t_chosen, j_chosen)
+    np.testing.assert_allclose(t_scores, j_scores, rtol=1e-4, atol=1e-4)
+    assert np.array_equal(
+        np.ascontiguousarray(t_usage).view(np.int32),
+        np.ascontiguousarray(j_usage.astype(np.float32)).view(np.int32))
+    assert (t_scores[t_chosen < 0] > tbp.NEG_INF / 2).any()
+
+
+@pytest.mark.parametrize("used", [False, True])
+@pytest.mark.parametrize("k_cap,rounds", [(8, 1), (4, 2)])
+def test_place_rounds_batch_scores_every_round_like_jax(k_cap, rounds,
+                                                        used):
+    rng = np.random.default_rng(51)
+    (fleet, usage, jc, feasible, asks, distinct, _gi, _v, counts,
+     penalty) = _lanes_case(rng, used, counts_g=(3, 0, 6))
+    usage = _negative_zero(usage)
+    counts[0, 3] = 2  # copies asked of the all-infeasible slot
+    j_out = jbp.place_rounds_batch(
+        fleet.capacity, fleet.reserved, usage, jc, feasible, asks,
+        distinct, counts, penalty, k_cap=k_cap, rounds=rounds)
+    targs = (_t(fleet.capacity), _t(fleet.reserved), _t(usage), _t(jc),
+             _t(feasible), _t(asks), _t(distinct), _t(counts), _t(penalty))
+    t_out = tbp.place_rounds_batch(*targs, k_cap=k_cap, rounds=rounds)
+    _check_every(j_out, t_out)
+    for b in range(LANES):
+        assert _neg_zeros(t_out[2][b]) < _neg_zeros(usage)
+        alone = tbp.place_rounds_plain(
+            *targs[:3], targs[3][b], targs[4][b], targs[5][b], targs[6][b],
+            targs[7][b], float(penalty[b]), k_cap=k_cap, rounds=rounds)
+        for got, want in zip(t_out, alone):
+            assert torch.equal(got[b], want)
+
+
+@pytest.mark.parametrize("order", sorted(_ORDERS))
+@pytest.mark.parametrize("used", [False, True])
+def test_place_sequence_batch_scores_every_step_like_jax(order, used):
+    rng = np.random.default_rng(53)
+    (fleet, usage, jc, feasible, asks, distinct, _gi, valid, _c,
+     penalty) = _lanes_case(rng, used)
+    usage = _negative_zero(usage)
+    group_idx = np.tile(np.asarray(_ORDERS[order], dtype=np.int32),
+                        (LANES, 1))
+    valid[:REAL, 6] = False  # an invalid step inside a run
+    j_out = jbp.place_sequence_batch(
+        fleet.capacity, fleet.reserved, usage, jc, feasible, asks,
+        distinct, group_idx, valid, penalty)
+    targs = (_t(fleet.capacity), _t(fleet.reserved), _t(usage), _t(jc),
+             _t(feasible), _t(asks), _t(distinct), _t(group_idx),
+             _t(valid), _t(penalty))
+    t_out = tbp.place_sequence_batch(*targs)
+    _check_every(j_out, t_out)
+    for b in range(LANES):
+        assert _neg_zeros(t_out[2][b]) < _neg_zeros(usage)
+        alone = tbp.place_sequence_plain(
+            *targs[:3], targs[3][b], targs[4][b], targs[5][b], targs[6][b],
+            targs[7][b], targs[8][b], float(penalty[b]))
+        for got, want in zip(t_out, alone):
+            assert torch.equal(got[b], want)
+
+
 @pytest.mark.parametrize("n", [1, 2, 3, 5, 8, 63, 64, 65])
 def test_pad_lanes_like_jax(n):
     assert pad_lanes(n) == j_pad_lanes(n)

@@ -252,3 +252,104 @@ def test_wrappers_reject_mixed_devices_and_bad_k():
             _t(fleet.capacity), _t(fleet.reserved), _t(view.usage),
             _t(view.job_counts), _t(feasible), _t(asks), _t(distinct),
             _t(counts), 10.0, k_cap=4, rounds=0)
+
+
+# -- where nothing is placed: every step and round scored, +0.0 added --------
+#
+# The JAX scans score every step and round, also an invalid step, a
+# group no node fits and a round entered with no copies left, return
+# the best score there and add zero (ask * 0.0 in K2, 0.0 in K3) to the
+# argmax row / the top-k rows: a -0.0 usage entry comes out +0.0.  The
+# cases below start from a usage whose zero entries are all -0.0 and
+# compare the final usage bit for bit (int32 views).
+
+_ORDERS = {
+    # runs of one group (as torch_binpack lays out a job's placements),
+    # the all-infeasible slot 3 among them, invalid steps inside a run
+    # and at the end
+    "contiguous": [0] * 5 + [1] * 4 + [3] * 2 + [2] * 5,
+    # a group change at every step
+    "interleaved": [0, 1, 2, 3] * 4,
+}
+_INVALID = (3, 6, 10, 14, 15)
+
+
+def _negative_zero(usage):
+    """``usage`` with every zero entry made -0.0."""
+    usage = usage.copy()
+    usage[usage == 0] = np.float32(-0.0)
+    return usage
+
+
+def _neg_zeros(x) -> int:
+    x = np.asarray(x)
+    return int(((x == 0) & np.signbit(x)).sum())
+
+
+def _assert_usage_bits(j_usage, t_usage):
+    j = np.ascontiguousarray(np.asarray(j_usage, dtype=np.float32))
+    t = np.ascontiguousarray(t_usage.numpy())
+    assert np.array_equal(t.view(np.int32), j.view(np.int32))
+
+
+def _assert_every_score(j_scores, t_scores):
+    np.testing.assert_allclose(t_scores.numpy(), np.asarray(j_scores),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("order", sorted(_ORDERS))
+@pytest.mark.parametrize("used", [False, True])
+def test_place_sequence_scores_every_step_like_jax(order, used):
+    rng = np.random.default_rng(41)
+    fleet, usage, jc, asks, feasible, distinct, _g, _v = \
+        _random_case(rng, used=used)
+    usage = _negative_zero(usage)
+    group_idx = np.asarray(_ORDERS[order], dtype=np.int32)
+    valid = np.ones(len(group_idx), dtype=bool)
+    valid[list(_INVALID)] = False
+    jc_, js_, ju_ = jbp.place_sequence(
+        fleet.capacity, fleet.reserved, usage, jc, feasible, asks,
+        distinct, group_idx, valid, np.float32(PENALTY))
+    tc, ts, tu = tbp.place_sequence(
+        _t(fleet.capacity), _t(fleet.reserved), _t(usage), _t(jc),
+        _t(feasible), _t(asks), _t(distinct), _t(group_idx), _t(valid),
+        PENALTY)
+    assert np.array_equal(tc.numpy(), np.asarray(jc_))
+    _assert_every_score(js_, ts)
+    _assert_usage_bits(ju_, tu)
+    # the cases reach what they are for: unplaced steps with a real best
+    # score, steps where no node fits, and -0.0 rows turned +0.0
+    unplaced = tc.numpy() < 0
+    assert (ts.numpy()[unplaced] > tbp.NEG_INF / 2).any()
+    assert (ts.numpy()[group_idx == 3] == np.float32(tbp.NEG_INF)).all()
+    assert _neg_zeros(tu) < _neg_zeros(usage)
+
+
+@pytest.mark.parametrize("k_cap,rounds,counts_g", [
+    (8, 2, (5, 0, 3, 2)),     # slot 0 done in round 0, slot 1 empty, the
+                              # infeasible slot 3 asks for copies
+    (4, 3, (9, 2, 0, 0)),     # slot 1 exhausted after round 0
+    (8, 1, (0, 0, 0, 0)),     # nothing to place anywhere
+])
+@pytest.mark.parametrize("used", [False, True])
+def test_place_rounds_scores_every_round_like_jax(k_cap, rounds, counts_g,
+                                                  used):
+    rng = np.random.default_rng(43)
+    fleet, usage, jc, asks, feasible, distinct, _c = \
+        _rounds_case(rng, (), used)
+    usage = _negative_zero(usage)
+    counts = np.asarray(counts_g, dtype=np.int32)
+    jc_, js_, ju_ = jbp.place_rounds(
+        fleet.capacity, fleet.reserved, usage, jc, feasible, asks,
+        distinct, counts, np.float32(PENALTY), k_cap=k_cap, rounds=rounds)
+    tc, ts, tu = tbp.place_rounds(
+        _t(fleet.capacity), _t(fleet.reserved), _t(usage), _t(jc),
+        _t(feasible), _t(asks), _t(distinct), _t(counts), PENALTY,
+        k_cap=k_cap, rounds=rounds)
+    assert np.array_equal(tc.numpy(), np.asarray(jc_))
+    _assert_every_score(js_, ts)
+    _assert_usage_bits(ju_, tu)
+    # exhausted rounds carry real top-k values and the -0.0 rows of
+    # their winners come out +0.0
+    assert (ts.numpy()[tc.numpy() < 0] > tbp.NEG_INF / 2).any()
+    assert _neg_zeros(tu) < _neg_zeros(usage)

@@ -53,6 +53,26 @@ def test_scatter_rows_plain_matches_jax(n_rows):
     assert np.array_equal(old.numpy(), usage)
 
 
+@pytest.mark.parametrize("n_rows", [1, 5])
+def test_scatter_rows_keeps_signed_zeros_like_jax(n_rows):
+    """-0.0 in the old rows and in the new ones comes out as in
+    _scatter_jit_impl, bit for bit (int32 views)."""
+    rng = np.random.default_rng(10 + n_rows)
+    usage = rng.random((32, 6)).astype(np.float32)
+    usage[rng.random((32, 6)) > 0.5] = np.float32(-0.0)
+    idx = rng.choice(32, n_rows, replace=False).astype(np.int32)
+    rows = rng.random((n_rows, 6)).astype(np.float32)
+    rows[:, ::2] = np.float32(-0.0)
+    padded = 1 << int(n_rows - 1).bit_length()
+    p_idx = np.concatenate([idx, np.repeat(idx[:1], padded - n_rows)])
+    p_rows = np.concatenate([rows, np.repeat(rows[:1], padded - n_rows,
+                                             axis=0)])
+    want = np.asarray(jfleet._ensure_scatter_jit()(
+        jnp.asarray(usage), jnp.asarray(p_idx), jnp.asarray(p_rows)))
+    got = tfleet._scatter_rows(torch.from_numpy(usage.copy()), idx, rows)
+    assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))
+
+
 def test_scatter_rows_rejects_out_of_range_rows():
     old = torch.zeros((8, 6))
     with pytest.raises(IndexError):
