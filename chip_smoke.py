@@ -12,8 +12,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
               every step and round, usage, K2's job counts, the scatter
               and window-verify outputs under torch.equal), timed with
               CUDA events; K2 at eight shapes and under each launch plan
-              it takes (cluster size, score caches); K5 beside
-              ``usage.index_copy`` with both device times;
+              it takes (cluster size, score caches); K3 and K4a on
+              both top-k paths (the radix select and the full sort,
+              each forced and timed beside the path the kernel's rule
+              picks) at every edge of the select (a uniform fleet, ties
+              straddling the k_cap-th key, 0.0 scores at it, k_cap = N,
+              fewer feasible nodes than k_cap, N = 32,768 and 131,072),
+              with ``torch.topk`` on the same scores as a yardstick for
+              the selection alone; K5 beside ``usage.index_copy`` with
+              both device times;
               The batch kernels (K4a/K4b) are also held lane by lane
               against the single-eval kernels (K3/K2), exactly; the
               window verify (K6) at the fleet-scaling window (B=64 on a
@@ -28,7 +35,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
               placements must equal a rerun through the plain versions
               on the card; the main path's K2 launch is replayed from
               that rerun's inputs, bit for bit, and timed beside the
-              one-block lane body (K4b at B=1);
+              one-block lane body (K4b at B=1); K3's launches are
+              recorded as they happen and the first at each shape
+              (N=16,384 and 1,024) replayed on both top-k paths, bit for
+              bit, and timed;
   5. storm    the fused eval storm through BatchEvalRunner on cuda:
               (a) bench.py config 5, 64 jobs x 1,000 groups on 10,000
               nodes with a record-only planner: ONE place_rounds_batch
@@ -41,7 +51,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
               (d) config 5b again under the ``device`` verify policy:
               K6 runs every window's base fit, and the storm must commit
               what (b) committed; (c)'s K4b launch is replayed from a
-              plain rerun's inputs, bit for bit, and timed;
+              plain rerun's inputs, bit for bit, and timed; K3's and
+              K4a's launches in (a)-(c) are recorded and replayed as in
+              the slice (N=16,384 and 256);
   6. verify   bench.py's 5f fleet-scaling sub-table on the port: NodeSlab
               fleets of 10,000, 131,072 and 1,000,000 nodes, 64
               single-placement plans a window, 8 measured windows under
@@ -56,6 +68,7 @@ nomad_tpu).
 """
 from __future__ import annotations
 
+import contextlib
 import inspect
 import json
 import os
@@ -159,12 +172,42 @@ def time_ms(torch, fn, reps: int) -> float:
 # -- phase 3: kernels against their plain versions -------------------------
 
 
-def fleet_case(torch, n, rng, *, uniform=False, g=8):
+def fleet_case(torch, n, rng, *, uniform=False, g=8, hazard=None):
     """Random fleet tensors on the card: f32[N, 6] capacity/reserved/usage,
-    i32[N] job counts, bool[G, N] feasibility, asks f32[G, 6]."""
+    i32[N] job counts, bool[G, N] feasibility, asks f32[G, 6].
+
+    ``hazard`` shapes the scores for an edge of K3/K4a's select:
+    ``straddle`` three node sizes (4%, 30%, 66% of the fleet) on an
+    empty fleet, so a slot's scores take three values and the k_cap-th
+    key (1,024 of 16,384) lies inside the second, tied run; ``zeros``
+    asks of 0 MHz and 0 MB on nodes with no reserve, so every idle node
+    scores exactly 0.0 (20 - (10^1 + 10^1)) and 500 busy ones above it:
+    the k_cap-th key is 0.0, and the idle nodes' usage is -0.0 (the
+    score function gives +0.0 there: a -0.0 score cannot arise from
+    x - x, from its clamps or from the fallback 0.0, so the fold of -0.0
+    into +0.0 is held by the CPU tests' model of the select); ``sparse``
+    ~5% of nodes feasible, fewer than k_cap, so -1e30 keys fill the top
+    k_cap's tail."""
     cap = np.zeros((n, 6), dtype=np.float32)
     res = np.zeros((n, 6), dtype=np.float32)
-    if uniform:
+    if hazard == "straddle":
+        size = rng.choice(3, n, p=[0.04, 0.30, 0.66])
+        cap[:, 0] = np.array([2000, 4000, 6000])[size]
+        cap[:, 1] = np.array([4096, 8192, 12288])[size]
+        cap[:, 2:5] = (102400, 150, 1000)
+        res[:, 0:2] = (100, 256)
+        usage = np.zeros((n, 6), dtype=np.float32)
+        jc = np.zeros(n, dtype=np.int32)
+        feas = np.ones((g, n), dtype=bool)
+    elif hazard == "zeros":
+        cap[:, :5] = (4000, 8192, 102400, 150, 1000)
+        usage = np.full((n, 6), -0.0, dtype=np.float32)
+        busy = rng.choice(n, 500, replace=False)
+        usage[busy, 0] = rng.integers(100, 1500, 500)
+        usage[busy, 1] = rng.integers(100, 3000, 500)
+        jc = np.zeros(n, dtype=np.int32)
+        feas = np.ones((g, n), dtype=bool)
+    elif uniform:
         cap[:, :5] = (4000, 8192, 102400, 150, 1000)
         res[:, :5] = (100, 256, 4096, 0, 1)
         usage = np.zeros((n, 6), dtype=np.float32)
@@ -180,14 +223,17 @@ def fleet_case(torch, n, rng, *, uniform=False, g=8):
         usage[:, 0] = np.where(busy, rng.integers(0, 1500, n), 0)
         usage[:, 1] = np.where(busy, rng.integers(0, 3000, n), 0)
         jc = np.where(busy, rng.integers(0, 3, n), 0).astype(np.int32)
-        feas = rng.random((g, n)) > 0.2
+        feas = rng.random((g, n)) > (0.95 if hazard == "sparse" else 0.2)
     cap[:, 5] = 40000.0
     asks = np.zeros((g, 6), dtype=np.float32)
     asks[:, 0] = rng.integers(50, 700, g)
     asks[:, 1] = rng.integers(40, 900, g)
     asks[:, 4] = 5
     asks[:, 5] = 1
-    distinct = rng.random(g) > 0.7 if not uniform else np.zeros(g, bool)
+    if hazard == "zeros":
+        asks[:, :2] = 0.0
+    distinct = rng.random(g) > 0.7 if not (uniform or hazard) \
+        else np.zeros(g, bool)
 
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(DEV)
@@ -346,11 +392,65 @@ def pad_slots(c, first, axis):
     c["distinct"][idx] = False
 
 
+@contextlib.contextmanager
+def rounds_path(binpack, n, k_cap, path):
+    """K3/K4a launched on top-k ``path`` (a name in
+    ``binpack.ROUNDS_PATHS``) for N nodes and ``k_cap`` inside the
+    block: the cached plan is overridden, then restored."""
+    key = (n, k_cap)
+    saved = binpack._ROUNDS_PLANS.get(key)
+    binpack._ROUNDS_PLANS[key] = binpack.rounds_plan(n, k_cap, path)
+    try:
+        yield
+    finally:
+        if saved is None:
+            binpack._ROUNDS_PLANS.pop(key, None)
+        else:
+            binpack._ROUNDS_PLANS[key] = saved
+
+
+def rounds_paths(torch, binpack, what, run, want, n, k_cap, reps):
+    """K3/K4a on both top-k paths, same inputs: each held to the plain
+    result ``want`` bit for bit, then timed in turns (sort, select,
+    select, sort).  Returns the path the kernel's rule picks and the mean
+    ms of each path."""
+    for path in binpack.ROUNDS_PATHS:
+        with rounds_path(binpack, n, k_cap, path):
+            got = run()
+            torch.cuda.synchronize()
+            compare(torch, f"{what} path={path}", got, want)
+    runs: dict = {path: [] for path in binpack.ROUNDS_PATHS}
+    for path in ("sort", "select", "select", "sort"):
+        with rounds_path(binpack, n, k_cap, path):
+            runs[path].append(time_ms(torch, run, reps))
+    auto = binpack.ROUNDS_PATHS[binpack.rounds_plan(n, k_cap)[0]]
+    return auto, {path: sum(v) / len(v) for path, v in runs.items()}
+
+
+def select_library_ms(torch, binpack, args, k_cap, reps):
+    """``torch.topk(masked, k_cap)`` on slot 0's masked scores of the
+    inputs' state, [N] for K3's arguments, [B, N] for K4a's: a yardstick
+    for the selection step alone.  It is not the kernel's library time
+    (no PyTorch call computes K3's function) and the port never calls
+    it."""
+    cap, res, usage0, jc0, feas, asks, dist, _counts, penalty = args
+    if feas.dim() == 3:
+        masked = torch.stack([binpack.score_all_nodes(
+            cap, res, usage0, jc0[b], asks[b, 0], feas[b, 0], dist[b, 0],
+            float(penalty[b])) for b in range(feas.shape[0])])
+    else:
+        masked = binpack.score_all_nodes(cap, res, usage0, jc0, asks[0],
+                                         feas[0], dist[0], float(penalty))
+    return time_ms(torch, lambda: torch.topk(masked, k_cap), reps)
+
+
 def check_rounds(torch, binpack, n, count, k_cap, rounds, rng, uniform,
-                 reps, padded=False):
-    """K3 against its plain version; ``padded`` makes slots 2.. padding
-    (count 0, no feasible node), as on the main path."""
-    c = fleet_case(torch, n, rng, uniform=uniform)
+                 reps, padded=False, hazard=None):
+    """K3 against its plain version, on the path the kernel's rule picks
+    and on each top-k path forced (``rounds_paths``); ``padded`` makes
+    slots 2.. padding (count 0, no feasible node), as on the main path;
+    ``hazard`` shapes the scores (``fleet_case``)."""
+    c = fleet_case(torch, n, rng, uniform=uniform, hazard=hazard)
     if padded:
         pad_slots(c, 2, 0)
     g = c["feasible"].shape[0]
@@ -367,8 +467,12 @@ def check_rounds(torch, binpack, n, count, k_cap, rounds, rng, uniform,
     want = binpack.place_rounds_plain(*args, **kw)
     require(torch.equal(c["usage0"], usage_before),
             "place_rounds wrote to its input usage")
-    err = compare(torch, f"place_rounds N={n} count={count}", got, want)
+    what = f"place_rounds N={n} count={count} k={k_cap} {hazard or ''}"
+    err = compare(torch, what, got, want)
     ms = time_ms(torch, lambda: binpack.place_rounds(*args, **kw), reps)
+    path, paths_ms = rounds_paths(
+        torch, binpack, what, lambda: binpack.place_rounds(*args, **kw),
+        want, n, k_cap, reps)
     plain_ms = time_ms(torch, lambda: binpack.place_rounds_plain(*args, **kw),
                        1)
     ran = rounds_run(counts_h, want[0].cpu().numpy(), rounds, k_cap)
@@ -378,8 +482,11 @@ def check_rounds(torch, binpack, n, count, k_cap, rounds, rng, uniform,
     placed = int((got[0] >= 0).sum())
     require(placed == int(counts_h.sum()) or not uniform,
             "place_rounds left copies unplaced on an empty uniform fleet")
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, placed=placed, rounds_run=ran)
+    return dict(err=err, ms=ms, path=path, paths_ms=paths_ms,
+                plain_ms=plain_ms,
+                select_library_ms=select_library_ms(torch, binpack, args,
+                                                    k_cap, reps),
+                bound_ms=b_ms, bound_by=b_by, placed=placed, rounds_run=ran)
 
 
 def window_case(rng, n_real, n_plans, per_plan, n_comps, removals):
@@ -620,12 +727,12 @@ def check_scatter(torch, fleet, n, r, rng, reps):
                 bound_by=b_by)
 
 
-def lanes_case(torch, n, lanes, rng, *, uniform, g=8):
+def lanes_case(torch, n, lanes, rng, *, uniform, g=8, hazard=None):
     """Per-lane operands over one shared fleet: the shared capacity,
     reserved and usage0 of ``fleet_case``, and for each lane its own job
     counts, feasibility, asks and distinct flags."""
-    shared = fleet_case(torch, n, rng, uniform=uniform, g=g)
-    per = [fleet_case(torch, n, rng, uniform=uniform, g=g)
+    shared = fleet_case(torch, n, rng, uniform=uniform, g=g, hazard=hazard)
+    per = [fleet_case(torch, n, rng, uniform=uniform, g=g, hazard=hazard)
            for _ in range(lanes)]
     out = {k: shared[k] for k in ("capacity", "reserved", "usage0")}
     for k in ("jc0", "feasible", "asks", "distinct"):
@@ -645,12 +752,14 @@ def batch_compare(torch, what, got, want, lanes_alone) -> float:
 
 
 def check_rounds_batch(torch, binpack, n, lanes, counts0, k_cap, rounds, rng,
-                       uniform, reps, padded=False):
-    """K4a against its plain version and, lane by lane, against K3.
+                       uniform, reps, padded=False, hazard=None):
+    """K4a against its plain version and, lane by lane, against K3, on
+    the path the kernel's rule picks and on each top-k path forced.
     ``counts0`` is slot 0's copies in every lane; random cases add a
     second slot of a seventh of it; ``padded`` makes slots 2.. padding
-    (count 0, no feasible node), as on the main path."""
-    c = lanes_case(torch, n, lanes, rng, uniform=uniform)
+    (count 0, no feasible node), as on the main path; ``hazard`` shapes
+    every lane's scores (``fleet_case``)."""
+    c = lanes_case(torch, n, lanes, rng, uniform=uniform, hazard=hazard)
     if padded:
         pad_slots(c, 2, 1)
     g = c["feasible"].shape[1]
@@ -674,9 +783,12 @@ def check_rounds_batch(torch, binpack, n, lanes, counts0, k_cap, rounds, rng,
         c["feasible"][b], c["asks"][b], c["distinct"][b], counts[b], 10.0,
         **kw) for b in range(lanes)]
     torch.cuda.synchronize()
-    err = batch_compare(torch, f"place_rounds_batch N={n} B={lanes}", got,
-                        want, alone)
+    what = f"place_rounds_batch N={n} B={lanes} k={k_cap} {hazard or ''}"
+    err = batch_compare(torch, what, got, want, alone)
     ms = time_ms(torch, lambda: binpack.place_rounds_batch(*args, **kw), reps)
+    path, paths_ms = rounds_paths(
+        torch, binpack, what, lambda: binpack.place_rounds_batch(*args, **kw),
+        want, n, k_cap, reps)
     plain_ms = time_ms(
         torch, lambda: binpack.place_rounds_batch_plain(*args, **kw), 1)
     chosen = want[0].cpu().numpy()
@@ -695,8 +807,11 @@ def check_rounds_batch(torch, binpack, n, lanes, counts0, k_cap, rounds, rng,
         c["capacity"], c["reserved"], c["usage0"], c["jc0"][b],
         c["feasible"][b], c["asks"][b], c["distinct"][b], counts[b], 10.0,
         **kw) for b in range(lanes)], 2)
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, placed=placed, rounds_run=ran,
+    return dict(err=err, ms=ms, path=path, paths_ms=paths_ms,
+                plain_ms=plain_ms,
+                select_library_ms=select_library_ms(torch, binpack, args,
+                                                    k_cap, reps),
+                bound_ms=b_ms, bound_by=b_by, placed=placed, rounds_run=ran,
                 lanes_as_single_launches_ms=alone_ms)
 
 
@@ -933,12 +1048,18 @@ def run_slice(torch):
     job4 = mock.job()
     job4.task_groups = [bench_task_group(structs, f"tg-{g}")
                         for g in range(1000)]
-    placed4, failed4 = run_eval(structs, big, job4, times)
+    nodes = [mock.node(i) for i in range(1000)]
+    # K3's launches are recorded as they happen (a copy of the first
+    # launch's inputs at each shape) for the replay below.
+    rounds_calls: dict = {}
+    binpack.place_rounds = RoundsRecording(counters[1], rounds_calls)
+    try:
+        placed4, failed4 = run_eval(structs, big, job4, times)
+        small = small_cluster(mock, structs, Harness, nodes, times)
+    finally:
+        binpack.place_rounds = counters[1]
     require(len(placed4) == 1000 and not failed4,
             f"config 4: {len(placed4)} placed, {len(failed4)} failed")
-
-    nodes = [mock.node(i) for i in range(1000)]
-    small = small_cluster(mock, structs, Harness, nodes, times)
     for placed, failed in small[:3]:
         require(len(placed) == 40 and not failed,
                 f"config 2: {len(placed)} placed, {len(failed)} failed")
@@ -980,13 +1101,17 @@ def run_slice(torch):
             f"the plain rerun walked {len(seq_calls)} sequences, the "
             f"main path {launches['place_sequence']}")
     main_seq = main_path_sequence(torch, binpack, seq_calls[0])
+    require(sum(c[2] for c in rounds_calls.values())
+            == launches["place_rounds"],
+            "the recorded K3 launches are not the main path's")
+    main_rounds = main_path_rounds(torch, binpack, rounds_calls)
     return dict(launches=launches, evals=len(times),
                 placements=len(placed4) + sum(len(p) for p, _f in small),
                 eval_ms_median=statistics.median(times) * 1e3,
                 eval_ms_max=max(times) * 1e3,
                 config4_eval_ms=times[0] * 1e3, node_setup_s=setup_s,
                 profiled_config4_eval=profile,
-                main_path_sequence=main_seq)
+                main_path_sequence=main_seq, main_path_rounds=main_rounds)
 
 
 def recording(fn, calls):
@@ -997,6 +1122,77 @@ def recording(fn, calls):
                            for x in a))
         return fn(*a, **kw)
     return recorded
+
+
+class RoundsRecording:
+    """K3 or K4a (``fn``), counting each launch by its shape in
+    ``calls`` (shape -> [positional inputs, keywords, launches]) and
+    keeping a copy of the first launch's inputs at each shape; its
+    ``launches`` are ``fn``'s own."""
+
+    def __init__(self, fn, calls) -> None:
+        self.fn = fn
+        self.calls = calls
+
+    @property
+    def launches(self) -> int:
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        # the wrapper counts through its module name, which is this now
+        self.fn.launches = value
+
+    def __call__(self, *a, **kw):
+        key = (self.fn.__name__, a[0].shape[0], tuple(a[4].shape[:-1]),
+               kw["k_cap"], kw["rounds"])
+        if key not in self.calls:
+            self.calls[key] = [tuple(x.clone() if hasattr(x, "clone")
+                                     else x for x in a), dict(kw), 0]
+        self.calls[key][2] += 1
+        return self.fn(*a, **kw)
+
+
+def main_path_rounds(torch, binpack, calls, reps=20):
+    """K3/K4a at each shape the main path launched them (``calls`` from
+    RoundsRecording): the first launch at each shape replayed on its
+    inputs, held to the plain version bit for bit on the rule's path and
+    on each top-k path forced, timed with CUDA events beside the plain
+    version, the ``torch.topk`` yardstick and the bound."""
+    out = []
+    for (name, n, lead, k_cap, rounds), (args, kw, count) in calls.items():
+        kernel = getattr(binpack, name)
+        plain = getattr(binpack, name + "_plain")
+        what = f"{name} main path N={n} {list(lead)} k={k_cap}"
+        want = plain(*args, **kw)
+        got = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        err = compare(torch, what, got, want)
+        path, paths_ms = rounds_paths(torch, binpack, what,
+                                      lambda: kernel(*args, **kw), want, n,
+                                      k_cap, reps)
+        counts_h = args[7].cpu().numpy().reshape(-1, lead[-1])
+        chosen = want[0].cpu().numpy().reshape(counts_h.shape[0], lead[-1],
+                                               -1)
+        g = lead[-1]
+        ran = sum(rounds_run(counts_h[b], chosen[b], rounds, k_cap)
+                  for b in range(counts_h.shape[0]))
+        lane_extra = 4 if len(lead) == 2 else 0  # K4a: the lane's penalty
+        nbytes = shared_fleet_bytes(n) + sum(
+            lane_extra + rounds_lane_bytes(n, counts_h[b], g * rounds * k_cap)
+            for b in range(counts_h.shape[0]))
+        b_ms, b_by = bound(nbytes, ran * n * OPS_PER_NODE)
+        row = dict(kernel=name, n=n, lanes=lead[0] if len(lead) == 2 else 1,
+                   groups=g, k_cap=k_cap, rounds=rounds, launches=count,
+                   placed=int((chosen >= 0).sum()), rounds_run=ran,
+                   path=path, ms=paths_ms[path], paths_ms=paths_ms,
+                   plain_ms=time_ms(torch, lambda: plain(*args, **kw), 1),
+                   select_library_ms=select_library_ms(torch, binpack, args,
+                                                       k_cap, reps),
+                   bound_ms=b_ms, bound_by=b_by, err=err)
+        print("main path " + json.dumps(row), flush=True)
+        out.append(row)
+    return out
 
 
 def main_path_sequence(torch, binpack, args, reps=50):
@@ -1240,17 +1436,30 @@ def run_storm(torch, sizes5=(), sizes5b=(), n_seq_nodes=1000):
                 binpack.place_sequence_batch)
     for fn in counters:
         fn.launches = 0
-    c5 = storm_config5(torch, mock, structs, binpack, Harness,
-                       BatchEvalRunner, *sizes5)
-    placed5b, c5b = storm_config5b(mock, structs, Harness, VerifyingPlanner,
-                                   BatchEvalRunner, *sizes5b)
+    nodes = [mock.node(i) for i in range(n_seq_nodes)]
+    # K3's and K4a's launches are recorded as they happen (a copy of the
+    # first launch's inputs at each shape) for the replay below.
+    rounds_calls: dict = {}
+    binpack.place_rounds = RoundsRecording(counters[1], rounds_calls)
+    binpack.place_rounds_batch = RoundsRecording(counters[3], rounds_calls)
+    try:
+        c5 = storm_config5(torch, mock, structs, binpack, Harness,
+                           BatchEvalRunner, *sizes5)
+        placed5b, c5b = storm_config5b(mock, structs, Harness,
+                                       VerifyingPlanner, BatchEvalRunner,
+                                       *sizes5b)
+        seq = storm_sequence(mock, structs, Harness, BatchEvalRunner, nodes)
+    finally:
+        binpack.place_rounds = counters[1]
+        binpack.place_rounds_batch = counters[3]
     require(c5b["conflicts"] > 0, "config 5b was not contended")
     if not sizes5b:
         for k, v in CONFIG5B_COUNTS.items():
             require(c5b[k] == v, f"config 5b: {k} {c5b[k]}, expected {v}")
-    nodes = [mock.node(i) for i in range(n_seq_nodes)]
-    seq = storm_sequence(mock, structs, Harness, BatchEvalRunner, nodes)
     launches = {fn.__name__: fn.launches for fn in counters}
+    require(sum(c[2] for c in rounds_calls.values())
+            == launches["place_rounds"] + launches["place_rounds_batch"],
+            "the recorded K3/K4a launches are not the storm's")
     for name in ("place_rounds_batch", "place_sequence_batch"):
         require(launches[name] > 0, f"{name} was not launched by the storm")
 
@@ -1317,7 +1526,9 @@ def run_storm(torch, sizes5=(), sizes5b=(), n_seq_nodes=1000):
     seq["main_path_sequence_batch"] = main_path_sequence_batch(
         torch, binpack, batch_calls[0])
     return dict(launches=launches, config5=c5, config5b=c5b,
-                config5b_device=dev5b, sequence_storm=seq)
+                config5b_device=dev5b, sequence_storm=seq,
+                main_path_rounds=main_path_rounds(torch, binpack,
+                                                  rounds_calls))
 
 
 def main_path_sequence_batch(torch, binpack, args, reps=50):
@@ -1538,6 +1749,32 @@ def main() -> int:
     rb_pad = check_rounds_batch(torch, binpack, 16384, 64, 1000, 1024, 1, rng,
                                 True, 10, padded=True)
     sb = check_sequence_batch(torch, binpack, 16384, 8, 256, rng, 3)
+    # K3 and K4a (8 lanes) at each edge of the top-k select, both top-k
+    # paths held too: k_cap equal to N, ties straddling the k_cap-th key,
+    # 0.0 scores at it, fewer feasible nodes than k_cap, and N = 32,768
+    # (the keys at the shared-memory limit).  The uniform fleet (every
+    # key in one histogram bin) and N = 131,072 (keys in device memory)
+    # are the cases above.
+    hazards = {
+        "k=N": dict(n=16384, k_cap=16384, uniform=True),
+        "ties straddling": dict(n=16384, k_cap=1024, hazard="straddle"),
+        "zeros at the k-th": dict(n=16384, k_cap=1024, hazard="zeros"),
+        "fewer feasible than k": dict(n=16384, k_cap=1024, hazard="sparse"),
+        "N=32768": dict(n=32768, k_cap=1024, uniform=True),
+    }
+    rnd_haz, rb_haz = {}, {}
+    for name, kw in hazards.items():
+        kw = dict(kw)
+        n, k_cap, uniform = kw.pop("n"), kw.pop("k_cap"), \
+            kw.pop("uniform", False)
+        rnd_haz[name] = check_rounds(torch, binpack, n, 1000, k_cap, 1, rng,
+                                     uniform, 5, **kw)
+        print(f"kernel place_rounds {name}: " + json.dumps(rnd_haz[name]),
+              flush=True)
+        rb_haz[name] = check_rounds_batch(torch, binpack, n, 8, 1000, k_cap,
+                                          1, rng, uniform, 5, **kw)
+        print(f"kernel place_rounds_batch {name}: "
+              + json.dumps(rb_haz[name]), flush=True)
     for name, r in (("place_sequence N=16384 P=1024", seq),
                     ("place_rounds N=16384 count=1000 k=1024", rnd),
                     ("place_rounds N=16384 random rounds=2", rnd_rand),
@@ -1570,6 +1807,10 @@ def main() -> int:
     launches = {k: sl["launches"].get(k, 0) + st["launches"][k]
                 for k in st["launches"]}
     launches["window_verify"] += vf["launches"]
+    replay_err = {name: max([r["err"] for r in sl["main_path_rounds"]
+                             + st["main_path_rounds"]
+                             if r["kernel"] == name], default=0.0)
+                  for name in ("place_rounds", "place_rounds_batch")}
 
     kernels_line = {"kernels": [
         dict(name="place_sequence", route="cuda",
@@ -1585,7 +1826,8 @@ def main() -> int:
              replaces="nomad_tpu/ops/binpack.py:123",
              launches=launches["place_rounds"],
              max_abs_err=max(rnd["err"], rnd_rand["err"], rnd_big["err"],
-                             rnd_pad["err"]),
+                             rnd_pad["err"], replay_err["place_rounds"],
+                             *(r["err"] for r in rnd_haz.values())),
              ms=rnd["ms"], plain_ms=rnd["plain_ms"],
              bound_ms=rnd["bound_ms"], bound_by=rnd["bound_by"],
              library_ms=None),
@@ -1602,7 +1844,9 @@ def main() -> int:
              source="nomad_tpu_torch/csrc/binpack.cu",
              replaces="nomad_tpu/ops/binpack.py:185",
              launches=launches["place_rounds_batch"],
-             max_abs_err=max(rb["err"], rb_rand["err"], rb_pad["err"]),
+             max_abs_err=max(rb["err"], rb_rand["err"], rb_pad["err"],
+                             replay_err["place_rounds_batch"],
+                             *(r["err"] for r in rb_haz.values())),
              ms=rb["ms"],
              plain_ms=rb["plain_ms"], bound_ms=rb["bound_ms"],
              bound_by=rb["bound_by"], library_ms=None),

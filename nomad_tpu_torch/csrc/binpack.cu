@@ -33,6 +33,17 @@
 // and K4b's lanes are one persistent block of 1,024 threads each,
 // synchronised with __syncthreads between steps.
 //
+// K3/K4a's top-k: a round needs only the k_cap best of N scores, so where
+// k_cap < N / 2 the lane does a most-significant-digit radix select of the
+// k_cap-th largest 32-bit key (a digit of 8 bits a pass, warp-aggregated
+// histograms), gathers the keys above it and the lowest-indexed keys equal
+// to it in node order, and sorts only those k_cap: ~4 passes over N words
+// and a sort of k_cap keys, where a full sort of N 64-bit keys took
+// log2(N)(log2(N)+1)/2 block-wide stages (105 at N = 16,384).  Keys are
+// one 32-bit word a node (the index is the word's position), so a lane's
+// key region is half of what the full sort needs.  No matrix product is
+// involved: tensor cores do not apply.
+//
 // Where nothing is placed (an invalid step, a group no node fits, a
 // round entered with no copies left) the walks still score and write
 // the best score, and add +0.0 to the rows the JAX scan adds zero to,
@@ -52,7 +63,10 @@ namespace cg = cooperative_groups;
 #define THREADS 1024
 #define WARPS (THREADS / 32)
 #define NEG_INF (-1.0e30f)
-#define SMEM_SORT_MAX 16384  // keys sorted in shared memory up to this N
+#define FULL_MASK 0xffffffffu
+#define KEYS_SMEM_MAX (128 * 1024)  // a K3/K4a lane's keys in shared memory
+                                    // up to this many bytes, else scratch
+#define RADIX_BINS 256       // K3/K4a's select: digits of 8 bits
 #define MAX_CLUSTER 16       // CTAs of one K2 cluster (non-portable above 8)
 #define MAX_SLOTS WARPS      // score slots of one K2 CTA (a warp keeps each)
 #define STEP_CHUNK 1024      // K2 steps staged in shared memory at a time
@@ -61,6 +75,10 @@ namespace cg = cooperative_groups;
 // Where a K2 CTA keeps its node state and score slots.
 #define SEQ_SHARED 0   // in shared memory
 #define SEQ_SCRATCH 1  // in device memory (the slots in the scratch)
+
+// How a K3/K4a round finds its top k_cap (see topk_path).
+#define TOPK_SORT 0    // a full sort of N 64-bit keys
+#define TOPK_SELECT 1  // a radix select on N 32-bit keys, then a sort of k_cap
 
 // K1: masked score of one ask on a node with capacity c, reserved r,
 // usage u and job count j (nomad_tpu/ops/binpack.py score_all_nodes):
@@ -156,11 +174,41 @@ __device__ __forceinline__ void add_step(float* u, const float* ask,
     u[d] = __fadd_rn(u[d], ok ? ask[d] : __fmul_rn(ask[d], 0.0f));
 }
 
+// Copy `count` 4-byte words with the block: 16 bytes a load and four
+// loads in flight a thread where both ends are 16-byte aligned and count
+// is a multiple of 4 (one block streams the whole copy, so it is the
+// loads in flight that set its rate), else a word at a time.
+__device__ __forceinline__ void copy_words(const void* __restrict__ src,
+                                           void* __restrict__ dst,
+                                           size_t count) {
+  if (((reinterpret_cast<uintptr_t>(src) |
+        reinterpret_cast<uintptr_t>(dst)) & 15) == 0 &&
+      (count & 3) == 0) {
+    const uint4* s = reinterpret_cast<const uint4*>(src);
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    const size_t v = count >> 2;
+    size_t i = threadIdx.x;
+    for (; i + 3 * THREADS < v; i += 4 * THREADS) {
+      const uint4 a = s[i], b = s[i + THREADS], c = s[i + 2 * THREADS],
+                  e = s[i + 3 * THREADS];
+      d[i] = a;
+      d[i + THREADS] = b;
+      d[i + 2 * THREADS] = c;
+      d[i + 3 * THREADS] = e;
+    }
+    for (; i < v; i += THREADS) d[i] = s[i];
+  } else {
+    const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
+    uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+    for (size_t i = threadIdx.x; i < count; i += THREADS) d[i] = s[i];
+  }
+}
+
 __device__ __forceinline__ void copy_state(
     const float* __restrict__ usage0, const int* __restrict__ jc0,
     float* usage, int* jc, int n) {
-  for (int i = threadIdx.x; i < n * NDIMS; i += THREADS) usage[i] = usage0[i];
-  for (int i = threadIdx.x; i < n; i += THREADS) jc[i] = jc0[i];
+  copy_words(usage0, usage, (size_t)n * NDIMS);
+  copy_words(jc0, jc, (size_t)n);
 }
 
 __device__ __forceinline__ void cluster_arrive_release() {
@@ -590,11 +638,42 @@ __device__ __forceinline__ float from_ordered(uint32_t o) {
   return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
 }
 
-// Block-wide bitonic sort of n (a power of two) keys, descending.
+// Steps of stride `j` down to 1 of the merge of runs of k keys on key
+// a of this lane, in registers: its partner a ^ st is lane lane ^ st of
+// the same warp (st < 32), and the lower position keeps the larger key
+// where the run is descending.
+__device__ __forceinline__ unsigned long long warp_merge(
+    unsigned long long x, int a, int k, int j) {
+  const int lane = threadIdx.x & 31;
+  const bool desc = (a & k) == 0;
+  for (int st = j; st > 0; st >>= 1) {
+    const unsigned long long y = __shfl_xor_sync(FULL_MASK, x, st);
+    const bool keep_max = ((lane & st) == 0) == desc;
+    x = keep_max ? (x > y ? x : y) : (x < y ? x : y);
+  }
+  return x;
+}
+
+// Block-wide bitonic sort of n (a power of two) keys, descending.  Runs
+// of up to 32 keys are sorted in registers by shuffles, one barrier in
+// all; a merge step of stride j >= 32 exchanges keys in place, one
+// barrier a step, and the merge's steps of stride 16 down to 1 run in
+// registers again, one barrier for all of them (at n = 1,024: 21
+// barriers for the 55 steps).
 __device__ void bitonic_sort_desc(unsigned long long* keys, int n) {
   const int half = n >> 1;
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
+  const int lane = threadIdx.x & 31;
+  // Loop bounds below are uniform across a warp (a - lane is its first
+  // key): every lane takes part in the shuffles.
+  for (int a = threadIdx.x; a - lane < n; a += THREADS) {
+    unsigned long long x = a < n ? keys[a] : 0ull;
+    for (int k = 2; k <= n && k <= 32; k <<= 1)
+      x = warp_merge(x, a, k, k >> 1);
+    if (a < n) keys[a] = x;
+  }
+  __syncthreads();
+  for (int k = 64; k <= n; k <<= 1) {
+    for (int j = k >> 1; j >= 32; j >>= 1) {
       for (int t = threadIdx.x; t < half; t += THREADS) {
         const int a = ((t & ~(j - 1)) << 1) | (t & (j - 1));
         const int b = a + j;
@@ -608,26 +687,346 @@ __device__ void bitonic_sort_desc(unsigned long long* keys, int n) {
       }
       __syncthreads();
     }
+    for (int a = threadIdx.x; a < n; a += THREADS)
+      keys[a] = warp_merge(keys[a], a, k, 16);
+    __syncthreads();
   }
+}
+
+// The smallest power of two >= x (x >= 1).
+__host__ __device__ __forceinline__ int pow2_ceil(int x) {
+  int p = 1;
+  while (p < x) p <<= 1;
+  return p;
+}
+
+// K3/K4a's sort key of node i: its ordered score bits, then its inverted
+// index, so a descending sort puts ties in index order.
+__device__ __forceinline__ unsigned long long sort_key(uint32_t ordered,
+                                                       int i) {
+  return ((unsigned long long)ordered << 32) |
+         (unsigned long long)(~(uint32_t)i);
+}
+
+// Adds one to bin `digit` of `hist` for each lane where `active`: one
+// shared-memory atomic per distinct digit in the warp, so keys that all
+// fall into one bin (a uniform fleet) cost one atomic a warp, not 32.
+// A warp whose active digits are all one (the common case there) takes
+// a vote instead of __match_any_sync.
+__device__ __forceinline__ void hist_add(int* hist, bool active,
+                                         uint32_t digit) {
+  const unsigned act = __ballot_sync(FULL_MASK, active);
+  if (act == 0u) return;
+  const int lane = threadIdx.x & 31;
+  const int lead = __ffs(act) - 1;
+  const uint32_t d0 = __shfl_sync(FULL_MASK, digit, lead);
+  if (__all_sync(FULL_MASK, !active || digit == d0)) {
+    if (lane == lead) atomicAdd(&hist[d0], __popc(act));
+    return;
+  }
+  if (active) {
+    const unsigned peers = __match_any_sync(act, digit);
+    if (lane == __ffs(peers) - 1) atomicAdd(&hist[digit], __popc(peers));
+  }
+}
+
+// hist_add for the 4 keys of each lane: one vote and one atomic where
+// every active key of the warp has the same digit, else hist_add on
+// each key.
+__device__ __forceinline__ void hist_add4(int* hist, const bool* active,
+                                          const uint32_t* digit) {
+  int cnt = 0;
+  uint32_t d = 0u;
+  bool same = true;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (active[e]) {
+      if (cnt == 0) d = digit[e];
+      same = same && digit[e] == d;
+      ++cnt;
+    }
+  }
+  const unsigned has = __ballot_sync(FULL_MASK, cnt > 0);
+  if (has == 0u) return;
+  const int lead = __ffs(has) - 1;
+  const uint32_t d0 = __shfl_sync(FULL_MASK, d, lead);
+  if (__all_sync(FULL_MASK, cnt == 0 || (same && d == d0))) {
+    const int total = __reduce_add_sync(FULL_MASK, cnt);
+    if ((int)(threadIdx.x & 31) == lead) atomicAdd(&hist[d0], total);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) hist_add(hist, active[e], digit[e]);
+}
+
+// Whether any of the n feasibility bytes at f is set, block-wide (holds
+// one barrier): 16 bytes a load where f is aligned and n a multiple of
+// 16, so a padded slot costs one load a thread at N = 16,384.
+__device__ __forceinline__ bool any_set(const uint8_t* __restrict__ f,
+                                        int n) {
+  bool any = false;
+  if ((reinterpret_cast<uintptr_t>(f) & 15) == 0 && (n & 15) == 0) {
+    const uint4* v = reinterpret_cast<const uint4*>(f);
+    for (int i = threadIdx.x; i < (n >> 4) && !any; i += THREADS) {
+      const uint4 q = v[i];
+      any = (q.x | q.y | q.z | q.w) != 0u;
+    }
+  } else {
+    for (int i = threadIdx.x; i < n && !any; i += THREADS) any = f[i] != 0;
+  }
+  return __syncthreads_or(any);
+}
+
+// The radix select's state: the keys whose bits under `mask` equal
+// `prefix` are the candidates; every key above them is in the top k_cap,
+// and so are the `need` candidates of lowest index; `done` once the
+// candidates need no further digit (all of them are needed, or the key
+// is fully known).
+struct TopkSel {
+  uint32_t prefix, mask;
+  int need, done;
+};
+
+// Warp 0, before the first digit: where the largest key occurs at least
+// `need` times (every feasible node of a uniform fleet scores the same),
+// it is the threshold and no digit pass is needed.  s_max / s_count
+// hold each warp's largest key and how often it occurs there.
+__device__ __forceinline__ bool take_max(TopkSel* sel, const int* s_max,
+                                         const int* s_count) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t wmax = (uint32_t)s_max[lane];
+  const uint32_t kmax = __reduce_max_sync(FULL_MASK, wmax);
+  const int count = __reduce_add_sync(FULL_MASK,
+                                      wmax == kmax ? s_count[lane] : 0);
+  const int need = sel->need;
+  __syncwarp();  // every lane has read sel before lane 0 writes it
+  if (count < need) return false;  // uniform across the warp
+  if (lane == 0) *sel = TopkSel{kmax, FULL_MASK, need, 1};
+  return true;
+}
+
+// Warp 0: from the candidates' histogram over the digit at `shift`, the
+// digit of the need-th largest candidate; narrows `sel` to it.  Lane l
+// holds bins 255 - 8l down to 248 - 8l, so a scan over the lanes counts
+// the candidates above each lane's bins.
+__device__ __forceinline__ void pick_digit(const int* hist, TopkSel* sel,
+                                           int shift) {
+  const int lane = threadIdx.x & 31;
+  int c[8];
+  int sum = 0;
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    c[t] = hist[RADIX_BINS - 1 - 8 * lane - t];
+    sum += c[t];
+  }
+  int incl = sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(FULL_MASK, incl, off);
+    if (lane >= off) incl += v;
+  }
+  const int need = sel->need;
+  int above = incl - sum;
+  __syncwarp();  // every lane has read sel before one lane writes it
+  if (above < need && need <= incl) {  // exactly one lane
+    int digit = -1, count = 0;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      if (digit < 0) {
+        if (above + c[t] >= need) {
+          digit = RADIX_BINS - 1 - 8 * lane - t;
+          count = c[t];
+        } else {
+          above += c[t];
+        }
+      }
+    }
+    sel->prefix |= (uint32_t)digit << shift;
+    sel->mask |= 0xffu << shift;
+    sel->need = need - above;
+    sel->done = need - above == count || shift == 0;
+  }
+}
+
+// One round's top k_cap by selection, for the state it is called with:
+// leaves the k_cap best 64-bit keys (sort_key), sorted descending, in the
+// first pow2_ceil(k_cap) 8-byte entries of `keys` (padding entries 0 sort
+// last).  `keys` holds max(4 n, 8 pow2_ceil(k_cap)) bytes, 16-byte
+// aligned, and n is a multiple of 4 (the passes and the gather read 4
+// keys a thread in one load):
+//
+//   1. every node's ordered score into word i of `keys`, with the
+//      histogram of the top digit;
+//   2. none where the largest key occurs k_cap times or more (take_max);
+//      else digit passes of 8 bits, each a warp-aggregated histogram of
+//      the candidates' next digit and a scan that picks the digit, until
+//      the candidates left are exactly the keys still needed or the key
+//      is known to its last bit (4 passes at most);
+//   3. an ordered compaction in node order (4 nodes a thread, a warp
+//      scan, one exchange of per-warp counts a chunk of 4,096 nodes):
+//      word j gets the index of the j-th taken node, every key above the
+//      candidates and the `need` candidates of lowest index, which is
+//      lax.top_k's choice among ties.  Word j <= node i: a chunk reads
+//      its keys before its barrier and writes only words at or below
+//      them;
+//   4. the taken nodes' 64-bit keys, their scores computed again (the
+//      state has not changed), top chunk first: chunk [lo, hi) reads
+//      words [lo, hi) and writes words [2 lo, 2 hi), which no later chunk
+//      reads; then a bitonic sort of those keys alone.
+__device__ void select_topk(
+    const float* __restrict__ cap, const float* __restrict__ res,
+    const float* usage, const int* jc, const float* ask,
+    const uint8_t* __restrict__ feas, bool dist, float penalty, int n,
+    int k_cap, void* keys, int* hist, TopkSel* s_sel, int (*s_cnt)[WARPS]) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  uint32_t* words = reinterpret_cast<uint32_t*>(keys);
+  unsigned long long* keys64 = reinterpret_cast<unsigned long long*>(keys);
+
+  // 1. Score, with the largest key and its count (per thread, then per
+  // warp into s_cnt).
+  if (tid < RADIX_BINS) hist[tid] = 0;
+  if (tid == 0) *s_sel = TopkSel{0u, 0u, k_cap, 0};
+  __syncthreads();
+  uint32_t kmax = 0u;
+  int count = 0;
+  for (int base = 0; base < n; base += THREADS) {
+    const int i = base + tid;
+    uint32_t key = 0u;
+    if (i < n) {
+      key = ordered_bits(
+          score_node(cap, res, usage, jc, ask, feas, dist, penalty, i));
+      words[i] = key;
+      count = key > kmax ? 1 : count + (key == kmax);
+      kmax = key > kmax ? key : kmax;
+    }
+    hist_add(hist, i < n, key >> 24);
+  }
+  const uint32_t wmax = __reduce_max_sync(FULL_MASK, kmax);
+  count = __reduce_add_sync(FULL_MASK, kmax == wmax ? count : 0);
+  if (lane == 0) {
+    s_cnt[0][warp] = (int)wmax;
+    s_cnt[1][warp] = count;
+  }
+  __syncthreads();
+
+  // 2. The threshold, a digit a pass.
+  TopkSel sel;
+  for (int shift = 24;; shift -= 8) {
+    if (warp == 0 && !(shift == 24 && take_max(s_sel, s_cnt[0], s_cnt[1])))
+      pick_digit(hist, s_sel, shift);
+    __syncthreads();
+    sel = *s_sel;
+    if (sel.done) break;  // uniform
+    if (tid < RADIX_BINS) hist[tid] = 0;
+    __syncthreads();
+    for (int base = 0; base < n; base += 4 * THREADS) {
+      const int i0 = base + 4 * tid;  // this thread's 4 keys, one load
+      const uint4 q = i0 < n ? reinterpret_cast<const uint4*>(words)[i0 >> 2]
+                             : make_uint4(0u, 0u, 0u, 0u);
+      const uint32_t key[4] = {q.x, q.y, q.z, q.w};
+      bool active[4];
+      uint32_t digit[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        active[e] = i0 < n && (key[e] & sel.mask) == sel.prefix;
+        digit[e] = (key[e] >> (shift - 8)) & 0xffu;
+      }
+      hist_add4(hist, active, digit);
+    }
+    __syncthreads();
+  }
+
+  // 3. Ordered compaction of the taken indices, 4 consecutive nodes a
+  // thread: (candidates, keys above) counted a thread, scanned over the
+  // warp, each warp's total exchanged once a chunk (double-buffered).
+  int taken = 0, seen = 0;  // uniform: nodes taken, candidates seen
+  for (int base = 0, c = 0; base < n; base += 4 * THREADS, c ^= 1) {
+    const int i0 = base + 4 * tid;
+    const uint4 q = i0 < n ? reinterpret_cast<const uint4*>(words)[i0 >> 2]
+                           : make_uint4(0u, 0u, 0u, 0u);
+    const uint32_t key[4] = {q.x, q.y, q.z, q.w};
+    int eq = 0, gt = 0;  // bit e: key e is a candidate / above them
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t top = key[e] & sel.mask;
+      if (i0 < n && top == sel.prefix) eq |= 1 << e;
+      if (i0 < n && top > sel.prefix) gt |= 1 << e;
+    }
+    const int mine = __popc(eq) | (__popc(gt) << 16);
+    int incl = mine;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(FULL_MASK, incl, off);
+      if (lane >= off) incl += v;
+    }
+    if (lane == 31) s_cnt[c][warp] = incl;
+    __syncthreads();
+    const int v = s_cnt[c][lane];
+    const int before =
+        __reduce_add_sync(FULL_MASK, lane < warp ? v : 0) + incl - mine;
+    const int total = __reduce_add_sync(FULL_MASK, v);
+    const int rem = max(0, sel.need - seen);
+    int eq_before = before & 0xffff, gt_before = before >> 16;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool is_eq = (eq >> e) & 1, is_gt = (gt >> e) & 1;
+      if (is_gt || (is_eq && eq_before < rem))
+        words[taken + gt_before + min(eq_before, rem)] = (uint32_t)(i0 + e);
+      eq_before += is_eq;
+      gt_before += is_gt;
+    }
+    taken += (total >> 16) + min(total & 0xffff, rem);
+    seen += total & 0xffff;
+  }
+  __syncthreads();
+
+  // 4. Their 64-bit keys, then the sort.
+  const int m = pow2_ceil(k_cap);
+  for (int hi = m; hi > 0; hi -= THREADS) {
+    const int lo = hi > THREADS ? hi - THREADS : 0;
+    const int j = lo + tid;
+    unsigned long long key = 0ull;
+    if (j < k_cap) {
+      const int idx = (int)words[j];
+      key = sort_key(ordered_bits(score_node(cap, res, usage, jc, ask, feas,
+                                             dist, penalty, idx)),
+                     idx);
+    }
+    __syncthreads();
+    if (j < hi) keys64[j] = key;
+  }
+  __syncthreads();
+  bitonic_sort_desc(keys64, m);
 }
 
 // K3: for each slot, `rounds` rounds of score -> top-k_cap -> place at
 // up to min(remaining, k_cap) distinct winners; every winner not taken
-// gets +0.0, as in the reference.  The top-k is a full sort of 64-bit
-// keys (ordered score bits, inverted node index), so it returns the k
-// largest with ties to the lower index, as lax.top_k.  A round after
-// one that placed nothing reuses its sorted keys (the state changed
-// only by +0.0 adds), so a slot's exhausted rounds cost one sort, and
-// a slot with no feasible node neither a scoring nor a sort.
+// gets +0.0, as in the reference.  The top-k (path TOPK_SELECT:
+// select_topk; TOPK_SORT: a full sort of N 64-bit keys) returns the k
+// largest with ties to the lower index, as lax.top_k, as 64-bit keys
+// sorted descending at the start of `keys`.  A round after one that
+// placed nothing reuses them (the state changed only by +0.0 adds), so a
+// slot's exhausted rounds cost one top-k, and a slot with no feasible
+// node neither a scoring nor a top-k.  What bounds a round is its chain
+// of block-wide steps on one SM: at N = 16,384 and k_cap = 1,024 the
+// scoring (two powf a node), up to 3 digit passes (none on a uniform
+// fleet), 4 gather chunks and a sort of 1,024 keys with 21 barriers,
+// where the full sort took 105 barriers over N keys.
 __device__ __forceinline__ void place_rounds_lane(
     const float* __restrict__ cap, const float* __restrict__ res,
     const float* __restrict__ usage0, const int* __restrict__ jc0,
     const uint8_t* __restrict__ feas, const float* __restrict__ asks,
     const uint8_t* __restrict__ distinct, const int* __restrict__ counts,
-    float penalty, int n, int g_len, int k_cap, int rounds,
+    float penalty, int n, int g_len, int k_cap, int rounds, int path,
     int* __restrict__ chosen, float* __restrict__ scores, float* usage,
-    int* jc, unsigned long long* keys) {
+    int* jc, void* keys) {
   __shared__ float s_ask[NDIMS];
+  __shared__ int s_hist[RADIX_BINS];
+  __shared__ int s_cnt[2][WARPS];
+  __shared__ TopkSel s_sel;
+  unsigned long long* keys64 = reinterpret_cast<unsigned long long*>(keys);
   const int tid = threadIdx.x;
   const size_t stream_len = (size_t)rounds * k_cap;
   copy_state(usage0, jc0, usage, jc, n);
@@ -646,23 +1045,21 @@ __device__ __forceinline__ void place_rounds_lane(
         // A slot with no feasible node (a padded slot) scores -1e30
         // everywhere: every key holds the same score word, so its first
         // k_cap keys in index order are its top-k (lower index first).
-        bool any = false;
-        for (int i = tid; i < n; i += THREADS) any = any || feas_s[i] != 0;
-        if (__syncthreads_or(any)) {
-          for (int i = tid; i < n; i += THREADS) {
-            const float v = score_node(cap, res, usage, jc, s_ask, feas_s,
-                                       dist, penalty, i);
-            keys[i] = ((unsigned long long)ordered_bits(v) << 32) |
-                      (unsigned long long)(~(uint32_t)i);
-          }
-          __syncthreads();
-          bitonic_sort_desc(keys, n);
-        } else {
-          const unsigned long long none = (unsigned long long)ordered_bits(
-                                              NEG_INF) << 32;
+        if (!any_set(feas_s, n)) {
           for (int i = tid; i < k_cap; i += THREADS)
-            keys[i] = none | (unsigned long long)(~(uint32_t)i);
+            keys64[i] = sort_key(ordered_bits(NEG_INF), i);
           __syncthreads();
+        } else if (path == TOPK_SELECT) {
+          select_topk(cap, res, usage, jc, s_ask, feas_s, dist, penalty, n,
+                      k_cap, keys, s_hist, &s_sel, s_cnt);
+        } else {
+          for (int i = tid; i < n; i += THREADS)
+            keys64[i] = sort_key(ordered_bits(score_node(
+                                     cap, res, usage, jc, s_ask, feas_s,
+                                     dist, penalty, i)),
+                                 i);
+          __syncthreads();
+          bitonic_sort_desc(keys64, n);
         }
         sorted = true;
       }
@@ -671,7 +1068,7 @@ __device__ __forceinline__ void place_rounds_lane(
         const int pos = base + tid;
         bool take = false;
         if (pos < k_cap) {
-          const unsigned long long key = keys[pos];
+          const unsigned long long key = keys64[pos];
           const int idx = (int)(~(uint32_t)(key & 0xffffffffull));
           const float val = from_ordered((uint32_t)(key >> 32));
           take = pos < m && val > NEG_INF / 2;
@@ -694,9 +1091,10 @@ __device__ __forceinline__ void place_rounds_lane(
 }
 
 
-// The kernels.  Sort keys of N <= SMEM_SORT_MAX nodes live in the
-// block's dynamic shared memory; above that, in the caller's scratch
-// (one row of N keys per lane).
+// The kernels.  A K3/K4a lane's key region (topk_key_bytes) lives in
+// the block's dynamic shared memory up to KEYS_SMEM_MAX bytes (N =
+// 32,768 on the select path, 16,384 on the full sort); above that, in
+// the caller's scratch (one row of key words per lane).
 //
 // K2: ONE cluster of gridDim.x CTAs (a power of two up to 16), with the
 // slots and mode nomad_place_sequence_plan chose; `scratch` (slots * n
@@ -733,13 +1131,14 @@ __global__ void __launch_bounds__(THREADS) place_rounds_kernel(
     const float* __restrict__ usage0, const int* __restrict__ jc0,
     const uint8_t* __restrict__ feas, const float* __restrict__ asks,
     const uint8_t* __restrict__ distinct, const int* __restrict__ counts,
-    float penalty, int n, int g_len, int k_cap, int rounds,
+    float penalty, int n, int g_len, int k_cap, int rounds, int path,
     int* __restrict__ chosen, float* __restrict__ scores, float* usage,
-    int* jc, unsigned long long* scratch) {
+    int* jc, uint32_t* scratch) {
   extern __shared__ unsigned long long s_keys[];
   place_rounds_lane(cap, res, usage0, jc0, feas, asks, distinct, counts,
-                    penalty, n, g_len, k_cap, rounds, chosen, scores, usage,
-                    jc, scratch != nullptr ? scratch : s_keys);
+                    penalty, n, g_len, k_cap, rounds, path, chosen, scores,
+                    usage, jc,
+                    scratch != nullptr ? (void*)scratch : (void*)s_keys);
 }
 
 // K4b (nomad_tpu/ops/binpack.py place_sequence_batch): K2 over B lanes,
@@ -775,18 +1174,19 @@ __global__ void __launch_bounds__(THREADS) place_sequence_batch_kernel(
 // Bound on an H100: config 5 (B = 64 lanes, N = 16,384, one slot of
 // 1,000 copies, one round) reads ~1.5 MB of shared fleet tensors and
 // 1 MB of per-lane feasibility and writes 25 MB of per-lane usage:
-// ~8 us at 3.35 TB/s, bytes-bound.  K3's sort of 16,384 keys in one
-// block dominates each lane; the design runs the 64 lanes' sorts side
-// by side, one block with 128 KB of shared memory per SM, so the storm
-// costs about one K3 launch instead of 64.
+// ~8 us at 3.35 TB/s, bytes-bound.  Each lane's chain of block-wide
+// steps on one SM holds it: the scoring of 16,384 nodes, ~4 digit passes
+// over their 32-bit keys, the gather and a sort of k_cap = 1,024 keys
+// (select_topk).  The 64 lanes run side by side, one block with 64 KB
+// of keys per SM, so the storm costs about one K3 launch, not 64.
 __global__ void __launch_bounds__(THREADS) place_rounds_batch_kernel(
     const float* __restrict__ cap, const float* __restrict__ res,
     const float* __restrict__ usage0, const int* __restrict__ jc0,
     const uint8_t* __restrict__ feas, const float* __restrict__ asks,
     const uint8_t* __restrict__ distinct, const int* __restrict__ counts,
     const float* __restrict__ penalty, int n, int g_len, int k_cap,
-    int rounds, int* __restrict__ chosen, float* __restrict__ scores,
-    float* usage, int* jc, unsigned long long* scratch) {
+    int rounds, int path, int key_words, int* __restrict__ chosen,
+    float* __restrict__ scores, float* usage, int* jc, uint32_t* scratch) {
   extern __shared__ unsigned long long s_keys[];
   const size_t b = blockIdx.x;
   const size_t nn = (size_t)n;
@@ -794,21 +1194,45 @@ __global__ void __launch_bounds__(THREADS) place_rounds_batch_kernel(
   place_rounds_lane(
       cap, res, usage0, jc0 + b * nn, feas + b * (size_t)g_len * nn,
       asks + b * (size_t)g_len * NDIMS, distinct + b * (size_t)g_len,
-      counts + b * (size_t)g_len, penalty[b], n, g_len, k_cap, rounds,
+      counts + b * (size_t)g_len, penalty[b], n, g_len, k_cap, rounds, path,
       chosen + b * stream, scores + b * stream, usage + b * nn * NDIMS,
-      jc + b * nn, scratch != nullptr ? scratch + b * nn : s_keys);
+      jc + b * nn,
+      scratch != nullptr ? (void*)(scratch + b * (size_t)key_words)
+                         : (void*)s_keys);
 }
 
-// Dynamic shared memory for the sort of one block's keys: n keys when
-// they fit (and the attribute raised past 48 KB), 0 when the caller
-// passed a scratch buffer.  Returns a CUDA error code.
+// K3/K4a's top-k path for n nodes and k_cap, the rule: the full sort
+// where k_cap >= n / 2 (the select would still sort k_cap keys after its
+// passes: 1.47 against 1.77 ms at n = k_cap = 16,384), else the select.
+// At the main path's small launches (n = 1,024 and 256, k_cap <= n / 4)
+// the two paths time within 4% of each other, at n = 16,384 the select
+// is 2.3-4.2x faster (chip_smoke.py, H100).  The wrappers may force
+// either path: both compute the same function, and chip_smoke.py holds
+// and times both.
+static int topk_path(int n, int k_cap) {
+  return 2 * k_cap >= n ? TOPK_SORT : TOPK_SELECT;
+}
+
+// Bytes of one lane's key region: n 64-bit keys for the full sort; for
+// the select, n 32-bit keys, later overwritten by the pow2_ceil(k_cap)
+// 64-bit keys it sorts.
+static size_t topk_key_bytes(int n, int k_cap, int path) {
+  if (path == TOPK_SORT) return (size_t)n * 8;
+  const size_t words = (size_t)n * 4;
+  const size_t top = (size_t)pow2_ceil(k_cap) * 8;
+  return words > top ? words : top;
+}
+
+// Dynamic shared memory of one K3/K4a block: the lane's key region of
+// `bytes` when it fits (and the attribute raised past 48 KB), 0 when
+// the caller passed a scratch buffer.  Returns a CUDA error code.
 template <typename Kernel>
-static int sort_smem(Kernel kernel, int n, const void* scratch,
+static int keys_smem(Kernel kernel, size_t bytes, const void* scratch,
                      size_t* smem) {
   *smem = 0;
   if (scratch != nullptr) return 0;
-  if (n > SMEM_SORT_MAX) return (int)cudaErrorInvalidValue;
-  *smem = (size_t)n * sizeof(unsigned long long);
+  if (bytes > KEYS_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  *smem = bytes;
   if (*smem > 48 * 1024) {
     return (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
@@ -922,18 +1346,44 @@ int nomad_place_sequence(const float* cap, const float* res,
   return (int)cudaGetLastError();
 }
 
+// K3/K4a's plan for n nodes (a power of two) and k_cap: out[0] the
+// top-k path (`path`, or topk_path's rule where it is -1), out[1] the
+// 32-bit words of one lane's key region, out[2] 1 where that region
+// lies in shared memory, else 0 (the caller passes a scratch of out[1]
+// words a lane).  Returns a CUDA error code.
+int nomad_place_rounds_plan(int n, int k_cap, int path, int* out) {
+  if (n < 1 || (n & (n - 1)) != 0 || k_cap < 1 || k_cap > n || path < -1 ||
+      path > TOPK_SELECT || (path == TOPK_SELECT && n < 4))
+    return (int)cudaErrorInvalidValue;
+  if (path < 0) path = topk_path(n, k_cap);
+  const size_t bytes = topk_key_bytes(n, k_cap, path);
+  out[0] = path;
+  out[1] = (int)(bytes / 4);
+  out[2] = bytes <= KEYS_SMEM_MAX ? 1 : 0;
+  return 0;
+}
+
+static bool rounds_args_ok(int n, int k_cap, int rounds, int path) {
+  return n >= 1 && (n & (n - 1)) == 0 && k_cap >= 1 && k_cap <= n &&
+         rounds >= 1 && path >= TOPK_SORT && path <= TOPK_SELECT &&
+         (path == TOPK_SORT || n >= 4);
+}
+
 int nomad_place_rounds(const float* cap, const float* res, const float* usage0,
                        const int* jc0, const uint8_t* feas, const float* asks,
                        const uint8_t* distinct, const int* counts,
                        float penalty, int n, int g_len, int k_cap, int rounds,
-                       int* chosen, float* scores, float* usage, int* jc,
-                       unsigned long long* scratch, void* stream) {
+                       int path, int* chosen, float* scores, float* usage,
+                       int* jc, uint32_t* scratch, void* stream) {
+  if (!rounds_args_ok(n, k_cap, rounds, path))
+    return (int)cudaErrorInvalidValue;
   size_t smem = 0;
-  const int e = sort_smem(place_rounds_kernel, n, scratch, &smem);
+  const int e = keys_smem(place_rounds_kernel,
+                          topk_key_bytes(n, k_cap, path), scratch, &smem);
   if (e != 0) return e;
   place_rounds_kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(
       cap, res, usage0, jc0, feas, asks, distinct, counts, penalty, n, g_len,
-      k_cap, rounds, chosen, scores, usage, jc, scratch);
+      k_cap, rounds, path, chosen, scores, usage, jc, scratch);
   return (int)cudaGetLastError();
 }
 
@@ -954,15 +1404,18 @@ int nomad_place_rounds_batch(
     const float* cap, const float* res, const float* usage0, const int* jc0,
     const uint8_t* feas, const float* asks, const uint8_t* distinct,
     const int* counts, const float* penalty, int lanes, int n, int g_len,
-    int k_cap, int rounds, int* chosen, float* scores, float* usage, int* jc,
-    unsigned long long* scratch, void* stream) {
-  if (lanes < 1) return (int)cudaErrorInvalidValue;
+    int k_cap, int rounds, int path, int* chosen, float* scores,
+    float* usage, int* jc, uint32_t* scratch, void* stream) {
+  if (lanes < 1 || !rounds_args_ok(n, k_cap, rounds, path))
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = topk_key_bytes(n, k_cap, path);
   size_t smem = 0;
-  const int e = sort_smem(place_rounds_batch_kernel, n, scratch, &smem);
+  const int e = keys_smem(place_rounds_batch_kernel, bytes, scratch, &smem);
   if (e != 0) return e;
   place_rounds_batch_kernel<<<lanes, THREADS, smem, (cudaStream_t)stream>>>(
       cap, res, usage0, jc0, feas, asks, distinct, counts, penalty, n, g_len,
-      k_cap, rounds, chosen, scores, usage, jc, scratch);
+      k_cap, rounds, path, (int)(bytes / 4), chosen, scores, usage, jc,
+      scratch);
   return (int)cudaGetLastError();
 }
 

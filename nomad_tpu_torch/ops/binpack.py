@@ -263,16 +263,54 @@ def place_sequence(capacity, reserved, usage0, job_counts0, feasible, asks,
 
 place_sequence.launches = 0
 
-# Keys of up to this many nodes are sorted in shared memory (128 KB);
-# a larger node axis sorts in a scratch buffer in device memory.
-SMEM_SORT_MAX = 16384
+# How a K3/K4a round finds its top k_cap (``csrc/binpack.cu`` TOPK_*): a
+# full sort of N 64-bit keys, or a radix select on N 32-bit keys and a
+# sort of the k_cap it keeps.  ``nomad_place_rounds_plan`` picks the sort
+# where k_cap >= N / 2, else the select; a lane's keys lie in
+# shared memory up to 128 KB (N = 32,768 on the select path, 16,384 on
+# the sort), else in a scratch of int32 words in device memory.
+ROUNDS_PATHS = ("sort", "select")
+
+# K3/K4a's plan per (N, k_cap): see rounds_plan.
+_ROUNDS_PLANS: dict = {}
+
+
+def rounds_plan(n: int, k_cap: int, path=None) -> tuple:
+    """K3/K4a's plan for N nodes and ``k_cap``: (index into
+    :data:`ROUNDS_PATHS`, int32 words of one lane's key region, whether
+    that region lies in shared memory), from ``nomad_place_rounds_plan``.
+    ``path`` (a name in :data:`ROUNDS_PATHS`) forces the path; without
+    it the kernel source's rule decides, asked once per (N, k_cap)."""
+    key = (n, k_cap)
+    plan = _ROUNDS_PLANS.get(key) if path is None else None
+    if plan is None:
+        lib = kernels.library("binpack")
+        out = (ctypes.c_int * 3)()
+        code = lib.nomad_place_rounds_plan(
+            n, k_cap, -1 if path is None else ROUNDS_PATHS.index(path), out)
+        kernels.check(lib, "place_rounds plan", code)
+        plan = tuple(out)
+        if path is None:
+            _ROUNDS_PLANS[key] = plan
+    return plan
+
+
+def _rounds_scratch(n, k_cap, lanes, device):
+    """(path, scratch) of a K3/K4a launch: the key words of each lane in
+    device memory where the plan puts them there, else None."""
+    path, words, in_smem = rounds_plan(n, k_cap)
+    shape = (words,) if lanes is None else (lanes, words)
+    scratch = None if in_smem else \
+        torch.empty(shape, dtype=torch.int32, device=device)
+    return path, scratch
 
 
 def place_rounds(capacity, reserved, usage0, jc0, feasible, asks, distinct,
                  counts, penalty, k_cap: int, rounds: int):
     """K3 (``nomad_tpu/ops/binpack.py`` place_rounds): the plain version
-    for CPU tensors, the ``place_rounds_kernel`` launch for CUDA
-    tensors.  Same arguments and results as :func:`place_rounds_plain`."""
+    for CPU tensors, the ``place_rounds_kernel`` launch (one block, the
+    top-k path of :func:`rounds_plan`) for CUDA tensors.  Same arguments
+    and results as :func:`place_rounds_plain`."""
     args = dict(capacity=capacity, reserved=reserved, usage0=usage0,
                 jc0=jc0, feasible=feasible, asks=asks, distinct=distinct,
                 counts=counts)
@@ -302,14 +340,13 @@ def place_rounds(capacity, reserved, usage0, jc0, feasible, asks, distinct,
                          device=device)
     usage = torch.empty_like(usage0)
     jc = torch.empty_like(jc0)
-    scratch = None if n <= SMEM_SORT_MAX else \
-        torch.empty(n, dtype=torch.int64, device=device)
+    path, scratch = _rounds_scratch(n, k_cap, None, device)
     lib = kernels.library("binpack")
     code = lib.nomad_place_rounds(
         capacity.data_ptr(), reserved.data_ptr(), usage0.data_ptr(),
         jc0.data_ptr(), feasible.data_ptr(), asks.data_ptr(),
         distinct.data_ptr(), counts.data_ptr(), float(penalty), n, g,
-        k_cap, rounds, chosen.data_ptr(), scores.data_ptr(),
+        k_cap, rounds, path, chosen.data_ptr(), scores.data_ptr(),
         usage.data_ptr(), jc.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
         kernels.stream_handle(device))
@@ -394,15 +431,14 @@ def place_rounds_batch(capacity, reserved, usage0, job_counts, feasible,
     usage = torch.empty((lanes, n, NDIMS), dtype=torch.float32,
                         device=device)
     jc = torch.empty((lanes, n), dtype=torch.int32, device=device)
-    # One row of sort keys per lane when they do not fit in shared memory.
-    scratch = None if n <= SMEM_SORT_MAX else \
-        torch.empty((lanes, n), dtype=torch.int64, device=device)
+    # One row of key words per lane when they do not fit in shared memory.
+    path, scratch = _rounds_scratch(n, k_cap, lanes, device)
     lib = kernels.library("binpack")
     code = lib.nomad_place_rounds_batch(
         capacity.data_ptr(), reserved.data_ptr(), usage0.data_ptr(),
         job_counts.data_ptr(), feasible.data_ptr(), asks.data_ptr(),
         distinct.data_ptr(), counts.data_ptr(), penalty.data_ptr(), lanes,
-        n, g, k_cap, rounds, chosen.data_ptr(), scores.data_ptr(),
+        n, g, k_cap, rounds, path, chosen.data_ptr(), scores.data_ptr(),
         usage.data_ptr(), jc.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
         kernels.stream_handle(device))

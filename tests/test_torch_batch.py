@@ -158,6 +158,41 @@ def test_place_rounds_batch_matches_jax(k_cap, rounds, used):
         assert (t_out[0][:REAL, :, k_cap:] >= 0).any()
 
 
+@pytest.mark.parametrize("k_cap,rounds", [
+    (8, 1),    # ties straddle the k_cap-th key in every lane
+    (32, 1),   # k_cap = N: every key, the masked padding rows last
+])
+def test_place_rounds_batch_equal_scores_like_jax(k_cap, rounds):
+    """Lanes over 23 identical nodes (N padded to 32): every feasible
+    score of a slot ties, as on the main path's mock fleets, where the
+    kernel's select puts every key into one bin of each digit pass."""
+    rng = np.random.default_rng(61)
+    (_f, _u, jc, feasible, asks, distinct, _gi, _v, counts,
+     penalty) = _lanes_case(rng, False, counts_g=(6, 40, 2))
+    fleet = build_fleet([mock.node(i) for i in range(23)])
+    usage = build_usage(fleet, []).usage.astype(np.float32)
+    feasible[:REAL, :3] = False
+    feasible[:REAL, :3, :fleet.n_real] = True
+    distinct[:] = False
+    j_out = jbp.place_rounds_batch(
+        fleet.capacity, fleet.reserved, usage, jc, feasible, asks,
+        distinct, counts, penalty, k_cap=k_cap, rounds=rounds)
+    targs = (_t(fleet.capacity), _t(fleet.reserved), _t(usage), _t(jc),
+             _t(feasible), _t(asks), _t(distinct), _t(counts), _t(penalty))
+    t_out = tbp.place_rounds_batch(*targs, k_cap=k_cap, rounds=rounds)
+    _check_every(j_out, t_out)
+    for b in range(REAL):
+        # ties go to the lower index: slot 0 takes nodes 0..
+        got = t_out[0][b, 0, :k_cap].numpy()
+        placed = got[got >= 0]
+        assert placed.tolist() == list(range(len(placed)))
+        alone = tbp.place_rounds_plain(
+            *targs[:3], targs[3][b], targs[4][b], targs[5][b], targs[6][b],
+            targs[7][b], float(penalty[b]), k_cap=k_cap, rounds=rounds)
+        for got, want in zip(t_out, alone):
+            assert torch.equal(got[b], want)
+
+
 @pytest.mark.parametrize("used", [False, True])
 def test_place_sequence_batch_matches_jax(used):
     rng = np.random.default_rng(31)

@@ -239,6 +239,145 @@ class TestTopkPlain:
             self._check(vals, k)
 
 
+# -- the select path of the K3/K4a kernel, modelled in numpy -------------
+#
+# csrc/binpack.cu select_topk step by step, on one lane's key region of
+# 32-bit words (a chunk here is what the kernel's block handles between
+# two barriers: 4,096 nodes in the gather, 1,024 keys when it writes the
+# 64-bit keys; a chunk reads its words before it writes any): ordered
+# score words and the histogram of their top digit; no digit pass where
+# the largest key occurs k times or more, else digit passes of 8 bits
+# that stop once the candidates are exactly the keys still needed; the
+# ordered compaction of the taken indices into the same words; the
+# 64-bit keys written over them top chunk first; a sort of those keys
+# alone.  Held
+# against topk_plain, so a design error in the select shows before the
+# kernel runs on a card.
+
+
+def _ordered_bits(vals):
+    """csrc/binpack.cu ordered_bits: -0.0 folded into +0.0."""
+    u = (np.asarray(vals, dtype=np.float32) + np.float32(0.0)).view(
+        np.uint32)
+    return np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint32)
+
+
+def _from_ordered(o):
+    return np.where(o & 0x80000000, o & 0x7FFFFFFF, ~o).astype(
+        np.uint32).view(np.float32)
+
+
+def _pick_digit(hist, prefix, mask, need, shift):
+    """pick_digit: the digit of the need-th largest candidate."""
+    above = 0
+    for d in range(255, -1, -1):
+        if above + hist[d] >= need:
+            need -= above
+            return (prefix | (d << shift), mask | (0xFF << shift), need,
+                    need == hist[d] or shift == 0)
+        above += hist[d]
+    raise AssertionError("fewer candidates than needed")
+
+
+def _select_topk_model(vals, k, chunk, keys_chunk):
+    """(values, indices, digit passes) of the kernel's select path."""
+    n = len(vals)
+    m = 1 << (k - 1).bit_length()
+    words = np.zeros(max(n, 2 * m), dtype=np.uint32)
+    words[:n] = _ordered_bits(vals)
+    # 1-2. score words, then the threshold: the largest key where it
+    # occurs k times or more, else a digit a pass
+    prefix = mask = 0
+    need = k
+    hist = np.bincount(words[:n] >> 24, minlength=256)
+    passes = 1
+    kmax = words[:n].max()
+    if (words[:n] == kmax).sum() >= k:
+        prefix, mask, passes = int(kmax), 0xFFFFFFFF, 0
+    for shift in (24, 16, 8, 0) if passes else ():
+        prefix, mask, need, done = _pick_digit(hist, prefix, mask, need,
+                                               shift)
+        if done:
+            break
+        cand = words[:n][(words[:n] & mask) == prefix]
+        hist = np.bincount((cand >> (shift - 8)) & 0xFF, minlength=256)
+        passes += 1
+    # 3. ordered compaction of the taken indices into words [0, k)
+    taken = seen = 0
+    for base in range(0, n, chunk):
+        top = words[base:base + chunk] & mask  # read before the writes
+        eq, gt = top == prefix, top > prefix
+        rem = max(0, need - seen)
+        eq_before = np.cumsum(eq) - eq
+        gt_before = np.cumsum(gt) - gt
+        take = gt | (eq & (eq_before < rem))
+        pos = taken + gt_before + np.minimum(eq_before, rem)
+        idx = np.arange(base, base + len(top))
+        assert (pos[take] <= idx[take]).all()  # no unread word written
+        words[pos[take]] = idx[take]
+        taken += int(gt.sum()) + min(int(eq.sum()), rem)
+        seen += int(eq.sum())
+    assert taken == k
+    # 4. 64-bit keys over the same words, top chunk first, then the sort
+    score_words = _ordered_bits(vals)
+    hi = m
+    while hi > 0:
+        lo = max(0, hi - keys_chunk)
+        j = np.arange(lo, hi)
+        idx = words[j[j < k]].astype(np.int64)  # read before the writes
+        keys = np.zeros(hi - lo, dtype=np.uint64)
+        keys[j < k] = (score_words[idx].astype(np.uint64) << np.uint64(32)) \
+            | (~idx.astype(np.uint32)).astype(np.uint64)
+        words[2 * lo:2 * hi] = keys.view(np.uint32)
+        hi = lo
+    keys = np.sort(words[:2 * m].view(np.uint64))[::-1][:k]
+    idx = (~(keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)).astype(
+        np.int64)
+    vals_out = _from_ordered((keys >> np.uint64(32)).astype(np.uint32))
+    return vals_out, idx, passes
+
+
+def _select_hazards():
+    """TestTopkPlain's hazard set, 16,384 equal scores and k equal to n."""
+    rng = np.random.default_rng(5)
+    straddle = np.array([5.0, 7.0, 5.0, 5.0, 7.0, 5.0, 3.0],
+                        dtype=np.float32)
+    zeros = np.array([0.0, -0.0, tbp.NEG_INF, -0.0, 0.0, -3.5],
+                     dtype=np.float32)
+    heavy = rng.integers(0, 4, 257).astype(np.float32)
+    masked = rng.random(4096).astype(np.float32) * 18
+    masked[rng.random(4096) > 0.1] = tbp.NEG_INF  # fewer feasible than k
+    return [
+        ("ties straddling", straddle, (1, 2, 3, 4, 5, 7)),
+        ("-0.0, +0.0, -1e30", zeros, range(1, 7)),
+        ("k bounds", np.array([1.0, 2.0], dtype=np.float32), (1, 2)),
+        ("heavy ties", heavy, (1, 16, 64, 257)),
+        ("16,384 equal", np.full(16384, 7.25, dtype=np.float32),
+         (1, 1024, 16384)),
+        ("fewer feasible than k", masked, (1024, 4096)),
+        ("random scores", (rng.random(32768) * 18).astype(np.float32),
+         (1024,)),
+    ]
+
+
+@pytest.mark.parametrize("chunks", [(4096, 1024), (32, 8)])
+@pytest.mark.parametrize("case", range(7))
+def test_select_model_matches_topk_plain(case, chunks):
+    name, vals, ks = _select_hazards()[case]
+    for k in ks:
+        want_vals, want_idx = tbp.topk_plain(torch.from_numpy(vals), k)
+        got_vals, got_idx, passes = _select_topk_model(vals, k, *chunks)
+        assert got_idx.tolist() == want_idx.tolist(), (name, k)
+        # equal as numbers (-0.0 == +0.0: the fold makes them one key)
+        assert np.array_equal(got_vals, want_vals.numpy()), (name, k)
+        assert 0 <= passes <= 4
+        ties_at_max = (_ordered_bits(vals) == _ordered_bits(vals).max()
+                       ).sum() >= k
+        assert (passes == 0) == bool(ties_at_max), (name, k)
+        if k == len(vals) and not ties_at_max:  # every key: one pass
+            assert passes == 1, (name, k)
+
+
 def test_wrappers_reject_mixed_devices_and_bad_k():
     fleet, view, asks, feasible, distinct = _tie_case()
     counts = np.zeros(4, dtype=np.int32)
@@ -353,3 +492,58 @@ def test_place_rounds_scores_every_round_like_jax(k_cap, rounds, counts_g,
     # their winners come out +0.0
     assert (ts.numpy()[tc.numpy() < 0] > tbp.NEG_INF / 2).any()
     assert _neg_zeros(tu) < _neg_zeros(usage)
+
+
+# -- all scores equal, and k_cap equal to the node axis ---------------------
+#
+# The kernel's select path on a uniform fleet puts every key into one
+# histogram bin of every digit pass, and with k_cap equal to the node
+# axis takes every key; the plain version must give what JAX gives there.
+
+
+def _equal_case(n_nodes):
+    """``n_nodes`` identical nodes (N padded to 32), every real node
+    feasible for slots 0-1: every feasible score ties, the padding rows
+    are masked at -1e30 and fill the tail of a top-32."""
+    fleet = build_fleet([mock.node(i) for i in range(n_nodes)])
+    view = build_usage(fleet, [])
+    asks = np.zeros((4, 6), dtype=np.float32)
+    asks[0] = Resources(cpu=100, memory_mb=64).as_vector()
+    asks[1] = Resources(cpu=250, memory_mb=128).as_vector()
+    feasible = np.zeros((4, fleet.n_pad), dtype=bool)
+    feasible[:2, :fleet.n_real] = True
+    distinct = np.zeros(4, dtype=bool)
+    return fleet, view, asks, feasible, distinct
+
+
+@pytest.mark.parametrize("k_cap,rounds,counts_g", [
+    (8, 1, (5, 3, 0, 0)),     # ties straddle the k_cap-th key
+    (4, 3, (9, 2, 0, 0)),     # rounds after ties were placed on
+    (32, 1, (30, 40, 0, 0)),  # k_cap = N: every key, masked ones last
+])
+@pytest.mark.parametrize("n_nodes", [23, 32])
+def test_place_rounds_equal_scores_like_jax(k_cap, rounds, counts_g,
+                                            n_nodes):
+    fleet, view, asks, feasible, distinct = _equal_case(n_nodes)
+    assert fleet.n_pad == 32
+    counts = np.asarray(counts_g, dtype=np.int32)
+    jc_, js_, ju_ = jbp.place_rounds(
+        fleet.capacity, fleet.reserved, view.usage, view.job_counts,
+        feasible, asks, distinct, counts, np.float32(PENALTY), k_cap=k_cap,
+        rounds=rounds)
+    tc, ts, tu = tbp.place_rounds(
+        _t(fleet.capacity), _t(fleet.reserved), _t(view.usage),
+        _t(view.job_counts), _t(feasible), _t(asks), _t(distinct),
+        _t(counts), PENALTY, k_cap=k_cap, rounds=rounds)
+    assert np.array_equal(tc.numpy(), np.asarray(jc_))
+    _assert_every_score(js_, ts)
+    _assert_usage_bits(ju_, tu)
+    # ties go to the lower index: slot 0's first round takes nodes 0..
+    first = tc.numpy()[0, :k_cap]
+    placed = first[first >= 0]
+    assert placed.tolist() == list(range(len(placed)))
+    if k_cap == fleet.n_pad:  # the masked padding rows close the stream
+        pad = fleet.n_pad - fleet.n_real
+        if pad:
+            assert (ts.numpy()[0, k_cap - pad:k_cap]
+                    == np.float32(tbp.NEG_INF)).all()
