@@ -1,7 +1,8 @@
 """Chip smoke: build the port's CUDA kernels and drive its placement path on
 one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                       # every phase, the result line
+    python3 chip_smoke.py --only NAME[,NAME]    # those kernels' checks alone
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -20,12 +21,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
               fewer feasible nodes than k_cap, N = 32,768 and 131,072),
               with ``torch.topk`` on the same scores as a yardstick for
               the selection alone; K5 beside ``usage.index_copy`` with
-              both device times;
-              The batch kernels (K4a/K4b) are also held lane by lane
-              against the single-eval kernels (K3/K2), exactly; the
-              window verify (K6) at the fleet-scaling window (B=64 on a
-              1,048,576-row fleet) and at a contended config-5b-sized
-              window (B=8,192);
+              both device times; K4b at K2's cases at B=8 and B=64 (ties,
+              runs of 8 groups, a group change every step, 40 groups,
+              131,072 nodes, invalid gaps and a long invalid tail, -0.0
+              usage); the batch
+              kernels (K4a/K4b) also lane by lane against the
+              single-eval kernels (K3/K2), exactly; the window verify
+              (K6) at the fleet-scaling window (B=64 on a 1,048,576-row
+              fleet), a contended config-5b-sized window (B=8,192), its
+              worst case (every pair on one node), a window far under
+              its bucket and removals on nodes no pair claims, with its
+              device time and the host time of a call;
   4. slice    the torch-binpack path through Harness.process on cuda:
               10,000 mock nodes with a 1,000-task-group job (bench.py
               config 4 shape), then 1,000 nodes with config-2 batch jobs
@@ -34,11 +40,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
               kernel's launch count must move, and the config-2
               placements must equal a rerun through the plain versions
               on the card; the main path's K2 launch is replayed from
-              that rerun's inputs, bit for bit, and timed beside the
-              one-block lane body (K4b at B=1); K3's launches are
-              recorded as they happen and the first at each shape
-              (N=16,384 and 1,024) replayed on both top-k paths, bit for
-              bit, and timed;
+              that rerun's inputs, bit for bit, and timed beside K4b at
+              B=1 on the same inputs; K3's launches are recorded as they
+              happen and the first at each shape (N=16,384 and 1,024)
+              replayed on both top-k paths, bit for bit, and timed;
   5. storm    the fused eval storm through BatchEvalRunner on cuda:
               (a) bench.py config 5, 64 jobs x 1,000 groups on 10,000
               nodes with a record-only planner: ONE place_rounds_batch
@@ -47,18 +52,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
               groups on 160 nodes through VerifyingPlanner: contended,
               no node oversubscribed, placements equal to a rerun
               through the plain versions on the card; (c) 8 jobs that
-              are not rounds-eligible on 1,000 nodes: place_sequence_batch;
+              are not rounds-eligible on 1,000 nodes, and 8 of another
+              such shape on config 5's 10,000 nodes: place_sequence_batch;
               (d) config 5b again under the ``device`` verify policy:
-              K6 runs every window's base fit, and the storm must commit
-              what (b) committed; (c)'s K4b launch is replayed from a
-              plain rerun's inputs, bit for bit, and timed; K3's and
-              K4a's launches in (a)-(c) are recorded and replayed as in
-              the slice (N=16,384 and 256);
+              K6 runs every window's base fit, one upload and one fetch
+              a window, and the storm must commit what (b) committed;
+              (c)'s K4b launches are replayed from a plain rerun's
+              inputs, bit for bit, and timed; K3's and K4a's launches in
+              (a)-(c) are recorded and replayed as in the slice
+              (N=16,384 and 256);
   6. verify   bench.py's 5f fleet-scaling sub-table on the port: NodeSlab
               fleets of 10,000, 131,072 and 1,000,000 nodes, 64
               single-placement plans a window, 8 measured windows under
               the host engine and under the device engine (K6); every
-              device window must dispatch and give the host's verdicts;
+              device window must dispatch, make one upload and one
+              fetch, and give the host's verdicts;
   7. report   one ``{"kernels": [...]}`` line, then the card's name and
               power limit exactly as nvidia-smi prints them, then the
               result line ``{"ok": true, "device": {...}}`` last.
@@ -96,6 +104,10 @@ OPS_PER_NODE = SCORE_OPS + 1
 SEQ_SLOTS = 32
 
 DEV = "cuda"  # where the checks put their tensors and run the port
+
+# Uploads and fetches of one device verify window: one each on the card,
+# none when a rehearsal runs the plain version on the CPU.
+WINDOW_TRANSFERS = {"cuda": (1, 1), "cpu": (0, 0)}
 
 # What config 5b commits on the port (its placements are also held
 # against a rerun through the plain versions).
@@ -167,6 +179,21 @@ def time_ms(torch, fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_call_ms(torch, fn, reps: int) -> float:
+    """Mean host-clock ms of one call of ``fn`` on an idle card (a
+    synchronize before each, untimed), after one warm-up call: the host
+    time of a call the way a caller that waits for each result sees it."""
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total * 1e3 / reps
 
 
 # -- phase 3: kernels against their plain versions -------------------------
@@ -489,22 +516,38 @@ def check_rounds(torch, binpack, n, count, k_cap, rounds, rng, uniform,
                 bound_ms=b_ms, bound_by=b_by, placed=placed, rounds_run=ran)
 
 
-def window_case(rng, n_real, n_plans, per_plan, n_comps, removals):
+def window_case(rng, n_real, n_plans, per_plan, n_comps, removals, *,
+                bucket=None, stray=0.0, stray_nodes=None):
     """Host descriptors of one verify window as the device engine builds
     them (ops/plan_conflict._window_device_args): plan i lies in
     component i % n_comps, whose nodes are its own slice of the fleet;
     each placement is a placement row of its (plan, node) pair and a
     fold entry; a pair evicts an alloc with probability ``removals`` (a
     negative fold entry and the pair's removed sum).  ``per_plan`` 1
-    puts every plan on its own node (the fleet-scaling window).  Returns
+    puts every plan on its own node (the fleet-scaling window);
+    ``n_real`` 1 puts every pair on node 0.  ``stray`` is the chance a
+    pair also evicts an alloc on a node in ``stray_nodes`` (lo, hi),
+    which no pair claims: a removal entry that matches nothing.
+    ``bucket`` pads past the real counts' own bucket.  Returns
     (descriptors padded to one bucket, real counts)."""
     from nomad_tpu_torch.models.fleet import _pad_to
 
     span = n_real // n_comps
-    single = rng.choice(n_real, n_plans, replace=False)
+    single = rng.choice(n_real, n_plans, replace=False) \
+        if per_plan == 1 else None
     pair_ni, pair_order, pair_comp, pair_removed = [], [], [], []
     row_pair, row_vec = [], []
     seq_ni, seq_vec, seq_order, seq_comp = [], [], [], []
+
+    def removal(ni, i, c):
+        v = [float(rng.integers(50, 700)), float(rng.integers(40, 900)),
+             0.0, 0.0]
+        seq_ni.append(ni)
+        seq_vec.append([-x for x in v])
+        seq_order.append(i)
+        seq_comp.append(c)
+        return v
+
     for i in range(n_plans):
         c = i % n_comps
         picks = [int(single[i])] if per_plan == 1 else \
@@ -514,15 +557,11 @@ def window_case(rng, n_real, n_plans, per_plan, n_comps, removals):
             pair_ni.append(ni)
             pair_order.append(i)
             pair_comp.append(c)
+            if stray and rng.random() < stray:
+                removal(int(rng.integers(*stray_nodes)), i, c)
             removed = [0.0] * 4
             if rng.random() < removals:
-                v = [float(rng.integers(50, 700)),
-                     float(rng.integers(40, 900)), 0.0, 0.0]
-                seq_ni.append(ni)
-                seq_vec.append([-x for x in v])
-                seq_order.append(i)
-                seq_comp.append(c)
-                removed = v
+                removed = removal(ni, i, c)
             pair_removed.append(removed)
             for _ in range(picks.count(ni)):
                 v = [float(rng.integers(50, 700)),
@@ -535,7 +574,7 @@ def window_case(rng, n_real, n_plans, per_plan, n_comps, removals):
                 seq_order.append(i)
                 seq_comp.append(c)
     counts = dict(pairs=len(pair_ni), rows=len(row_pair), seq=len(seq_ni))
-    b = _pad_to(max(counts.values()))
+    b = max(_pad_to(max(counts.values())), bucket or 0)
 
     def pad_i(vals, fill):
         out = np.full(b, fill, dtype=np.int32)
@@ -596,16 +635,9 @@ def window_bound(desc, counts) -> tuple:
     return bound(nbytes, ops)
 
 
-def check_window_verify(torch, mesh, n_real, n_pad, n_plans, per_plan,
-                        n_comps, removals, rng, reps):
-    """K6 against its plain version on the card: used and caps bit for
-    bit, fits equal.  ``ms`` times the kernel launch alone on
-    descriptors already on the card (CUDA events), ``device_ms`` the
-    kernel's own device time (torch.profiler), ``wrapper_ms`` the
-    wrapper as the engine calls it (host checks, one packed upload, the
-    launch)."""
-    from nomad_tpu_torch.parallel.devices import put_counted
-
+def window_fleet(torch, rng, n_real, n_pad) -> list:
+    """Capacity, reserved and usage f32[n_pad, 6] on the card for K6's
+    windows: ``n_real`` mock-sized nodes with random usage."""
     cap = np.zeros((n_pad, 6), dtype=np.float32)
     cap[:n_real, :5] = (4000, 8192, 102400, 150, 1000)
     cap[:n_real, 5] = 40000.0
@@ -615,9 +647,23 @@ def check_window_verify(torch, mesh, n_real, n_pad, n_plans, per_plan,
     usage[:n_real, 0] = rng.integers(0, 3000, n_real)
     usage[:n_real, 1] = rng.integers(0, 6000, n_real)
     usage[:n_real, 3] = rng.integers(0, 100, n_real)
-    t = [torch.from_numpy(x).to(DEV) for x in (cap, res, usage)]
+    return [torch.from_numpy(x).to(DEV) for x in (cap, res, usage)]
+
+
+def check_window_verify(torch, mesh, n_real, n_pad, n_plans, per_plan,
+                        n_comps, removals, rng, reps, **case):
+    """K6 against its plain version on the card: used and caps bit for
+    bit, fits equal.  ``ms`` times the kernel launch alone on
+    descriptors already on the card (CUDA events), ``device_ms`` the
+    kernel's own device time (torch.profiler); on the host clock, with
+    the card idle before each call, ``host_ms`` the wrapper as the
+    engine calls it (checks, the packed upload, the launch) and
+    ``dispatch_ms`` the engine's whole K6 step (``dispatch_timing``)."""
+    from nomad_tpu_torch.parallel.devices import put_counted
+
+    t = window_fleet(torch, rng, n_real, n_pad)
     desc, counts = window_case(rng, n_real, n_plans, per_plan, n_comps,
-                               removals)
+                               removals, **case)
     b = desc["pair_ni"].shape[0]
     usage_before = t[2].clone()
     got = mesh.window_verify(*t, **desc)
@@ -631,22 +677,57 @@ def check_window_verify(torch, mesh, n_real, n_pad, n_plans, per_plan,
                 f"{what}: {name} differs from the plain version")
     fits = got[2][:counts["pairs"]]
     packed = put_counted(mesh.pack_descriptors(desc, b), DEV)
-    ms = time_ms(torch, lambda: mesh.launch_window_verify(*t, packed, b),
-                 reps)
+    walk = mesh.kernel_counts(desc)
+    ms = time_ms(torch, lambda: mesh.launch_window_verify(
+        *t, packed, b, walk), reps)
     device_ms = kernel_device_ms(
-        torch, lambda: mesh.launch_window_verify(*t, packed, b), reps,
+        torch, lambda: mesh.launch_window_verify(*t, packed, b, walk), reps,
         "window_verify_kernel")
-    wrapper_ms = time_ms(torch, lambda: mesh.window_verify(*t, **desc),
-                         reps)
+    host_ms = host_call_ms(torch, lambda: mesh.window_verify(
+        *t, packed=True, **desc), reps)
+    dispatch = dispatch_timing(torch, t, desc, counts, reps)
     plain_ms = time_ms(torch, lambda: mesh.window_verify_plain(*t, **dd),
                        max(1, reps // 10))
     b_ms, b_by = window_bound(desc, counts)
     return dict(err=float(max((g.float() - w.float()).abs().max()
                               for g, w in zip(got, want))),
-                ms=ms, device_ms=device_ms, wrapper_ms=wrapper_ms,
+                ms=ms, device_ms=device_ms, host_ms=host_ms, **dispatch,
                 plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, bucket=b, **counts,
                 fits=int(fits.sum()))
+
+
+def dispatch_timing(torch, fleet, desc, counts, reps) -> dict:
+    """The device engine's K6 step for one window, as
+    ``ops/plan_conflict._dispatch_window_fit`` runs it (pad the host
+    descriptors to their bucket, upload, launch, fetch the verdicts):
+    ``dispatch_ms``, its host-clock ms on an idle card
+    (``host_call_ms``), the kernel's device time in it, and the uploads
+    and fetches it counted.  The
+    descriptors are the unpadded lists the engine builds."""
+    from nomad_tpu_torch.ops.plan_conflict import _dispatch_window_fit
+
+    p, r, q = counts["pairs"], counts["rows"], counts["seq"]
+    dargs = dict(
+        pair_ni=desc["pair_ni"][:p].tolist(),
+        pair_order=desc["pair_order"][:p].tolist(),
+        pair_comp=desc["pair_comp"][:p].tolist(),
+        pair_removed=desc["pair_removed"][:p].tolist(),
+        seq_ni=desc["seq_ni"][:q].tolist(),
+        seq_vec=desc["seq_vec"][:q].tolist(),
+        seq_order=desc["seq_order"][:q].tolist(),
+        seq_comp=desc["seq_comp"][:q].tolist(), seq_ok=True)
+    vec_pair = desc["row_pair"][:r].tolist()
+    vec_rows = desc["row_vec"][:r].tolist()
+
+    def step():
+        return _dispatch_window_fit(fleet[:2], fleet[2], dargs, vec_pair,
+                                    vec_rows, p)
+    info = step()[3]
+    return dict(dispatch_ms=host_call_ms(torch, step, reps),
+                dispatch_device_ms=kernel_device_ms(
+                    torch, step, max(1, reps // 4), "window_verify_kernel"),
+                dispatch_h2d=info["h2d"], dispatch_d2h=info["d2h"])
 
 
 def device_per_call(torch, fn, reps):
@@ -815,20 +896,35 @@ def check_rounds_batch(torch, binpack, n, lanes, counts0, k_cap, rounds, rng,
                 lanes_as_single_launches_ms=alone_ms)
 
 
-def check_sequence_batch(torch, binpack, n, lanes, p, rng, reps):
-    """K4b against its plain version and, lane by lane, against K2."""
-    c = lanes_case(torch, n, lanes, rng, uniform=False)
-    group_idx = torch.from_numpy(
-        rng.integers(0, 3, (lanes, p)).astype(np.int32)).to(DEV)
-    valid = torch.ones((lanes, p), dtype=torch.bool, device=DEV)
-    valid[:, -8:] = False
-    valid[-1] = False  # a pad lane
+def check_sequence_batch(torch, binpack, n, lanes, p, rng, reps, *,
+                         uniform=False, groups=3, order="random", tail=8,
+                         gaps=0, neg_zero=False):
+    """K4b against its plain version, bit for bit, and lane by lane
+    against K2 launched alone on the lane.  Each lane draws its own
+    group order (``sequence_groups``); ``tail``, ``gaps`` and
+    ``neg_zero`` as in ``check_sequence``; the last lane is a pad lane
+    (every step invalid, as ``pad_lanes`` adds them)."""
+    g = max(groups, 8)
+    c = lanes_case(torch, n, lanes, rng, uniform=uniform, g=g)
+    if neg_zero:
+        c["usage0"] = torch.where(c["usage0"] == 0, -0.0, c["usage0"])
+    gi_h = np.stack([sequence_groups(rng, p, groups, order)
+                     for _ in range(lanes)])
+    valid_h = np.ones((lanes, p), dtype=bool)
+    if gaps:
+        valid_h[:, gaps - 1::gaps] = False
+    if tail:
+        valid_h[:, -tail:] = False
+    valid_h[-1] = False  # a pad lane
+    group_idx = torch.from_numpy(gi_h).to(DEV)
+    valid = torch.from_numpy(valid_h).to(DEV)
     penalty = torch.from_numpy(
         np.where(np.arange(lanes) % 2 == 0, 10.0, 5.0).astype(
             np.float32)).to(DEV)
     args = (c["capacity"], c["reserved"], c["usage0"], c["jc0"],
             c["feasible"], c["asks"], c["distinct"], group_idx, valid,
             penalty)
+    what = f"place_sequence_batch N={n} B={lanes} P={p} {order} G={groups}"
     usage_before = c["usage0"].clone()
     got = binpack.place_sequence_batch(*args)
     torch.cuda.synchronize()
@@ -840,22 +936,27 @@ def check_sequence_batch(torch, binpack, n, lanes, p, rng, reps):
         c["feasible"][b], c["asks"][b], c["distinct"][b], group_idx[b],
         valid[b], float(penalty[b])) for b in range(lanes)]
     torch.cuda.synchronize()
-    err = batch_compare(torch, f"place_sequence_batch N={n} B={lanes}", got,
-                        want, alone)
-    require(bool((got[0][-1] == -1).all()), "the pad lane placed something")
+    err = batch_compare(torch, what, got, want, alone)
+    require(bool((got[0][-1] == -1).all()), f"{what}: the pad lane placed")
+    if neg_zero:  # the +0.0 adds reached the card: -0.0 rows went +0.0
+        before = int(torch.signbit(usage_before[usage_before == 0]).sum())
+        after = int(torch.signbit(got[2][0][got[2][0] == 0]).sum())
+        require(after < before, f"{what}: no -0.0 usage entry turned +0.0")
     ms = time_ms(torch, lambda: binpack.place_sequence_batch(*args), reps)
     plain_ms = time_ms(torch,
                        lambda: binpack.place_sequence_batch_plain(*args), 1)
-    gi_h, valid_h = group_idx.cpu().numpy(), valid.cpu().numpy()
     chosen_h = want[0].cpu().numpy()
     nbytes = shared_fleet_bytes(n) + sum(
         4 + sequence_lane_bytes(n, gi_h[b], valid_h[b])
         for b in range(lanes))  # 4: the lane's penalty
-    g = c["feasible"].shape[1]
     b_ms, b_by = bound(nbytes, sum(sequence_ops(n, g, gi_h[b], chosen_h[b])
                                    for b in range(lanes)))
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, placed=int((got[0] >= 0).sum()))
+    out = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, placed=int((chosen_h >= 0).sum()))
+    plan = binpack.sequence_batch_plan(n, g, lanes, DEV)
+    out.update(cluster=plan[0], slots=plan[1],
+               mode=binpack.SEQ_MODES[plan[2]])
+    return out
 
 
 # -- phase 4: the slice -----------------------------------------------------
@@ -1197,11 +1298,10 @@ def main_path_rounds(torch, binpack, calls, reps=20):
 
 def main_path_sequence(torch, binpack, args, reps=50):
     """K2 at the main path's own launch (``args``, recorded from the
-    slice's sequence job) beside the one-block lane body that K2 ran
-    until it moved onto a cluster and K4b runs now, launched as K4b at
-    B=1 on the same inputs.  Both are held to the plain version bit for
-    bit and timed with CUDA events in one loop order (K2, one block,
-    one block, K2)."""
+    slice's sequence job) beside K4b at B=1 on the same inputs: one
+    cluster body, launched as K2 and as a one-lane batch.  Both are held
+    to the plain version bit for bit and timed with CUDA events in one
+    loop order (K2, K4b, K4b, K2)."""
     (cap, res, usage0, jc0, feas, asks, dist, group_idx, valid,
      penalty) = args
     n, g, p = cap.shape[0], feas.shape[0], group_idx.shape[0]
@@ -1213,14 +1313,15 @@ def main_path_sequence(torch, binpack, args, reps=50):
     one = binpack.place_sequence_batch(*lane)
     torch.cuda.synchronize()
     what = f"place_sequence main path N={n} G={g} P={p}"
-    compare(torch, what, got[:3], want[:3])
+    err = compare(torch, what, got[:3], want[:3])
     require(torch.equal(got[3], want[3]), f"{what}: job counts differ")
-    compare(torch, what + " one block", [x[0] for x in one], want[:3])
+    err = max(err, compare(torch, what + " as K4b B=1",
+                           [x[0] for x in one], want[:3]))
     k2_a = time_ms(torch, lambda: binpack.place_sequence(*args), reps)
-    one_a = time_ms(torch, lambda: binpack.place_sequence_batch(*lane),
-                    reps)
-    one_b = time_ms(torch, lambda: binpack.place_sequence_batch(*lane),
-                    reps)
+    b1_a = time_ms(torch, lambda: binpack.place_sequence_batch(*lane),
+                   reps)
+    b1_b = time_ms(torch, lambda: binpack.place_sequence_batch(*lane),
+                   reps)
     k2_b = time_ms(torch, lambda: binpack.place_sequence(*args), reps)
     gi_h = group_idx.cpu().numpy()
     chosen_h = want[0].cpu().numpy()
@@ -1231,9 +1332,9 @@ def main_path_sequence(torch, binpack, args, reps=50):
     return dict(n=n, groups=g, steps=p, placed=int((chosen_h >= 0).sum()),
                 cluster=plan[0], slots=plan[1],
                 mode=binpack.SEQ_MODES[plan[2]], ms=(k2_a + k2_b) / 2,
-                ms_runs=[k2_a, k2_b], one_block_ms=(one_a + one_b) / 2,
-                one_block_runs=[one_a, one_b], bound_ms=b_ms,
-                bound_by=b_by)
+                ms_runs=[k2_a, k2_b], k4b_b1_ms=(b1_a + b1_b) / 2,
+                k4b_b1_runs=[b1_a, b1_b], bound_ms=b_ms, bound_by=b_by,
+                err=err)
 
 
 # -- phase 5: the fused storm ----------------------------------------------
@@ -1379,25 +1480,49 @@ def storm_config5b(mock, structs, Harness, VerifyingPlanner,
                         conflict_fallbacks=vp.conflict_fallbacks)
 
 
-def storm_sequence(mock, structs, Harness, BatchEvalRunner, nodes):
-    """8 jobs of the slice's sequence_job shape (not rounds-eligible) on
-    1,000 nodes, fused, committed through the harness's direct apply."""
+def fleet_sequence_job(mock, structs):
+    """Small asks that only the ten nodes named node-0 .. node-9 may
+    take, 200 copies: a slot that needs 20 rounds (200 copies over 10
+    fitting nodes) where the rounds kernels take at most 16, so
+    ``_fit_rounds`` finds the job not rounds-eligible and the sequence
+    kernel takes it, on the whole fleet's node axis."""
+    j = mock.job()
+    j.id = "fleet-sequence-job"
+    tg = j.task_groups[0]
+    tg.count = 200
+    tg.constraints = [structs.Constraint(
+        hard=True, l_target="$node.name", r_target="^node-[0-9]$",
+        operand="regexp")]
+    tg.tasks[0].resources = structs.Resources(
+        cpu=100, memory_mb=64,
+        networks=[structs.NetworkResource(mbits=5, dynamic_ports=["http"])])
+    return j
+
+
+def storm_sequence(mock, structs, Harness, BatchEvalRunner, nodes,
+                   make_job=None, prefix="sequence-storm"):
+    """8 jobs that are not rounds-eligible (the slice's ``sequence_job``
+    shape by default) on ``nodes``, fused, committed through the
+    harness's direct apply; every copy must be placed."""
+    make_job = make_job or sequence_job
     h = Harness(device=DEV)
     for node in nodes:
         h.state.upsert_node(h.next_index(), node.copy())
     jobs = []
     for k in range(8):
-        j = sequence_job(mock, structs)
-        j.id = f"sequence-storm-{k}"
+        j = make_job(mock, structs)
+        j.id = f"{prefix}-{k}"
         h.state.upsert_job(h.next_index(), j)
         jobs.append(j)
+    copies = sum(tg.count for tg in jobs[0].task_groups)
     t = time.perf_counter()
     BatchEvalRunner(h.snapshot(), h, device=DEV).process(
         [make_eval(structs, j) for j in jobs])
     wall = time.perf_counter() - t
     placed = sum(len(v) for p in h.plans for v in p.node_allocation.values())
-    require(placed == 8 * 24, f"sequence storm placed {placed} of 192")
-    return dict(evals=8, wall_s=wall, placed=placed)
+    require(placed == 8 * copies,
+            f"{prefix} placed {placed} of {8 * copies}")
+    return dict(evals=8, nodes=len(nodes), wall_s=wall, placed=placed)
 
 
 def window_records():
@@ -1419,7 +1544,8 @@ def window_records():
     return records, restore
 
 
-def run_storm(torch, sizes5=(), sizes5b=(), n_seq_nodes=1000):
+def run_storm(torch, sizes5=(), sizes5b=(), n_seq_nodes=1000,
+              n_fleet_nodes=10_000):
     """The storm phase.  The sizes default to the configurations'; a
     rehearsal passes smaller ones."""
     import nomad_tpu_torch.mock as mock
@@ -1437,6 +1563,7 @@ def run_storm(torch, sizes5=(), sizes5b=(), n_seq_nodes=1000):
     for fn in counters:
         fn.launches = 0
     nodes = [mock.node(i) for i in range(n_seq_nodes)]
+    fleet_nodes = [mock.node(i) for i in range(n_fleet_nodes)]
     # K3's and K4a's launches are recorded as they happen (a copy of the
     # first launch's inputs at each shape) for the replay below.
     rounds_calls: dict = {}
@@ -1449,6 +1576,9 @@ def run_storm(torch, sizes5=(), sizes5b=(), n_seq_nodes=1000):
                                        VerifyingPlanner, BatchEvalRunner,
                                        *sizes5b)
         seq = storm_sequence(mock, structs, Harness, BatchEvalRunner, nodes)
+        seq_fleet = storm_sequence(mock, structs, Harness, BatchEvalRunner,
+                                   fleet_nodes, fleet_sequence_job,
+                                   "fleet-sequence-storm")
     finally:
         binpack.place_rounds = counters[1]
         binpack.place_rounds_batch = counters[3]
@@ -1503,6 +1633,11 @@ def run_storm(torch, sizes5=(), sizes5b=(), n_seq_nodes=1000):
                 f"{dev5b[k]}, host {c5b[k]}")
     dev5b["windows"] = len(records)
     dev5b["dispatched"] = sum(1 for r in records if r and r["dispatched"])
+    for r in records:
+        require(not (r and r["dispatched"])
+                or (r["h2d"], r["d2h"]) == WINDOW_TRANSFERS[DEV],
+                f"config 5b under device: a window made {r and r['h2d']} "
+                f"uploads and {r and r['d2h']} fetches, want one each")
     fallbacks: dict = {}
     for r in records:
         if r and not r["dispatched"]:
@@ -1510,23 +1645,28 @@ def run_storm(torch, sizes5=(), sizes5b=(), n_seq_nodes=1000):
     dev5b["fallbacks"] = fallbacks
     dev5b["buckets"] = sorted({r["bucket"] for r in records
                                if r and r["dispatched"]})
-    # The sequence storm's K4b launch, its inputs kept from a rerun of
-    # (c) through the plain version (the same fresh snapshot, so the
+    # The sequence storms' K4b launches, their inputs kept from a rerun
+    # of (c) through the plain version (the same fresh snapshot, so the
     # same inputs), replayed and timed.
     batch_calls: list = []
     binpack.place_sequence_batch = recording(
         binpack.place_sequence_batch_plain, batch_calls)
     try:
         storm_sequence(mock, structs, Harness, BatchEvalRunner, nodes)
+        storm_sequence(mock, structs, Harness, BatchEvalRunner, fleet_nodes,
+                       fleet_sequence_job, "fleet-sequence-storm")
     finally:
         binpack.place_sequence_batch = saved[4]
-    require(len(batch_calls) == launches["place_sequence_batch"],
-            f"the plain rerun made {len(batch_calls)} K4b calls, the main "
-            f"path {launches['place_sequence_batch']}")
+    require(len(batch_calls) == launches["place_sequence_batch"] == 2,
+            f"the plain reruns made {len(batch_calls)} K4b calls, the main "
+            f"path {launches['place_sequence_batch']}, want one a storm")
     seq["main_path_sequence_batch"] = main_path_sequence_batch(
         torch, binpack, batch_calls[0])
+    seq_fleet["main_path_sequence_batch"] = main_path_sequence_batch(
+        torch, binpack, batch_calls[1], reps=10)
     return dict(launches=launches, config5=c5, config5b=c5b,
                 config5b_device=dev5b, sequence_storm=seq,
+                fleet_sequence_storm=seq_fleet,
                 main_path_rounds=main_path_rounds(torch, binpack,
                                                   rounds_calls))
 
@@ -1539,8 +1679,8 @@ def main_path_sequence_batch(torch, binpack, args, reps=50):
     want = binpack.place_sequence_batch_plain(*args)
     got = binpack.place_sequence_batch(*args)
     torch.cuda.synchronize()
-    compare(torch, f"place_sequence_batch main path N={n} B={b} G={g} "
-            f"P={p}", got, want)
+    err = compare(torch, f"place_sequence_batch main path N={n} B={b} "
+                  f"G={g} P={p}", got, want)
     ms = time_ms(torch, lambda: binpack.place_sequence_batch(*args), reps)
     gi_h, valid_h = args[7].cpu().numpy(), args[8].cpu().numpy()
     chosen_h = want[0].cpu().numpy()
@@ -1548,9 +1688,11 @@ def main_path_sequence_batch(torch, binpack, args, reps=50):
         4 + sequence_lane_bytes(n, gi_h[k], valid_h[k]) for k in range(b))
     b_ms, b_by = bound(nbytes, sum(sequence_ops(n, g, gi_h[k], chosen_h[k])
                                    for k in range(b)))
+    plan = binpack.sequence_batch_plan(n, g, b, DEV)
     return dict(n=n, lanes=b, groups=g, steps=p,
-                placed=int((chosen_h >= 0).sum()), ms=ms, bound_ms=b_ms,
-                bound_by=b_by)
+                placed=int((chosen_h >= 0).sum()), cluster=plan[0],
+                slots=plan[1], mode=binpack.SEQ_MODES[plan[2]], ms=ms,
+                bound_ms=b_ms, bound_by=b_by, err=err)
 
 
 # -- phase 6: the verify engines over a growing fleet ----------------------
@@ -1646,6 +1788,12 @@ def verify_fleet_size(n_nodes, windows, window_plans, seed, warm=2):
             k6_launches=mesh.window_verify.launches - launches0)
     require(verdicts["host"] == verdicts["device"],
             f"verify fleet {n_nodes}: device verdicts differ from host")
+    dev = out["device"]
+    require((dev["h2d_per_window"], dev["d2h_per_window"])
+            == WINDOW_TRANSFERS[DEV],
+            f"verify fleet {n_nodes}: a device window made "
+            f"{dev['h2d_per_window']} uploads and {dev['d2h_per_window']} "
+            "fetches, want one each")
     accepted = sum(1 for w in verdicts["host"] for k in w if k[1])
     require(accepted == windows * window_plans,
             f"verify fleet {n_nodes}: {accepted} plans accepted of "
@@ -1675,12 +1823,187 @@ def run_verify_fleet(sizes=(10_000, 131_072, 1_000_000), windows=8,
                 device_flatness=last / first, table=table)
 
 
-def main() -> int:
+# The kernels of the kernels phase, in the order it checks them.
+KERNEL_NAMES = ("place_sequence", "place_rounds", "scatter_rows",
+                "window_verify", "place_rounds_batch", "place_sequence_batch")
+
+
+def kernel_checks(torch, binpack, fleet, mesh, seed=1234) -> dict:
+    """Phase 3, one entry per kernel: name -> a function that runs that
+    kernel's checks (printing each case) and returns them by case.  Each
+    draws its inputs from its own generator, so a kernel's cases are the
+    same whichever others run."""
+    def gen(name):
+        return np.random.default_rng([seed, KERNEL_NAMES.index(name)])
+
+    def report(kernel, results):
+        for name, r in results.items():
+            print(f"kernel {kernel} {name}: " + json.dumps(r), flush=True)
+        return results
+
+    def sequence():
+        rng = gen("place_sequence")
+        # K2, bit for bit, at: its timed shape (three groups drawn at
+        # random, the last 8 steps invalid) and its tie case; contiguous
+        # group runs, as the main path lays a job out; a group change
+        # every step over 8 groups (also under the one-cache and the
+        # scratch plans the kernel takes at other sizes); the config-2
+        # size the slice launches; 131,072 nodes; invalid steps inside
+        # the walk and a long invalid tail; -0.0 usage entries.
+        cases = {
+            "N=16384 P=1024": dict(n=16384, p=1024),
+            "N=16384 P=1024 ties": dict(n=16384, p=1024, uniform=True,
+                                        groups=1),
+            "N=16384 P=1024 runs G=8": dict(n=16384, p=1024, groups=8,
+                                            order="runs"),
+            "N=16384 P=1024 cycle G=8": dict(n=16384, p=1024, groups=8,
+                                             order="cycle",
+                                             other_plans=True),
+            "N=1024 P=40 runs G=10": dict(n=1024, p=40, groups=10,
+                                          order="runs", tail=0),
+            "N=131072 P=256": dict(n=131072, p=256),
+            "N=16384 P=1024 runs G=8 gaps": dict(n=16384, p=1024, groups=8,
+                                                 order="runs", gaps=50,
+                                                 tail=100),
+            "N=16384 P=1024 -0.0": dict(n=16384, p=1024, neg_zero=True),
+        }
+        return report("place_sequence", {
+            name: check_sequence(torch, binpack, kw.pop("n"), kw.pop("p"),
+                                 rng, **kw)
+            for name, kw in ((k, dict(v)) for k, v in cases.items())})
+
+    # K3 and K4a (8 lanes) at each edge of the top-k select, both top-k
+    # paths held too: k_cap equal to N, ties straddling the k_cap-th
+    # key, 0.0 scores at it, fewer feasible nodes than k_cap, and N =
+    # 32,768 (the keys at the shared-memory limit).  The uniform fleet
+    # (every key in one histogram bin) and N = 131,072 (keys in device
+    # memory) are the cases before them.
+    hazards = {
+        "k=N": dict(n=16384, k_cap=16384, uniform=True),
+        "ties straddling": dict(n=16384, k_cap=1024, hazard="straddle"),
+        "zeros at the k-th": dict(n=16384, k_cap=1024, hazard="zeros"),
+        "fewer feasible than k": dict(n=16384, k_cap=1024,
+                                      hazard="sparse"),
+        "N=32768": dict(n=32768, k_cap=1024, uniform=True),
+    }
+
+    def rounds():
+        rng = gen("place_rounds")
+        out = {
+            "N=16384 count=1000 k=1024": check_rounds(
+                torch, binpack, 16384, 1000, 1024, 1, rng, True, 10),
+            "N=16384 random rounds=2": check_rounds(
+                torch, binpack, 16384, 1000, 1024, 2, rng, False, 10),
+            "N=131072 count=1000 k=1024": check_rounds(
+                torch, binpack, 131072, 1000, 1024, 1, rng, True, 3),
+            # the slots past the job's padded, as config 4 launches it
+            "N=16384 count=1000 k=1024 padded": check_rounds(
+                torch, binpack, 16384, 1000, 1024, 1, rng, True, 10,
+                padded=True),
+        }
+        for name, kw in hazards.items():
+            kw = dict(kw)
+            out[name] = check_rounds(
+                torch, binpack, kw.pop("n"), 1000, kw.pop("k_cap"), 1, rng,
+                kw.pop("uniform", False), 5, **kw)
+        return report("place_rounds", out)
+
+    def rounds_batch():
+        rng = gen("place_rounds_batch")
+        out = {
+            "N=16384 B=64 count=1000 k=1024": check_rounds_batch(
+                torch, binpack, 16384, 64, 1000, 1024, 1, rng, True, 10),
+            "N=16384 B=16 random rounds=2": check_rounds_batch(
+                torch, binpack, 16384, 16, 1000, 1024, 2, rng, False, 10),
+            # slots 2.. padded, as config 5's lanes are launched
+            "N=16384 B=64 count=1000 padded": check_rounds_batch(
+                torch, binpack, 16384, 64, 1000, 1024, 1, rng, True, 10,
+                padded=True),
+        }
+        for name, kw in hazards.items():
+            kw = dict(kw)
+            out[name] = check_rounds_batch(
+                torch, binpack, kw.pop("n"), 8, 1000, kw.pop("k_cap"), 1,
+                rng, kw.pop("uniform", False), 5, **kw)
+        return report("place_rounds_batch", out)
+
+    def scatter():
+        rng = gen("scatter_rows")
+        return report("scatter_rows", {
+            "N=16384 R=1024": check_scatter(torch, fleet, 16384, 1024, rng,
+                                            50)})
+
+    def window():
+        rng = gen("window_verify")
+        # K6: the fleet-scaling window (64 single-placement plans, each
+        # its own component, on the 1,000,000-node fleet's 1,048,576
+        # rows); a contended window at config-5b scale (64 plans of 100
+        # placements on 160 nodes in 4 components, evictions on a tenth
+        # of the pairs); the worst case of the fold walk (2,048 plans of
+        # 3 placements, every pair on node 0 in one component); a
+        # window far smaller than its bucket (8 plans of 10 placements
+        # padded to B=8,192); and removal entries on nodes no pair
+        # claims (a fifth of the pairs evict on nodes 160-255).
+        cases = {
+            "N=1048576 B=64 (5f window)": (
+                (1_000_000, 1_048_576, 64, 1, 64, 0.0), {}),
+            "N=256 B=8192 (config-5b scale)": (
+                (160, 256, 64, 100, 4, 0.1), {}),
+            "N=256 B=8192 one node (worst case)": (
+                (1, 256, 2048, 3, 1, 0.1), {}),
+            "N=256 B=8192 sparse (80 rows)": (
+                (160, 256, 8, 10, 4, 0.1), dict(bucket=8192)),
+            "N=256 stray removals": (
+                (160, 256, 64, 40, 4, 0.1),
+                dict(stray=0.2, stray_nodes=(160, 256))),
+        }
+        return report("window_verify", {
+            name: check_window_verify(torch, mesh, *a, rng,
+                                      200 if a[0] > 10_000 else 50, **kw)
+            for name, (a, kw) in cases.items()})
+
+    def sequence_batch():
+        rng = gen("place_sequence_batch")
+        # K4b at K2's cases, at B=8 (P=256) and B=64 (P=64): ties on a
+        # uniform fleet, runs of 8 groups, a group change every step,
+        # more groups than score slots (G=40), 131,072 nodes (scratch
+        # mode), invalid gaps and a long invalid tail, -0.0 usage
+        # entries; the last lane of each is a pad lane.  The timed shape
+        # of earlier PRs first, then the cases.
+        out = {"N=16384 B=8 P=256": check_sequence_batch(
+            torch, binpack, 16384, 8, 256, rng, 3)}
+        cases = {
+            "ties": dict(uniform=True, groups=1),
+            "runs G=8": dict(groups=8, order="runs"),
+            "cycle G=8": dict(groups=8, order="cycle"),
+            "cycle G=40": dict(groups=40, order="cycle"),
+            "scratch mode": dict(n=131072),
+            "runs G=8 gaps": dict(groups=8, order="runs", gaps=10,
+                                  tail=None),
+            "-0.0": dict(neg_zero=True),
+        }
+        for lanes, p in ((8, 256), (64, 64)):
+            for name, kw in cases.items():
+                kw = dict(kw)
+                n = kw.pop("n", 16384)
+                if kw.get("tail", 8) is None:
+                    kw["tail"] = p // 4
+                out[f"N={n} B={lanes} P={p} {name}"] = check_sequence_batch(
+                    torch, binpack, n, lanes, p, rng, 3, **kw)
+        return report("place_sequence_batch", out)
+
+    checks = (sequence, rounds, scatter, window, rounds_batch,
+              sequence_batch)
+    return dict(zip(KERNEL_NAMES, checks))
+
+
+def main(argv=()) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    argv = list(argv)
     from nomad_tpu_torch.models import fleet
     from nomad_tpu_torch.ops import binpack, kernels
     from nomad_tpu_torch.parallel import mesh
@@ -1693,106 +2016,26 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(sorted(built)) or 'up to date'})", flush=True)
 
-    rng = np.random.default_rng(1234)
-    # K2, bit for bit, at: its timed shape (three groups drawn at
-    # random, the last 8 steps invalid) and its tie case; contiguous
-    # group runs, as the main path lays a job out; a group change every
-    # step over 8 groups (also under the one-cache and the scratch plans
-    # the kernel takes at other sizes); the config-2 size the slice
-    # launches; 131,072 nodes; invalid steps inside the walk and a long
-    # invalid tail; -0.0 usage entries.
-    seq = check_sequence(torch, binpack, 16384, 1024, rng)
-    seq_cases = {
-        "N=16384 P=1024 ties": dict(n=16384, p=1024, uniform=True,
-                                    groups=1),
-        "N=16384 P=1024 runs G=8": dict(n=16384, p=1024, groups=8,
-                                        order="runs"),
-        "N=16384 P=1024 cycle G=8": dict(n=16384, p=1024, groups=8,
-                                         order="cycle", other_plans=True),
-        "N=1024 P=40 runs G=10": dict(n=1024, p=40, groups=10,
-                                      order="runs", tail=0),
-        "N=131072 P=256": dict(n=131072, p=256),
-        "N=16384 P=1024 runs G=8 gaps": dict(n=16384, p=1024, groups=8,
-                                             order="runs", gaps=50,
-                                             tail=100),
-        "N=16384 P=1024 -0.0": dict(n=16384, p=1024, neg_zero=True),
-    }
-    seq_more = {}
-    for name, kw in seq_cases.items():
-        kw = dict(kw)
-        seq_more[name] = check_sequence(torch, binpack, kw.pop("n"),
-                                        kw.pop("p"), rng, **kw)
-        print(f"kernel place_sequence {name}: "
-              + json.dumps(seq_more[name]), flush=True)
-    rnd = check_rounds(torch, binpack, 16384, 1000, 1024, 1, rng, True, 10)
-    rnd_rand = check_rounds(torch, binpack, 16384, 1000, 1024, 2, rng,
-                            False, 10)
-    rnd_big = check_rounds(torch, binpack, 131072, 1000, 1024, 1, rng,
-                           True, 3)
-    # K3 and K4a with the slots past the job's padded, as the main path
-    # launches them (config 4: one slot of 1,000; config 5's lanes).
-    rnd_pad = check_rounds(torch, binpack, 16384, 1000, 1024, 1, rng, True,
-                           10, padded=True)
-    sct = check_scatter(torch, fleet, 16384, 1024, rng, 50)
-    # K6: the fleet-scaling window (64 single-placement plans, each its
-    # own component, on the 1,000,000-node fleet's 1,048,576 rows) and a
-    # contended window at config-5b scale (64 plans of 100 placements on
-    # 160 nodes in 4 components, evictions on a tenth of the pairs).
-    wv5f = check_window_verify(torch, mesh, 1_000_000, 1_048_576, 64, 1, 64,
-                               0.0, rng, 200)
-    wv5b = check_window_verify(torch, mesh, 160, 256, 64, 100, 4, 0.1, rng,
-                               50)
-    rb = check_rounds_batch(torch, binpack, 16384, 64, 1000, 1024, 1, rng,
-                            True, 10)
-    rb_rand = check_rounds_batch(torch, binpack, 16384, 16, 1000, 1024, 2,
-                                 rng, False, 10)
-    rb_pad = check_rounds_batch(torch, binpack, 16384, 64, 1000, 1024, 1, rng,
-                                True, 10, padded=True)
-    sb = check_sequence_batch(torch, binpack, 16384, 8, 256, rng, 3)
-    # K3 and K4a (8 lanes) at each edge of the top-k select, both top-k
-    # paths held too: k_cap equal to N, ties straddling the k_cap-th key,
-    # 0.0 scores at it, fewer feasible nodes than k_cap, and N = 32,768
-    # (the keys at the shared-memory limit).  The uniform fleet (every
-    # key in one histogram bin) and N = 131,072 (keys in device memory)
-    # are the cases above.
-    hazards = {
-        "k=N": dict(n=16384, k_cap=16384, uniform=True),
-        "ties straddling": dict(n=16384, k_cap=1024, hazard="straddle"),
-        "zeros at the k-th": dict(n=16384, k_cap=1024, hazard="zeros"),
-        "fewer feasible than k": dict(n=16384, k_cap=1024, hazard="sparse"),
-        "N=32768": dict(n=32768, k_cap=1024, uniform=True),
-    }
-    rnd_haz, rb_haz = {}, {}
-    for name, kw in hazards.items():
-        kw = dict(kw)
-        n, k_cap, uniform = kw.pop("n"), kw.pop("k_cap"), \
-            kw.pop("uniform", False)
-        rnd_haz[name] = check_rounds(torch, binpack, n, 1000, k_cap, 1, rng,
-                                     uniform, 5, **kw)
-        print(f"kernel place_rounds {name}: " + json.dumps(rnd_haz[name]),
-              flush=True)
-        rb_haz[name] = check_rounds_batch(torch, binpack, n, 8, 1000, k_cap,
-                                          1, rng, uniform, 5, **kw)
-        print(f"kernel place_rounds_batch {name}: "
-              + json.dumps(rb_haz[name]), flush=True)
-    for name, r in (("place_sequence N=16384 P=1024", seq),
-                    ("place_rounds N=16384 count=1000 k=1024", rnd),
-                    ("place_rounds N=16384 random rounds=2", rnd_rand),
-                    ("place_rounds N=131072 count=1000 k=1024", rnd_big),
-                    ("place_rounds N=16384 count=1000 k=1024 padded",
-                     rnd_pad),
-                    ("scatter_rows N=16384 R=1024", sct),
-                    ("place_rounds_batch N=16384 B=64 count=1000 k=1024",
-                     rb),
-                    ("place_rounds_batch N=16384 B=16 random rounds=2",
-                     rb_rand),
-                    ("place_rounds_batch N=16384 B=64 count=1000 padded",
-                     rb_pad),
-                    ("place_sequence_batch N=16384 B=8 P=256", sb),
-                    ("window_verify N=1048576 B=64 (5f window)", wv5f),
-                    ("window_verify N=256 B=8192 (config-5b scale)",
-                     wv5b)):
-        print(f"kernel {name}: " + json.dumps(r), flush=True)
+    checks = kernel_checks(torch, binpack, fleet, mesh)
+    if argv:
+        # --only NAME[,NAME]: those kernels' checks alone; no main paths
+        # and no result line.
+        if len(argv) != 2 or argv[0] != "--only" or \
+                not set(argv[1].split(",")) <= set(checks):
+            print(f"usage: chip_smoke.py [--only {','.join(checks)}]",
+                  file=sys.stderr)
+            return 2
+        for name in argv[1].split(","):
+            checks[name]()
+        print("chip_smoke: --only run, no result line", flush=True)
+        return 0
+    k = {name: fn() for name, fn in checks.items()}
+    seq = k["place_sequence"]["N=16384 P=1024"]
+    rnd = k["place_rounds"]["N=16384 count=1000 k=1024"]
+    sct = k["scatter_rows"]["N=16384 R=1024"]
+    wv5f = k["window_verify"]["N=1048576 B=64 (5f window)"]
+    rb = k["place_rounds_batch"]["N=16384 B=64 count=1000 k=1024"]
+    sb = k["place_sequence_batch"]["N=16384 B=8 P=256"]
 
     sl = run_slice(torch)
     print("slice: " + json.dumps(sl), flush=True)
@@ -1811,60 +2054,36 @@ def main() -> int:
                              + st["main_path_rounds"]
                              if r["kernel"] == name], default=0.0)
                   for name in ("place_rounds", "place_rounds_batch")}
-
-    kernels_line = {"kernels": [
-        dict(name="place_sequence", route="cuda",
-             source="nomad_tpu_torch/csrc/binpack.cu",
-             replaces="nomad_tpu/ops/binpack.py:78",
-             launches=launches["place_sequence"],
-             max_abs_err=max(r["err"] for r in (seq, *seq_more.values())),
-             ms=seq["ms"],
-             plain_ms=seq["plain_ms"], bound_ms=seq["bound_ms"],
-             bound_by=seq["bound_by"], library_ms=None),
-        dict(name="place_rounds", route="cuda",
-             source="nomad_tpu_torch/csrc/binpack.cu",
-             replaces="nomad_tpu/ops/binpack.py:123",
-             launches=launches["place_rounds"],
-             max_abs_err=max(rnd["err"], rnd_rand["err"], rnd_big["err"],
-                             rnd_pad["err"], replay_err["place_rounds"],
-                             *(r["err"] for r in rnd_haz.values())),
-             ms=rnd["ms"], plain_ms=rnd["plain_ms"],
-             bound_ms=rnd["bound_ms"], bound_by=rnd["bound_by"],
-             library_ms=None),
-        dict(name="scatter_rows", route="cuda",
-             source="nomad_tpu_torch/csrc/scatter_rows.cu",
-             replaces="nomad_tpu/models/fleet.py:1108",
-             launches=launches["scatter_rows"],
-             max_abs_err=sct["err"], ms=sct["ms"],
-             plain_ms=sct["plain_ms"], bound_ms=sct["bound_ms"],
-             bound_by=sct["bound_by"], library_ms=sct["library_ms"],
-             device_ms=sct["device_ms"],
-             library_device_ms=sct["library_device_ms"]),
-        dict(name="place_rounds_batch", route="cuda",
-             source="nomad_tpu_torch/csrc/binpack.cu",
-             replaces="nomad_tpu/ops/binpack.py:185",
-             launches=launches["place_rounds_batch"],
-             max_abs_err=max(rb["err"], rb_rand["err"], rb_pad["err"],
-                             replay_err["place_rounds_batch"],
-                             *(r["err"] for r in rb_haz.values())),
-             ms=rb["ms"],
-             plain_ms=rb["plain_ms"], bound_ms=rb["bound_ms"],
-             bound_by=rb["bound_by"], library_ms=None),
-        dict(name="place_sequence_batch", route="cuda",
-             source="nomad_tpu_torch/csrc/binpack.cu",
-             replaces="nomad_tpu/ops/binpack.py:203",
-             launches=launches["place_sequence_batch"],
-             max_abs_err=sb["err"], ms=sb["ms"], plain_ms=sb["plain_ms"],
-             bound_ms=sb["bound_ms"], bound_by=sb["bound_by"],
-             library_ms=None),
-        dict(name="window_verify", route="cuda",
-             source="nomad_tpu_torch/csrc/window_verify.cu",
-             replaces="nomad_tpu/parallel/mesh.py:357",
-             launches=launches["window_verify"],
-             max_abs_err=max(wv5f["err"], wv5b["err"]), ms=wv5f["ms"],
-             plain_ms=wv5f["plain_ms"], bound_ms=wv5f["bound_ms"],
-             bound_by=wv5f["bound_by"], library_ms=None),
-    ]}
+    replay_err["place_sequence"] = sl["main_path_sequence"]["err"]
+    replay_err["place_sequence_batch"] = max(
+        st[storm]["main_path_sequence_batch"]["err"]
+        for storm in ("sequence_storm", "fleet_sequence_storm"))
+    timed = {"place_sequence": seq, "place_rounds": rnd,
+             "scatter_rows": sct, "place_rounds_batch": rb,
+             "place_sequence_batch": sb, "window_verify": wv5f}
+    sources = {"scatter_rows": "scatter_rows.cu",
+               "window_verify": "window_verify.cu"}
+    replaces = {"place_sequence": "nomad_tpu/ops/binpack.py:78",
+                "place_rounds": "nomad_tpu/ops/binpack.py:123",
+                "scatter_rows": "nomad_tpu/models/fleet.py:1108",
+                "place_rounds_batch": "nomad_tpu/ops/binpack.py:185",
+                "place_sequence_batch": "nomad_tpu/ops/binpack.py:203",
+                "window_verify": "nomad_tpu/parallel/mesh.py:357"}
+    kernels_line = {"kernels": []}
+    for name, r in timed.items():
+        row = dict(
+            name=name, route="cuda",
+            source="nomad_tpu_torch/csrc/" + sources.get(name, "binpack.cu"),
+            replaces=replaces[name], launches=launches[name],
+            max_abs_err=max([c["err"] for c in k[name].values()]
+                            + [replay_err.get(name, 0.0)]),
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r.get("library_ms"))
+        if "device_ms" in r:
+            row["device_ms"] = r["device_ms"]
+        if "library_device_ms" in r:
+            row["library_device_ms"] = r["library_device_ms"]
+        kernels_line["kernels"].append(row)
     print(json.dumps(kernels_line), flush=True)
     print(card_line(), flush=True)  # as nvidia-smi prints it
     print(json.dumps({"ok": True, "device": {
@@ -1876,7 +2095,7 @@ def main() -> int:
 if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        code = main()
+        code = main(sys.argv[1:])
     except (SmokeError, AssertionError, RuntimeError, ImportError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
               file=sys.stderr)

@@ -9,11 +9,10 @@
 //   place_rounds_batch    (K4a, a vmap of K3) -> place_rounds_batch_kernel;
 //   place_sequence_batch  (K4b, a vmap of K2) -> place_sequence_batch_kernel.
 //
-// Two bodies for the sequence walk, until K4b moves onto a cluster per
-// lane: K2 runs place_sequence_cluster_lane (below), K4b runs
-// place_sequence_lane, one block per lane.  Both compute the same
-// function (K4b's lanes are held against K2 bit for bit).  K3 and K4a
-// share place_rounds_lane, one block per lane.  Each body is a
+// One body for the sequence walk: K2 runs place_sequence_cluster_lane
+// (below) on one thread-block cluster, K4b on one cluster per lane (its
+// lanes are held against K2 bit for bit).  K3 and K4a share
+// place_rounds_lane, one block per lane.  Each body is a
 // __device__ function over one lane's pointers: the batch kernels read
 // their lane's slices of the per-lane operands and the SHARED capacity
 // / reserved / usage0, and evolve their own copy of the usage in their
@@ -27,11 +26,11 @@
 // kernels is the chain of dependent steps: placement p+1 scores against
 // the usage that placement p wrote, and a top-k round waits on the
 // round before it.  The walks take that chain as given and keep every
-// step on the card (no launch per step, no host round trip).  K2 spreads
-// the nodes of one walk over a cluster of up to 16 SMs that keeps a
-// score slot per group current, so a placement rescores one node; K3/K4
-// and K4b's lanes are one persistent block of 1,024 threads each,
-// synchronised with __syncthreads between steps.
+// step on the card (no launch per step, no host round trip).  K2 and
+// each K4b lane spread the nodes of one walk over a cluster of up to 16
+// SMs that keeps a score slot per group current, so a placement
+// rescores one node; K3 and K4a's lanes are one persistent block of
+// 1,024 threads each, synchronised with __syncthreads between steps.
 //
 // K3/K4a's top-k: a round needs only the k_cap best of N scores, so where
 // k_cap < N / 2 the lane does a most-significant-digit radix select of the
@@ -578,62 +577,6 @@ __device__ __forceinline__ void place_sequence_cluster_lane(
   cluster_wait_acquire();
 }
 
-// K4b body: K2 in one block of 1,024 threads, for one lane.  A step
-// whose group equals the last scored step's, with no placement since,
-// reuses that step's argmax (the state is unchanged but for +0.0 adds),
-// so trailing padding costs one scoring, not one per step.
-__device__ __forceinline__ void place_sequence_lane(
-    const float* __restrict__ cap, const float* __restrict__ res,
-    const float* __restrict__ usage0, const int* __restrict__ jc0,
-    const uint8_t* __restrict__ feas, const float* __restrict__ asks,
-    const uint8_t* __restrict__ distinct, const int* __restrict__ group_idx,
-    const uint8_t* __restrict__ valid, float penalty, int n, int p_len,
-    int* __restrict__ chosen, float* __restrict__ scores, float* usage,
-    int* jc) {
-  __shared__ float s_ask[NDIMS];
-  __shared__ float s_val[WARPS];
-  __shared__ int s_idx[WARPS];
-  __shared__ int s_placed[2];  // by step parity: read while rewritten
-  const int tid = threadIdx.x;
-  copy_state(usage0, jc0, usage, jc, n);
-  __syncthreads();
-  int last_g = -1;      // group of the last scored step (uniform)
-  bool placed = false;  // a placement since that step (uniform)
-  float best = NEG_INF;
-  int bi = 0;
-  for (int p = 0; p < p_len; ++p) {
-    const int g = group_idx[p];
-    if (g != last_g || placed) {
-      if (tid < NDIMS) s_ask[tid] = asks[g * NDIMS + tid];
-      __syncthreads();
-      const uint8_t* feas_g = feas + (size_t)g * n;
-      const bool dist = distinct[g] != 0;
-      best = __int_as_float(0xff800000);  // -inf
-      bi = 0x7fffffff;
-      for (int i = tid; i < n; i += THREADS) {
-        const float s =
-            score_node(cap, res, usage, jc, s_ask, feas_g, dist, penalty, i);
-        if (s > best) {  // strided walk: the first max per thread is lowest
-          best = s;
-          bi = i;
-        }
-      }
-      block_argmax(best, bi, s_val, s_idx);
-      last_g = g;
-    }
-    if (tid == 0) {
-      const bool ok = valid[p] && best > NEG_INF / 2;
-      chosen[p] = ok ? bi : -1;
-      scores[p] = best;
-      add_step(usage + (size_t)bi * NDIMS, s_ask, ok);
-      if (ok) jc[bi] += 1;
-      s_placed[p & 1] = ok;
-    }
-    __syncthreads();
-    placed = s_placed[p & 1] != 0;
-  }
-}
-
 __device__ __forceinline__ float from_ordered(uint32_t o) {
   return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
 }
@@ -1142,30 +1085,44 @@ __global__ void __launch_bounds__(THREADS) place_rounds_kernel(
 }
 
 // K4b (nomad_tpu/ops/binpack.py place_sequence_batch): K2 over B lanes,
-// one block per lane.
+// one thread-block cluster per lane running K2's body, with the cluster
+// size, score slots and mode of nomad_place_sequence_batch_plan.  The
+// grid is lanes x csize CTAs; clusters tile it in order, so the lane is
+// the cluster's index.  Each cluster reads its lane's slices of the
+// per-lane operands and the SHARED capacity / reserved / usage0, writes
+// its lane's slices of usage and job counts, and in SEQ_SCRATCH mode
+// keeps its score slots in its lane's slots * n floats of `scratch`.
 //
 // Bound on an H100: at B = 8 lanes, N = 16,384, P = 256 the function
-// needs one scoring of the fleet per group change and one node per
-// placement in each lane, ~2 MB of distinct input.  What bounds it is
-// each lane's chain of P dependent steps (~18 us a scored step on one
-// SM); the lanes run side by side on their own SMs, so B <= 132 lanes
-// take about the time of one.
-__global__ void __launch_bounds__(THREADS) place_sequence_batch_kernel(
+// needs one scoring of the fleet per group a lane names and one node per
+// placement, ~2 MB of distinct input: ~1 us.  What bounds it is each
+// lane's chain of P dependent steps; every lane takes K2's short steps
+// (a placement rescores one node, the candidates of a step travel by
+// st.async inside the cluster), and the lanes run side by side as long
+// as their clusters fit one wave of the card (the plan's rule).
+__global__ void __launch_bounds__(THREADS, 1) place_sequence_batch_kernel(
     const float* __restrict__ cap, const float* __restrict__ res,
     const float* __restrict__ usage0, const int* __restrict__ jc0,
     const uint8_t* __restrict__ feas, const float* __restrict__ asks,
     const uint8_t* __restrict__ distinct, const int* __restrict__ group_idx,
     const uint8_t* __restrict__ valid, const float* __restrict__ penalty,
-    int n, int g_len, int p_len, int* __restrict__ chosen,
-    float* __restrict__ scores, float* usage, int* jc) {
-  const size_t b = blockIdx.x;
+    int n, int g_len, int p_len, int slots, int mode,
+    int* __restrict__ chosen, float* __restrict__ scores, float* usage,
+    int* jc, float* scratch) {
+  extern __shared__ float4 s_cache[];
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int csize = (int)cluster.num_blocks();
+  const size_t b = blockIdx.x / csize;
   const size_t nn = (size_t)n;
-  place_sequence_lane(
+  place_sequence_cluster_lane(
       cap, res, usage0, jc0 + b * nn, feas + b * (size_t)g_len * nn,
       asks + b * (size_t)g_len * NDIMS, distinct + b * (size_t)g_len,
       group_idx + b * (size_t)p_len, valid + b * (size_t)p_len, penalty[b],
-      n, p_len, chosen + b * (size_t)p_len, scores + b * (size_t)p_len,
-      usage + b * nn * NDIMS, jc + b * nn);
+      n, g_len, p_len, chosen + b * (size_t)p_len,
+      scores + b * (size_t)p_len, usage + b * nn * NDIMS, jc + b * nn,
+      (int)cluster.block_rank(), csize, slots, mode,
+      mode == SEQ_SCRATCH ? (void*)(scratch + b * (size_t)slots * nn)
+                          : (void*)s_cache);
 }
 
 // K4a (nomad_tpu/ops/binpack.py place_rounds_batch): K3 over B lanes,
@@ -1248,12 +1205,13 @@ static size_t sequence_smem(size_t npc, int slots, int mode) {
   return npc * (3 * NDIMS + 1) * 4 + (size_t)slots * npc * 5;
 }
 
-// K2's launch configuration: one cluster of `csize` CTAs.
+// The launch configuration of K2 (lanes = 1) and K4b: one cluster of
+// `csize` CTAs per lane.
 static cudaLaunchConfig_t sequence_config(int n, int csize, int slots,
-                                          int mode, void* stream,
+                                          int mode, int lanes, void* stream,
                                           cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(csize, 1, 1);
+  cfg.gridDim = dim3(csize * lanes, 1, 1);
   cfg.blockDim = dim3(THREADS, 1, 1);
   cfg.dynamicSmemBytes = sequence_smem((size_t)(n / csize), slots, mode);
   cfg.stream = (cudaStream_t)stream;
@@ -1266,6 +1224,55 @@ static cudaLaunchConfig_t sequence_config(int n, int csize, int slots,
   return cfg;
 }
 
+// The mode of a K2/K4b CTA with npc nodes: SEQ_SHARED where its shared
+// memory fits, else SEQ_SCRATCH.
+static int sequence_mode(size_t npc, int slots) {
+  return sequence_smem(npc, slots, SEQ_SHARED) <= CACHE_SMEM_MAX
+             ? SEQ_SHARED
+             : SEQ_SCRATCH;
+}
+
+// Clusters of `csize` CTAs the card runs at once for `kernel` (0 when it
+// refuses the size).
+template <typename Kernel>
+static int sequence_clusters(Kernel kernel, int n, int csize, int slots) {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = sequence_config(
+      n, csize, slots, sequence_mode((size_t)(n / csize), slots), 1,
+      nullptr, &attr);
+  int clusters = 0;
+  if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) !=
+      cudaSuccess) {
+    (void)cudaGetLastError();  // a refused size is not an error yet
+    return 0;
+  }
+  return clusters;
+}
+
+// Raises the attributes a K2/K4b launch needs on `kernel`.
+template <typename Kernel>
+static cudaError_t sequence_attributes(Kernel kernel) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             CACHE_SMEM_MAX);
+  return e;
+}
+
+// K2's rule for the cluster of one lane: n / 1,024 CTAs clamped to
+// [1, 16], then halved until cudaOccupancyMaxActiveClusters finds room
+// for one cluster.  0 when no size can run.
+template <typename Kernel>
+static int sequence_csize(Kernel kernel, int n, int slots) {
+  int csize = n / THREADS;
+  csize = csize < 1 ? 1 : (csize > MAX_CLUSTER ? MAX_CLUSTER : csize);
+  for (; csize >= 1; csize >>= 1)
+    if (sequence_clusters(kernel, n, csize, slots) >= 1) return csize;
+  return 0;
+}
+
 extern "C" {
 
 const char* nomad_error_string(int code) {
@@ -1273,48 +1280,54 @@ const char* nomad_error_string(int code) {
 }
 
 // K2's plan for n nodes (a power of two) and g_len groups on the current
-// device: out[0] the cluster's CTAs (n / 1,024 clamped to [1, 16], then
-// halved until cudaOccupancyMaxActiveClusters finds room for one
-// cluster), out[1] the score slots a CTA keeps (g_len up to MAX_SLOTS,
-// else 1: without a slot per group, every group change rescores the
-// fleet), out[2] SEQ_SHARED where its shared memory fits, else
-// SEQ_SCRATCH (a device scratch of slots * n floats).
-// Returns a
-// CUDA error code; cudaErrorInvalidConfiguration when no cluster size
-// can launch.
+// device: out[0] the cluster's CTAs (sequence_csize), out[1] the score
+// slots a CTA keeps (g_len up to MAX_SLOTS, else 1: without a slot per
+// group, every group change rescores the fleet), out[2] SEQ_SHARED
+// where its shared memory fits, else SEQ_SCRATCH (a device scratch of
+// slots * n floats).  Returns a CUDA error code;
+// cudaErrorInvalidConfiguration when no cluster size can launch.
 int nomad_place_sequence_plan(int n, int g_len, int* out) {
   if (n < 1 || (n & (n - 1)) != 0 || g_len < 1)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      place_sequence_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
-      1);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(place_sequence_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             CACHE_SMEM_MAX);
+  const cudaError_t e = sequence_attributes(place_sequence_kernel);
   if (e != cudaSuccess) return (int)e;
-  int csize = n / THREADS;
-  csize = csize < 1 ? 1 : (csize > MAX_CLUSTER ? MAX_CLUSTER : csize);
   const int slots = g_len <= MAX_SLOTS ? g_len : 1;
-  for (; csize >= 1; csize >>= 1) {
-    const size_t npc = (size_t)(n / csize);
-    const int mode = sequence_smem(npc, slots, SEQ_SHARED) <= CACHE_SMEM_MAX
-                         ? SEQ_SHARED
-                         : SEQ_SCRATCH;
-    cudaLaunchAttribute attr;
-    cudaLaunchConfig_t cfg =
-        sequence_config(n, csize, slots, mode, nullptr, &attr);
-    int clusters = 0;
-    e = cudaOccupancyMaxActiveClusters(&clusters, place_sequence_kernel, &cfg);
-    if (e == cudaSuccess && clusters >= 1) {
-      out[0] = csize;
-      out[1] = slots;
-      out[2] = mode;
-      return 0;
-    }
-    (void)cudaGetLastError();  // a refused size is not an error yet
-  }
-  return (int)cudaErrorInvalidConfiguration;
+  const int csize = sequence_csize(place_sequence_kernel, n, slots);
+  if (csize < 1) return (int)cudaErrorInvalidConfiguration;
+  out[0] = csize;
+  out[1] = slots;
+  out[2] = sequence_mode((size_t)(n / csize), slots);
+  return 0;
+}
+
+// K4b's plan for `lanes` lanes of n nodes and g_len groups: out[0..2] as
+// nomad_place_sequence_plan's, for the cluster of each lane.  The rule:
+// start from K2's cluster and halve it until the lanes' clusters fit one
+// wave (cudaOccupancyMaxActiveClusters >= lanes) or it is one CTA.
+// Measured on an H100 against the other shape, K2's cluster with the
+// lanes in waves (chip_smoke.py, N = 16,384, 8 groups): at B = 8, P = 256
+// one wave of 8-CTA clusters with their slots in device memory took
+// 0.551 ms against 0.786 for 16-CTA clusters in shared memory (8 of them
+// do not fit at once); at B = 64, P = 64, one wave of 2-CTA clusters
+// 0.305 ms against 1.355 for waves of 16-CTA clusters.  A lane's steps
+// are a chain, so a second wave costs a whole lane's time, and that
+// outweighs a step's slower rescoring from device memory.
+int nomad_place_sequence_batch_plan(int n, int g_len, int lanes, int* out) {
+  if (n < 1 || (n & (n - 1)) != 0 || g_len < 1 || lanes < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = sequence_attributes(place_sequence_batch_kernel);
+  if (e != cudaSuccess) return (int)e;
+  const int slots = g_len <= MAX_SLOTS ? g_len : 1;
+  int csize = sequence_csize(place_sequence_batch_kernel, n, slots);
+  if (csize < 1) return (int)cudaErrorInvalidConfiguration;
+  while (csize > 1 &&
+         sequence_clusters(place_sequence_batch_kernel, n, csize, slots) <
+             lanes)
+    csize >>= 1;
+  out[0] = csize;
+  out[1] = slots;
+  out[2] = sequence_mode((size_t)(n / csize), slots);
+  return 0;
 }
 
 // K2 with a plan of nomad_place_sequence_plan for (n, g_len).
@@ -1334,7 +1347,7 @@ int nomad_place_sequence(const float* cap, const float* res,
     return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
-      sequence_config(n, csize, slots, mode, stream, &attr);
+      sequence_config(n, csize, slots, mode, 1, stream, &attr);
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, place_sequence_kernel, cap, res, usage0, jc0, feas, asks,
       distinct, group_idx, valid, penalty, n, g_len, p_len, slots, mode,
@@ -1387,16 +1400,33 @@ int nomad_place_rounds(const float* cap, const float* res, const float* usage0,
   return (int)cudaGetLastError();
 }
 
+// K4b with a plan of nomad_place_sequence_batch_plan for (n, g_len,
+// lanes); `scratch` (lanes * slots * n floats) in mode SEQ_SCRATCH.
 int nomad_place_sequence_batch(
     const float* cap, const float* res, const float* usage0, const int* jc0,
     const uint8_t* feas, const float* asks, const uint8_t* distinct,
     const int* group_idx, const uint8_t* valid, const float* penalty,
-    int lanes, int n, int g_len, int p_len, int* chosen, float* scores,
-    float* usage, int* jc, void* stream) {
-  if (lanes < 1) return (int)cudaErrorInvalidValue;
-  place_sequence_batch_kernel<<<lanes, THREADS, 0, (cudaStream_t)stream>>>(
-      cap, res, usage0, jc0, feas, asks, distinct, group_idx, valid, penalty,
-      n, g_len, p_len, chosen, scores, usage, jc);
+    int lanes, int n, int g_len, int p_len, int csize, int slots, int mode,
+    int* chosen, float* scores, float* usage, int* jc, float* scratch,
+    void* stream) {
+  if (lanes < 1 || csize < 1 || csize > MAX_CLUSTER ||
+      (csize & (csize - 1)) != 0 || n % csize != 0 ||
+      (slots != 1 && slots != g_len) || slots > MAX_SLOTS ||
+      mode < SEQ_SHARED || mode > SEQ_SCRATCH ||
+      (mode == SEQ_SCRATCH) != (scratch != nullptr) ||
+      sequence_smem((size_t)(n / csize), slots, mode) > CACHE_SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      sequence_config(n, csize, slots, mode, lanes, stream, &attr);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, place_sequence_batch_kernel, cap, res, usage0, jc0, feas, asks,
+      distinct, group_idx, valid, penalty, n, g_len, p_len, slots, mode,
+      chosen, scores, usage, jc, scratch);
+  if (e != cudaSuccess) {
+    (void)cudaGetLastError();
+    return (int)e;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -450,11 +450,37 @@ def place_rounds_batch(capacity, reserved, usage0, job_counts, feasible,
 place_rounds_batch.launches = 0
 
 
+# K4b's launch plan per (device index, N, G, B): see sequence_batch_plan.
+_SEQUENCE_BATCH_PLANS: dict = {}
+
+
+def sequence_batch_plan(n: int, g: int, lanes: int, device) -> tuple:
+    """K4b's launch plan on the CUDA ``device`` for B = ``lanes`` lanes of
+    N nodes and G groups: (CTAs in each lane's cluster, score slots each
+    CTA keeps, index into :data:`SEQ_MODES`), from
+    ``nomad_place_sequence_batch_plan`` (K2's cluster, halved until the
+    lanes fit one wave of the card), asked once per (device, N, G, B)."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    key = (index, n, g, lanes)
+    plan = _SEQUENCE_BATCH_PLANS.get(key)
+    if plan is None:
+        lib = kernels.library("binpack")
+        out = (ctypes.c_int * 3)()
+        with torch.cuda.device(index):
+            code = lib.nomad_place_sequence_batch_plan(n, g, lanes, out)
+        kernels.check(lib, "place_sequence_batch plan", code)
+        plan = _SEQUENCE_BATCH_PLANS[key] = tuple(out)
+    return plan
+
+
 def place_sequence_batch(capacity, reserved, usage0, job_counts, feasible,
                          asks, distinct, group_idx, valid, penalty):
     """K4b (``nomad_tpu/ops/binpack.py`` place_sequence_batch): the
     plain version for CPU tensors, the ``place_sequence_batch_kernel``
-    launch (one block per lane) for CUDA tensors.  Same arguments and
+    launch (K2's body on one thread-block cluster per lane,
+    :func:`sequence_batch_plan`) for CUDA tensors.  Same arguments and
     results as :func:`place_sequence_batch_plain`; ``usage0`` is never
     written."""
     args = dict(capacity=capacity, reserved=reserved, usage0=usage0,
@@ -477,13 +503,19 @@ def place_sequence_batch(capacity, reserved, usage0, job_counts, feasible,
     usage = torch.empty((lanes, n, NDIMS), dtype=torch.float32,
                         device=device)
     jc = torch.empty((lanes, n), dtype=torch.int32, device=device)
+    csize, slots, mode = sequence_batch_plan(n, g, lanes, device)
+    # Each lane's score slots, when shared memory cannot hold them.
+    scratch = torch.empty(lanes * slots * n, dtype=torch.float32,
+                          device=device) \
+        if SEQ_MODES[mode] == "scratch" else None
     lib = kernels.library("binpack")
     code = lib.nomad_place_sequence_batch(
         capacity.data_ptr(), reserved.data_ptr(), usage0.data_ptr(),
         job_counts.data_ptr(), feasible.data_ptr(), asks.data_ptr(),
         distinct.data_ptr(), group_idx.data_ptr(), valid.data_ptr(),
-        penalty.data_ptr(), lanes, n, g, p, chosen.data_ptr(),
-        scores.data_ptr(), usage.data_ptr(), jc.data_ptr(),
+        penalty.data_ptr(), lanes, n, g, p, csize, slots, mode,
+        chosen.data_ptr(), scores.data_ptr(), usage.data_ptr(),
+        jc.data_ptr(), None if scratch is None else scratch.data_ptr(),
         kernels.stream_handle(device))
     kernels.check(lib, "place_sequence_batch", code)
     place_sequence_batch.launches += 1

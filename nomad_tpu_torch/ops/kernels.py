@@ -48,14 +48,16 @@ PROTOTYPES = {
         "nomad_place_sequence": (_P,) * 9 + (_F,) + (_I,) * 6 + (_P,) * 6,
         "nomad_place_rounds_plan": (_I, _I, _I, _P),
         "nomad_place_rounds": (_P,) * 8 + (_F,) + (_I,) * 5 + (_P,) * 6,
-        "nomad_place_sequence_batch": (_P,) * 10 + (_I,) * 4 + (_P,) * 5,
+        "nomad_place_sequence_batch_plan": (_I, _I, _I, _P),
+        "nomad_place_sequence_batch": (_P,) * 10 + (_I,) * 7 + (_P,) * 6,
         "nomad_place_rounds_batch": (_P,) * 9 + (_I,) * 6 + (_P,) * 6,
     },
     "scatter_rows": {
         "nomad_scatter_rows": (_P, _P, _P, _P, _I, _I, _I, _P),
     },
     "window_verify": {
-        "nomad_window_verify": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P),
+        "nomad_window_verify_setup": (),
+        "nomad_window_verify": (_P, _P, _P, _I, _P) + (_I,) * 4 + (_P, _P),
     },
 }
 

@@ -572,10 +572,8 @@ def _dispatch_window_fit(capres, lease, dargs, vec_pair, vec_rows,
     drop into ``prep.base_used``/``prep.caps`` exactly where the host
     gather's ``.tolist()`` sat.  Any failure raises."""
     from nomad_tpu_torch.models.fleet import _pad_to
-    from nomad_tpu_torch.parallel.devices import (copy_to_host_async,
-                                                  fetch_host,
-                                                  transfer_counts)
-    from nomad_tpu_torch.parallel.mesh import window_verify
+    from nomad_tpu_torch.parallel.devices import fetch_host, transfer_counts
+    from nomad_tpu_torch.parallel.mesh import unpack_results, window_verify
 
     bucket = _pad_to(max(n_pairs, len(vec_rows), len(dargs["seq_ni"])))
 
@@ -594,7 +592,8 @@ def _dispatch_window_fit(capres, lease, dargs, vec_pair, vec_rows,
     t0 = time.perf_counter()
     before = transfer_counts()
     out = window_verify(
-        capres[0], capres[1], lease,
+        capres[0], capres[1], lease, packed=True,
+        counts=(n_pairs, len(vec_rows), len(dargs["seq_ni"])),
         pair_ni=pad_i(dargs["pair_ni"], 0), row_pair=pad_i(vec_pair, 0),
         row_vec=pad_v(vec_rows), seq_ni=pad_i(dargs["seq_ni"], -1),
         seq_vec=pad_v(dargs["seq_vec"]),
@@ -603,11 +602,11 @@ def _dispatch_window_fit(capres, lease, dargs, vec_pair, vec_rows,
         pair_order=pad_i(dargs["pair_order"], 0),
         pair_comp=pad_i(dargs["pair_comp"], 0),
         pair_removed=pad_v(dargs["pair_removed"]))
-    pending = [copy_to_host_async(x) for x in out]  # all three in flight
-    used, caps, fits = (fetch_host(p) for p in pending)
+    # used, caps and fits of the real pairs: one buffer, one fetch
+    used, caps, fits = unpack_results(fetch_host(out[:n_pairs]))
     after = transfer_counts()
     devfit = _DeviceFit()
-    devfit.fits_seq = fits[:n_pairs]
+    devfit.fits_seq = fits
     devfit.seq_ok = dargs["seq_ok"]
     devinfo = {
         "dispatched": True,
@@ -619,9 +618,7 @@ def _dispatch_window_fit(capres, lease, dargs, vec_pair, vec_rows,
         "d2h": after["d2h"] - before["d2h"],
         "wall": time.perf_counter() - t0,
     }
-    return (np.asarray(used[:n_pairs], dtype=np.float32).tolist(),
-            np.asarray(caps[:n_pairs], dtype=np.float32).tolist(),
-            devfit, devinfo)
+    return used.tolist(), caps.tolist(), devfit, devinfo
 
 
 def _evaluate_window_vec(overlay, plans: list, executor, partition: bool,

@@ -118,6 +118,41 @@ def _classify(src: torch.device, dst: torch.device) -> str:
     return "d2d"
 
 
+class PinnedStaging(threading.local):
+    """A page-locked host buffer of ``dtype`` for counted uploads, one
+    per thread, reused from one upload to the next: it is handed out
+    for rewriting only after the CUDA event recorded behind its last
+    copy has completed."""
+
+    def __init__(self, dtype: torch.dtype) -> None:
+        self.dtype = dtype
+        self.host: Optional[torch.Tensor] = None
+        self.event: Optional["torch.cuda.Event"] = None  # the last copy's
+        self.events: dict = {}  # one per device, recorded again each copy
+
+    def host_view(self, count: int) -> np.ndarray:
+        """The buffer's first ``count`` elements, free to fill."""
+        if self.event is not None:
+            self.event.synchronize()
+        if self.host is None or self.host.numel() < count:
+            self.host = torch.empty(count, dtype=self.dtype,
+                                    pin_memory=True)
+        return self.host[:count].numpy()
+
+    def upload(self, count: int, device) -> torch.Tensor:
+        """Copy the buffer's first ``count`` elements to ``device`` on
+        its current stream without waiting (one counted transfer)."""
+        device = resolve_device(device)
+        note_transfer("h2d")
+        out = torch.empty(count, dtype=self.dtype, device=device)
+        out.copy_(self.host[:count], non_blocking=True)
+        self.event = self.events.get(device.index)
+        if self.event is None:
+            self.event = self.events[device.index] = torch.cuda.Event()
+        self.event.record(torch.cuda.current_stream(device))
+        return out
+
+
 class PendingHost:
     """A device->host copy in flight: the pinned host tensor it lands
     in and the CUDA event recorded after it."""

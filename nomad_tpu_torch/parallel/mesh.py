@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from nomad_tpu_torch.parallel.devices import PinnedStaging
+
 # Descriptor arrays of one window, in the order the kernel's packed
 # buffer holds them: (name, dtype, width; 0 = one value per entry).
 DESCRIPTORS = (
@@ -87,25 +89,107 @@ def check_descriptors(n: int, desc: dict) -> int:
     return b
 
 
-def pack_descriptors(desc: dict, b: int) -> np.ndarray:
+def pack_descriptors(desc: dict, b: int, out=None) -> np.ndarray:
     """The descriptors as the kernel's one int32 buffer (float arrays
-    by their bits), so a window uploads in ONE transfer."""
-    return np.concatenate([
-        np.ascontiguousarray(desc[name]).reshape(-1).view(np.int32)
-        for name, _dtype, _width in DESCRIPTORS])
+    by their bits), so a window uploads in ONE transfer; written into
+    ``out`` (an int32[19 * B] array) when given."""
+    if out is None:
+        out = np.empty(19 * b, dtype=np.int32)
+    at = 0
+    for name, _dtype, width in DESCRIPTORS:
+        size = b * (width or 1)
+        out[at:at + size] = np.ascontiguousarray(
+            desc[name]).reshape(-1).view(np.int32)
+        at += size
+    return out
 
 
-def window_verify(capacity, reserved, usage, **desc):
+def kernel_counts(desc: dict, counts=None) -> tuple:
+    """(pairs, rows, entries): how far K6 walks a window's descriptors.
+    The engine builds a window plan by plan, so its real pairs, rows and
+    fold entries come first in window order and the padding after them
+    adds nothing; the kernel relies on both (``csrc/window_verify.cu``).
+    ``counts`` are the caller's real counts, as the engine knows them;
+    without them they are derived from the padding: pairs up to the
+    last with a positive order (a pair of order 0 folds nothing), rows
+    up to the last with a nonzero vector, entries up to the last on a
+    node.  Raises ``ValueError`` where a count exceeds the bucket or the
+    order the kernel walks in does not hold: pair_order, row_pair and
+    seq_order nondecreasing over those counts, seq_order not
+    negative."""
+    def end(mask, width=1) -> int:
+        last = int(np.argmax(mask[::-1]))  # from the end: 0 when none
+        n = 0 if not mask[-1 - last] else len(mask) - last
+        return -(-n // width)
+
+    if counts is None:
+        counts = (end(desc["pair_order"] > 0),
+                  end(desc["row_vec"].reshape(-1) != 0, 4),
+                  end(desc["seq_ni"] >= 0))
+    counts = tuple(int(c) for c in counts)
+    for name, n in zip(("pair_order", "row_pair", "seq_order"), counts):
+        a = desc[name]
+        if not 0 <= n <= len(a):
+            raise ValueError(f"{name}: a count of {n} outside its bucket "
+                             f"of {len(a)}")
+        a = a[:n]
+        if (a[1:] < a[:-1]).any():
+            raise ValueError(f"{name}: the kernel takes it nondecreasing "
+                             f"over the window's first {n} entries")
+    if counts[2] and desc["seq_order"][0] < 0:
+        raise ValueError("seq_order: the kernel takes no negative order")
+    return counts
+
+
+# One pair's record in K6's output buffer: used f32[4], caps f32[4],
+# fits as one byte, three zero bytes.
+OUT_BYTES = 36
+
+
+def pack_results(used, caps, fits):
+    """K6's three results as its one output buffer, uint8[B, 36]."""
+    b = used.shape[0]
+    return torch.cat([
+        used.contiguous().view(torch.uint8),
+        caps.contiguous().view(torch.uint8),
+        fits.view(torch.uint8)[:, None],
+        torch.zeros((b, 3), dtype=torch.uint8, device=used.device)], dim=1)
+
+
+def unpack_results(buf):
+    """(used f32[B, 4], caps f32[B, 4], fits bool[B]) of K6's output
+    buffer, a uint8[B, 36] tensor (views) or numpy array (after one
+    fetch)."""
+    if isinstance(buf, np.ndarray):
+        f = buf.view(np.float32)
+        return f[:, :4], f[:, 4:8], buf[:, 32] != 0
+    f = buf.view(torch.float32)
+    return f[:, :4], f[:, 4:8], buf[:, 32].view(torch.bool)
+
+
+# The descriptors' staging buffer in page-locked host memory, one per
+# thread (two threads may verify windows at once), reused from window
+# to window once the copy out of it has completed.
+_UPLOAD = PinnedStaging(torch.int32)
+
+
+def window_verify(capacity, reserved, usage, packed=False, counts=None,
+                  **desc):
     """K6: one window's base fit and overlay fold.
 
     ``capacity``/``reserved``/``usage`` are the f32[N, 6] fleet tensors
     resident on one device; ``desc`` holds the host (numpy) descriptor
     arrays named in ``DESCRIPTORS``, padded to one bucket B.  For CPU
-    tensors the plain version runs; for CUDA tensors the descriptors go
-    up in one counted transfer and ``window_verify_kernel``
-    (``csrc/window_verify.cu``) launches on the current stream.
-    Returns (used f32[B, 4], caps f32[B, 4], fits bool[B]) on that
-    device, not yet synchronized."""
+    tensors the plain version runs; for CUDA tensors the descriptors are
+    packed into a pinned staging buffer, go up in one counted transfer
+    on the current stream, and ``window_verify_kernel``
+    (``csrc/window_verify.cu``) launches behind it.  Returns (used
+    f32[B, 4], caps f32[B, 4], fits bool[B]) on that device, not yet
+    synchronized: views of one output buffer, which ``packed`` returns
+    instead (uint8[B, 36], :func:`unpack_results`), so a caller fetches
+    all three in one transfer.  ``counts`` are the window's real
+    (pairs, rows, entries) where the caller knows them
+    (:func:`kernel_counts`)."""
     from nomad_tpu_torch.ops import kernels
 
     fleet = dict(capacity=capacity, reserved=reserved, usage=usage)
@@ -118,23 +202,30 @@ def window_verify(capacity, reserved, usage, **desc):
         raise ValueError(f"fleet rows of {d} values: want at least 4")
     b = check_descriptors(n, desc)
     if device.type == "cpu":
-        return window_verify_plain(
+        out = window_verify_plain(
             capacity, reserved, usage,
             **{k: torch.from_numpy(desc[k]) for k, _t, _w in DESCRIPTORS})
-    from nomad_tpu_torch.parallel.devices import put_counted
-
-    packed = put_counted(pack_descriptors(desc, b), device)
-    return launch_window_verify(capacity, reserved, usage, packed, b)
+        return pack_results(*out) if packed else out
+    counts = kernel_counts(desc, counts)
+    pack_descriptors(desc, b, _UPLOAD.host_view(19 * b))
+    buf = launch_window_verify(capacity, reserved, usage,
+                               _UPLOAD.upload(19 * b, device), b, counts)
+    return buf if packed else unpack_results(buf)
 
 
 # K6's launches, counted in ``launch_window_verify`` where the kernel
 # launches, whichever caller launched it.
 window_verify.launches = 0
 
+# Device indices whose K6 shared-memory limit is raised.
+_SET_UP: set = set()
 
-def launch_window_verify(capacity, reserved, usage, packed, b: int):
+
+def launch_window_verify(capacity, reserved, usage, packed, b: int,
+                         counts: tuple):
     """The kernel launch alone, on a packed descriptor buffer already
-    on the card (``pack_descriptors``, validated by the caller)."""
+    on the card (``pack_descriptors``, validated by the caller) and its
+    ``kernel_counts``.  Returns the output buffer, uint8[B, 36]."""
     from nomad_tpu_torch.ops import kernels
 
     device = usage.device
@@ -142,15 +233,17 @@ def launch_window_verify(capacity, reserved, usage, packed, b: int):
             or packed.device != device or not packed.is_contiguous():
         raise ValueError("packed descriptors: want int32[19 * B] on "
                          f"{device}")
-    d = usage.shape[1]
-    used = torch.empty((b, 4), dtype=torch.float32, device=device)
-    caps = torch.empty((b, 4), dtype=torch.float32, device=device)
-    fits = torch.empty((b,), dtype=torch.bool, device=device)
+    out = torch.empty((b, OUT_BYTES), dtype=torch.uint8, device=device)
     lib = kernels.library("window_verify")
+    if device.index not in _SET_UP:
+        with torch.cuda.device(device):
+            kernels.check(lib, "window_verify setup",
+                          lib.nomad_window_verify_setup())
+        _SET_UP.add(device.index)
     code = lib.nomad_window_verify(
-        capacity.data_ptr(), reserved.data_ptr(), usage.data_ptr(), d,
-        packed.data_ptr(), b, used.data_ptr(), caps.data_ptr(),
-        fits.data_ptr(), kernels.stream_handle(device))
+        capacity.data_ptr(), reserved.data_ptr(), usage.data_ptr(),
+        usage.shape[1], packed.data_ptr(), b, *counts, out.data_ptr(),
+        kernels.stream_handle(device))
     kernels.check(lib, "window_verify", code)
     window_verify.launches += 1
-    return used, caps, fits
+    return out

@@ -25,6 +25,7 @@ atol=1e-3.  Placements of the storms are compared exactly.
 import contextlib
 import random
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -569,3 +570,141 @@ def test_runner_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         TRunner(None, None)
+
+
+# -- the sequence walk K2 and K4b share on the card, modelled in numpy --------
+#
+# csrc/binpack.cu place_sequence_cluster_lane keeps one score slot per
+# group (one slot when there are more groups than MAX_SLOTS), scores a
+# slot in full only when its group is first named (with one slot: at
+# every group change), and after a placement rescores only the placed
+# node in every slot; a step that places nothing adds +0.0 to its argmax
+# row and rescores nothing.  The model runs that walk with the JAX
+# package's own K1 (so scores compare bit for bit) and is held lane by
+# lane to the JAX batch kernel, which rescores the whole fleet at every
+# step.
+
+MAX_SLOTS = 32  # MAX_SLOTS in csrc/binpack.cu
+
+_jax_score = jax.jit(jbp.score_all_nodes)
+
+
+def sequence_walk_model(cap, res, usage0, jc0, feas, asks, distinct,
+                        group_idx, valid, penalty, stale_others=False):
+    """One lane of the incremental walk: (chosen, scores, usage).
+    ``stale_others`` leaves every slot but the step's own stale after a
+    placement (for the mutation test)."""
+    usage = usage0.copy()
+    jc = jc0.copy()
+    slot_of = (lambda g: g) if feas.shape[0] <= MAX_SLOTS else \
+        (lambda g: 0)
+    slot_group: dict = {}
+    slot_scores: dict = {}
+
+    def score(g):
+        return np.array(_jax_score(cap, res, usage, jc, asks[g], feas[g],
+                                   distinct[g], np.float32(penalty)))
+    chosen = np.full(len(group_idx), -1, dtype=np.int32)
+    scores = np.zeros(len(group_idx), dtype=np.float32)
+    for p, (g, is_valid) in enumerate(zip(group_idx.tolist(),
+                                          valid.tolist())):
+        slot = slot_of(g)
+        if slot_group.get(slot) != g:
+            slot_group[slot] = g
+            slot_scores[slot] = score(g)
+        i = int(np.argmax(slot_scores[slot]))  # ties to the lower index
+        scores[p] = slot_scores[slot][i]
+        ok = is_valid and scores[p] > tbp.NEG_INF / 2
+        usage[i] = usage[i] + (asks[g] if ok else asks[g] * np.float32(0.0))
+        if not ok:
+            continue
+        chosen[p] = i
+        jc[i] += 1
+        for s, gs in slot_group.items():
+            if s == slot or not stale_others:
+                slot_scores[s][i] = score(gs)[i]
+    return chosen, scores, usage
+
+
+def _many_groups_case(rng, used, groups=40):
+    """_lanes_case with G=40 slots per lane (more than MAX_SLOTS): every
+    step names a group drawn from all 40."""
+    (fleet, usage, jc, feasible, asks, distinct, _gi, valid, _c,
+     penalty) = _lanes_case(rng, used)
+    n_pad = feasible.shape[-1]
+    feasible = np.zeros((LANES, groups, n_pad), dtype=bool)
+    asks = np.zeros((LANES, groups, 6), dtype=np.float32)
+    distinct = np.zeros((LANES, groups), dtype=bool)
+    group_idx = np.zeros((LANES, PLACE), dtype=np.int32)
+    for b in range(REAL):
+        asks[b, :, 0] = rng.integers(50, 700, groups)
+        asks[b, :, 1] = rng.integers(40, 900, groups)
+        feasible[b, :, :fleet.n_real] = rng.random((groups, fleet.n_real)) \
+            > 0.2
+        distinct[b] = rng.random(groups) > 0.7
+        group_idx[b] = rng.integers(0, groups, PLACE)
+    return (fleet, usage, jc, feasible, asks, distinct, group_idx, valid,
+            penalty)
+
+
+def _walk_case(order, used):
+    rng = np.random.default_rng(57)
+    if order == "40 groups":
+        case = _many_groups_case(rng, used)
+    else:
+        (fleet, usage, jc, feasible, asks, distinct, _gi, valid, _c,
+         penalty) = _lanes_case(rng, used)
+        group_idx = np.tile(np.asarray(_ORDERS[order], dtype=np.int32),
+                            (LANES, 1))
+        case = (fleet, usage, jc, feasible, asks, distinct, group_idx,
+                valid, penalty)
+    fleet, usage, *rest = case
+    usage = _negative_zero(usage)
+    rest[5][:REAL, 6] = False  # an invalid step inside a run
+    return (fleet, usage, *rest)
+
+
+@pytest.mark.parametrize("order", sorted(_ORDERS) + ["40 groups"])
+@pytest.mark.parametrize("used", [False, True])
+def test_sequence_walk_model_equals_jax_lane_by_lane(order, used):
+    """Chosen nodes exactly, every step's score and the final usage bit
+    for bit (-0.0 included), in every lane and the pad lane."""
+    (fleet, usage, jc, feasible, asks, distinct, group_idx, valid,
+     penalty) = _walk_case(order, used)
+    j_chosen, j_scores, j_usage = (np.asarray(x) for x in
+                                   jbp.place_sequence_batch(
+        fleet.capacity, fleet.reserved, usage, jc, feasible, asks,
+        distinct, group_idx, valid, penalty))
+    for b in range(LANES):
+        chosen, scores, lane_usage = sequence_walk_model(
+            fleet.capacity, fleet.reserved, usage, jc[b], feasible[b],
+            asks[b], distinct[b], group_idx[b], valid[b], penalty[b])
+        assert np.array_equal(chosen, j_chosen[b])
+        assert np.array_equal(scores.view(np.int32),
+                              j_scores[b].astype(np.float32).view(np.int32))
+        assert np.array_equal(lane_usage.view(np.int32),
+                              j_usage[b].astype(np.float32).view(np.int32))
+    assert (j_chosen[:REAL] >= 0).sum() > 0
+    assert _neg_zeros(j_usage[0]) < _neg_zeros(usage)
+
+
+def test_sequence_walk_model_fails_with_a_stale_slot():
+    """Groups interleaved, so a node placed for one group is scored again
+    for the others: left stale in their slots, it keeps its score from
+    before the placement and the model parts from JAX."""
+    (fleet, usage, jc, feasible, asks, distinct, group_idx, valid,
+     penalty) = _walk_case("interleaved", True)
+    j_out = [np.asarray(x) for x in jbp.place_sequence_batch(
+        fleet.capacity, fleet.reserved, usage, jc, feasible, asks,
+        distinct, group_idx, valid, penalty)]
+    differs = 0
+    for b in range(REAL):
+        stale = sequence_walk_model(
+            fleet.capacity, fleet.reserved, usage, jc[b], feasible[b],
+            asks[b], distinct[b], group_idx[b], valid[b], penalty[b],
+            stale_others=True)
+        differs += not all(np.array_equal(
+            np.asarray(x).view(np.int32),
+            np.asarray(y[b]).astype(x.dtype).view(np.int32))
+            for x, y in zip(stale, j_out))
+    assert differs > 0

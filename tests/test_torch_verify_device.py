@@ -218,6 +218,37 @@ def test_a_dispatch_that_fails_raises():
             tmesh.window_verify = saved
 
 
+def test_the_engine_passes_the_windows_real_counts():
+    """The device engine hands K6 the real (pairs, rows, entries) it
+    built; they are the counts the padding gives, and hold the kernel's
+    orders (``mesh.kernel_counts``)."""
+    nodes, plans = _record_storm(800)
+    _js, ts = _worlds(nodes)
+    tplans = convert.plans_from_reference(plans)
+    saved = tmesh.window_verify
+    seen = []
+
+    def recording(*a, counts=None, **kw):
+        desc = {k: kw[k] for k, _t, _w in tmesh.DESCRIPTORS}
+        seen.append((counts, tmesh.kernel_counts(desc),
+                     tmesh.kernel_counts(desc, counts)))
+        return saved(*a, counts=counts, **kw)
+    with t_policy.verify_override("device"):
+        t_window(ts, tplans, device="cpu")  # cold: lease-miss
+        tmesh.window_verify = recording
+        try:
+            out = t_window(ts, tplans, device="cpu")
+        finally:
+            tmesh.window_verify = saved
+    assert out.info["device"]["dispatched"] and seen
+    for given, derived, checked in seen:
+        assert given[0] > 0 and given[1] > 0 and given[2] > 0
+        assert given == checked
+        assert derived[1:] == given[1:]
+        # pairs past the derived count are plan 0's: they fold nothing
+        assert derived[0] <= given[0]
+
+
 def test_auto_stays_on_the_host_engine_on_one_device():
     nodes = [mock.node(i) for i in range(4)]
     plans = [place_plan(make_alloc(n, cpu=100)) for n in nodes]
