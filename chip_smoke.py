@@ -3,6 +3,8 @@ one NVIDIA GPU.
 
     python3 chip_smoke.py                       # every phase, the result line
     python3 chip_smoke.py --only NAME[,NAME]    # those kernels' checks alone
+    python3 chip_smoke.py --profiler-events S   # does torch.profiler see
+                                                # the card? (S seconds)
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -44,6 +46,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
               B=1 on the same inputs; K3's launches are recorded as they
               happen and the first at each shape (N=16,384 and 1,024)
               replayed on both top-k paths, bit for bit, and timed;
+              then config 4's second 1,000-group job on the cluster the
+              first left, with a record-only planner, finished by the
+              native prefix (csrc/port_alloc.cpp, built with g++ at
+              first use) and by the Python tail alone in turns, 5 times
+              each, host clock: equal plans (nodes and ports), every
+              placement finished in C; then the same job profiled;
   5. storm    the fused eval storm through BatchEvalRunner on cuda:
               (a) bench.py config 5, 64 jobs x 1,000 groups on 10,000
               nodes with a record-only planner: ONE place_rounds_batch
@@ -60,14 +68,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
               (c)'s K4b launches are replayed from a plain rerun's
               inputs, bit for bit, and timed; K3's and K4a's launches in
               (a)-(c) are recorded and replayed as in the slice
-              (N=16,384 and 256);
-  6. verify   bench.py's 5f fleet-scaling sub-table on the port: NodeSlab
+              (N=16,384 and 256); config 5's storm is run once more
+              under ``device_timeline`` (CUDA events around every
+              kernel launch and transfer: the card's busy time, which
+              must be measured) and its
+              ``_finish_lanes`` timed with the native prefix (one
+              bulk_finish_many for the 64 lanes) and with the 64 Python
+              tails, in turns, 5 times each: equal plans lane by lane,
+              every lane finished in C;
+  6. system   bench.py config 3: mock.system_job() on 1,000 nodes
+              through ``system`` (vectorized, native finish) and
+              ``system-seq``: equal plans, every node placed, eval ms;
+  7. verify   bench.py's 5f fleet-scaling sub-table on the port: NodeSlab
               fleets of 10,000, 131,072 and 1,000,000 nodes, 64
               single-placement plans a window, 8 measured windows under
               the host engine and under the device engine (K6); every
               device window must dispatch, make one upload and one
               fetch, and give the host's verdicts;
-  7. report   one ``{"kernels": [...]}`` line, then the card's name and
+  8. report   one ``{"kernels": [...]}`` line, then the card's name and
               power limit exactly as nvidia-smi prints them, then the
               result line ``{"ok": true, "device": {...}}`` last.
 
@@ -737,17 +755,15 @@ def device_per_call(torch, fn, reps):
     launched per call."""
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with profiled(torch) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if device_us(e) > 0]
-    total = sum(device_us(e) for e in events)
+    events = device_events(torch, prof)
+    total = sum(e.time_range.elapsed_us() for e in events)
     if total <= 0:
         return None, None
-    return total / 1e3 / reps, sum(e.count for e in events) / reps
+    return total / 1e3 / reps, len(events) / reps
 
 
 def check_scatter(torch, fleet, n, r, rng, reps):
@@ -1060,26 +1076,155 @@ def timed_phases(targets):
     return spent, restore
 
 
+# What torch.profiler lists on the device side that is its own work.
+PROFILER_OVERHEAD = ("Activity Buffer Request",)
+
+
+def profiled(torch):
+    """A torch.profiler session over the host and the card."""
+    return torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+
+
+def device_events(torch, prof) -> list:
+    """The device-side events of a profiler session (kernels, copies,
+    memsets), each once: ``key_averages`` also charges a host op the
+    device time of the kernels it launched, so summing its entries
+    counts a copy twice; the profiler's own entries are left out."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in prof.events()
+            if e.device_type == cuda and e.name not in PROFILER_OVERHEAD]
+
+
+# The port's device seams: every transfer of the main paths goes
+# through one of these (parallel/devices.py).
+DEVICE_SEAMS = ("put_counted", "ensure_on_default", "copy_to_host_async")
+
+
+@contextlib.contextmanager
+def device_timeline(torch):
+    """CUDA events on the current stream around each kernel launch of
+    the port's libraries (every ``nomad_*`` entry point of
+    ``kernels.PROTOTYPES`` but the plan queries) and each call of its
+    device seams (``DEVICE_SEAMS``) made inside the block.  Yields a
+    list of (name, start event, end event).  The stream time between a
+    call's two events is the card's work for it plus any stretch where
+    the card waited on the host inside the call (a pageable upload's
+    staging), so their sum bounds the card's busy time from above.
+
+    torch.profiler cannot give this number on the chip machine: there
+    sessions long and short lose every device event at random, and
+    the events that come back sit tens of ms off the host's clock
+    (``profiler_events``), which is why config 5's busy time read
+    None."""
+    from nomad_tpu_torch.ops import kernels
+    from nomad_tpu_torch.parallel import devices
+
+    pairs: list = []
+    depth = [0]
+
+    def timed(fn, name):
+        def call(*a, **kw):
+            if depth[0]:
+                return fn(*a, **kw)
+            depth[0] += 1
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            try:
+                return fn(*a, **kw)
+            finally:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                pairs.append((name, start, end))
+                depth[0] -= 1
+        return call
+
+    saved = []
+    for lib_name, protos in kernels.PROTOTYPES.items():
+        lib = kernels.library(lib_name)
+        for fn in protos:
+            if fn.endswith(("_plan", "_setup")):
+                continue
+            saved.append((lib, fn, getattr(lib, fn)))
+    seams = {id(getattr(devices, n)) for n in DEVICE_SEAMS}
+    for name, module in list(sys.modules.items()):
+        if module is None or not name.startswith("nomad_tpu_torch"):
+            continue
+        for attr, value in list(vars(module).items()):
+            if id(value) in seams:
+                saved.append((module, attr, value))
+    for owner, attr, value in saved:
+        setattr(owner, attr, timed(value, attr))
+    try:
+        yield pairs
+    finally:
+        for owner, attr, value in saved:
+            setattr(owner, attr, value)
+
+
+def profiler_session(torch, x, pad: float) -> tuple:
+    """One torch.profiler session over one small kernel, with ``pad``
+    seconds of sleep on each side: (device events it kept, the first
+    one's start minus its ``cudaLaunchKernel``'s, µs, or None)."""
+    with profiled(torch) as prof:
+        time.sleep(pad)
+        (x * 2).sum()
+        torch.cuda.synchronize()
+        time.sleep(pad)
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    launch = [e.time_range.start for e in events
+              if e.name == "cudaLaunchKernel"]
+    device = [e.time_range.start for e in events if e.device_type == cuda]
+    return len(device), (device[0] - launch[0] if device and launch
+                         else None)
+
+
+def profiler_events(torch, seconds: float) -> dict:
+    """``--profiler-events SECONDS``: does torch.profiler see the card's
+    work?  About every 8.6 s, a short session and one padded with 0.3 s
+    of sleep on each side (``profiler_session``), the card and the host
+    kept busy in between; one line a pair, then the sums."""
+    x = torch.ones(1 << 20, device=DEV)
+    (x * 2).sum()
+    torch.cuda.synchronize()
+    rows = []
+    t0 = time.time()
+    while time.time() - t0 < seconds:
+        row = dict(t=round(time.time() - t0, 1),
+                   short=profiler_session(torch, x, 0.0),
+                   padded=profiler_session(torch, x, 0.3))
+        print("profiler session: " + json.dumps(row), flush=True)
+        rows.append(row)
+        end = time.time() + 8
+        while time.time() < end:
+            (x * 2).sum()
+            torch.cuda.synchronize()
+    offsets = [r[k][1] for r in rows for k in ("short", "padded")
+               if r[k][1] is not None]
+    return dict(
+        sessions=2 * len(rows),
+        short_without_device_events=sum(r["short"][0] == 0 for r in rows),
+        padded_without_device_events=sum(r["padded"][0] == 0
+                                         for r in rows),
+        offset_us_min=min(offsets, default=None),
+        offset_us_max=max(offsets, default=None))
+
+
 def device_busy_ms(torch, fn):
-    """Run ``fn`` under torch.profiler.  Returns the card's busy ms (None
-    when the profiler saw no device time), the top device entries by
-    time, and what ``fn`` returned."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    """Run ``fn`` inside ``device_timeline``.  Returns the card's busy
+    ms (None when nothing ran on it), the top entries by time, and what
+    ``fn`` returned."""
+    with device_timeline(torch) as pairs:
         result = fn()
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    busy_us = sum(device_us(e) for e in events)
-    top = sorted(((e.key, device_us(e) / 1e3) for e in events
-                  if device_us(e) > 0), key=lambda kv: -kv[1])[:6]
-    return (busy_us / 1e3 if busy_us > 0 else None), top, result
-
-
-def device_us(event) -> float:
-    """A profiler entry's own device time, microseconds."""
-    return getattr(event, "self_device_time_total",
-                   getattr(event, "self_cuda_time_total", 0.0))
+    by_name: dict = {}
+    for name, start, end in pairs:
+        by_name[name] = by_name.get(name, 0.0) + start.elapsed_time(end)
+    busy_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return (busy_ms if busy_ms > 0 else None), top, result
 
 
 def kernel_device_ms(torch, fn, reps, name):
@@ -1089,22 +1234,20 @@ def kernel_device_ms(torch, fn, reps, name):
     the host's launch rate instead."""
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with profiled(torch) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(device_us(e) for e in prof.key_averages() if name in e.key)
+    total = sum(e.time_range.elapsed_us() for e in device_events(torch, prof)
+                if name in e.name)
     return total / 1e3 / reps if total > 0 else None
 
 
 def phase_breakdown(torch, structs, h, job):
     """One more eval on ``h`` (after the main path's counts were read),
     with host-clock time per scheduler phase and the card's busy time
-    from torch.profiler.  Returns ms per phase, the eval's wall ms, the
-    device busy ms (None when the profiler saw no device time) and the
-    top device kernels by time."""
+    (``device_busy_ms``).  Returns ms per phase, the eval's wall ms, the
+    device busy ms and the top device entries by time."""
     from nomad_tpu_torch.scheduler import Harness, TorchBinPackScheduler
 
     spent, restore = timed_phases([(TorchBinPackScheduler, name) for name in (
@@ -1125,6 +1268,145 @@ def phase_breakdown(torch, structs, h, job):
     return dict(phases_ms={k: v * 1e3 for k, v in spent.items()},
                 eval_ms=times[0] * 1e3, device_busy_ms=busy_ms,
                 device_top_ms=top)
+
+
+def alloc_ports(a) -> tuple:
+    """An alloc's reserved ports in task order: a lazy slab row's from
+    its slab's port column (what it would materialize, without building
+    the objects), any other alloc's from its task resources."""
+    d = a.__dict__
+    slab = d.get("_slab")
+    if slab is not None and "task_resources" not in d:
+        r = d["_srow"]
+        return tuple(slab.ports[slab.port_off[r]:slab.port_off[r + 1]]
+                     .tolist())
+    return tuple(p for tr in a.task_resources.values() for n in tr.networks
+                 for p in n.reserved_ports)
+
+
+def plan_placements(plan) -> dict:
+    """alloc name -> (node id, reserved ports) of a plan's placements."""
+    return {a.name: (node_id, alloc_ports(a))
+            for node_id, allocs in plan.node_allocation.items()
+            for a in allocs}
+
+
+def spread(times_s) -> dict:
+    """Median, least, most and spread (most - least) of host-clock
+    times, ms, and the runs themselves."""
+    ms = [t * 1e3 for t in times_s]
+    return dict(median_ms=statistics.median(ms), min_ms=min(ms),
+                max_ms=max(ms), spread_ms=max(ms) - min(ms), runs_ms=ms)
+
+
+@contextlib.contextmanager
+def finish_variant(native_on: bool, seed: int, uuids: list, starts: list):
+    """Evals finished inside run the native prefix (``native_on``) or the
+    Python tail alone, switched through ``torch_binpack._native_bulk``,
+    the seam the parity tests use; Python's ``random`` (each plan's port
+    LCG seed) is seeded with ``seed`` and the uuids come from ``uuids``,
+    so both variants draw the same streams; each finish's (native resume
+    index, placements) goes into ``starts``."""
+    from nomad_tpu_torch.scheduler import batch, torch_binpack
+
+    cls = torch_binpack.TorchBinPackScheduler
+    saved = (torch_binpack._native_bulk, torch_binpack.generate_uuids,
+             batch.generate_uuids, cls.__dict__["_finish_python_tail"])
+    tail = saved[3]
+
+    def recorded_tail(self, fs):
+        starts.append((fs.start_p, len(fs.place)))
+        return tail(self, fs)
+
+    def fixed_uuids(n):
+        require(n <= len(uuids), f"{n} uuids asked, {len(uuids)} made")
+        return list(uuids[:n])
+
+    if not native_on:
+        torch_binpack._native_bulk = lambda: None
+    torch_binpack.generate_uuids = batch.generate_uuids = fixed_uuids
+    cls._finish_python_tail = recorded_tail
+    state = random.getstate()
+    random.seed(seed)
+    try:
+        yield
+    finally:
+        random.setstate(state)
+        (torch_binpack._native_bulk, torch_binpack.generate_uuids,
+         batch.generate_uuids) = saved[:3]
+        cls._finish_python_tail = tail
+
+
+def alternating(reps: int):
+    """Variant order (native first?) for ``reps`` rounds: native, tail;
+    tail, native; ... so neither variant always runs first."""
+    for i in range(reps):
+        yield (True, False) if i % 2 == 0 else (False, True)
+
+
+def native_finish_eval(torch, structs, h, job, reps=5):
+    """Config 4's second 1,000-group job on ``h`` (which holds the first
+    job's allocs), finished with the native prefix and with the Python
+    tail alone, in turns, ``reps`` times each after one warm eval each.
+    Every eval runs on the same snapshot with a record-only planner, so
+    the store is in the same state for each; the finish
+    (``finish_deferred``) and the eval are timed on the host clock,
+    outside torch.profiler.  The plans must be equal (nodes and ports)
+    and the native variant must finish every placement in C."""
+    from nomad_tpu_torch.scheduler import TorchBinPackScheduler
+
+    h.state.upsert_job(h.next_index(), job)
+    snap = h.snapshot()
+    n_place = sum(tg.count for tg in job.task_groups)
+    uuids = structs.generate_uuids(n_place)
+
+    def one(native_on):
+        starts: list = []
+        planner = RecordOnlyPlanner(structs)
+        sched = TorchBinPackScheduler(snap, planner, batch=False,
+                                      device=DEV)
+        finish = sched.finish_deferred
+        spent: list = []
+
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return finish(*a, **kw)
+            finally:
+                spent.append(time.perf_counter() - t)
+        sched.finish_deferred = timed
+        with finish_variant(native_on, 4, uuids, starts):
+            t = time.perf_counter()
+            sched.process(make_eval(structs, job))
+            wall = time.perf_counter() - t
+        require(len(planner.plans) == 1 and len(spent) == 1,
+                "native finish: the eval did not finish one plan")
+        want_start = n_place if native_on else 0
+        require(starts == [(want_start, n_place)],
+                f"native finish ({'native' if native_on else 'tail'}): "
+                f"resumed at {starts}, want {want_start} of {n_place}")
+        return spent[0], wall, plan_placements(planner.plans[0])
+
+    want = {v: one(v)[2] for v in (True, False)}  # warm, both variants
+    require(want[True] == want[False],
+            "native finish: native and Python-tail plans differ")
+    require(len(want[True]) == n_place,
+            f"native finish: {len(want[True])} of {n_place} placed")
+    finish_s = {True: [], False: []}
+    eval_s = {True: [], False: []}
+    for order in alternating(reps):
+        for v in order:
+            f, wall, placed = one(v)
+            require(placed == want[True],
+                    "native finish: a rerun placed differently")
+            finish_s[v].append(f)
+            eval_s[v].append(wall)
+    native, tail = spread(finish_s[True]), spread(finish_s[False])
+    return dict(placements=n_place, native_start_p=n_place, reps=reps,
+                native_finish=native, python_finish=tail,
+                python_over_native=tail["median_ms"] / native["median_ms"],
+                native_eval=spread(eval_s[True]),
+                python_eval=spread(eval_s[False]))
 
 
 def run_slice(torch):
@@ -1172,11 +1454,15 @@ def run_slice(torch):
     for name, n in launches.items():
         require(n > 0, f"{name} was not launched on the main path")
 
-    # A second 1,000-group job on the 10,000-node cluster, profiled.
+    # A second 1,000-group job on the 10,000-node cluster: first the
+    # native prefix against the Python tail on the cluster as the first
+    # job left it (record-only), then profiled and committed.
     job4b = mock.job()
     job4b.id = "config4-second"
     job4b.task_groups = [bench_task_group(structs, f"tg-{g}")
                          for g in range(1000)]
+    native4 = native_finish_eval(torch, structs, big, job4b)
+    print("native finish config 4: " + json.dumps(native4), flush=True)
     profile = phase_breakdown(torch, structs, big, job4b)
     require(len(big.plans[-1].failed_allocs) == 0,
             "second config-4 job left allocs unplaced")
@@ -1211,7 +1497,7 @@ def run_slice(torch):
                 eval_ms_median=statistics.median(times) * 1e3,
                 eval_ms_max=max(times) * 1e3,
                 config4_eval_ms=times[0] * 1e3, node_setup_s=setup_s,
-                profiled_config4_eval=profile,
+                native_finish=native4, profiled_config4_eval=profile,
                 main_path_sequence=main_seq, main_path_rounds=main_rounds)
 
 
@@ -1387,7 +1673,9 @@ def storm_config5(torch, mock, structs, binpack, Harness, BatchEvalRunner,
     """bench.py config 5: 64 evals x 1,000 groups on 10,000 nodes, with
     the record-only planner.  Three storms on one snapshot: the first
     cold (fleet tensors, masks, prep caches), the second timed by host
-    phase, the third under torch.profiler for the card's busy time."""
+    phase, the third inside ``device_timeline`` for the card's busy
+    time.  Returns the results and (snapshot, jobs) for
+    ``native_finish_storm``."""
     h = Harness(device=DEV)
     for i in range(n_nodes):
         h.state.upsert_node(h.next_index(), mock.node(i))
@@ -1422,6 +1710,8 @@ def storm_config5(torch, mock, structs, binpack, Harness, BatchEvalRunner,
     finally:
         restore()
     busy_ms, top, profiled_s = device_busy_ms(torch, storm)
+    require(busy_ms is not None,
+            "config 5: no device time measured in the storm")
     phases_ms = {"begin": spent["_begin_eval"] * 1e3,
                  "dispatch": spent["_dispatch_fused"] * 1e3,
                  "finish": spent["_finish_lanes"] * 1e3,
@@ -1433,9 +1723,60 @@ def storm_config5(torch, mock, structs, binpack, Harness, BatchEvalRunner,
                 phases_ms=phases_ms,
                 profiled_storm_s=profiled_s,
                 profiled_storm_device_busy_ms=busy_ms,
-                device_idle_share=None if busy_ms is None
-                else 1.0 - busy_ms / (profiled_s * 1e3),
-                device_top_ms=top)
+                device_idle_share=1.0 - busy_ms / (profiled_s * 1e3),
+                device_top_ms=top), (snap, jobs)
+
+
+def native_finish_storm(structs, BatchEvalRunner, snap, jobs, n_groups,
+                        reps=5):
+    """The config-5 storm's ``_finish_lanes`` with the native prefix (ONE
+    bulk_finish_many call for the 64 lanes) and with the 64 Python tails
+    alone, in turns, ``reps`` times each, on one snapshot with the
+    record-only planner (the storms before warmed every cache); host
+    clock, outside torch.profiler.  The plans of each variant's first
+    storm must be equal lane by lane (nodes and ports) and every native
+    lane must finish all its placements in C."""
+    n_place = len(jobs) * n_groups
+    uuids = structs.generate_uuids(n_place)
+
+    def one(native_on, compare=False):
+        starts: list = []
+        planner = RecordOnlyPlanner(structs)
+        spent, restore = timed_phases([(BatchEvalRunner, "_finish_lanes")])
+        try:
+            with finish_variant(native_on, 5, uuids, starts):
+                BatchEvalRunner(snap, planner, device=DEV).process(
+                    [make_eval(structs, j) for j in jobs])
+        finally:
+            restore()
+        want_start = n_groups if native_on else 0
+        require(len(starts) == len(jobs) and all(
+            st == (want_start, n_groups) for st in starts),
+            f"native finish config 5 "
+            f"({'native' if native_on else 'tail'}): lanes resumed at "
+            f"{sorted(set(starts))}, want {want_start} of {n_groups}")
+        lanes = [plan_placements(p) for p in planner.plans] \
+            if compare else None
+        return spent["_finish_lanes"], lanes
+
+    finish_s = {True: [], False: []}
+    lanes: dict = {}
+    for order in alternating(reps):
+        for v in order:
+            spent, placed = one(v, compare=v not in lanes)
+            finish_s[v].append(spent)
+            if placed is not None:
+                lanes[v] = placed
+    require(len(lanes[True]) == len(jobs) and all(
+        len(lane) == n_groups for lane in lanes[True]),
+        "native finish config 5: a lane left placements unplaced")
+    require(lanes[True] == lanes[False],
+            "native finish config 5: native and Python-tail plans differ")
+    native, tail = spread(finish_s[True]), spread(finish_s[False])
+    return dict(lanes=len(jobs), placements=n_place,
+                native_start_p=n_groups, reps=reps, native_finish=native,
+                python_finish=tail,
+                python_over_native=tail["median_ms"] / native["median_ms"])
 
 
 def storm_config5b(mock, structs, Harness, VerifyingPlanner,
@@ -1570,8 +1911,8 @@ def run_storm(torch, sizes5=(), sizes5b=(), n_seq_nodes=1000,
     binpack.place_rounds = RoundsRecording(counters[1], rounds_calls)
     binpack.place_rounds_batch = RoundsRecording(counters[3], rounds_calls)
     try:
-        c5 = storm_config5(torch, mock, structs, binpack, Harness,
-                           BatchEvalRunner, *sizes5)
+        c5, world5 = storm_config5(torch, mock, structs, binpack, Harness,
+                                   BatchEvalRunner, *sizes5)
         placed5b, c5b = storm_config5b(mock, structs, Harness,
                                        VerifyingPlanner, BatchEvalRunner,
                                        *sizes5b)
@@ -1592,6 +1933,11 @@ def run_storm(torch, sizes5=(), sizes5b=(), n_seq_nodes=1000,
             "the recorded K3/K4a launches are not the storm's")
     for name in ("place_rounds_batch", "place_sequence_batch"):
         require(launches[name] > 0, f"{name} was not launched by the storm")
+    # The finish comparison's storms run after the counts were read.
+    c5["native_finish"] = native_finish_storm(
+        structs, BatchEvalRunner, *world5, c5["placements"] // c5["evals"])
+    print("native finish config 5: " + json.dumps(c5["native_finish"]),
+          flush=True)
 
     # Config 5b again, through the plain versions on the card.
     saved = (binpack.place_sequence, binpack.place_rounds,
@@ -1695,7 +2041,75 @@ def main_path_sequence_batch(torch, binpack, args, reps=50):
                 bound_ms=b_ms, bound_by=b_by, err=err)
 
 
-# -- phase 6: the verify engines over a growing fleet ----------------------
+# -- phase 6: the system schedulers (config 3) -----------------------------
+
+
+def run_system(n_nodes=1000, reps=3):
+    """bench.py config 3: ``mock.system_job()`` on 1,000 nodes through the
+    vectorized ``system`` scheduler and the sequential ``system-seq``,
+    in turns, one warm eval each and then ``reps`` timed ones, with the
+    record-only planner (every eval sees one store).  Their plans must
+    place the same task groups on the same nodes, every node must take
+    the job, and ``system`` must finish every placement in the native
+    prefix."""
+    import nomad_tpu_torch.mock as mock
+    import nomad_tpu_torch.structs as structs
+    from nomad_tpu_torch.scheduler import Harness, system_vec
+
+    h = Harness(device=DEV)
+    for i in range(n_nodes):
+        h.state.upsert_node(h.next_index(), mock.node(i))
+    job = mock.system_job()
+    job.id = "config3-system"
+    h.state.upsert_job(h.next_index(), job)
+    planner = RecordOnlyPlanner(structs)
+    h.planner = planner
+    starts: list = []
+    real = system_vec.run_bulk_finish
+
+    def recorded(*a, **kw):
+        out = real(*a, **kw)
+        starts.append(out[0])
+        return out
+    system_vec.run_bulk_finish = recorded
+    names = ("system", "system-seq")
+    times: dict = {name: [] for name in names}
+    plans: dict = {}
+    try:
+        for i in range(reps + 1):
+            for name in names if i % 2 == 0 else names[::-1]:
+                t = time.perf_counter()
+                h.process(name, make_eval(structs, job))
+                wall = time.perf_counter() - t
+                require(h.evals[-1].status == structs.EVAL_STATUS_COMPLETE,
+                        f"config 3 {name}: eval ended {h.evals[-1].status}")
+                plan = planner.plans[-1]
+                got = ({node_id: sorted(a.task_group for a in allocs)
+                        for node_id, allocs in plan.node_allocation.items()},
+                       len(plan.failed_allocs))
+                if i == 0:
+                    plans[name] = got
+                else:
+                    require(got == plans[name],
+                            f"config 3 {name}: a rerun planned otherwise")
+                    times[name].append(wall)
+    finally:
+        system_vec.run_bulk_finish = real
+    require(plans["system"] == plans["system-seq"],
+            "config 3: system and system-seq plan differently")
+    placed, failed = plans["system"]
+    require(len(placed) == n_nodes and not failed,
+            f"config 3: {len(placed)} nodes placed, {failed} failed")
+    require(len(starts) == reps + 1 and all(st == n_nodes for st in starts),
+            f"config 3: the native prefix resumed at {starts}, want "
+            f"{n_nodes}")
+    vec, seq = spread(times["system"]), spread(times["system-seq"])
+    return dict(nodes=n_nodes, placed=len(placed), native_start_p=n_nodes,
+                system_eval=vec, system_seq_eval=seq,
+                seq_over_system=seq["median_ms"] / vec["median_ms"])
+
+
+# -- phase 7: the verify engines over a growing fleet ----------------------
 
 
 def result_key(result) -> tuple:
@@ -2010,6 +2424,14 @@ def main(argv=()) -> int:
 
     card = card_line()
     print(f"card: {card}", flush=True)
+    print(f"torch: {torch.__version__} (CUDA {torch.version.cuda})",
+          flush=True)
+    if argv[:1] == ["--profiler-events"]:
+        # The profiler check alone: no kernels, no result line.
+        seconds = float(argv[1]) if len(argv) > 1 else 120.0
+        print("profiler events: " + json.dumps(
+            profiler_events(torch, seconds)), flush=True)
+        return 0
 
     t0 = time.perf_counter()
     built = kernels.build()
@@ -2022,14 +2444,19 @@ def main(argv=()) -> int:
         # and no result line.
         if len(argv) != 2 or argv[0] != "--only" or \
                 not set(argv[1].split(",")) <= set(checks):
-            print(f"usage: chip_smoke.py [--only {','.join(checks)}]",
-                  file=sys.stderr)
+            print(f"usage: chip_smoke.py [--only {','.join(checks)}] "
+                  f"[--profiler-events SECONDS]", file=sys.stderr)
             return 2
         for name in argv[1].split(","):
             checks[name]()
         print("chip_smoke: --only run, no result line", flush=True)
         return 0
-    k = {name: fn() for name, fn in checks.items()}
+    k = {}
+    for name, fn in checks.items():
+        t = time.perf_counter()
+        k[name] = fn()
+        print(f"phase kernels {name}: {time.perf_counter() - t:.1f} s",
+              flush=True)
     seq = k["place_sequence"]["N=16384 P=1024"]
     rnd = k["place_rounds"]["N=16384 count=1000 k=1024"]
     sct = k["scatter_rows"]["N=16384 R=1024"]
@@ -2037,11 +2464,18 @@ def main(argv=()) -> int:
     rb = k["place_rounds_batch"]["N=16384 B=64 count=1000 k=1024"]
     sb = k["place_sequence_batch"]["N=16384 B=8 P=256"]
 
-    sl = run_slice(torch)
+    def phase(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        print(f"phase {name}: {time.perf_counter() - t:.1f} s", flush=True)
+        return out
+    sl = phase("slice", lambda: run_slice(torch))
     print("slice: " + json.dumps(sl), flush=True)
-    st = run_storm(torch)
+    st = phase("storm", lambda: run_storm(torch))
     print("storm: " + json.dumps(st), flush=True)
-    vf = run_verify_fleet()
+    sy = phase("system", run_system)
+    print("system: " + json.dumps(sy), flush=True)
+    vf = phase("verify fleet", run_verify_fleet)
     print("verify fleet: " + json.dumps(
         {k: v for k, v in vf.items() if k != "table"}), flush=True)
     # Launches on the main paths, each path counted from 0: the slice,

@@ -66,11 +66,22 @@ def alloc_vec(alloc: "Allocation") -> np.ndarray:
     allocations are replaced, never mutated (the store immutability
     contract, tests/test_state_store.py) — a new record is a new object
     with an empty cache; dataclasses.replace()-based copies don't carry
-    the cache either."""
+    the cache either.
+
+    Slab-backed allocs (structs/alloc_slab.py) read the vector straight
+    from the slab's per-slot columns — shared read-only across the
+    slot's rows — without materializing ``resources``; an alloc whose
+    ``resources`` was already materialized (or reassigned) keeps the
+    object truth."""
     d = alloc.__dict__
     vec = d.get("_res_vec")
     if vec is None:
-        vec = d["_res_vec"] = _res_vector(alloc.resources)
+        slab = d.get("_slab")
+        if slab is not None and "resources" not in d:
+            vec = slab.vec(d["_srow"])
+        else:
+            vec = _res_vector(alloc.resources)
+        d["_res_vec"] = vec
     return vec
 
 
@@ -312,7 +323,15 @@ def _net_row(alloc: Allocation):
     row = d.get("_net_row")
     if row is not None:
         return row[0]
-    built = _net_row_build(alloc)
+    slab = d.get("_slab")
+    if slab is not None and "task_resources" not in d:
+        # Columnar fast path: ports/mbits/(ip, device) straight from
+        # the slab columns — no task_resources materialization.  The
+        # slab builds exactly what _net_row_build would compute on the
+        # materialized row (single-network offers by construction).
+        built = slab.net_row(d["_srow"])
+    else:
+        built = _net_row_build(alloc)
     d["_net_row"] = (built,)
     return built
 

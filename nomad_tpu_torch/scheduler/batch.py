@@ -20,10 +20,11 @@ placements.  Evals with plan deltas fall back to their own dispatch
 
 Every eval goes to the runner's device: ``cuda`` by default
 (``RuntimeError`` without one), ``cpu`` only when the caller passes it,
-and then the kernels' plain versions run.  Not ported yet: the host
-executor and its cost policy (every lane goes to the device), the
-multi-device mesh branches, the native bulk finish (each lane runs the
-Python finish), and the trace spans.
+and then the kernels' plain versions run.  A window's lanes finish
+through ONE native call (``bulk_finish_many`` of the port's C
+extension, csrc/port_alloc.cpp), then each lane's Python tail.  Not
+ported yet: the host executor and its cost policy (every lane goes to
+the device), the multi-device mesh branches, and the trace spans.
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ from nomad_tpu_torch.structs import (
 
 from .generic import VALID_GENERIC_TRIGGERS
 from .interfaces import SetStatusError
+from . import torch_binpack
 from .torch_binpack import (
     TorchBinPackScheduler,
     fetch_results,
@@ -270,20 +272,42 @@ class BatchEvalRunner:
 
     @staticmethod
     def _finish_lanes(lanes: list) -> None:
-        """Windowed finish for a list of lanes in lane order: ONE shared
-        uuid slab covers every lane, then each lane's finish runs
-        (``_finish_prepare`` for every lane, then every lane's Python
-        tail).  ``lanes`` is [(sched, place, args, chosen, scores), ...];
+        """Windowed finish for a list of lanes in lane order — ONE
+        shared uuid slab (structs.generate_uuids) and ONE native call
+        (csrc/port_alloc.cpp bulk_finish_many) cover every lane's
+        happy-path prefix, then each lane's Python tail runs.
+        ``lanes`` is [(sched, place, args, chosen, scores), ...];
         semantics per lane are identical to ``finish_deferred``."""
         uuid_slab = generate_uuids(
             sum(len(place) for _, place, *_ in lanes))
         states = []
+        nargs = []
         off = 0
         for sched, place, args, chosen, scores in lanes:
-            states.append(sched._finish_prepare(
-                place, args, chosen, scores,
-                uuid_slab[off:off + len(place)]))
+            fs = sched._finish_prepare(place, args, chosen, scores,
+                                       uuid_slab[off:off + len(place)])
             off += len(place)
+            states.append(fs)
+            nargs.append(sched._finish_native_args(fs))
+        native = torch_binpack._native_bulk()
+        # Columnar lanes (fs.slab set) batch through ONE
+        # bulk_finish_many call; object lanes (columnar contract
+        # disabled) and mixed windows take per-lane calls.
+        if native is not None and len(lanes) > 1 \
+                and all(a is not None for a in nargs) \
+                and all(fs.slab is not None for fs in states):
+            outs = native.bulk_finish_many(nargs)
+            for (sched, *_rest), fs, out in zip(lanes, states, outs):
+                sched._finish_consume_native(fs, out)
+        else:
+            for (sched, *_rest), fs, a in zip(lanes, states, nargs):
+                if a is not None:
+                    if fs.slab is not None:
+                        sched._finish_consume_native(
+                            fs, native.bulk_finish_cols(*a))
+                    else:
+                        sched._finish_consume_native(
+                            fs, native.bulk_finish(*a))
         for (sched, *_rest), fs in zip(lanes, states):
             sched._finish_python_tail(fs)
 

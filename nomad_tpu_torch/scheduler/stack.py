@@ -111,3 +111,49 @@ class GenericStack:
 
         self.ctx.metrics().allocation_time = time.perf_counter() - start
         return option, tg_constr.size
+
+
+class SystemStack:
+    """Stack for system placements: all nodes, first fit."""
+
+    def __init__(self, ctx: EvalContext) -> None:
+        self.ctx = ctx
+        self.job_id = ""
+        self.source = StaticIterator(ctx, [])
+        self.job_constraint = ConstraintIterator(ctx, self.source)
+        self.task_group_drivers = DriverIterator(ctx, self.job_constraint)
+        self.task_group_constraint = ConstraintIterator(
+            ctx, self.task_group_drivers)
+        rank_source = FeasibleRankIterator(ctx, self.task_group_constraint)
+        self.bin_pack = BinPackIterator(ctx, rank_source, evict=True,
+                                        priority=0)
+
+    def set_nodes(self, base_nodes: list) -> None:
+        self.source.set_nodes(base_nodes)
+
+    def set_job(self, job: Job) -> None:
+        self.job_id = job.id
+        self.job_constraint.set_constraints(
+            _bind_distinct_hosts(job.constraints, job.id))
+        self.bin_pack.set_priority(job.priority)
+
+    def select(self, tg: TaskGroup) -> tuple[Optional[RankedNode], Resources]:
+        self.bin_pack.reset()
+        self.ctx.reset()
+        start = time.perf_counter()
+
+        tg_constr = task_group_constraints(tg)
+        self.task_group_drivers.set_drivers(tg_constr.drivers)
+        self.task_group_constraint.set_constraints(
+            _bind_distinct_hosts(tg_constr.constraints, self.job_id))
+        self.bin_pack.set_tasks(tg.tasks)
+
+        option = self.bin_pack.next()
+
+        if option is not None and \
+                len(option.task_resources) != len(tg.tasks):
+            for task in tg.tasks:
+                option.set_task_resources(task, task.resources)
+
+        self.ctx.metrics().allocation_time = time.perf_counter() - start
+        return option, tg_constr.size

@@ -24,6 +24,12 @@ as the reference's.
 Every eval goes to the device the scheduler was built for: ``cuda`` by
 default (``RuntimeError`` without one), ``cpu`` only when the caller
 passes it, and then the kernels' plain versions run.
+
+The finish runs in three phases, as in the JAX package: prepare, the
+native happy-path prefix (the port's C extension, csrc/port_alloc.cpp,
+built at first use by utils/native.py; columnar into an ``AllocSlab``
+by default, the object contract when ``NOMAD_TPU_COLUMNAR=0``), then
+the Python tail from wherever C handed the placement list back.
 """
 from __future__ import annotations
 
@@ -66,8 +72,14 @@ from nomad_tpu_torch.structs import (
     allocs_fit,
     generate_uuids,
 )
+from nomad_tpu_torch.structs.alloc_slab import (
+    AllocSlab,
+    SlabAlloc,
+    columnar_enabled,
+)
 from nomad_tpu_torch.structs.model import MAX_DYNAMIC_PORT, \
     MIN_DYNAMIC_PORT, proto_of
+from nomad_tpu_torch.utils import native as _native
 
 from .generic import GenericScheduler
 from .stack import (
@@ -81,6 +93,82 @@ _ALLOC_STATIC, _ALLOC_FACTORIES = proto_of(Allocation)
 _METRIC_STATIC, _METRIC_FACTORIES = proto_of(AllocMetric)
 _RES_STATIC, _RES_FACTORIES = proto_of(Resources)
 _NET_STATIC, _NET_FACTORIES = proto_of(NetworkResource)
+
+
+def _native_bulk():
+    """The port's C extension (csrc/port_alloc.cpp), built and loaded at
+    first use; a failed build raises.  The one seam through which the
+    schedulers reach it: replacing it with a function that returns None
+    runs the Python tail alone (the parity tests and chip_smoke.py's
+    same-call comparison do)."""
+    return _native.load()
+
+
+def build_bulk_args(sched, place, group_l, chosen_l, scores_l,
+                    uuids, slots_c, alloc_proto, metric_proto,
+                    coalesce_all: int, port_lcg: int) -> tuple:
+    """The native.bulk_finish argument tuple for one eval — the ONE
+    producer of that layout, shared by the generic finish
+    (``_finish_native_args`` with the columnar contract off) and the
+    system scheduler (run_bulk_finish)."""
+    plan = sched.plan
+    statics = sched._statics
+    return (
+        place if type(place) is list else list(place),
+        group_l, chosen_l, scores_l, uuids, slots_c,
+        statics.nodes, sched._node_net, statics.net_base,
+        sched._net_base_for,
+        sched.state.allocs_node_index(), sched.ctx, plan.node_update,
+        plan.node_allocation, plan.failed_allocs,
+        alloc_proto, metric_proto,
+        Allocation, AllocMetric, Resources, NetworkResource,
+        (ALLOC_DESIRED_STATUS_RUN, ALLOC_CLIENT_STATUS_PENDING,
+         ALLOC_DESIRED_STATUS_FAILED, ALLOC_CLIENT_STATUS_FAILED,
+         "failed to find a node for placement"),
+        coalesce_all, port_lcg, MIN_DYNAMIC_PORT,
+        MAX_DYNAMIC_PORT)
+
+
+def run_bulk_finish(native, sched, place, group_l, chosen_l, scores_l,
+                    uuids, slots_c, alloc_proto, metric_proto,
+                    coalesce_all: int):
+    """One marshalling point for native.bulk_finish (the C finish-loop
+    happy path, object contract).  ``sched`` supplies the per-eval
+    placement state (_node_net/_net_base_for/_port_lcg via
+    FastPlacementMixin, plan, state, ctx).  Returns (resume index,
+    failed-TG map); updates sched._port_lcg."""
+    start_p, sched._port_lcg, fmap = native.bulk_finish(
+        *build_bulk_args(sched, place, group_l, chosen_l, scores_l,
+                         uuids, slots_c, alloc_proto, metric_proto,
+                         coalesce_all, sched._port_lcg))
+    return start_p, fmap
+
+
+def build_slots_c(slot_plans) -> list:
+    """Slot table for the native bulk finish (csrc/port_alloc.cpp):
+    one (size_obj, [(task_name, res_proto_dict, net_c), ...]) entry per
+    slot, where net_c is None or (mbits, net_proto_dict, dyn_labels).
+    ``slot_plans`` yields (size, plan_tasks) pairs (see _net_plan_for).
+    Shared by the generic and system schedulers so the layout the C
+    side consumes has exactly one producer."""
+    slots_c = []
+    for size, plan_tasks in slot_plans:
+        tasks_c = []
+        for tname, res, ask in plan_tasks:
+            if res is None:
+                res_proto = dict(_RES_STATIC)
+            else:
+                res_proto = dict(
+                    _RES_STATIC, cpu=res.cpu, memory_mb=res.memory_mb,
+                    disk_mb=res.disk_mb, iops=res.iops)
+            net_c = None
+            if ask is not None:
+                net_c = (int(ask.mbits),
+                         dict(_NET_STATIC, mbits=ask.mbits),
+                         list(ask.dynamic_ports))
+            tasks_c.append((tname, res_proto, net_c))
+        slots_c.append((size, tasks_c))
+    return slots_c
 
 
 def _net_plan_for(tg):
@@ -167,9 +255,22 @@ class DeviceArgs:
     __slots__ = ("statics", "view", "feasible_d", "feasible_h", "asks",
                  "distinct", "group_idx", "valid", "sizes", "slot_of_tg",
                  "penalty", "g_pad", "p_pad", "start", "net_plans",
+                 "n_groups", "n_place",
                  # rounds-mode plan (see ops/binpack.py place_rounds):
                  "counts", "slot_placements", "k_cap", "rounds",
                  "rounds_eligible",
+                 # finish-loop derivations shared via the prep cache:
+                 # fast_all = every slot takes the O(1) network path;
+                 # group_l = group_idx[:n_place].tolist(); slots_c is a
+                 # one-element holder lazily filled with the native
+                 # bulk-finish slot table (built on first finish);
+                 # col_meta is the columnar twin — a one-element holder
+                 # for (names, tg_names, slot_mbits, slot_ndyn,
+                 # slot_has, port_off), the per-job-version constants of
+                 # the AllocSlab contract (built on first columnar
+                 # finish; shared read-only across the job's slabs —
+                 # AllocSlab.patch_row copies before mutating).
+                 "fast_all", "group_l", "slots_c", "col_meta",
                  # dev_const: lazily filled device copies of the
                  # dispatch-constant arrays (asks/distinct/counts or
                  # group_idx/valid), shared through the prep cache so
@@ -183,11 +284,16 @@ class DeviceArgs:
 
 
 class _FinishState:
-    """Per-eval state carried from _finish_prepare into
-    _finish_python_tail."""
+    """Per-eval state carried across the split finish phases
+    (_finish_prepare -> native bulk -> _finish_python_tail) so the
+    batch runner can run a whole window's native phase in one C
+    call."""
 
     __slots__ = ("place", "args", "chosen_l", "scores_l", "uuids",
-                 "alloc_proto", "metric_proto", "failed_tg")
+                 "alloc_proto", "metric_proto", "failed_tg", "start_p",
+                 # Columnar contract: the AllocSlab the native phase
+                 # fills (None = the object-emitting native path).
+                 "slab")
 
 
 class FastPlacementMixin:
@@ -213,7 +319,9 @@ class FastPlacementMixin:
     def _net_base_for(self, node_index: int, node):
         """Node-static network base (frozen used-ports, reserved bw, bw
         capacity, ip, device) or None for topologies needing the exact
-        path.  Cached on the fleet statics (models/fleet.net_base_for)."""
+        path.  Cached on the fleet statics (models/fleet.net_base_for);
+        also the callback the native bulk finish uses on a base-cache
+        miss."""
         return net_base_for(self._statics, node_index, node)
 
     def _node_net_init(self, node_index: int, node):
@@ -667,9 +775,12 @@ class TorchBinPackScheduler(GenericScheduler, FastPlacementMixin):
             group_idx=group_idx, valid=valid, sizes=sizes,
             slot_of_tg=slot_of_tg, penalty=penalty, g_pad=g_pad,
             p_pad=p_pad, net_plans=net_plans, counts=counts,
+            n_groups=len(groups), n_place=len(place),
             slot_placements=slot_placements, k_cap=k_cap, rounds=rounds,
             rounds_eligible=eligible,
-            dev_const={})
+            fast_all=all(np_[0] for np_ in net_plans),
+            group_l=group_idx[:len(place)].tolist(), slots_c=[None],
+            col_meta=[None], dev_const={})
         # Keyed on the fleet GENERATION, not the statics object: a strong
         # statics ref here would pin evicted generations (device
         # feasibility buffers included) for as long as the job lives.
@@ -684,9 +795,24 @@ class TorchBinPackScheduler(GenericScheduler, FastPlacementMixin):
                         chosen: np.ndarray, scores: np.ndarray,
                         uuids: "list | None" = None) -> None:
         """Consume device decisions into the plan (exact host re-checks +
-        network assignment + Allocation construction)."""
-        self._finish_python_tail(
-            self._finish_prepare(place, args, chosen, scores, uuids))
+        network assignment + Allocation construction).
+
+        Split into three phases so the batch runner can run a whole
+        window's native phase in ONE C call (native.bulk_finish_many)
+        and pass a shared uuid slab: prepare (host state init), native
+        happy-path prefix, Python tail.  This entry point runs them
+        back-to-back."""
+        fs = self._finish_prepare(place, args, chosen, scores, uuids)
+        nargs = self._finish_native_args(fs)
+        if nargs is not None:
+            native = _native_bulk()
+            if fs.slab is not None:
+                self._finish_consume_native(
+                    fs, native.bulk_finish_cols(*nargs))
+            else:
+                self._finish_consume_native(
+                    fs, native.bulk_finish(*nargs))
+        self._finish_python_tail(fs)
 
     def _finish_prepare(self, place: list, args: DeviceArgs,
                         chosen, scores,
@@ -719,12 +845,114 @@ class TorchBinPackScheduler(GenericScheduler, FastPlacementMixin):
         fs.alloc_proto = dict(_ALLOC_STATIC, eval_id=self.eval.id,
                               job_id=self.job.id, job=self.job)
         fs.failed_tg = {}
+        fs.start_p = 0
+        fs.slab = None
         return fs
 
+    def _finish_native_args(self, fs: "_FinishState") -> "tuple | None":
+        """Native argument tuple for this eval's happy-path prefix —
+        columnar (bulk_finish_cols + an AllocSlab, ``fs.slab`` set) by
+        default, the object-emitting bulk_finish tuple when the
+        columnar contract is disabled — or None when the native path
+        can't take it (the ``_native_bulk`` seam returned None, or a
+        slot needs the exact NetworkIndex)."""
+        args = fs.args
+        native = _native_bulk()
+        if native is None or not args.fast_all:
+            return None
+        slots_c = args.slots_c[0]
+        if slots_c is None:
+            # Built once per (job version, fleet) and shared through
+            # the prep cache — the slot table only depends on the
+            # deduped net plans and sizes.
+            slots_c = build_slots_c(
+                (args.sizes[g], args.net_plans[g][1])
+                for g in range(args.n_groups))
+            args.slots_c[0] = slots_c
+        if not columnar_enabled():
+            return build_bulk_args(
+                self, fs.place, args.group_l, fs.chosen_l, fs.scores_l,
+                fs.uuids, slots_c, fs.alloc_proto, fs.metric_proto,
+                1,  # coalesce_all: generic TG placements interchangeable
+                self._port_lcg)
+        meta = args.col_meta[0]
+        if meta is None:
+            # Per-job-version constants of the columnar contract:
+            # per-row names, per-slot network totals, and the prefix
+            # offsets into the flat port column.  The place list is
+            # identity-stable per job version (util.diff_allocs
+            # cache_fresh), so these ride the prep cache like slots_c.
+            place = fs.place
+            names = [m.name for m in place]
+            tg_names = [m.task_group.name for m in place]
+            slot_mbits = []
+            slot_ndyn = []
+            slot_has = []
+            for _size, tasks in slots_c:
+                mb = nd = 0
+                any_net = False
+                for _t, _rp, net_c in tasks:
+                    if net_c is not None:
+                        any_net = True
+                        mb += net_c[0]
+                        nd += len(net_c[2])
+                slot_mbits.append(mb)
+                slot_ndyn.append(nd)
+                slot_has.append(any_net)
+            port_off = np.zeros(len(place) + 1, dtype=np.int64)
+            if place:
+                np.cumsum(np.asarray(slot_ndyn, dtype=np.int64)[
+                    np.asarray(args.group_l, dtype=np.int64)],
+                    out=port_off[1:])
+            meta = (names, tg_names, slot_mbits, slot_ndyn, slot_has,
+                    port_off)
+            args.col_meta[0] = meta
+        names, tg_names, slot_mbits, slot_ndyn, slot_has, port_off = meta
+        slab = AllocSlab(
+            eval_id=self.eval.id, job=self.job, slots=slots_c,
+            metric_proto=fs.metric_proto, groups=args.group_l,
+            ids=fs.uuids, names=names, tgs=tg_names,
+            scores=fs.scores_l, port_off=port_off,
+            n_rows=len(fs.place),
+            slot_mbits=slot_mbits, slot_has_net=slot_has)
+        fs.slab = slab
+        lazy_proto = {
+            "eval_id": self.eval.id, "job_id": self.job.id,
+            "job": self.job,
+            "desired_status": ALLOC_DESIRED_STATUS_RUN,
+            "client_status": ALLOC_CLIENT_STATUS_PENDING,
+            "_slab": slab,
+        }
+        return (fs.chosen_l, args.group_l, fs.uuids, names, tg_names,
+                slot_mbits, slot_ndyn, slab.ports, slab.node_ids,
+                slab.ips, slab.devs, lazy_proto, SlabAlloc,
+                self._statics.nodes, self._node_net,
+                self._statics.net_base, self._net_base_for,
+                self.state.allocs_node_index(), self.ctx,
+                self.plan.node_update, self.plan.node_allocation,
+                self._port_lcg, MIN_DYNAMIC_PORT, MAX_DYNAMIC_PORT)
+
+    def _finish_consume_native(self, fs: "_FinishState",
+                               result: tuple) -> None:
+        """Fold one native finish result back into the finish state.
+        Columnar path: (n_done, lcg) — the slab seals its happy prefix.
+        Object path: (n_done, lcg, failed map); fmap stays empty under
+        generic semantics — the C loop bails on a task group's first
+        chosen-less placement so the Python tail can rescue or explain
+        it."""
+        if fs.slab is not None:
+            fs.start_p, self._port_lcg = result
+            fs.slab.seal(fs.start_p)
+            return
+        fs.start_p, self._port_lcg, fmap = result
+        fs.failed_tg.update(fmap)
+
     def _finish_python_tail(self, fs: "_FinishState") -> None:
-        """Per-placement finish loop: exact host re-checks, network
-        assignment, Allocation construction, divergence recovery and
-        failure explanation."""
+        """Per-placement Python finish loop from fs.start_p: exact host
+        re-checks, network assignment, Allocation construction.  The
+        native prefix (parity-tested in tests/test_torch_native_finish.py)
+        handled [0, start_p); this loop owns complex topologies,
+        divergence recovery and failure explanation."""
         place = fs.place
         args = fs.args
         statics = args.statics
@@ -765,7 +993,7 @@ class TorchBinPackScheduler(GenericScheduler, FastPlacementMixin):
         # of falling into a per-placement sequential walk.
         redispatched = False
 
-        p = 0
+        p = fs.start_p
         while p < len(place):
             missing = place[p]
             tg = missing.task_group

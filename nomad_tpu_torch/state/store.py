@@ -724,7 +724,13 @@ class StateStore(_ReadMixin):
         wins on duplicate alloc ids), minus the per-plan lock/notify
         churn.  The raft path passes one shared entry index per item;
         the harness path passes per-plan indexes so sequential replays
-        stay index-exact."""
+        stay index-exact.
+
+        Columnar contract (structs/alloc_slab.py): slab-backed allocs
+        store as lazy SlabAlloc copies — one small dict copy plus the
+        scalar stamps below; the heavy fields (task_resources/metrics)
+        never materialize on this path, and the secondary indexes bump
+        off the eager scalar columns alone."""
         touched_nodes = []
         last_index = 0  # highest index bumped; rides the watch notify
         # Buckets already copied within THIS call: _index_add/_remove
@@ -771,7 +777,16 @@ class StateStore(_ReadMixin):
                         new.client_status = existing.client_status
                         new.client_description = \
                             existing.client_description
-                        new.task_states = existing.task_states
+                        # Skip the task_states carry-over when BOTH
+                        # sides are canonically empty slab rows: the
+                        # getter would materialize an empty dict and
+                        # the setter would flag the row off the
+                        # columnar wire encoding for no semantic
+                        # difference (a shared {} vs a lazy {}).
+                        if existing.__dict__.get("task_states") \
+                                is not None or \
+                                "_slab" not in existing.__dict__:
+                            new.task_states = existing.task_states
                         remove(a_node, existing.node_id, alloc.id)
                     else:
                         new.create_index = index

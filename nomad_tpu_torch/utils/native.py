@@ -1,0 +1,110 @@
+"""Build and load the port's C++ extension (``_nomad_torch_native``).
+
+The extension (``nomad_tpu_torch/csrc/port_alloc.cpp``) runs the
+scheduler's finish loop on the host: dynamic port assignment and the
+per-placement Allocation construction, columnar (``bulk_finish_cols``,
+``bulk_finish_many``) or as objects (``bulk_finish``).
+
+It is built at first use, never when a module is imported: ``g++`` with
+the running interpreter's headers compiles the source into
+``nomad_tpu_torch/_build/`` under a name that carries a digest of the
+source and the flags, so an edited source rebuilds and an unchanged one
+loads at once.  Each process compiles to a temporary file of its own and
+renames it into place, so concurrent first users (test workers) never
+load a partly written library.  The module is loaded from that path
+under its own name; it never goes through ``sys.path``, so the JAX
+package's ``_nomad_native`` is neither imported nor shadowed.
+
+A failed build, or a library whose ``ABI_VERSION`` is not
+:data:`EXPECTED_ABI`, raises ``RuntimeError``: there is no pure-Python
+fallback behind the finish, since a quiet one would hide a broken build
+behind correct plans.
+"""
+from __future__ import annotations
+
+import hashlib
+import importlib.machinery
+import importlib.util
+import os
+import subprocess
+import sysconfig
+import threading
+
+from pathlib import Path
+
+PACKAGE = Path(__file__).resolve().parent.parent
+SOURCE = PACKAGE / "csrc" / "port_alloc.cpp"
+BUILD = PACKAGE / "_build"
+MODULE = "_nomad_torch_native"
+
+# The ABI the port's Python code expects; port_alloc.cpp exports it.
+EXPECTED_ABI = 6
+
+CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+
+_LOADED: list = []
+_LOCK = threading.Lock()
+
+
+def _command(out: Path) -> list:
+    include = sysconfig.get_paths()["include"]
+    return [os.environ.get("CXX", "g++"), *CXX_FLAGS, f"-I{include}",
+            str(SOURCE), "-o", str(out)]
+
+
+def target() -> Path:
+    """Where the built library lies: ``_build/`` under a name that
+    carries a digest of the source, the flags and the interpreter's
+    headers and extension suffix."""
+    suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
+    key = SOURCE.read_bytes() + " ".join(
+        (*CXX_FLAGS, sysconfig.get_paths()["include"], suffix)).encode()
+    digest = hashlib.sha256(key).hexdigest()[:16]
+    return BUILD / f"{MODULE}-{digest}{suffix}"
+
+
+def build() -> Path:
+    """Compile the extension unless it is built already; returns its
+    path.  Raises ``RuntimeError`` with the compiler's output on
+    failure."""
+    out = target()
+    if out.exists():
+        return out
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    try:
+        proc = subprocess.run(_command(tmp), capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"{MODULE} build failed (exit {proc.returncode}):\n"
+                f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    except OSError as e:  # no compiler, or the build directory
+        raise RuntimeError(f"{MODULE} build failed: {e}") from e
+    finally:
+        if tmp.exists():
+            tmp.unlink()
+    return out
+
+
+def load():
+    """The extension module, built and loaded on the first call."""
+    if _LOADED:
+        return _LOADED[0]
+    with _LOCK:
+        if not _LOADED:
+            path = build()
+            loader = importlib.machinery.ExtensionFileLoader(MODULE,
+                                                             str(path))
+            spec = importlib.util.spec_from_file_location(
+                MODULE, str(path), loader=loader)
+            module = importlib.util.module_from_spec(spec)
+            loader.exec_module(module)
+            abi = getattr(module, "ABI_VERSION", None)
+            if abi != EXPECTED_ABI:
+                raise RuntimeError(
+                    f"{MODULE} at {path} has ABI {abi}, expected "
+                    f"{EXPECTED_ABI}")
+            _LOADED.append(module)
+    return _LOADED[0]

@@ -58,6 +58,10 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "import nomad_tpu_torch.utils.gctune, nomad_tpu_torch.utils.metrics\n"
         "import nomad_tpu_torch.parallel.mesh, nomad_tpu_torch.ops.verify_policy\n"
         "import nomad_tpu_torch.structs.node_slab\n"
+        "import nomad_tpu_torch.structs.alloc_slab\n"
+        "import nomad_tpu_torch.utils.native\n"
+        "import nomad_tpu_torch.scheduler.system\n"
+        "import nomad_tpu_torch.scheduler.system_vec\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'nomad_tpu')]\n"
         "assert not bad, bad\n"
