@@ -5,6 +5,7 @@ one NVIDIA GPU.
     python3 chip_smoke.py --only NAME[,NAME]    # those kernels' checks alone
     python3 chip_smoke.py --profiler-events S   # does torch.profiler see
                                                 # the card? (S seconds)
+    python3 chip_smoke.py --executor            # the executor phase alone
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -79,13 +80,38 @@ Phases, in order; any failure exits non-zero and prints no result line:
   6. system   bench.py config 3: mock.system_job() on 1,000 nodes
               through ``system`` (vectorized, native finish) and
               ``system-seq``: equal plans, every node placed, eval ms;
-  7. verify   bench.py's 5f fleet-scaling sub-table on the port: NodeSlab
+              phases 4-6 (and 8) run under ``executor_override("device")``,
+              so the cost policy cannot move their walks to the numpy
+              twins and their launch checks keep their meaning;
+  7. executor the host executor's crossover and the pipelined runner:
+              (a) on real evals' DeviceArgs (configs 1, 2, 4, a config-5b
+              lane, config 2's sequence job, and jobs of 8, 64 and 512
+              distinct groups on config 4's fleet), ``dispatch_host``,
+              ``dispatch_device`` alone and a single shot, 20 times each
+              in rotating turns, host clock, and the executor constants
+              the table gives beside the configured ones, which must not
+              send any shape the wrong way by more than 2x; (b) the
+              bench's streams through PipelinedEvalRunner on cuda (config
+              1: 64 mock jobs on 100 nodes; config 2: 64 config-2 jobs
+              and the sequence job on 1,000 nodes in two streams,
+              committed through the Harness, so the second stream's first
+              prep scatters the mirror, K5; config 4: 16 1,000-group jobs
+              on 10,000 nodes at bench.py's derived depth) under host,
+              device and auto: plans equal to each other and to the
+              evals one at a time, nodes and ports; K2+K3 launches equal
+              the device dispatches (every eval under device, none under
+              host); no breaker re-run, no probe; evals/s, p50/p99,
+              stage times, windows and counted uploads an eval; (c)
+              config 5b's storm under host and auto, with the placements
+              and counts of the storm phase's device run; the default
+              breaker ends closed with every count at 0;
+  8. verify   bench.py's 5f fleet-scaling sub-table on the port: NodeSlab
               fleets of 10,000, 131,072 and 1,000,000 nodes, 64
               single-placement plans a window, 8 measured windows under
               the host engine and under the device engine (K6); every
               device window must dispatch, make one upload and one
               fetch, and give the host's verdicts;
-  8. report   one ``{"kernels": [...]}`` line, then the card's name and
+  9. report   one ``{"kernels": [...]}`` line, then the card's name and
               power limit exactly as nvidia-smi prints them, then the
               result line ``{"ok": true, "device": {...}}`` last.
 
@@ -1511,15 +1537,19 @@ def recording(fn, calls):
     return recorded
 
 
-class RoundsRecording:
-    """K3 or K4a (``fn``), counting each launch by its shape in
-    ``calls`` (shape -> [positional inputs, keywords, launches]) and
+class Recording:
+    """A kernel's wrapper ``fn``, counting each launch by its shape in
+    ``calls`` (key -> [positional inputs, keywords, launches]) and
     keeping a copy of the first launch's inputs at each shape; its
     ``launches`` are ``fn``'s own."""
 
     def __init__(self, fn, calls) -> None:
         self.fn = fn
         self.calls = calls
+
+    @property
+    def __name__(self) -> str:
+        return self.fn.__name__
 
     @property
     def launches(self) -> int:
@@ -1530,14 +1560,53 @@ class RoundsRecording:
         # the wrapper counts through its module name, which is this now
         self.fn.launches = value
 
+    def key(self, a, kw) -> tuple:
+        return (self.fn.__name__,) + tuple(
+            tuple(x.shape) for x in a if hasattr(x, "shape"))
+
     def __call__(self, *a, **kw):
-        key = (self.fn.__name__, a[0].shape[0], tuple(a[4].shape[:-1]),
-               kw["k_cap"], kw["rounds"])
+        key = self.key(a, kw)
         if key not in self.calls:
             self.calls[key] = [tuple(x.clone() if hasattr(x, "clone")
                                      else x for x in a), dict(kw), 0]
         self.calls[key][2] += 1
         return self.fn(*a, **kw)
+
+
+class RoundsRecording(Recording):
+    """K3 or K4a, keyed as ``main_path_rounds`` reads the key: (name, N,
+    the lane and slot axes, k_cap, rounds)."""
+
+    def key(self, a, kw) -> tuple:
+        return (self.fn.__name__, a[0].shape[0], tuple(a[4].shape[:-1]),
+                kw["k_cap"], kw["rounds"])
+
+
+def main_path_replay(torch, modules, calls) -> list:
+    """K2 or K5 at each shape the main path launched it (``calls`` from
+    Recording): the first launch at each shape replayed on its inputs
+    and held to the plain version (``<name>_plain`` in
+    ``modules[name]``) bit for bit."""
+    out = []
+    for key, (args, kw, count) in calls.items():
+        name = key[0]
+        module = modules[name]
+        want = getattr(module, name + "_plain")(*args, **kw)
+        got = getattr(module, name)(*args, **kw)
+        torch.cuda.synchronize()
+        what = f"{name} main path {list(key[1:])}"
+        if isinstance(want, torch.Tensor):  # K5: the new usage buffer
+            require(torch.equal(got.view(torch.int32),
+                                want.view(torch.int32)),
+                    f"{what}: usage differs from the plain version")
+            err = float((got - want).abs().max()) if got.numel() else 0.0
+        else:
+            err = compare(torch, what, got[:3], want[:3])
+        row = dict(kernel=name, shapes=[list(x) for x in key[1:]],
+                   launches=count, err=err)
+        print("main path " + json.dumps(row), flush=True)
+        out.append(row)
+    return out
 
 
 def main_path_rounds(torch, binpack, calls, reps=20):
@@ -2011,6 +2080,7 @@ def run_storm(torch, sizes5=(), sizes5b=(), n_seq_nodes=1000,
     seq_fleet["main_path_sequence_batch"] = main_path_sequence_batch(
         torch, binpack, batch_calls[1], reps=10)
     return dict(launches=launches, config5=c5, config5b=c5b,
+                placed5b=placed5b,
                 config5b_device=dev5b, sequence_storm=seq,
                 fleet_sequence_storm=seq_fleet,
                 main_path_rounds=main_path_rounds(torch, binpack,
@@ -2109,7 +2179,7 @@ def run_system(n_nodes=1000, reps=3):
                 seq_over_system=seq["median_ms"] / vec["median_ms"])
 
 
-# -- phase 7: the verify engines over a growing fleet ----------------------
+# -- phase 8: the verify engines over a growing fleet ----------------------
 
 
 def result_key(result) -> tuple:
@@ -2235,6 +2305,565 @@ def run_verify_fleet(sizes=(10_000, 131_072, 1_000_000), windows=8,
     return dict(sizes=list(sizes), windows=windows,
                 window_plans=window_plans, launches=launches,
                 device_flatness=last / first, table=table)
+
+
+# -- phase 7: the executor policy and the pipelined eval runner ------------
+
+
+EXECUTORS = ("host", "device", "auto")
+
+
+def eval_args(structs, BatchEvalRunner, h, job):
+    """One real eval's scheduler and DeviceArgs: ``job`` reconciled and
+    prepared on the cluster of ``h``, stopped before its dispatch."""
+    h.state.upsert_job(h.next_index(), job)
+    runner = BatchEvalRunner(h.snapshot(), RecordOnlyPlanner(structs),
+                             device=DEV)
+    sched = runner._begin_eval(make_eval(structs, job))
+    require(sched is not None and sched.deferred is not None,
+            f"executor: {job.id} prepared no dispatch")
+    return sched, sched.deferred[1]
+
+
+def brief(times_s) -> dict:
+    """``spread`` without the runs themselves."""
+    out = spread(times_s)
+    del out["runs_ms"]
+    return out
+
+
+def crossover(torch, shapes, reps=20) -> list:
+    """Host-clock time of the three ways an eval's walk can run, on each
+    shape's DeviceArgs, ``reps`` times each after one warm call of each,
+    in turns whose order rotates: ``dispatch_host`` (the whole numpy
+    walk), ``dispatch_device`` alone (what the pipelined front stage
+    pays: the uploads, the launch and the start of the result copies;
+    the copies' own share, a pinned buffer each, as ``copy_start``) and
+    ``dispatch_device`` + ``collect_device`` (a single shot).  The host
+    and device walks must agree (chosen nodes exactly, scores where
+    placed)."""
+    from nomad_tpu_torch.scheduler import torch_binpack
+    from nomad_tpu_torch.scheduler.torch_binpack import executor_cost
+
+    copy_async = torch_binpack.copy_to_host_async
+    copy_s = [0.0]
+
+    def timed_copy(x):
+        s = time.perf_counter()
+        try:
+            return copy_async(x)
+        finally:
+            copy_s[0] += time.perf_counter() - s
+
+    rows = []
+    for name, sched, args in shapes:
+        host = sched.collect_device(args, sched.dispatch_host(args))
+        dev = sched.collect_device(
+            args, sched.dispatch_device(args, pipelined=True, force=True))
+        torch.cuda.synchronize()
+        placed = host[0] >= 0
+        require(np.array_equal(host[0], dev[0]) and np.allclose(
+            host[1][placed], dev[1][placed], rtol=1e-4, atol=1e-4),
+            f"executor crossover {name}: host and device walks differ")
+        t: dict = {"host": [], "dispatch": [], "copy_start": [],
+                   "single_shot": []}
+
+        def run_host():
+            s = time.perf_counter()
+            sched.dispatch_host(args)
+            t["host"].append(time.perf_counter() - s)
+
+        def run_dispatch():
+            copy_s[0] = 0.0
+            torch_binpack.copy_to_host_async = timed_copy
+            try:
+                s = time.perf_counter()
+                handles = sched.dispatch_device(args, pipelined=True,
+                                                force=True)
+                t["dispatch"].append(time.perf_counter() - s)
+            finally:
+                torch_binpack.copy_to_host_async = copy_async
+            t["copy_start"].append(copy_s[0])
+            sched.collect_device(args, handles)
+
+        def run_single():
+            s = time.perf_counter()
+            sched.collect_device(args, sched.dispatch_device(
+                args, pipelined=False, force=True))
+            t["single_shot"].append(time.perf_counter() - s)
+        order = [run_host, run_dispatch, run_single]
+        for i in range(reps):
+            for fn in order[i % 3:] + order[:i % 3]:
+                fn()
+        steps = args.rounds * args.n_groups if args.rounds_eligible \
+            else args.n_place
+        rows.append(dict(
+            shape=name, n_real=args.statics.n_real,
+            n_pad=args.statics.n_pad, rounds_eligible=args.rounds_eligible,
+            steps=steps, cost=executor_cost(args),
+            **{k: brief(v) for k, v in t.items()}))
+    return rows
+
+
+def storm_crossover(torch, runner, pending, lanes=(1, 4, 16, 64),
+                    reps=20) -> list:
+    """Host-clock time of a fused storm of the first ``b`` lanes of
+    ``pending`` for each ``b`` in ``lanes``, ``reps`` times each side
+    after one warm call of each, in turns whose order alternates:
+    ``_dispatch_fused_host`` (the numpy twins, lane by lane) and
+    ``_dispatch_fused`` (the stacked uploads, one K4a launch and the
+    fetch: a single shot).  Both must place alike (chosen nodes exactly,
+    scores where placed)."""
+    from nomad_tpu_torch.scheduler.batch import fused_cost
+
+    rows = []
+    for b in lanes:
+        sub = pending[:b]
+        host = runner._dispatch_fused_host(sub)
+        dev = runner._dispatch_fused(sub)
+        torch.cuda.synchronize()
+        for h_lane, d_lane in zip(host, dev):
+            hc, dc = np.asarray(h_lane[3]), np.asarray(d_lane[3])
+            placed = hc >= 0
+            require(np.array_equal(hc, dc) and np.allclose(
+                np.asarray(h_lane[4])[placed], np.asarray(d_lane[4])[placed],
+                rtol=1e-4, atol=1e-4),
+                f"executor storm crossover {b} lanes: host and device "
+                f"storms differ")
+        t: dict = {"host": [], "fused": []}
+
+        def run_host():
+            s = time.perf_counter()
+            runner._dispatch_fused_host(sub)
+            t["host"].append(time.perf_counter() - s)
+
+        def run_fused():
+            s = time.perf_counter()
+            runner._dispatch_fused(sub)
+            t["fused"].append(time.perf_counter() - s)
+        order = [run_host, run_fused]
+        for i in range(reps):
+            for fn in order[i % 2:] + order[:i % 2]:
+                fn()
+        args = sub[0][2]
+        rows.append(dict(
+            shape=f"config 5b storm, {b} lanes", lanes=b,
+            n_real=args.statics.n_real, n_pad=args.statics.n_pad,
+            cost=fused_cost(sub), **{k: brief(v) for k, v in t.items()}))
+    return rows
+
+
+def against_host(rows, storm_rows) -> dict:
+    """The crossover rows by the constant they bound: the front stage's
+    dispatch (HOST_ALWAYS_COST), and every single shot, an eval's or a
+    fused storm's (HOST_SINGLE_SHOT_COST: the storm policy prices a
+    storm as one single shot).  Each row: shape, cost, and the host's
+    and the card's medians in ms."""
+    def pick(table, key):
+        return [dict(shape=r["shape"], cost=r["cost"],
+                     host=r["host"]["median_ms"], card=r[key]["median_ms"])
+                for r in table]
+    return {"HOST_ALWAYS_COST": pick(rows, "dispatch"),
+            "HOST_SINGLE_SHOT_COST": pick(rows, "single_shot")
+            + pick(storm_rows, "fused")}
+
+
+def consistent(rows, storm_rows, configured) -> list:
+    """Shapes the configured constants send the wrong way by a wide
+    margin: kept on the host though the card is more than twice as
+    fast, or sent to the card though the host is.  Near-ties, where
+    either choice costs little, are not counted.  A single shot and a
+    fused storm stay on the host up to either constant
+    (``host_for_cost``)."""
+    limits = {"HOST_ALWAYS_COST": configured["HOST_ALWAYS_COST"],
+              "HOST_SINGLE_SHOT_COST": max(configured.values())}
+    wrong = []
+    for const, table in against_host(rows, storm_rows).items():
+        for r in table:
+            on_host = r["cost"] <= limits[const]
+            if (on_host and r["host"] > 2 * r["card"]) or \
+                    (not on_host and r["card"] > 2 * r["host"]):
+                wrong.append((const, r["shape"]))
+    return wrong
+
+
+def derive_constants(rows, storm_rows) -> dict:
+    """The executor constants the table gives: the largest cost up to
+    which the host's median beats the card's at every measured shape,
+    walking the shapes by cost up to the first the host loses (0 when
+    it loses at the smallest): against the pipelined dispatch for
+    HOST_ALWAYS_COST, against every single shot (evals' and fused
+    storms') for HOST_SINGLE_SHOT_COST."""
+    out = {}
+    for const, table in against_host(rows, storm_rows).items():
+        value, first_loss = 0, None
+        for r in sorted(table, key=lambda r: r["cost"]):
+            if r["host"] < r["card"]:
+                value = r["cost"]
+            else:
+                first_loss = r["shape"]
+                break
+        out[const] = dict(value=value, first_host_loss=first_loss)
+    return out
+
+
+def plan_summary(plan, names) -> tuple:
+    """A plan's placements ((alloc name, node name, ports), sorted) and
+    its failed allocs' names."""
+    return (sorted((name, names[node_id], ports) for name, (node_id, ports)
+                   in plan_placements(plan).items()),
+            sorted(a.name for a in plan.failed_allocs))
+
+
+def percentile(values, q) -> float:
+    return float(np.percentile(np.asarray(values) * 1e3, q))
+
+
+def stream_cluster(structs, Harness, nodes, jobs):
+    h = Harness(device=DEV)
+    for node in nodes:
+        h.state.upsert_node(h.next_index(), node.copy())
+    for j in jobs:
+        h.state.upsert_job(h.next_index(), j)
+    return h
+
+
+class StreamRun:
+    """One executor's run of a stream: its plans in submit order (eval
+    order) and the runners' counts."""
+
+    def __init__(self) -> None:
+        self.plans: list = []
+        self.runners: list = []
+        self.wall = 0.0
+        self.h2d = 0
+        self.launches: dict = {}
+
+
+def pipelined(torch, structs, Harness, PipelinedEvalRunner, nodes,
+              streams, *, depth, commit, seed, h=None) -> "StreamRun":
+    """``streams`` (lists of jobs) through PipelinedEvalRunner on DEV,
+    one runner a stream, each from a snapshot taken when it starts.
+    ``commit``: the Harness itself is the planner (every plan is applied
+    to its store, so a later stream's first prep syncs the mirror,
+    K5); otherwise a record-only planner (every eval sees one store).
+    Python's ``random`` (each plan's port generator) is seeded first."""
+    from nomad_tpu_torch.models import fleet
+    from nomad_tpu_torch.ops import binpack
+    from nomad_tpu_torch.parallel import devices
+
+    if h is None:
+        h = stream_cluster(structs, Harness, nodes,
+                           [j for s in streams for j in s])
+    planner = h if commit else RecordOnlyPlanner(structs)
+    first = len(h.plans)
+    run = StreamRun()
+    counters = (binpack.place_sequence, binpack.place_rounds,
+                fleet.scatter_rows)
+    before = [fn.launches for fn in counters]
+    t0 = devices.transfer_counts()["h2d"]
+    random.seed(seed)
+    for jobs in streams:
+        runner = PipelinedEvalRunner(h.snapshot(), planner, depth=depth,
+                                     device=DEV)
+        t = time.perf_counter()
+        runner.process([make_eval(structs, j) for j in jobs])
+        run.wall += time.perf_counter() - t
+        run.runners.append(runner)
+    torch.cuda.synchronize()
+    run.h2d = devices.transfer_counts()["h2d"] - t0
+    run.launches = {fn.__name__: fn.launches - b
+                    for fn, b in zip(counters, before)}
+    names = {n.id: n.name for n in h.state.nodes()}
+    plans = h.plans[first:] if commit else planner.plans
+    run.plans = [plan_summary(p, names) for p in plans]
+    return run
+
+
+def sequential(structs, Harness, nodes, streams, *, commit, seed) -> list:
+    """The same streams one eval at a time through ``torch-binpack``
+    (``Harness.process`` with the snapshot each stream starts from), on
+    the device executor."""
+    from nomad_tpu_torch.scheduler import TorchBinPackScheduler
+    from nomad_tpu_torch.scheduler.executor import executor_override
+
+    h = stream_cluster(structs, Harness, nodes,
+                       [j for s in streams for j in s])
+    recorder = RecordOnlyPlanner(structs)
+    planner = h if commit else recorder
+    random.seed(seed)
+    with executor_override("device"):
+        for jobs in streams:
+            snap = h.snapshot()
+            for j in jobs:
+                TorchBinPackScheduler(
+                    snap, planner, batch=j.type == "batch",
+                    device=DEV).process(make_eval(structs, j))
+    names = {n.id: n.name for n in h.state.nodes()}
+    return [plan_summary(p, names)
+            for p in (h.plans if commit else recorder.plans)]
+
+
+def stream_report(run: "StreamRun", n_evals: int) -> dict:
+    lats = [x for r in run.runners for x in r.latencies]
+    stages: dict = {}
+    for r in run.runners:
+        for k, v in r.stage_times.items():
+            stages[k] = stages.get(k, 0.0) + v * 1e3
+    windows = [w for r in run.runners for w in r.windows]
+    return dict(
+        evals=n_evals, wall_s=run.wall, evals_per_s=n_evals / run.wall,
+        p50_ms=percentile(lats, 50), p99_ms=percentile(lats, 99),
+        stage_ms=stages, windows=len(windows),
+        window_mean=sum(windows) / len(windows), window_max=max(windows),
+        host_dispatches=sum(r.host_dispatches for r in run.runners),
+        device_dispatches=sum(r.device_dispatches for r in run.runners),
+        breaker_reruns=sum(r.breaker_reruns for r in run.runners),
+        parity_checks=sum(r.parity_checks for r in run.runners),
+        h2d_per_eval=run.h2d / n_evals, launches=run.launches)
+
+
+def run_streams(torch, structs, Harness, PipelinedEvalRunner, name, nodes,
+                streams, *, depth, commit, seed, rounds_calls, calls,
+                warm=False, shared=None) -> dict:
+    """One configuration's stream under each executor, twice, in the
+    order host, device, auto, auto, device, host (so neither end of
+    the order favours one executor); plans held against each other and
+    against the sequential run, eval by eval.  The six timed runs are
+    the main path: their K3 launches are recorded in ``rounds_calls``
+    (RoundsRecording), their K2 and K5 launches in ``calls``
+    (Recording), and ``launches`` sums their counts alone (not the
+    sequential or warm runs')."""
+    from nomad_tpu_torch.models import fleet
+    from nomad_tpu_torch.ops import binpack
+    from nomad_tpu_torch.scheduler.executor import executor_override
+
+    n_evals = sum(len(s) for s in streams)
+    want = sequential(structs, Harness, nodes, streams, commit=commit,
+                      seed=seed)
+    require(len(want) == n_evals, f"{name}: {len(want)} sequential plans")
+    if shared is None and not commit:
+        shared = stream_cluster(structs, Harness, nodes,
+                                [j for s in streams for j in s])
+    if warm:
+        with executor_override("device"):
+            pipelined(torch, structs, Harness, PipelinedEvalRunner, nodes,
+                      streams, depth=depth, commit=commit, seed=seed,
+                      h=shared)
+    out: dict = {ex: [] for ex in EXECUTORS}
+    launches: dict = {}
+    for ex in EXECUTORS + EXECUTORS[::-1]:
+        saved = (binpack.place_rounds, binpack.place_sequence,
+                 fleet.scatter_rows)
+        binpack.place_rounds = RoundsRecording(saved[0], rounds_calls)
+        binpack.place_sequence = Recording(saved[1], calls)
+        fleet.scatter_rows = Recording(saved[2], calls)
+        try:
+            with executor_override(ex):
+                run = pipelined(torch, structs, Harness,
+                                PipelinedEvalRunner, nodes, streams,
+                                depth=depth, commit=commit, seed=seed,
+                                h=shared)
+        finally:
+            (binpack.place_rounds, binpack.place_sequence,
+             fleet.scatter_rows) = saved
+        for k, v in run.launches.items():
+            launches[k] = launches.get(k, 0) + v
+        rep = stream_report(run, n_evals)
+        out[ex].append(rep)
+        require(run.plans == want,
+                f"{name} under {ex}: plans differ from the sequential run")
+        require(rep["breaker_reruns"] == 0 and rep["parity_checks"] == 0,
+                f"{name} under {ex}: {rep['breaker_reruns']} breaker "
+                f"reruns, {rep['parity_checks']} parity checks")
+        require(rep["host_dispatches"] + rep["device_dispatches"]
+                == n_evals, f"{name} under {ex}: dispatches do not "
+                f"cover the {n_evals} evals")
+        k23 = run.launches["place_sequence"] + run.launches["place_rounds"]
+        require(k23 == rep["device_dispatches"],
+                f"{name} under {ex}: {k23} K2/K3 launches for "
+                f"{rep['device_dispatches']} device dispatches")
+        if ex == "device":
+            require(rep["device_dispatches"] == n_evals,
+                    f"{name} under device: {rep['device_dispatches']} "
+                    f"device dispatches for {n_evals} evals")
+        if ex == "host":
+            require(rep["device_dispatches"] == 0,
+                    f"{name} under host: a dispatch went to the device")
+        print(f"executor stream {name} {ex} run {len(out[ex])}: "
+              + json.dumps(rep), flush=True)
+    return dict(depth=depth, evals=n_evals, commit=commit,
+                launches=launches, **out)
+
+
+def run_executor(torch, n1=100, n2=1000, n4=10_000, n5b=160, evals1=64,
+                 evals2=64, evals4=16, groups4=1000, distinct=(8, 64, 512),
+                 lanes5b=(1, 4, 16, 64), groups5b=100, sizes5b=(),
+                 placed5b=None, reps=20) -> dict:
+    """The executor phase: the crossover table (single evals and fused
+    config-5b storms) and the constants it gives, the bench's pipelined
+    streams (configs 1, 2 and 4) under each executor, their K2/K3/K5
+    launches replayed against the plain versions, and config 5b's storm
+    under each executor in turns against the storm phase's ``device``
+    run.  The default breaker must end closed and untouched."""
+    import nomad_tpu_torch.mock as mock
+    import nomad_tpu_torch.structs as structs
+    from nomad_tpu_torch.models import fleet
+    from nomad_tpu_torch.ops import binpack
+    from nomad_tpu_torch.scheduler import (BatchEvalRunner, Harness,
+                                           VerifyingPlanner)
+    from nomad_tpu_torch.scheduler.breaker import GLOBAL_BREAKER
+    from nomad_tpu_torch.scheduler.executor import executor_override
+    from nomad_tpu_torch.scheduler.pipeline import PipelinedEvalRunner
+    from nomad_tpu_torch.scheduler.torch_binpack import \
+        TorchBinPackScheduler
+
+    GLOBAL_BREAKER.reset()
+    nodes1 = [mock.node(i) for i in range(n1)]
+    nodes2 = [mock.node(i) for i in range(n2)]
+    nodes4 = [mock.node(i) for i in range(n4)]
+    nodes5b = [mock.node(i) for i in range(n5b)]
+
+    def job1(k):
+        j = mock.job()
+        j.id = f"config1-{k}"
+        return j
+
+    def job4(k, groups, prefix="config4"):
+        (j,) = storm_jobs(mock, structs, f"{prefix}-{groups}g-{k}", 1,
+                          groups)
+        return j
+
+    def distinct_groups(groups):
+        """A job of ``groups`` task groups that each ask for another CPU
+        share, so every group is a slot of its own (the bench's groups
+        are alike and fold into one slot)."""
+        j = job4(0, groups, "distinct")
+        for g, tg in enumerate(j.task_groups):
+            tg.tasks[0].resources.cpu = 100 + g
+        return j
+
+    # (a) the crossover, on real evals' DeviceArgs; config 4's fleet
+    # also serves its stream below.
+    jobs4 = [job4(k, groups4) for k in range(evals4)]
+    h4 = stream_cluster(structs, Harness, nodes4, jobs4)
+    shapes = []
+    for name, h, job in (
+            ("config 1", stream_cluster(structs, Harness, nodes1, []),
+             job1(0)),
+            ("config 2", stream_cluster(structs, Harness, nodes2, []),
+             config2_job(mock, structs, 0)),
+            ("config 5b lane", stream_cluster(structs, Harness, nodes5b,
+                                              []),
+             job4(0, groups5b, "config5b")),
+            ("config 2's sequence job", stream_cluster(
+                structs, Harness, nodes2, []), sequence_job(mock, structs)),
+            ("config 4", h4, job4(0, groups4, "config4-alone")),
+            *((f"config 4 fleet, {g} distinct groups", h4,
+               distinct_groups(g)) for g in distinct)):
+        shapes.append((name,) + eval_args(structs, BatchEvalRunner, h,
+                                          job))
+    table = crossover(torch, shapes, reps)
+    for row in table:
+        print("executor crossover: " + json.dumps(row), flush=True)
+    h5b = stream_cluster(structs, Harness, nodes5b, storm_jobs(
+        mock, structs, "config5b-crossover", max(lanes5b), groups5b))
+    runner5b = BatchEvalRunner(h5b.snapshot(), RecordOnlyPlanner(structs),
+                               device=DEV)
+    pending5b = []
+    for j in h5b.state.jobs():
+        sched = runner5b._begin_eval(make_eval(structs, j))
+        pending5b.append((sched,) + sched.deferred)
+    storm_table = storm_crossover(torch, runner5b, pending5b, lanes5b,
+                                  reps)
+    for row in storm_table:
+        print("executor storm crossover: " + json.dumps(row), flush=True)
+    derived = derive_constants(table, storm_table)
+    configured = {k: getattr(TorchBinPackScheduler, k)
+                  for k in ("HOST_ALWAYS_COST", "HOST_SINGLE_SHOT_COST")}
+    print("executor constants: " + json.dumps(
+        dict(derived=derived, configured=configured)), flush=True)
+    wrong = consistent(table, storm_table, configured)
+    require(not wrong, f"executor: the configured constants send these "
+            f"shapes the wrong way by more than 2x: {wrong}")
+
+    # (b) the bench's streams through PipelinedEvalRunner: this main
+    # path's launches are the timed runs' own (run_streams), their K3
+    # launches recorded by shape and K2/K5's alike, for the replay.
+    rounds_calls: dict = {}
+    calls: dict = {}
+    rec = dict(rounds_calls=rounds_calls, calls=calls)
+    streams = {}
+    streams["config 1"] = run_streams(
+        torch, structs, Harness, PipelinedEvalRunner, "config 1", nodes1,
+        [[job1(k) for k in range(evals1)]], depth=6, commit=False, seed=81,
+        warm=True, **rec)
+    jobs2 = [config2_job(mock, structs, k) for k in range(evals2)]
+    seq_job = sequence_job(mock, structs)
+    half = evals2 // 2
+    streams["config 2"] = run_streams(
+        torch, structs, Harness, PipelinedEvalRunner, "config 2", nodes2,
+        [jobs2[:half], jobs2[half:] + [seq_job]], depth=6, commit=True,
+        seed=82, **rec)
+    # Config 4's depth as bench.py derives it: the single shot's wall
+    # over one eval's host stages, +2, at least 6, at most 64.
+    with executor_override("device"):
+        warm = pipelined(torch, structs, Harness, PipelinedEvalRunner,
+                         nodes4, [jobs4], depth=6, commit=False, seed=84,
+                         h=h4)
+    host_stage_s = max(sum(warm.runners[0].stage_times.values())
+                       / evals4, 1e-4)
+    kernel_s = next(r for r in table if r["shape"] == "config 4"
+                    )["single_shot"]["median_ms"] / 1e3
+    depth4 = max(6, min(64, int(kernel_s / host_stage_s) + 2))
+    streams["config 4"] = run_streams(
+        torch, structs, Harness, PipelinedEvalRunner, "config 4", nodes4,
+        [jobs4], depth=depth4, commit=False, seed=84, shared=h4, **rec)
+    launches = {name: sum(st["launches"].get(name, 0)
+                          for st in streams.values())
+                for name in ("place_sequence", "place_rounds",
+                             "scatter_rows")}
+    for name in ("place_sequence", "place_rounds"):
+        require(launches[name] > 0,
+                f"executor: {name} was not launched by the streams")
+    recorded = {name: sum(c[2] for key, c in {**rounds_calls,
+                                              **calls}.items()
+                          if key[0] == name) for name in launches}
+    require(recorded == launches, f"executor: recorded launches "
+            f"{recorded}, the streams' {launches}")
+    replay_rounds = main_path_rounds(torch, binpack, rounds_calls)
+    replay = main_path_replay(torch, {"place_sequence": binpack,
+                                      "scatter_rows": fleet}, calls)
+
+    # (c) config 5b's storm under each executor, in turns whose order
+    # reverses, against the storm phase's device run (comparison runs:
+    # their launches are not the main path's).
+    storm5b: dict = {ex: [] for ex in EXECUTORS}
+    for ex in EXECUTORS + EXECUTORS[::-1]:
+        with executor_override(ex):
+            placed, counts = storm_config5b(
+                mock, structs, Harness, VerifyingPlanner, BatchEvalRunner,
+                *sizes5b)
+        if placed5b is None:
+            placed5b = placed
+        require(placed == placed5b, f"config 5b under {ex}: other "
+                f"placements than under device")
+        if not sizes5b:
+            for k, v in CONFIG5B_COUNTS.items():
+                require(counts[k] == v, f"config 5b under {ex}: {k} "
+                        f"{counts[k]}, expected {v}")
+        storm5b[ex].append(counts)
+        print(f"executor config 5b storm {ex}: " + json.dumps(counts),
+              flush=True)
+    stats = GLOBAL_BREAKER.stats()
+    require(stats == {"opens": 0, "closes": 0, "probes": 0,
+                      "host_holds": 0, "failures": 0, "state": "closed"},
+            f"executor: the breaker did not stay closed and clean: {stats}")
+    return dict(crossover=table, storm_crossover=storm_table,
+                constants=dict(derived=derived, configured=configured),
+                streams=streams, config5b_storm=storm5b, breaker=stats,
+                launches=launches, config4_depth=depth4,
+                main_path_rounds=replay_rounds, main_path_replay=replay)
 
 
 # The kernels of the kernels phase, in the order it checks them.
@@ -2421,6 +3050,7 @@ def main(argv=()) -> int:
     from nomad_tpu_torch.models import fleet
     from nomad_tpu_torch.ops import binpack, kernels
     from nomad_tpu_torch.parallel import mesh
+    from nomad_tpu_torch.scheduler.executor import executor_override
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -2438,6 +3068,16 @@ def main(argv=()) -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(sorted(built)) or 'up to date'})", flush=True)
 
+    if argv[:1] == ["--executor"]:
+        # The executor phase alone (its config-5b storms are not held
+        # against a device storm): no kernel checks, no result line.
+        ex = run_executor(torch)
+        print("executor: " + json.dumps(
+            {k: v for k, v in ex.items() if k not in (
+                "crossover", "storm_crossover", "streams",
+                "main_path_rounds", "main_path_replay")}), flush=True)
+        print("chip_smoke: --executor run, no result line", flush=True)
+        return 0
     checks = kernel_checks(torch, binpack, fleet, mesh)
     if argv:
         # --only NAME[,NAME]: those kernels' checks alone; no main paths
@@ -2445,7 +3085,8 @@ def main(argv=()) -> int:
         if len(argv) != 2 or argv[0] != "--only" or \
                 not set(argv[1].split(",")) <= set(checks):
             print(f"usage: chip_smoke.py [--only {','.join(checks)}] "
-                  f"[--profiler-events SECONDS]", file=sys.stderr)
+                  f"[--executor] [--profiler-events SECONDS]",
+                  file=sys.stderr)
             return 2
         for name in argv[1].split(","):
             checks[name]()
@@ -2469,26 +3110,44 @@ def main(argv=()) -> int:
         out = fn()
         print(f"phase {name}: {time.perf_counter() - t:.1f} s", flush=True)
         return out
-    sl = phase("slice", lambda: run_slice(torch))
-    print("slice: " + json.dumps(sl), flush=True)
-    st = phase("storm", lambda: run_storm(torch))
-    print("storm: " + json.dumps(st), flush=True)
-    sy = phase("system", run_system)
-    print("system: " + json.dumps(sy), flush=True)
-    vf = phase("verify fleet", run_verify_fleet)
+    # The phases that hold the kernels on their main paths run under
+    # the device executor, as bench.py's device rows do: under auto the
+    # cost policy could keep a config-2 eval or the config-5b storm on
+    # the numpy twins, and their launch checks would prove nothing.
+    with executor_override("device"):
+        sl = phase("slice", lambda: run_slice(torch))
+        print("slice: " + json.dumps(sl), flush=True)
+        st = phase("storm", lambda: run_storm(torch))
+        placed5b = st.pop("placed5b")
+        print("storm: " + json.dumps(st), flush=True)
+        sy = phase("system", run_system)
+        print("system: " + json.dumps(sy), flush=True)
+    ex = phase("executor", lambda: run_executor(torch, placed5b=placed5b))
+    print("executor: " + json.dumps(
+        {k: v for k, v in ex.items() if k not in (
+            "crossover", "storm_crossover", "streams", "main_path_rounds",
+            "main_path_replay")}), flush=True)
+    with executor_override("device"):
+        vf = phase("verify fleet", run_verify_fleet)
     print("verify fleet: " + json.dumps(
         {k: v for k, v in vf.items() if k != "table"}), flush=True)
     # Launches on the main paths, each path counted from 0: the slice,
-    # the storm (K6 in config 5b under the device policy) and the
-    # verify-fleet phase.
+    # the storm (K6 in config 5b under the device policy), the executor
+    # phase's timed pipelined streams and the verify-fleet phase.
     launches = {k: sl["launches"].get(k, 0) + st["launches"][k]
-                for k in st["launches"]}
+                + ex["launches"].get(k, 0) for k in st["launches"]}
     launches["window_verify"] += vf["launches"]
     replay_err = {name: max([r["err"] for r in sl["main_path_rounds"]
                              + st["main_path_rounds"]
+                             + ex["main_path_rounds"]
+                             + ex["main_path_replay"]
                              if r["kernel"] == name], default=0.0)
-                  for name in ("place_rounds", "place_rounds_batch")}
-    replay_err["place_sequence"] = sl["main_path_sequence"]["err"]
+                  for name in ("place_rounds", "place_rounds_batch",
+                               "scatter_rows")}
+    replay_err["place_sequence"] = max(
+        [sl["main_path_sequence"]["err"]]
+        + [r["err"] for r in ex["main_path_replay"]
+           if r["kernel"] == "place_sequence"])
     replay_err["place_sequence_batch"] = max(
         st[storm]["main_path_sequence_batch"]["err"]
         for storm in ("sequence_storm", "fleet_sequence_storm"))

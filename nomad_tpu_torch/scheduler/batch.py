@@ -18,13 +18,16 @@ same base usage tensor — lanes diverge only through their own
 placements.  Evals with plan deltas fall back to their own dispatch
 (still on the device).
 
-Every eval goes to the runner's device: ``cuda`` by default
-(``RuntimeError`` without one), ``cpu`` only when the caller passes it,
-and then the kernels' plain versions run.  A window's lanes finish
-through ONE native call (``bulk_finish_many`` of the port's C
-extension, csrc/port_alloc.cpp), then each lane's Python tail.  Not
-ported yet: the host executor and its cost policy (every lane goes to
-the device), the multi-device mesh branches, and the trace spans.
+The runner's device is ``cuda`` by default (``RuntimeError`` without
+one), ``cpu`` only when the caller passes it, and then the kernels'
+plain versions run.  The executor policy (scheduler/executor.py) keeps
+a storm whose fused cost (lanes x steps x real nodes) is at most
+``TorchBinPackScheduler.HOST_SINGLE_SHOT_COST`` on the numpy twins, one
+lane at a time (``_dispatch_fused_host``), or forces either side.  A
+window's lanes finish through ONE native call (``bulk_finish_many`` of
+the port's C extension, csrc/port_alloc.cpp), then each lane's Python
+tail.  Not ported yet: the multi-device mesh branches and the trace
+spans.
 """
 from __future__ import annotations
 
@@ -49,6 +52,20 @@ from .torch_binpack import (
     rounds_to_placements,
 )
 from .util import set_status
+
+
+def fused_cost(pending: list) -> int:
+    """The executor policy's size of a fused storm: lanes x steps (the
+    most rounds x the most groups when every lane is rounds-eligible,
+    else the longest placement list) x real node rows, as the JAX
+    package's batch runner counts it."""
+    statics = pending[0][2].statics
+    if all(a.rounds_eligible for _, _, a in pending):
+        steps = max(a.rounds for _, _, a in pending) * \
+            max(a.g_pad for _, _, a in pending)
+    else:
+        steps = max(a.p_pad for _, _, a in pending)
+    return len(pending) * steps * statics.n_real
 
 
 def pad_lanes(n: int) -> int:
@@ -108,12 +125,17 @@ class BatchEvalRunner:
                 this_round.append(ev)
         return this_round, leftovers
 
-    def _begin_eval(self, ev: Evaluation):
+    def _begin_eval(self, ev: Evaluation, finish_noop: bool = True):
         """Instantiate and reconcile one eval up to its deferred device
         args.  Returns the scheduler ready to dispatch, or None when the
         eval finished without needing a device dispatch (bad trigger,
         status error, or a plan with no placements, which is submitted
-        here)."""
+        here).
+
+        ``finish_noop=False`` returns the scheduler of a placement-less
+        plan instead of submitting it here (deferred is None): the
+        pipelined runner routes those submits through its drain stage
+        too, so plans commit in eval order."""
         sched = self._scheduler(self.state, ev)
         sched.eval = ev
         if ev.triggered_by not in VALID_GENERIC_TRIGGERS:
@@ -129,6 +151,8 @@ class BatchEvalRunner:
             return None
         sched.defer_device = False
         if sched.deferred is None:
+            if not finish_noop:
+                return sched
             # No placements needed: submit stops/updates directly.
             self._finish(sched)
             return None
@@ -177,9 +201,59 @@ class BatchEvalRunner:
             pending.append((sched, place, args))
 
         if pending:
-            self._finish_window(self._dispatch_fused(pending), retries)
+            if self._fused_on_host(pending):
+                self._finish_window(self._dispatch_fused_host(pending),
+                                    retries)
+            else:
+                self._finish_window(self._dispatch_fused(pending), retries)
         if leftovers:
             self._process_leftovers(leftovers)
+
+    @staticmethod
+    def _fused_on_host(pending: list) -> bool:
+        """The storm's executor policy (the JAX package's, with the same
+        NOMAD_TPU_EXECUTOR lever): ``host`` forces the numpy twins,
+        ``device`` the fused launch, and ``auto`` prices the storm as
+        one single shot of its fused cost (lanes x steps x real nodes):
+        TorchBinPackScheduler.host_for_cost."""
+        return TorchBinPackScheduler.host_for_cost(fused_cost(pending),
+                                                   pipelined=False)
+
+    def _dispatch_fused_host(self, pending: list) -> list:
+        """Host-executor twin of the fused launch: every lane plans
+        against the same snapshot base usage with the numpy twins, one
+        lane at a time (each lane's walk is vectorized over nodes),
+        reading the lanes' own arrays: no [B, G, N] stacking.  Lanes are
+        harmonized to the widest top-k and the most rounds, as on the
+        card.  Returns ``[(sched, place, args, chosen, scores), ...]``
+        in lane order."""
+        from nomad_tpu_torch.ops.binpack_host import (place_rounds_host,
+                                                      place_sequence_host)
+
+        statics = pending[0][2].statics
+        base_usage = pending[0][2].view.usage  # host array
+        n_real = statics.n_real
+        rounds_ok = all(a.rounds_eligible for _, _, a in pending)
+        k_cap = max(a.k_cap for _, _, a in pending)
+        rounds = max(a.rounds for _, _, a in pending)
+        done = []
+        for sched, place, args in pending:
+            if rounds_ok:
+                chosen_s, score_s, _u = place_rounds_host(
+                    statics.capacity, statics.reserved, base_usage,
+                    args.view.job_counts, args.feasible_h, args.asks,
+                    args.distinct, args.counts, float(args.penalty),
+                    k_cap=k_cap, rounds=rounds, n_real=n_real)
+                chosen, scores = rounds_to_placements(
+                    args, chosen_s, score_s)
+            else:
+                chosen, scores, _u = place_sequence_host(
+                    statics.capacity, statics.reserved, base_usage,
+                    args.view.job_counts, args.feasible_h, args.asks,
+                    args.distinct, args.group_idx, args.valid,
+                    float(args.penalty), n_real=n_real)
+            done.append((sched, place, args, chosen, scores))
+        return done
 
     def _dispatch_fused(self, pending: list) -> list:
         """Stack the lanes, launch the batch kernel once, fetch its

@@ -21,9 +21,13 @@ exact NetworkIndex port assignment runs host-side on the winner, with a
 sequential-stack fallback on the (rare) miss, so plans are exactly as valid
 as the reference's.
 
-Every eval goes to the device the scheduler was built for: ``cuda`` by
-default (``RuntimeError`` without one), ``cpu`` only when the caller
-passes it, and then the kernels' plain versions run.
+The device the scheduler was built for is ``cuda`` by default
+(``RuntimeError`` without one), ``cpu`` only when the caller passes it,
+and then the kernels' plain versions run.  Per dispatch the executor
+policy (scheduler/executor.py, ``choose_host_executor``) sends a walk
+to that device or to the numpy twins of K2/K3 (ops/binpack_host.py):
+a cost decision made before the dispatch, from constants measured on
+an H100, never a fallback from a failed launch.
 
 The finish runs in three phases, as in the JAX package: prepare, the
 native happy-path prefix (the port's C extension, csrc/port_alloc.cpp,
@@ -524,11 +528,99 @@ class TorchBinPackScheduler(GenericScheduler, FastPlacementMixin):
             holder[i] = ensure_on_default(holder[i], h, self.device)
         return holder
 
-    def dispatch_device(self, args: "DeviceArgs") -> tuple:
+    # Executor policy: the walk's cost (steps x real node rows) up to
+    # which the numpy twins (ops/binpack_host.py) beat a dispatch to the
+    # card.  A pipelined caller pays only the front stage's dispatch
+    # (uploads + launch + the start of the result copies); a single-shot
+    # caller also waits for the kernel and the copies, and a fused storm
+    # is one single shot of lanes x steps x real nodes (batch.py
+    # ``fused_cost``).  Both constants are what the executor phase of
+    # chip_smoke.py derives on an NVIDIA H100 80GB HBM3 at 700 W
+    # (PERF.md, the executor crossover): the host's median beats the
+    # front stage's up to a config-5b eval (cost 160; config 2's 1,000
+    # is a near-tie the card won in most runs), and every single shot's
+    # up to a one-lane config-5b storm (1,280, 2x faster on the host);
+    # it loses by 2x and more from config 4 (10,000) and a 16-lane storm
+    # (20,480) on.  The JAX package's values, set for a remote TPU's
+    # ~100 ms round trip, are 1 << 18 and 1 << 25.
+    HOST_ALWAYS_COST = 160
+    HOST_SINGLE_SHOT_COST = 1_280
+
+    # Which executor the last dispatch used: True host, False device,
+    # None when no dispatch ran yet.  The pipelined runner reads it to
+    # count host and device dispatches.
+    dispatched_host: "bool | None" = None
+    # Whether the last device dispatch ran node-axis-sharded over a
+    # mesh: always False until the sharded kernels (K7) are ported.
+    dispatched_sharded: "bool | None" = None
+
+    def choose_host_executor(self, args: "DeviceArgs",
+                             pipelined: bool) -> bool:
+        """True when this dispatch should run on the host twins: forced
+        by the policy, or under ``auto`` when the walk's cost is at most
+        HOST_ALWAYS_COST, or at most HOST_SINGLE_SHOT_COST for a caller
+        that is not pipelined."""
+        return self.host_for_cost(executor_cost(args), pipelined)
+
+    @classmethod
+    def host_for_cost(cls, cost: int, pipelined: bool) -> bool:
+        """The executor policy for a walk of ``cost`` (steps x real node
+        rows): the forced side, else the cost rule of
+        choose_host_executor."""
+        from .executor import (EXECUTOR_DEVICE, EXECUTOR_HOST,
+                               executor_policy)
+
+        policy = executor_policy()
+        if policy == EXECUTOR_HOST:
+            return True
+        if policy == EXECUTOR_DEVICE:
+            return False
+        if cost <= cls.HOST_ALWAYS_COST:
+            return True
+        return not pipelined and cost <= cls.HOST_SINGLE_SHOT_COST
+
+    def dispatch_host(self, args: "DeviceArgs") -> tuple:
+        """Run the placement walk eagerly with numpy
+        (ops/binpack_host.py): same results, no launch and no transfer.
+        Returns ready numpy (chosen, scores) for collect_device."""
+        from nomad_tpu_torch.ops.binpack_host import (place_rounds_host,
+                                                      place_sequence_host)
+
+        self.dispatched_sharded = False
+        statics = args.statics
+        if args.rounds_eligible:
+            chosen, scores, _ = place_rounds_host(
+                statics.capacity, statics.reserved, args.view.usage,
+                args.view.job_counts, args.feasible_h, args.asks,
+                args.distinct, args.counts, args.penalty,
+                k_cap=args.k_cap, rounds=args.rounds,
+                n_real=statics.n_real)
+        else:
+            chosen, scores, _ = place_sequence_host(
+                statics.capacity, statics.reserved, args.view.usage,
+                args.view.job_counts, args.feasible_h, args.asks,
+                args.distinct, args.group_idx, args.valid, args.penalty,
+                n_real=statics.n_real)
+        return chosen, scores
+
+    def dispatch_device(self, args: "DeviceArgs", pipelined: bool = False,
+                        force: bool = False) -> tuple:
         """Start the device dispatch for prepared args WITHOUT blocking:
         the kernel launch and its device->host result copies are left in
         flight (copy_to_host_async), so a caller can prepare the next
-        eval while this one runs; collect_device waits for them."""
+        eval while this one runs; collect_device waits for them.  A walk
+        the executor policy keeps on the host comes back as ready numpy
+        arrays (dispatch_host).
+
+        ``force=True`` skips the policy: the caller already decided (the
+        pipelined runner's breaker admission must not be re-decided here,
+        or a policy flip mid-stream could run an in-flight probe on the
+        host and orphan it)."""
+        if not force and self.choose_host_executor(args, pipelined):
+            self.dispatched_host = True
+            return self.dispatch_host(args)
+        self.dispatched_host = False
+        self.dispatched_sharded = False
         device = self.device
         capacity_d, reserved_d = \
             args.statics.device_capacity_reserved(device)
@@ -1120,15 +1212,28 @@ class TorchBinPackScheduler(GenericScheduler, FastPlacementMixin):
 
     def _redispatch_remaining(self, place: list, args: DeviceArgs,
                               p: int) -> tuple[list, list]:
-        """Re-plan place[p:] with the place_sequence kernel on the
-        scheduler's device against usage rebuilt from state + the
+        """Re-plan place[p:] against usage rebuilt from state + the
         in-flight plan (the same math as the first dispatch, so results
-        splice straight into the finish loop)."""
+        splice straight into the finish loop): a single shot of the
+        sequence walk, on the side the executor policy picks for it, the
+        exact host walk (ops/binpack_host.py) or K2 on the scheduler's
+        device."""
         statics = args.statics
-        device = self.device
         view = build_usage(statics, self._proposed_allocs_all(),
                            job_id=self.job.id)
         rem = len(place) - p
+        group_idx = np.asarray(args.group_idx[p:p + rem], dtype=np.int32)
+        valid = np.ones(rem, dtype=bool)
+        if self.host_for_cost(rem * statics.n_real, pipelined=False):
+            from nomad_tpu_torch.ops.binpack_host import place_sequence_host
+
+            chosen, scores, _u = place_sequence_host(
+                statics.capacity, statics.reserved, view.usage,
+                view.job_counts, args.feasible_h, args.asks, args.distinct,
+                group_idx, valid, np.float32(args.penalty),
+                n_real=statics.n_real)
+            return np.asarray(chosen).tolist(), np.asarray(scores).tolist()
+        device = self.device
         capacity_d, reserved_d = statics.device_capacity_reserved(device)
         args.feasible_d[1] = ensure_on_default(
             args.feasible_d[1], args.feasible_d[0], device)
@@ -1137,10 +1242,17 @@ class TorchBinPackScheduler(GenericScheduler, FastPlacementMixin):
             put_counted(view.job_counts, device), args.feasible_d[1],
             put_counted(args.asks, device),
             put_counted(args.distinct, device),
-            put_counted(np.asarray(args.group_idx[p:p + rem],
-                                   dtype=np.int32), device),
-            put_counted(np.ones(rem, dtype=bool), device), args.penalty)
+            put_counted(group_idx, device), put_counted(valid, device),
+            args.penalty)
         return fetch_host(chosen).tolist(), fetch_host(scores).tolist()
+
+
+def executor_cost(args: DeviceArgs) -> int:
+    """The executor policy's size of one eval's walk: its steps (rounds
+    x groups in rounds mode, placements otherwise) x real node rows."""
+    steps = args.rounds * args.n_groups if args.rounds_eligible \
+        else args.n_place
+    return steps * args.statics.n_real
 
 
 def fetch_results(*tensors) -> list:

@@ -13,7 +13,8 @@ JAX side runs the unsharded device-executor batch kernel, as its own
 tests pin it: mesh_override("off") (tests/conftest.py gives JAX eight
 CPU devices, which would otherwise take the sharded path) and
 executor_override("device") (small storms would otherwise take the
-numpy host twins).  The port sends every lane to its device, here
+numpy host twins).  The port's side runs under its own
+executor_override("device") for the same reason, on its device, here
 "cpu".  Both packages draw each plan's dynamic ports from Python's
 ``random`` in the same order, so every storm run is seeded alike
 (``_seeded``) and the ports are compared too.
@@ -53,6 +54,8 @@ from nomad_tpu_torch.ops import binpack as tbp
 from nomad_tpu_torch.scheduler import BatchEvalRunner as TRunner
 from nomad_tpu_torch.scheduler import Harness as THarness
 from nomad_tpu_torch.scheduler import VerifyingPlanner as TVerifying
+from nomad_tpu_torch.scheduler.executor import executor_override as \
+    t_executor_override
 from nomad_tpu_torch.scheduler import pad_lanes
 from nomad_tpu_torch.structs import Evaluation as TEvaluation
 from nomad_tpu_torch.structs import allocs_fit as t_allocs_fit
@@ -376,7 +379,7 @@ def _run_jax(h, evals, refresh):
 
 
 def _run_port(h, evals, refresh):
-    with _seeded():
+    with t_executor_override("device"), _seeded():
         TRunner(h.state.snapshot(), h,
                 state_refresh=h.snapshot if refresh else None,
                 device="cpu").process(

@@ -29,6 +29,8 @@ from nomad_tpu.scheduler import Harness as JHarness
 from nomad_tpu.scheduler.batch import BatchEvalRunner as JRunner
 from nomad_tpu.scheduler.executor import executor_override
 from nomad_tpu_torch import convert
+from nomad_tpu_torch.scheduler.executor import executor_override as \
+    t_executor_override
 import nomad_tpu_torch.mock as mock
 import nomad_tpu_torch.scheduler.batch as tbatch
 import nomad_tpu_torch.scheduler.stack as tstack
@@ -140,7 +142,8 @@ def _run_storm(monkeypatch, columnar: bool, n_nodes=12, n_jobs=3):
     plans = []
     for job in jobs:
         h.state.upsert_job(h.next_index(), job.copy())
-        h.process("torch-binpack", make_eval(job))
+        with t_executor_override("device"):
+            h.process("torch-binpack", make_eval(job))
         plans.append(h.plans[-1])
     return h, plans
 
@@ -334,8 +337,10 @@ class TestContendedStormParity:
                             type=j.type,
                             triggered_by=EVAL_TRIGGER_JOB_REGISTER,
                             job_id=j.id) for j in jobs]
-        BatchEvalRunner(h.state.snapshot(), h, state_refresh=h.snapshot,
-                        device="cpu").process(evals)
+        with t_executor_override("device"):
+            BatchEvalRunner(h.state.snapshot(), h,
+                            state_refresh=h.snapshot,
+                            device="cpu").process(evals)
         return h
 
     def test_storm_replay_byte_parity(self, monkeypatch):
@@ -648,7 +653,7 @@ def test_storm_finish_is_one_native_call_and_equals_jax(monkeypatch):
         for job in convert.jobs_from_reference(jobs):
             th.state.upsert_job(th.next_index(), job)
         planner = _RecordOnly(PlanResult, "cpu")
-        with _seeded():
+        with t_executor_override("device"), _seeded():
             BatchEvalRunner(th.state.snapshot(), planner,
                             device="cpu").process(evals)
         return planner.plans

@@ -62,6 +62,10 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "import nomad_tpu_torch.utils.native\n"
         "import nomad_tpu_torch.scheduler.system\n"
         "import nomad_tpu_torch.scheduler.system_vec\n"
+        "import nomad_tpu_torch.scheduler.executor\n"
+        "import nomad_tpu_torch.scheduler.breaker\n"
+        "import nomad_tpu_torch.scheduler.pipeline\n"
+        "import nomad_tpu_torch.ops.binpack_host\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'nomad_tpu')]\n"
         "assert not bad, bad\n"

@@ -37,6 +37,8 @@ from nomad_tpu.structs import (
     TaskGroup,
 )
 from nomad_tpu_torch import convert
+from nomad_tpu_torch.scheduler.executor import executor_override as \
+    t_executor_override
 from nomad_tpu_torch.scheduler import Harness as THarness
 from nomad_tpu_torch.scheduler import TorchBinPackScheduler
 from nomad_tpu_torch.scheduler import torch_binpack as tb
@@ -162,8 +164,9 @@ def _run_port(monkeypatch, native_on: bool, contract: str, nodes, jobs,
     plans = []
     for job in convert.jobs_from_reference(jobs):
         h.state.upsert_job(h.next_index(), job)
-        h.process("torch-binpack", TEvaluation.from_dict(
-            make_eval(job).to_dict()))
+        with t_executor_override("device"):
+            h.process("torch-binpack", TEvaluation.from_dict(
+                make_eval(job).to_dict()))
         plans.append(_normalize(h.plans[-1]))
     return plans
 

@@ -19,6 +19,8 @@ from nomad_tpu.scheduler.util import task_group_constraints as j_tgc
 from nomad_tpu.state.store import StateStore as JStore
 from nomad_tpu.structs import Constraint as JConstraint
 from nomad_tpu_torch import convert
+from nomad_tpu_torch.scheduler.executor import executor_override as \
+    t_executor_override
 from nomad_tpu_torch import mock
 from nomad_tpu_torch.models.constraints import (compile_constraint_mask,
                                                 compile_group_mask)
@@ -233,7 +235,8 @@ def test_torch_binpack_on_a_slab_places_like_jax_binpack():
         return rows
 
     j_rows = run(JHarness(), jslab, "jax-binpack", JEvaluation, jobs)
-    t_rows = run(Harness(device="cpu"), tslab, "torch-binpack", Evaluation,
-                 convert.jobs_from_reference(jobs))
+    with t_executor_override("device"):
+        t_rows = run(Harness(device="cpu"), tslab, "torch-binpack",
+                     Evaluation, convert.jobs_from_reference(jobs))
     assert t_rows == j_rows
     assert sum(len(r) for r in t_rows) == 18

@@ -4,8 +4,10 @@ One mock cluster (node sizes drawn from a seed) is loaded into the JAX
 package's Harness and, through nomad_tpu_torch.convert, into the port's
 Harness on the CPU.  The same jobs run through ``jax-binpack`` (forced
 onto its jit kernels with executor_override("device")) and through
-``torch-binpack``; every plan is committed before the next eval, so the
-usage mirror's sync and scatter path runs between evals.  For each
+``torch-binpack`` (onto the kernels' plain versions by the port's own
+override: the cost policy would keep these shapes on the numpy twins);
+every plan is committed before the next eval, so the usage mirror's
+sync and scatter path runs between evals.  For each
 alloc name the node it landed on must be equal, as must the failed
 allocs and the eval status.  Ports are random by design, so only their
 count is compared.
@@ -31,6 +33,8 @@ from nomad_tpu.structs import (
 from nomad_tpu_torch import convert
 from nomad_tpu_torch.models.fleet import fleet_cache, mirror_for
 from nomad_tpu_torch.scheduler import Harness as THarness
+from nomad_tpu_torch.scheduler.executor import executor_override as \
+    t_executor_override
 from nomad_tpu_torch.structs import Evaluation as TEvaluation
 
 # The tensors here are tiny: one thread each keeps the xdist workers
@@ -131,8 +135,10 @@ def _run_both(jobs, nodes):
         with executor_override("device"):
             jh.process("jax-binpack-batch" if job.type == "batch"
                        else "jax-binpack", ev)
-        th.process("torch-binpack-batch" if job.type == "batch"
-                   else "torch-binpack", TEvaluation.from_dict(ev.to_dict()))
+        with t_executor_override("device"):
+            th.process("torch-binpack-batch" if job.type == "batch"
+                       else "torch-binpack",
+                       TEvaluation.from_dict(ev.to_dict()))
         outcomes.append((_outcome(jh, job.id), _outcome(th, job.id)))
     return jh, th, outcomes
 
@@ -257,9 +263,10 @@ def test_divergence_recovery_never_oversubscribes(monkeypatch):
                         flaky)
     monkeypatch.setattr(TorchBinPackScheduler, "_redispatch_remaining",
                         counted)
-    h.process("torch-binpack", TEvaluation(
-        id="e1", priority=50, type=job.type,
-        triggered_by=EVAL_TRIGGER_JOB_REGISTER, job_id=job.id))
+    with t_executor_override("device"):
+        h.process("torch-binpack", TEvaluation(
+            id="e1", priority=50, type=job.type,
+            triggered_by=EVAL_TRIGGER_JOB_REGISTER, job_id=job.id))
     assert calls["redispatch"] == 1
     plan = h.plans[0]
     by_node = {n.id: n for n in nodes}
