@@ -77,13 +77,39 @@ Phases, in order; any failure exits non-zero and prints no result line:
               bulk_finish_many for the 64 lanes) and with the 64 Python
               tails, in turns, 5 times each: equal plans lane by lane,
               every lane finished in C;
-  6. system   bench.py config 3: mock.system_job() on 1,000 nodes
+  6. server   the port's own Server (``Server(ServerConfig(device=
+              "cuda"))``: raft, FSM, broker, one batch worker and a
+              plain worker started just after leadership, the
+              group-commit applier) with its nodes and jobs registered
+              through raft before leadership, so the broker restore
+              hands the batch worker every eval at once: (a) config 5b
+              (64 jobs x 100 groups, 160 nodes) under the ``host`` and
+              the ``device`` verify policy: 6,240 placements committed,
+              K6 launched on every window of more than one plan under
+              device; (b) config 5 at full width
+              (64 jobs x 1,000 groups on 10,000 nodes: 64,000
+              placements through InmemRaft and the slab wire), then a
+              rounds-ineligible job (K4b) and ``mock.system_job()``
+              (a plain worker, ``system``) on the live server; (c) the
+              applier at bench 5f's shape (512 nodes, 256 submitter
+              threads of 4 one-alloc plans with 10 s deadlines) under
+              host and device verify.  Every eval complete, acked once,
+              never nacked; no worker failure; every alloc placed once;
+              no node over capacity.  Per shape: wall from the first
+              job_register to the last eval complete, evals/s and
+              placements/s, the applier's counts, raft applies, the
+              card's busy ms and idle share (``device_timeline``), the
+              host-clock breakdown (broker wait, worker batch, applier
+              verify, commit, FSM apply) and every kernel's launches;
+              the first launch at each shape of K2-K6 recorded and
+              replayed against the plain version, bit for bit;
+  7. system   bench.py config 3: mock.system_job() on 1,000 nodes
               through ``system`` (vectorized, native finish) and
               ``system-seq``: equal plans, every node placed, eval ms;
-              phases 4-6 (and 8) run under ``executor_override("device")``,
+              phases 4-7 (and 9) run under ``executor_override("device")``,
               so the cost policy cannot move their walks to the numpy
               twins and their launch checks keep their meaning;
-  7. executor the host executor's crossover and the pipelined runner:
+  8. executor the host executor's crossover and the pipelined runner:
               (a) on real evals' DeviceArgs (configs 1, 2, 4, a config-5b
               lane, config 2's sequence job, and jobs of 8, 64 and 512
               distinct groups on config 4's fleet), ``dispatch_host``,
@@ -105,13 +131,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
               config 5b's storm under host and auto, with the placements
               and counts of the storm phase's device run; the default
               breaker ends closed with every count at 0;
-  8. verify   bench.py's 5f fleet-scaling sub-table on the port: NodeSlab
+  9. verify   bench.py's 5f fleet-scaling sub-table on the port: NodeSlab
               fleets of 10,000, 131,072 and 1,000,000 nodes, 64
               single-placement plans a window, 8 measured windows under
               the host engine and under the device engine (K6); every
               device window must dispatch, make one upload and one
               fetch, and give the host's verdicts;
-  9. report   one ``{"kernels": [...]}`` line, then the card's name and
+  10. report  one ``{"kernels": [...]}`` line, then the card's name and
               power limit exactly as nvidia-smi prints them, then the
               result line ``{"ok": true, "device": {...}}`` last.
 
@@ -128,6 +154,7 @@ import random
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1137,7 +1164,10 @@ def device_timeline(torch):
     list of (name, start event, end event).  The stream time between a
     call's two events is the card's work for it plus any stretch where
     the card waited on the host inside the call (a pageable upload's
-    staging), so their sum bounds the card's busy time from above.
+    staging), so their sum bounds the card's busy time from above
+    (the server's worker and applier threads launch at once: their
+    calls' spans may overlap on the stream, and the sum counts the
+    overlap twice).
 
     torch.profiler cannot give this number on the chip machine: there
     sessions long and short lose every device event at random, and
@@ -1148,13 +1178,14 @@ def device_timeline(torch):
     from nomad_tpu_torch.parallel import devices
 
     pairs: list = []
-    depth = [0]
+    # per thread: the server's worker and applier threads launch at once
+    nesting = threading.local()
 
     def timed(fn, name):
         def call(*a, **kw):
-            if depth[0]:
+            if getattr(nesting, "depth", 0):
                 return fn(*a, **kw)
-            depth[0] += 1
+            nesting.depth = 1
             start = torch.cuda.Event(enable_timing=True)
             start.record()
             try:
@@ -1163,7 +1194,7 @@ def device_timeline(torch):
                 end = torch.cuda.Event(enable_timing=True)
                 end.record()
                 pairs.append((name, start, end))
-                depth[0] -= 1
+                nesting.depth = 0
         return call
 
     saved = []
@@ -2111,7 +2142,627 @@ def main_path_sequence_batch(torch, binpack, args, reps=50):
                 bound_ms=b_ms, bound_by=b_by, err=err)
 
 
-# -- phase 6: the system schedulers (config 3) -----------------------------
+# -- phase 6: the server ---------------------------------------------------
+
+
+class ServerProbe:
+    """The server phase's host-clock breakdown, over every thread the
+    server runs: each eval's broker wait (from its entry into a ready
+    queue to its dequeue), the batch worker's fused runs
+    (``BatchEvalRunner.process``), the applier's window verifies
+    (``evaluate_window``), the committer's commit jobs (encode, raft
+    apply, responds) and, inside them, ``fsm``'s plan applies (slab
+    decode and batched upsert); the broker's acks and nacks, the first
+    dequeue's instant, and the windows the applier verified by their
+    plan count (a one-plan window always takes the host's
+    ``evaluate_plan``, whatever the verify policy)."""
+
+    def __init__(self, fsm) -> None:
+        from nomad_tpu_torch.ops import plan_conflict
+        from nomad_tpu_torch.scheduler import batch
+        from nomad_tpu_torch.server import eval_broker, plan_apply
+        from nomad_tpu_torch.structs import codec
+
+        self.enq: dict = {}
+        self.waits: list = []
+        self.nacks = 0
+        self.acks = 0
+        self.first_dequeue = None
+        self.windows = dict(one_plan=0, many_plans=0)
+        self._lock = threading.Lock()
+        self.spent, self._restore = timed_phases([
+            (batch.BatchEvalRunner, "process"),
+            (plan_conflict, "evaluate_window"),
+            (plan_apply.PlanApplier, "_commit_job")])
+        # The FSM dispatches through a table of bound handlers built at
+        # its construction: time the plan applies there.
+        self._handlers = fsm._handlers
+        self._saved_handlers = dict(fsm._handlers)
+        for msg in (codec.ALLOC_UPDATE_REQUEST,
+                    codec.PLAN_BATCH_APPLY_REQUEST):
+            def handler(index, payload, _fn=fsm._handlers[msg]):
+                t = time.perf_counter()
+                try:
+                    return _fn(index, payload)
+                finally:
+                    with self._lock:
+                        self.fsm_s += time.perf_counter() - t
+            fsm._handlers[msg] = handler
+        self.fsm_s = 0.0
+        broker = eval_broker.EvalBroker
+        self._saved = [(broker, n, broker.__dict__[n]) for n in (
+            "_enqueue_locked", "dequeue", "dequeue_batch", "ack", "nack")]
+        probe = self
+        enqueue_locked, dequeue, dequeue_batch, ack, nack = (
+            s[2] for s in self._saved)
+
+        def _enqueue_locked(self, ev, queue):
+            if self._enabled and queue != eval_broker.FAILED_QUEUE:
+                probe.enq.setdefault(ev.id, time.perf_counter())
+            return enqueue_locked(self, ev, queue)
+
+        def taken(evs):
+            now = time.perf_counter()
+            with probe._lock:
+                if evs and probe.first_dequeue is None:
+                    probe.first_dequeue = now
+                for ev in evs:
+                    t0 = probe.enq.pop(ev.id, None)
+                    if t0 is not None:
+                        probe.waits.append(now - t0)
+
+        def _dequeue(self, *a, **kw):
+            out = dequeue(self, *a, **kw)
+            if out[0] is not None:
+                taken([out[0]])
+            return out
+
+        def _dequeue_batch(self, *a, **kw):
+            out = dequeue_batch(self, *a, **kw)
+            taken([ev for ev, _token in out])
+            return out
+
+        def _ack(self, *a, **kw):
+            with probe._lock:
+                probe.acks += 1
+            return ack(self, *a, **kw)
+
+        def _nack(self, *a, **kw):
+            with probe._lock:
+                probe.nacks += 1
+            return nack(self, *a, **kw)
+
+        for name, fn in (("_enqueue_locked", _enqueue_locked),
+                         ("dequeue", _dequeue),
+                         ("dequeue_batch", _dequeue_batch),
+                         ("ack", _ack), ("nack", _nack)):
+            setattr(broker, name, fn)
+        timed_verify = plan_conflict.evaluate_window
+
+        def counted_verify(snap, plans, *a, **kw):
+            with probe._lock:
+                probe.windows["one_plan" if len(plans) == 1
+                              else "many_plans"] += 1
+            return timed_verify(snap, plans, *a, **kw)
+        plan_conflict.evaluate_window = counted_verify
+        self._saved.append((plan_conflict, "evaluate_window", timed_verify))
+
+    def restore(self) -> None:
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+        self._handlers.update(self._saved_handlers)
+        self._restore()
+
+    def breakdown_ms(self) -> dict:
+        s = self.spent
+        waits = sorted(self.waits)
+        return dict(
+            broker_wait_mean_ms=(sum(waits) / len(waits) * 1e3
+                                 if waits else 0.0),
+            broker_wait_max_ms=waits[-1] * 1e3 if waits else 0.0,
+            worker_batch_ms=s.get("process", 0.0) * 1e3,
+            applier_verify_ms=s.get("evaluate_window", 0.0) * 1e3,
+            commit_ms=s.get("_commit_job", 0.0) * 1e3,
+            fsm_apply_ms=self.fsm_s * 1e3)
+
+
+class WindowRecording:
+    """K6's wrapper, keeping a copy of the first launch's inputs at each
+    bucket (key -> [fleet tensors, descriptors, counts, launches]); its
+    ``launches`` are the wrapper's own."""
+
+    def __init__(self, fn, calls) -> None:
+        self.fn = fn
+        self.calls = calls
+
+    @property
+    def launches(self) -> int:
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self.fn.launches = value
+
+    def __call__(self, capacity, reserved, usage, packed=False,
+                 counts=None, **desc):
+        b = desc["pair_ni"].shape[0]
+        key = ("window_verify", tuple(usage.shape), b)
+        if key not in self.calls:
+            self.calls[key] = [(capacity.clone(), reserved.clone(),
+                                usage.clone()),
+                               {k: v.copy() for k, v in desc.items()},
+                               counts, 0]
+        self.calls[key][3] += 1
+        return self.fn(capacity, reserved, usage, packed=packed,
+                       counts=counts, **desc)
+
+
+def main_path_window(torch, mesh, calls) -> list:
+    """K6 at each window bucket the server path launched it: the first
+    launch at each bucket replayed on its inputs, with the padding's
+    counts (every row) and with the engine's counts (the real pairs),
+    held to the plain version bit for bit."""
+    out = []
+    for key, (fleet_t, desc, counts, launches) in calls.items():
+        dd = {k: torch.from_numpy(v).to(DEV) for k, v in desc.items()}
+        want = mesh.window_verify_plain(*fleet_t, **dd)
+        got = mesh.window_verify(*fleet_t, **desc)
+        real = mesh.window_verify(*fleet_t, counts=counts, **desc)
+        torch.cuda.synchronize()
+        n_pairs = counts[0] if counts else want[0].shape[0]
+        what = f"window_verify main path N={key[1][0]} B={key[2]}"
+        err = 0.0
+        for name, g, r, w in zip(("used", "caps", "fits"), got, real,
+                                 want):
+            require(g.dtype == w.dtype and torch.equal(g, w),
+                    f"{what}: {name} differs from the plain version")
+            require(torch.equal(r[:n_pairs], w[:n_pairs]),
+                    f"{what}: {name} with the engine's counts differs")
+            err = max(err, float((g.float() - w.float()).abs().max()))
+        row = dict(kernel="window_verify", n=key[1][0], bucket=key[2],
+                   pairs=n_pairs, launches=launches, err=err)
+        print("main path " + json.dumps(row), flush=True)
+        out.append(row)
+    return out
+
+
+def check_server_state(structs, srv, name, eval_ids, probe, system_ids=()):
+    """Every eval complete, acked once and never nacked; no worker
+    failure; every live alloc placed once (one per alloc name, one per
+    node for a system job); no node over capacity under the exact fit
+    check.  Returns the live allocs' count."""
+    state = srv.fsm.state
+    statuses = {e.id: e.status for e in state.evals()}
+    require(sorted(statuses) == sorted(eval_ids),
+            f"server {name}: {len(statuses)} evals in the store, "
+            f"{len(eval_ids)} registered")
+    bad = {s for s in statuses.values() if s != structs.EVAL_STATUS_COMPLETE}
+    require(not bad, f"server {name}: evals ended {sorted(bad)}")
+    # A worker acks after its status update commits, which is what
+    # wait_for_evals saw: give the last ack its moment.
+    deadline = time.monotonic() + 10.0
+    while probe.acks < len(eval_ids) and time.monotonic() < deadline:
+        time.sleep(0.005)
+    require(probe.nacks == 0 and probe.acks == len(eval_ids),
+            f"server {name}: {probe.acks} acks and {probe.nacks} nacks "
+            f"for {len(eval_ids)} evals")
+    stats = srv._worker_stats()
+    require(stats["failures"] == 0 and stats["expired_drops"] == 0,
+            f"server {name}: worker failures {stats}")
+    broker = srv.eval_broker.stats()
+    require(broker["total_unacked"] == 0 and broker["total_ready"] == 0,
+            f"server {name}: broker left {broker}")
+    live = [a for a in state.allocs() if not a.terminal_status()]
+    keys = {(a.job_id, a.name, a.node_id if a.job_id in system_ids
+             else "") for a in live}
+    require(len(keys) == len(live),
+            f"server {name}: {len(live) - len(keys)} placements twice")
+    for node in state.nodes():
+        fit, dim, _ = structs.allocs_fit(
+            node, [a for a in state.allocs_by_node(node.id)
+                   if not a.terminal_status()])
+        require(fit, f"server {name}: node {node.name} oversubscribed on "
+                f"{dim}")
+    return len(live)
+
+
+def server_shape(torch, name, nodes, jobs, *, counters, verify=None,
+                 later=()):
+    """One shape through the port's server on the card: a fresh
+    ``Server(ServerConfig(device=DEV, num_schedulers=0))``; ``nodes``
+    through ``node_register``; ``jobs`` through ``job_register`` before
+    leadership, so leadership's broker restore hands every eval to the
+    batch worker at once; its two workers (the batch worker and a plain
+    one) start just after leadership, so none sits in a dequeue backoff
+    when the evals arrive; ``wait_for_evals``; then each job of
+    ``later`` alone on the live server.  The server keeps its default
+    ``tune_gc`` (as a user's does): the process's GC thresholds are
+    saved before it and restored, and the heap unfrozen and collected,
+    after it, so the later phases run under the GC settings they ran
+    under before.
+    The launch counts are set to 0 just before the first
+    ``job_register`` and read after the last eval completes.  Under the
+    ``device`` verify policy every window of more than one plan must
+    launch K6 (no ``device_verify_fallbacks``).  Returns the shape's
+    numbers."""
+    import gc
+
+    import nomad_tpu_torch.structs as structs
+    from nomad_tpu_torch.ops.verify_policy import verify_override
+    from nomad_tpu_torch.server import Server, ServerConfig
+
+    thresholds = gc.get_threshold()
+    srv = Server(ServerConfig(device=DEV, num_schedulers=0))
+    probe = None
+    try:
+        for node in nodes:
+            srv.node_register(node)
+        base_index = srv.raft.applied_index()
+        probe = ServerProbe(srv.fsm)
+        scope = verify_override(verify) if verify else \
+            contextlib.nullcontext()
+        for fn in counters.values():
+            fn.launches = 0
+        with scope:
+            t0 = time.perf_counter()
+            ids = [srv.job_register(j)[1] for j in jobs]
+            t_lead = time.perf_counter()
+
+            def schedule():
+                srv.establish_leadership()
+                srv.config.num_schedulers = 2
+                srv._setup_workers()
+                srv.wait_for_evals(ids, timeout=900)
+            busy_ms, top, _ = device_busy_ms(torch, schedule)
+            t_done = time.perf_counter()
+            later_rows = []
+            for job in later:
+                t = time.perf_counter()
+                _, eid = srv.job_register(job)
+                srv.wait_for_evals([eid], timeout=600)
+                later_rows.append(dict(job=job.id, type=job.type,
+                                       wall_s=time.perf_counter() - t))
+                ids.append(eid)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        system_ids = {j.id for j in list(jobs) + list(later)
+                      if j.type == "system"}
+        placed = check_server_state(structs, srv, name, ids, probe,
+                                    system_ids)
+        stats = srv.plan_applier.stats()
+        wall = t_done - t0
+        n_first = len(jobs)
+        live_by_job: dict = {}
+        for a in srv.fsm.state.allocs():
+            if not a.terminal_status():
+                live_by_job[a.job_id] = live_by_job.get(a.job_id, 0) + 1
+        first_placed = sum(live_by_job.get(j.id, 0) for j in jobs)
+        from_dequeue = t_done - probe.first_dequeue
+        row = dict(
+            nodes=len(nodes), evals=len(ids), placed=placed,
+            storm_placed=first_placed,
+            wall_s=wall, register_s=t_lead - t0,
+            schedule_s=t_done - t_lead, from_first_dequeue_s=from_dequeue,
+            evals_per_s=n_first / wall, placements_per_s=first_placed / wall,
+            evals_per_s_from_dequeue=n_first / from_dequeue,
+            placements_per_s_from_dequeue=first_placed / from_dequeue,
+            later=later_rows,
+            later_placed={j.id: live_by_job.get(j.id, 0) for j in later},
+            commits=stats["commits"],
+            plans_committed=stats["plans_committed"],
+            batch_occupancy=stats["batch_occupancy"],
+            conflict_fallbacks=stats["conflict_fallbacks"],
+            serial_ms_per_plan=stats["serial_ms_per_plan"],
+            device_verify_dispatches=stats["device_verify_dispatches"],
+            device_verify_fallbacks=stats["device_verify_fallbacks"],
+            windows_one_plan=probe.windows["one_plan"],
+            windows_many_plans=probe.windows["many_plans"],
+            raft_applies=srv.raft.applied_index() - base_index,
+            device_busy_ms=busy_ms, device_top_ms=top,
+            device_idle_share=(1.0 - busy_ms / ((t_done - t_lead) * 1e3)
+                               if busy_ms is not None else None),
+            breakdown_ms=probe.breakdown_ms(), launches=launches,
+            verify=verify or "auto")
+        print(f"server {name}: " + json.dumps(row), flush=True)
+        check_verify_windows(f"server {name}", row)
+        return row
+    finally:
+        if probe is not None:
+            probe.restore()
+        srv.shutdown()
+        # Collect the server's garbage and the heap unfrozen here,
+        # outside every timed region: left to the interpreter's
+        # thresholds, that full collection lands inside a later
+        # phase's timing (3.9 s of one 5f run).
+        gc.unfreeze()
+        gc.set_threshold(*thresholds)
+        gc.collect()
+
+
+def check_verify_windows(what, row) -> None:
+    """Under the ``device`` verify policy every window of more than one
+    plan launched K6 and none fell back to the host engine; under
+    ``host`` none launched it.  One-plan windows take the host's
+    ``evaluate_plan`` under both."""
+    if row["verify"] == "device":
+        require(row["device_verify_fallbacks"] == 0
+                and row["device_verify_dispatches"]
+                == row["windows_many_plans"],
+                f"{what}: {row['device_verify_dispatches']} of "
+                f"{row['windows_many_plans']} windows of more than one "
+                f"plan launched K6, {row['device_verify_fallbacks']} fell "
+                f"back to the host")
+    elif row["verify"] == "host":
+        require(row["device_verify_dispatches"] == 0,
+                f"{what}: K6 launched under the host verify policy")
+
+
+def applier_5f(torch, verify, n_nodes, n_submitters, submits_per, *,
+               counters):
+    """bench.py config 5f's applier shape (``_applier_saturation_phase``,
+    the partitioned applier): the port's EvalBroker, PlanQueue,
+    PlanApplier (on the card), InmemRaft and NomadFSM over 512
+    registered nodes; 256 submitter threads, each submitting 4
+    one-alloc plans (a 1-row AllocSlab, as the schedulers emit) with a
+    real 10 s deadline, under ``verify``.  Every plan must commit
+    exactly once (each eval acked once, never nacked), none may
+    expire.  The breakdown is ``ServerProbe``'s (no batch worker
+    here: the submitters stand in for the workers)."""
+    import nomad_tpu_torch.mock as mock
+    import nomad_tpu_torch.structs as structs
+    from nomad_tpu_torch.ops.verify_policy import verify_override
+    from nomad_tpu_torch.server.eval_broker import EvalBroker
+    from nomad_tpu_torch.server.fsm import NomadFSM
+    from nomad_tpu_torch.server.plan_apply import PlanApplier
+    from nomad_tpu_torch.server.plan_queue import PlanQueue
+    from nomad_tpu_torch.server.raft import InmemRaft
+    from nomad_tpu_torch.structs import codec
+    from nomad_tpu_torch.structs.alloc_slab import AllocSlab
+    from nomad_tpu_torch.structs.model import proto_of
+
+    broker = EvalBroker(nack_timeout=120.0)
+    fsm = NomadFSM(eval_broker=broker)
+    raft = InmemRaft(fsm)
+    queue = PlanQueue()
+    applier = PlanApplier(queue, broker, raft, state_fn=lambda: fsm.state,
+                          device=DEV)
+    broker.set_enabled(True)
+    queue.set_enabled(True)
+    for i in range(n_nodes):
+        raft.apply(codec.encode(codec.NODE_REGISTER_REQUEST,
+                                {"node": mock.node(i).to_dict()})).wait()
+    node_ids = [n.id for n in fsm.state.nodes()]
+    metric_static, _ = proto_of(structs.AllocMetric)
+    jobs = []
+    for _k in range(n_submitters):
+        job = mock.job()
+        job.constraints = []
+        job.task_groups = [structs.TaskGroup(
+            name="tg", count=1, tasks=[structs.Task(
+                name="web", driver="exec",
+                resources=structs.Resources(cpu=1, memory_mb=1))])]
+        jobs.append(job)
+
+    def mk_plan(ev, token, job, node_id):
+        size = structs.Resources(cpu=1, memory_mb=1)
+        slots = [(size, [("web", {"cpu": 1, "memory_mb": 1, "disk_mb": 0,
+                                  "iops": 0}, None)])]
+        slab = AllocSlab(
+            eval_id=ev.id, job=job, slots=slots,
+            metric_proto=dict(metric_static, nodes_evaluated=n_nodes),
+            groups=[0], ids=[structs.generate_uuid()],
+            names=[f"{job.id}.tg[0]"], tgs=["tg"], scores=[1.0],
+            port_off=np.zeros(2, dtype=np.int64), n_rows=1)
+        slab.node_ids[0] = node_id
+        slab.ips[0] = ""
+        slab.devs[0] = ""
+        slab.seal(1)
+        plan = structs.Plan(eval_id=ev.id, eval_token=token,
+                            priority=ev.priority)
+        plan.deadline = time.monotonic() + 10.0
+        plan.node_allocation[node_id] = [slab.alloc(0)]
+        return plan
+
+    total = n_submitters * submits_per
+    lats: list = [None] * total
+    errors: list = []
+    gate = threading.Event()
+
+    def submitter(k):
+        rng = random.Random(7000 + k)
+        gate.wait()
+        for i in range(submits_per):
+            try:
+                ev = structs.Evaluation(
+                    id=structs.generate_uuid(), priority=50, type="service",
+                    triggered_by=structs.EVAL_TRIGGER_JOB_REGISTER,
+                    job_id=structs.generate_uuid())
+                broker.enqueue(ev, force=True)
+                got, token = broker.dequeue(["service"], timeout=60)
+                plan = mk_plan(got, token, jobs[k],
+                               node_ids[rng.randrange(n_nodes)])
+                t = time.perf_counter()
+                result = queue.enqueue(plan).wait(120)
+                lats[k * submits_per + i] = time.perf_counter() - t
+                if result is None or sum(
+                        len(v) for v in result.node_allocation.values()) != 1:
+                    raise RuntimeError(f"plan not committed: {result}")
+                broker.ack(got.id, token)
+            except Exception as e:
+                errors.append(repr(e))
+                return
+
+    threads = [threading.Thread(target=submitter, args=(k,), daemon=True,
+                                name=f"smoke-5f-{k}")
+               for k in range(n_submitters)]
+    for fn in counters.values():
+        fn.launches = 0
+    probe = ServerProbe(fsm)
+    try:
+        with verify_override(verify):
+            applier.start()
+            for t in threads:
+                t.start()
+
+            def run():
+                gate.set()
+                for t in threads:
+                    t.join(600.0)
+            t0 = time.perf_counter()
+            busy_ms, top, _ = device_busy_ms(torch, run)
+            wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        require(not errors, f"5f under {verify}: {errors[:3]}")
+        require(all(not t.is_alive() for t in threads),
+                f"5f under {verify}: a submitter is stuck")
+        require(probe.acks == total and probe.nacks == 0,
+                f"5f under {verify}: {probe.acks} acks and {probe.nacks} "
+                f"nacks for {total} plans")
+        stats = applier.stats()
+    finally:
+        probe.restore()
+        queue.set_enabled(False)
+        broker.set_enabled(False)
+        applier.shutdown(10.0)
+        broker.shutdown()
+        fsm.state.watch.shutdown()
+    placed = sum(1 for a in fsm.state.allocs() if a.node_id
+                 and not a.terminal_status())
+    require(placed == total == stats["plans_committed"],
+            f"5f under {verify}: {placed} placed, "
+            f"{stats['plans_committed']} committed of {total}")
+    require(stats["expired_drops"] == 0,
+            f"5f under {verify}: {stats['expired_drops']} plans expired")
+    done = sorted(v for v in lats if v is not None)
+    row = dict(nodes=n_nodes, submitters=n_submitters, plans=total,
+               placed=placed, wall_s=wall, plans_per_s=total / wall,
+               commits=stats["commits"],
+               batch_occupancy=stats["batch_occupancy"],
+               conflict_fallbacks=stats["conflict_fallbacks"],
+               serial_ms_per_plan=stats["serial_ms_per_plan"],
+               components=stats["components"],
+               device_verify_dispatches=stats["device_verify_dispatches"],
+               device_verify_fallbacks=stats["device_verify_fallbacks"],
+               windows_one_plan=probe.windows["one_plan"],
+               windows_many_plans=probe.windows["many_plans"],
+               p50_submit_ms=percentile(done, 50),
+               p99_submit_ms=percentile(done, 99),
+               raft_applies=raft.applied_index() - n_nodes,
+               device_busy_ms=busy_ms, device_top_ms=top,
+               device_idle_share=(1.0 - busy_ms / (wall * 1e3)
+                                  if busy_ms is not None else None),
+               breakdown_ms=probe.breakdown_ms(), launches=launches,
+               verify=verify)
+    print(f"server 5f {verify}: " + json.dumps(row), flush=True)
+    check_verify_windows(f"server 5f {verify}", row)
+    return row
+
+
+def run_server(torch, placed5b, sizes5b=(160, 64, 100),
+               sizes5=(10_000, 64, 1000), sizes5f=(512, 256, 4)):
+    """The server phase: the port's ``Server`` on the card, under the
+    device executor, at config 5b (host and device verify), config 5
+    at full width with a rounds-ineligible sequence job and a system
+    job after it, and the applier at bench 5f's shape (host and device
+    verify).  Every kernel launch is counted (each count set to 0 just
+    before its shape and read after it), the first launch at each shape
+    recorded and, after the shapes, replayed against the plain version
+    on the card.  The sizes default to the configurations'; a
+    rehearsal passes smaller ones."""
+    import nomad_tpu_torch.mock as mock
+    import nomad_tpu_torch.structs as structs
+    from nomad_tpu_torch.models import fleet
+    from nomad_tpu_torch.ops import binpack
+    from nomad_tpu_torch.parallel import mesh
+
+    saved = dict(place_sequence=binpack.place_sequence,
+                 place_rounds=binpack.place_rounds,
+                 scatter_rows=fleet.scatter_rows,
+                 window_verify=mesh.window_verify,
+                 place_rounds_batch=binpack.place_rounds_batch,
+                 place_sequence_batch=binpack.place_sequence_batch)
+    rounds_calls: dict = {}
+    calls: dict = {}
+    window_calls: dict = {}
+    counters = dict(
+        place_sequence=Recording(saved["place_sequence"], calls),
+        place_rounds=RoundsRecording(saved["place_rounds"], rounds_calls),
+        scatter_rows=Recording(saved["scatter_rows"], calls),
+        window_verify=WindowRecording(saved["window_verify"], window_calls),
+        place_rounds_batch=RoundsRecording(saved["place_rounds_batch"],
+                                           rounds_calls),
+        place_sequence_batch=Recording(saved["place_sequence_batch"],
+                                       calls))
+    (binpack.place_sequence, binpack.place_rounds, fleet.scatter_rows,
+     mesh.window_verify, binpack.place_rounds_batch,
+     binpack.place_sequence_batch) = (counters[k] for k in saved)
+    shapes: dict = {}
+    try:
+        n5b, j5b, g5b = sizes5b
+        for verify in ("host", "device"):
+            random.seed(5)
+            row = server_shape(
+                torch, f"config 5b {verify}",
+                [mock.node(i) for i in range(n5b)],
+                storm_jobs(mock, structs, "config5b", j5b, g5b),
+                verify=verify, counters=counters)
+            require(row["storm_placed"] == placed5b,
+                    f"server config 5b {verify}: {row['storm_placed']} "
+                    f"placed, the storm phase {placed5b}")
+            shapes[f"config5b_{verify}"] = row
+        require(shapes["config5b_device"]["launches"]["window_verify"] > 0,
+                "server config 5b under device: window_verify was not "
+                "launched")
+        n5, j5, g5 = sizes5
+        # The slice's rounds-ineligible job (asks large next to a node,
+        # whatever the fleet's fill): K4b, one lane.  The storm's bin
+        # packing fills whole nodes, so the system job takes only the
+        # nodes left with room.
+        seq = sequence_job(mock, structs)
+        seq.id = "server-sequence-job"
+        system = mock.system_job()
+        system.id = "server-system-job"
+        row = server_shape(
+            torch, "config 5", [mock.node(i) for i in range(n5)],
+            storm_jobs(mock, structs, "config5", j5, g5),
+            later=(seq, system), counters=counters)
+        require(row["storm_placed"] == j5 * g5,
+                f"server config 5: {row['storm_placed']} placed of "
+                f"{j5 * g5}")
+        require(row["later_placed"][seq.id] == seq.task_groups[0].count
+                and row["later_placed"][system.id] > 0,
+                f"server config 5: the later jobs placed "
+                f"{row['later_placed']}")
+        require(row["launches"]["place_sequence_batch"] > 0,
+                "server config 5: the sequence job did not launch K4b")
+        shapes["config5"] = row
+        n5f, s5f, per5f = sizes5f
+        for verify in ("host", "device"):
+            shapes[f"applier5f_{verify}"] = applier_5f(
+                torch, verify, n5f, s5f, per5f, counters=counters)
+        require(shapes["applier5f_device"]["launches"]["window_verify"]
+                > 0, "server 5f under device: window_verify was not "
+                "launched")
+    finally:
+        (binpack.place_sequence, binpack.place_rounds, fleet.scatter_rows,
+         mesh.window_verify, binpack.place_rounds_batch,
+         binpack.place_sequence_batch) = (saved[k] for k in saved)
+    launches = {k: sum(s["launches"][k] for s in shapes.values())
+                for k in saved}
+    require(sum(c[2] for c in rounds_calls.values())
+            == launches["place_rounds"] + launches["place_rounds_batch"],
+            "the recorded K3/K4a launches are not the server path's")
+    require(sum(c[3] for c in window_calls.values())
+            == launches["window_verify"],
+            "the recorded K6 launches are not the server path's")
+    replay = (main_path_rounds(torch, binpack, rounds_calls, reps=5)
+              + main_path_replay(torch, dict(
+                  place_sequence=binpack, scatter_rows=fleet,
+                  place_sequence_batch=binpack), calls)
+              + main_path_window(torch, mesh, window_calls))
+    return dict(launches=launches, shapes=shapes, main_path_replay=replay)
+
+
+# -- phase 7: the system schedulers (config 3) -----------------------------
 
 
 def run_system(n_nodes=1000, reps=3):
@@ -2179,7 +2830,7 @@ def run_system(n_nodes=1000, reps=3):
                 seq_over_system=seq["median_ms"] / vec["median_ms"])
 
 
-# -- phase 8: the verify engines over a growing fleet ----------------------
+# -- phase 9: the verify engines over a growing fleet ----------------------
 
 
 def result_key(result) -> tuple:
@@ -2307,7 +2958,7 @@ def run_verify_fleet(sizes=(10_000, 131_072, 1_000_000), windows=8,
                 device_flatness=last / first, table=table)
 
 
-# -- phase 7: the executor policy and the pipelined eval runner ------------
+# -- phase 8: the executor policy and the pipelined eval runner ------------
 
 
 EXECUTORS = ("host", "device", "auto")
@@ -3120,6 +3771,10 @@ def main(argv=()) -> int:
         st = phase("storm", lambda: run_storm(torch))
         placed5b = st.pop("placed5b")
         print("storm: " + json.dumps(st), flush=True)
+        sv = phase("server", lambda: run_server(torch, len(placed5b)))
+        print("server: " + json.dumps(
+            {k: v for k, v in sv.items() if k != "main_path_replay"}),
+            flush=True)
         sy = phase("system", run_system)
         print("system: " + json.dumps(sy), flush=True)
     ex = phase("executor", lambda: run_executor(torch, placed5b=placed5b))
@@ -3132,25 +3787,30 @@ def main(argv=()) -> int:
     print("verify fleet: " + json.dumps(
         {k: v for k, v in vf.items() if k != "table"}), flush=True)
     # Launches on the main paths, each path counted from 0: the slice,
-    # the storm (K6 in config 5b under the device policy), the executor
-    # phase's timed pipelined streams and the verify-fleet phase.
+    # the storm (K6 in config 5b under the device policy), the server
+    # phase's shapes, the executor phase's timed pipelined streams and
+    # the verify-fleet phase.
     launches = {k: sl["launches"].get(k, 0) + st["launches"][k]
-                + ex["launches"].get(k, 0) for k in st["launches"]}
+                + sv["launches"][k] + ex["launches"].get(k, 0)
+                for k in st["launches"]}
     launches["window_verify"] += vf["launches"]
     replay_err = {name: max([r["err"] for r in sl["main_path_rounds"]
                              + st["main_path_rounds"]
                              + ex["main_path_rounds"]
                              + ex["main_path_replay"]
+                             + sv["main_path_replay"]
                              if r["kernel"] == name], default=0.0)
                   for name in ("place_rounds", "place_rounds_batch",
-                               "scatter_rows")}
+                               "scatter_rows", "window_verify")}
     replay_err["place_sequence"] = max(
         [sl["main_path_sequence"]["err"]]
-        + [r["err"] for r in ex["main_path_replay"]
+        + [r["err"] for r in ex["main_path_replay"] + sv["main_path_replay"]
            if r["kernel"] == "place_sequence"])
     replay_err["place_sequence_batch"] = max(
-        st[storm]["main_path_sequence_batch"]["err"]
-        for storm in ("sequence_storm", "fleet_sequence_storm"))
+        [st[storm]["main_path_sequence_batch"]["err"]
+         for storm in ("sequence_storm", "fleet_sequence_storm")]
+        + [r["err"] for r in sv["main_path_replay"]
+           if r["kernel"] == "place_sequence_batch"])
     timed = {"place_sequence": seq, "place_rounds": rnd,
              "scatter_rows": sct, "place_rounds_batch": rb,
              "place_sequence_batch": sb, "window_verify": wv5f}

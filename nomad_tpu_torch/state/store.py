@@ -22,6 +22,7 @@ import threading
 import time
 from typing import Callable, Iterable, Optional
 
+from nomad_tpu_torch import faultinject
 from nomad_tpu_torch.structs import (
     Allocation,
     Evaluation,
@@ -84,6 +85,7 @@ class StateWatch:
         # Counters, guarded by _lock.
         self.delivered = 0          # matured wakeups delivered
         self.timeouts = 0           # wheel-expired deliveries
+        self.dropped_wakeups = 0    # injected watch.deliver drops
 
     # -- subscription ------------------------------------------------------
     def subscribe(self, key, deliver, min_index: int = 0,
@@ -158,6 +160,29 @@ class StateWatch:
                 if not bucket:
                     self._by_key.pop(key, None)
         for waiter in matured:
+            if faultinject.ACTIVE:
+                try:
+                    faultinject.fire("watch.deliver",
+                                     method=str(waiter.key[0]))
+                except Exception:
+                    # Injected lost wakeup: re-park the waiter — its
+                    # wheel timeout (or the caller's own wait) still
+                    # delivers, so loss degrades to latency, never a
+                    # stuck or leaked waiter.  Re-ARM timed waiters:
+                    # the original wheel entry may have fired into the
+                    # pop-to-re-park gap, and a timed waiter without a
+                    # timer would violate exactly that guarantee.
+                    with self._lock:
+                        self.dropped_wakeups += 1
+                        self._waiters[waiter.token] = waiter
+                        self._by_key.setdefault(waiter.key, {})[
+                            waiter.token] = waiter
+                        if waiter.timed:
+                            self._wheel_locked().arm(
+                                waiter.token,
+                                max(waiter.deadline -
+                                    time.monotonic(), 0.001))
+                    continue
             self._deliver(waiter, timed_out=False)
 
     def notify_all(self) -> None:
@@ -223,6 +248,7 @@ class StateWatch:
                 "live_waiters": len(self._waiters),
                 "delivered": self.delivered,
                 "timeouts": self.timeouts,
+                "dropped_wakeups": self.dropped_wakeups,
             }
 
     def shutdown(self) -> None:

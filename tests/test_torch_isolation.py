@@ -66,6 +66,18 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "import nomad_tpu_torch.scheduler.breaker\n"
         "import nomad_tpu_torch.scheduler.pipeline\n"
         "import nomad_tpu_torch.ops.binpack_host\n"
+        "import nomad_tpu_torch.server\n"
+        "import nomad_tpu_torch.server.server, nomad_tpu_torch.server.worker\n"
+        "import nomad_tpu_torch.server.eval_broker\n"
+        "import nomad_tpu_torch.server.plan_queue\n"
+        "import nomad_tpu_torch.server.fsm, nomad_tpu_torch.server.raft\n"
+        "import nomad_tpu_torch.server.heartbeat\n"
+        "import nomad_tpu_torch.server.core_sched\n"
+        "import nomad_tpu_torch.server.overload\n"
+        "import nomad_tpu_torch.server.timetable\n"
+        "import nomad_tpu_torch.structs.codec, nomad_tpu_torch.utils.retry\n"
+        "import nomad_tpu_torch.faultinject\n"
+        "import nomad_tpu_torch.faultinject.plan\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'nomad_tpu')]\n"
         "assert not bad, bad\n"
