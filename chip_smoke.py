@@ -6,6 +6,8 @@ one NVIDIA GPU.
     python3 chip_smoke.py --profiler-events S   # does torch.profiler see
                                                 # the card? (S seconds)
     python3 chip_smoke.py --executor            # the executor phase alone
+    python3 chip_smoke.py --wire                # the wire phase alone
+    python3 chip_smoke.py --wire-groups N       # ... at N groups a job
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -103,13 +105,38 @@ Phases, in order; any failure exits non-zero and prints no result line:
               verify, commit, FSM apply) and every kernel's launches;
               the first launch at each shape of K2-K6 recorded and
               replayed against the plain version, bit for bit;
-  7. system   bench.py config 3: mock.system_job() on 1,000 nodes
+  7. wire     the port's Server with ``enable_rpc`` on the card, tracing
+              on (``obs.trace``, a ring of 2^18 spans), driven over the
+              wire: an ``AgentSwarm`` of 10,000 agents (bench.py 5d's
+              fleet, or the fleet the measured registration rate
+              sustains, printed beside it) registers mock nodes through
+              ``Node.Register`` on shared mux sessions, heartbeats on its
+              own sessions and parks one ``Node.GetAllocs`` long-poll per
+              agent; a client thread sends config 5's 64 jobs through
+              ``Job.Register``, at the widest of ``WIRE_WIDTHS`` groups
+              whose full read of every node's allocations, measured on
+              the wire before the fleet registers, fits
+              ``WIRE_READ_BUDGET_S`` (each alloc of a reply embeds its
+              job), printed beside 1,000.  Every eval complete;
+              ``Node.GetAllocs`` for every node equal to the store; every
+              node that received allocations saw them in its long-poll;
+              no node left ``ready``; the serving threads are the
+              dispatch workers + 1; every eval carries the span chain
+              ``WIRE_CHAIN``; the registries carry their providers; one
+              more job under ``utils/profiling.device_trace`` writes a
+              non-empty trace; teardown leaves no waiter, connection or
+              thread; the rates, the heartbeat p50/p99, the ``sched.*``
+              stage rows and each span name's count, total and p50 from
+              the spans, the card's busy ms and idle share, every
+              kernel's launches, and the first launch at each kernel
+              shape replayed against the plain version, bit for bit;
+  8. system   bench.py config 3: mock.system_job() on 1,000 nodes
               through ``system`` (vectorized, native finish) and
               ``system-seq``: equal plans, every node placed, eval ms;
-              phases 4-7 (and 9) run under ``executor_override("device")``,
+              phases 4-8 (and 10) run under ``executor_override("device")``,
               so the cost policy cannot move their walks to the numpy
               twins and their launch checks keep their meaning;
-  8. executor the host executor's crossover and the pipelined runner:
+  9. executor the host executor's crossover and the pipelined runner:
               (a) on real evals' DeviceArgs (configs 1, 2, 4, a config-5b
               lane, config 2's sequence job, and jobs of 8, 64 and 512
               distinct groups on config 4's fleet), ``dispatch_host``,
@@ -131,13 +158,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
               config 5b's storm under host and auto, with the placements
               and counts of the storm phase's device run; the default
               breaker ends closed with every count at 0;
-  9. verify   bench.py's 5f fleet-scaling sub-table on the port: NodeSlab
+  10. verify  bench.py's 5f fleet-scaling sub-table on the port: NodeSlab
               fleets of 10,000, 131,072 and 1,000,000 nodes, 64
               single-placement plans a window, 8 measured windows under
               the host engine and under the device engine (K6); every
               device window must dispatch, make one upload and one
               fetch, and give the host's verdicts;
-  10. report  one ``{"kernels": [...]}`` line, then the card's name and
+  11. report  one ``{"kernels": [...]}`` line, then the card's name and
               power limit exactly as nvidia-smi prints them, then the
               result line ``{"ok": true, "device": {...}}`` last.
 
@@ -2670,33 +2697,10 @@ def run_server(torch, placed5b, sizes5b=(160, 64, 100),
     rehearsal passes smaller ones."""
     import nomad_tpu_torch.mock as mock
     import nomad_tpu_torch.structs as structs
-    from nomad_tpu_torch.models import fleet
-    from nomad_tpu_torch.ops import binpack
-    from nomad_tpu_torch.parallel import mesh
 
-    saved = dict(place_sequence=binpack.place_sequence,
-                 place_rounds=binpack.place_rounds,
-                 scatter_rows=fleet.scatter_rows,
-                 window_verify=mesh.window_verify,
-                 place_rounds_batch=binpack.place_rounds_batch,
-                 place_sequence_batch=binpack.place_sequence_batch)
-    rounds_calls: dict = {}
-    calls: dict = {}
-    window_calls: dict = {}
-    counters = dict(
-        place_sequence=Recording(saved["place_sequence"], calls),
-        place_rounds=RoundsRecording(saved["place_rounds"], rounds_calls),
-        scatter_rows=Recording(saved["scatter_rows"], calls),
-        window_verify=WindowRecording(saved["window_verify"], window_calls),
-        place_rounds_batch=RoundsRecording(saved["place_rounds_batch"],
-                                           rounds_calls),
-        place_sequence_batch=Recording(saved["place_sequence_batch"],
-                                       calls))
-    (binpack.place_sequence, binpack.place_rounds, fleet.scatter_rows,
-     mesh.window_verify, binpack.place_rounds_batch,
-     binpack.place_sequence_batch) = (counters[k] for k in saved)
     shapes: dict = {}
-    try:
+    with recorded_kernels() as rec:
+        counters = rec.counters
         n5b, j5b, g5b = sizes5b
         for verify in ("host", "device"):
             random.seed(5)
@@ -2742,27 +2746,599 @@ def run_server(torch, placed5b, sizes5b=(160, 64, 100),
         require(shapes["applier5f_device"]["launches"]["window_verify"]
                 > 0, "server 5f under device: window_verify was not "
                 "launched")
+    launches = {k: sum(s["launches"][k] for s in shapes.values())
+                for k in rec.counters}
+    return dict(launches=launches, shapes=shapes,
+                main_path_replay=rec.replay(torch, launches, "server"))
+
+
+class KernelRecord:
+    """The kernel wrappers of a phase, each a Recording: the first
+    launch at each shape is kept for ``replay``."""
+
+    def __init__(self, counters, rounds_calls, calls, window_calls) -> None:
+        self.counters = counters
+        self.rounds_calls = rounds_calls
+        self.calls = calls
+        self.window_calls = window_calls
+
+    def replay(self, torch, launches, path) -> list:
+        """Check that the recordings hold every launch of ``launches``,
+        then replay the first launch at each shape against the plain
+        version on the card, bit for bit."""
+        from nomad_tpu_torch.models import fleet
+        from nomad_tpu_torch.ops import binpack
+        from nomad_tpu_torch.parallel import mesh
+
+        require(sum(c[2] for c in self.rounds_calls.values())
+                == launches["place_rounds"]
+                + launches["place_rounds_batch"],
+                f"the recorded K3/K4a launches are not the {path} path's")
+        require(sum(c[3] for c in self.window_calls.values())
+                == launches["window_verify"],
+                f"the recorded K6 launches are not the {path} path's")
+        return (main_path_rounds(torch, binpack, self.rounds_calls, reps=5)
+                + main_path_replay(torch, dict(
+                    place_sequence=binpack, scatter_rows=fleet,
+                    place_sequence_batch=binpack), self.calls)
+                + main_path_window(torch, mesh, self.window_calls))
+
+
+@contextlib.contextmanager
+def recorded_kernels():
+    """Wrap every kernel wrapper of K2-K6 in a Recording for the block
+    (their counts stay the wrappers' own); yields a KernelRecord."""
+    from nomad_tpu_torch.models import fleet
+    from nomad_tpu_torch.ops import binpack
+    from nomad_tpu_torch.parallel import mesh
+
+    saved = dict(place_sequence=binpack.place_sequence,
+                 place_rounds=binpack.place_rounds,
+                 scatter_rows=fleet.scatter_rows,
+                 window_verify=mesh.window_verify,
+                 place_rounds_batch=binpack.place_rounds_batch,
+                 place_sequence_batch=binpack.place_sequence_batch)
+    rounds_calls: dict = {}
+    calls: dict = {}
+    window_calls: dict = {}
+    counters = dict(
+        place_sequence=Recording(saved["place_sequence"], calls),
+        place_rounds=RoundsRecording(saved["place_rounds"], rounds_calls),
+        scatter_rows=Recording(saved["scatter_rows"], calls),
+        window_verify=WindowRecording(saved["window_verify"], window_calls),
+        place_rounds_batch=RoundsRecording(saved["place_rounds_batch"],
+                                           rounds_calls),
+        place_sequence_batch=Recording(saved["place_sequence_batch"],
+                                       calls))
+    (binpack.place_sequence, binpack.place_rounds, fleet.scatter_rows,
+     mesh.window_verify, binpack.place_rounds_batch,
+     binpack.place_sequence_batch) = (counters[k] for k in saved)
+    try:
+        yield KernelRecord(counters, rounds_calls, calls, window_calls)
     finally:
         (binpack.place_sequence, binpack.place_rounds, fleet.scatter_rows,
          mesh.window_verify, binpack.place_rounds_batch,
          binpack.place_sequence_batch) = (saved[k] for k in saved)
-    launches = {k: sum(s["launches"][k] for s in shapes.values())
-                for k in saved}
-    require(sum(c[2] for c in rounds_calls.values())
-            == launches["place_rounds"] + launches["place_rounds_batch"],
-            "the recorded K3/K4a launches are not the server path's")
-    require(sum(c[3] for c in window_calls.values())
-            == launches["window_verify"],
-            "the recorded K6 launches are not the server path's")
-    replay = (main_path_rounds(torch, binpack, rounds_calls, reps=5)
-              + main_path_replay(torch, dict(
-                  place_sequence=binpack, scatter_rows=fleet,
-                  place_sequence_batch=binpack), calls)
-              + main_path_window(torch, mesh, window_calls))
-    return dict(launches=launches, shapes=shapes, main_path_replay=replay)
 
 
-# -- phase 7: the system schedulers (config 3) -----------------------------
+# -- phase 7: the wire (the RPC plane, a 10,000-agent swarm) ---------------
+
+# The span chain every eval of the wire phase carries: its serving RPC
+# (the eval's anchor hangs off it), then the anchor and the spans of
+# each plane under it.
+WIRE_CHAIN = ("rpc.serve.Job.Register", "eval.created", "broker.wait",
+              "worker.invoke", "sched.begin", "sched.dispatch",
+              "sched.finish", "sched.submit", "plan.queued",
+              "applier.window", "applier.verify", "raft.apply",
+              "fsm.decode", "store.upsert")
+WIRE_SERVER_PROVIDERS = ("broker", "plan_queue", "applier",
+                         "applier_components", "overload", "heartbeat",
+                         "store", "workers", "rpc")
+WIRE_PROCESS_PROVIDERS = ("breaker", "swarm")
+# Config 5's width on the wire.  Every alloc of a Node.GetAllocs reply
+# embeds its whole job (the JAX package's wire shape), so what one read
+# costs the host grows with the job's groups; each commit wakes every
+# parked poll into a read of its node's allocations, and the check reads
+# every node once more.  The phase measures one node's read on the wire
+# at each of WIRE_WIDTHS before the fleet registers (``read_costs``) and
+# runs the widest whose read of every node's allocations fits
+# WIRE_READ_BUDGET_S, printed beside config 5's 1,000 groups.  The
+# server phase runs config 5 at full width in process.
+CONFIG5_GROUPS = 1000
+WIRE_WIDTHS = (1000, 500, 200, 100, 50, 20, 10)
+WIRE_READ_BUDGET_S = 20.0
+
+
+def wire_node(mock):
+    """The swarm's ``node_factory``: a mock node (the default node has
+    no resources) carrying the swarm's id."""
+    def make(i):
+        node = mock.node(i)
+        node.id = f"swarm-{i:06d}"
+        node.name = f"swarm-{i}"
+        return node
+    return make
+
+
+def serving_threads(port) -> list:
+    """This server's serving threads: its loop and its dispatch pool
+    (bench.py 5d's rule, port-qualified names)."""
+    return [t.name for t in threading.enumerate()
+            if t.name == f"rpc-loop:{port}"
+            or t.name.startswith(f"rpc-dispatch:{port}-")]
+
+
+def wait_for(cond, timeout, what) -> None:
+    """Wait for ``cond``; past ``timeout`` fail with ``what`` (a string,
+    or a callable giving it then)."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() >= deadline:
+            require(False, f"wire: {what() if callable(what) else what}")
+        time.sleep(0.02)
+
+
+def registration_rate(mock, n, workers) -> float:
+    """bench.py 5d's host probe: agents registered per second by a
+    throwaway swarm of ``n`` against a throwaway server."""
+    from nomad_tpu_torch.agent import AgentSwarm
+    from nomad_tpu_torch.server import Server, ServerConfig
+
+    srv = Server(ServerConfig(device=DEV, num_schedulers=0,
+                              use_device_scheduler=False, enable_rpc=True,
+                              rpc_dispatch_workers=workers,
+                              heartbeat_seed=13, tune_gc=False))
+    srv.establish_leadership()
+    swarm = AgentSwarm(srv.rpc_address(), n, conns=4, hb_conns=2,
+                       beat_interval=30.0, poll_wait=5.0, seed=13,
+                       node_factory=wire_node(mock))
+    try:
+        t = time.perf_counter()
+        swarm.start(register_timeout=120.0)
+        return n / (time.perf_counter() - t)
+    finally:
+        swarm.stop()
+        srv.shutdown()
+
+
+def read_costs(mock, structs, n_jobs, fleet, widths=WIRE_WIDTHS, reps=3):
+    """One node's non-blocking ``Node.GetAllocs`` over the wire at each
+    width: the node holds its share of config 5's allocations at that
+    width (``n_jobs`` x groups / ``fleet``, rounded up), each embedding a
+    job of that many groups, on a throwaway server.  Returns {groups:
+    (allocs, median seconds of ``reps`` reads, the fleet's full read in
+    seconds: an upper bound, as every node is read at the rounded-up
+    share)}."""
+    from nomad_tpu_torch.server import Server, ServerConfig
+    from nomad_tpu_torch.server.rpc import ConnPool
+
+    srv = Server(ServerConfig(device=DEV, num_schedulers=0,
+                              use_device_scheduler=False, enable_rpc=True,
+                              tune_gc=False))
+    pool = ConnPool()
+    out: dict = {}
+    try:
+        srv.establish_leadership()
+        state = srv.fsm.state
+        for k, groups in enumerate(widths):
+            node = mock.node(k)
+            job = storm_jobs(mock, structs, f"read-{groups}", 1, groups)[0]
+            share = -(-n_jobs * groups // fleet)
+            allocs = []
+            for g in range(share):
+                a = mock.alloc()
+                a.node_id = node.id
+                a.job, a.job_id, a.task_group = job, job.id, f"tg-{g}"
+                allocs.append(a)
+            state.upsert_node(2 * k + 1, node)
+            state.upsert_allocs(2 * k + 2, allocs)
+            times = []
+            for _ in range(reps):
+                t = time.perf_counter()
+                got = pool.call(srv.rpc_address(), "Node.GetAllocs",
+                                {"node_id": node.id}, timeout=600)
+                times.append(time.perf_counter() - t)
+                require(len(got["allocs"]) == share,
+                        f"wire: the read probe got {len(got['allocs'])} "
+                        f"of {share} allocs")
+            t = statistics.median(times)
+            out[groups] = (share, t, fleet * t)
+    finally:
+        pool.shutdown()
+        srv.shutdown()
+    return out
+
+
+def wire_width(costs, budget=WIRE_READ_BUDGET_S) -> int:
+    """The widest measured width whose full read fits ``budget``, else
+    the narrowest."""
+    fits = [g for g, (_, _, full) in costs.items() if full <= budget]
+    return max(fits) if fits else min(costs)
+
+
+def storm_progress(srv, swarm, ids, stop, every=30.0) -> None:
+    """Print the storm's progress every ``every`` seconds until ``stop``
+    is set: evals complete, commits and the swarm's poll wakeups."""
+    t0 = time.perf_counter()
+    while not stop.wait(every):
+        state = srv.fsm.state
+        done = sum(1 for eid in list(ids)
+                   if (ev := state.eval_by_id(eid)) is not None
+                   and ev.terminal_status())
+        print(f"wire progress {time.perf_counter() - t0:.0f} s: {done} of "
+              f"{len(ids)} evals complete, "
+              f"{srv.plan_applier.stats()['commits']} commits, "
+              f"{swarm.stats()['poll_wakeups']} poll wakeups", flush=True)
+
+
+def span_rows(spans) -> tuple:
+    """(each span name's count, total ms and p50 ms; the ``sched.*``
+    stage rows by bench.py's ``_span_stage_profile`` rule: mean ms per
+    stage)."""
+    durs: dict = {}
+    for s in spans:
+        durs.setdefault(s["name"], []).append(s["dur"] * 1e3)
+    names = {name: dict(count=len(d), total_ms=sum(d),
+                        p50_ms=statistics.median(d))
+             for name, d in sorted(durs.items())}
+    stages = {name.split(".", 1)[1]: sum(d) / len(d)
+              for name, d in durs.items() if name.startswith("sched.")}
+    return names, stages
+
+
+def check_span_chains(spans, eval_ids, chain=WIRE_CHAIN) -> None:
+    """Every eval's spans hold the whole ``chain``, every span of it in
+    the eval's trace, and the anchor's parent is its Job.Register serve
+    span."""
+    by_id = {s["span_id"]: s for s in spans}
+    mine: dict = {}
+    for s in spans:
+        eid = (s.get("tags") or {}).get("eval_id")
+        if eid is not None:
+            mine.setdefault(eid, []).append(s)
+    for eid in eval_ids:
+        got = mine.get(eid, [])
+        anchors = [s for s in got if s["name"] == "eval.created"]
+        require(len(anchors) == 1, f"wire: eval {eid} has "
+                f"{len(anchors)} eval.created spans")
+        serve = by_id.get(anchors[0]["parent_id"])
+        require(serve is not None
+                and serve["name"] == "rpc.serve.Job.Register",
+                f"wire: eval {eid}'s anchor hangs off "
+                f"{serve and serve['name']}")
+        names = {s["name"] for s in got} | {serve["name"]}
+        missing = [n for n in chain if n not in names]
+        require(not missing, f"wire: eval {eid} lacks spans {missing}")
+        require(len({s["trace_id"] for s in got + [serve]}) == 1,
+                f"wire: eval {eid}'s spans are in more than one trace")
+
+
+def check_node_allocs(addr, state, node_ids, threads=8) -> int:
+    """A non-blocking ``Node.GetAllocs`` over the wire for every node
+    returns exactly the store's allocations for it; returns the allocs
+    counted."""
+    from nomad_tpu_torch.server.rpc import ConnPool
+
+    pool = ConnPool()
+    bad: list = []
+    seen = [0] * threads
+
+    def check(k):
+        for nid in node_ids[k::threads]:
+            got = pool.call(addr, "Node.GetAllocs", {"node_id": nid},
+                            timeout=60)["allocs"]
+            want = sorted(a.id for a in state.allocs_by_node(nid))
+            if sorted(a["id"] for a in got) != want:
+                bad.append(nid)
+            seen[k] += len(got)
+    workers = [threading.Thread(target=check, args=(k,))
+               for k in range(threads)]
+    try:
+        for t in workers:
+            t.start()
+        for t in workers:
+            t.join()
+    finally:
+        pool.shutdown()
+    require(not bad, f"wire: Node.GetAllocs differs from the store on "
+            f"{len(bad)} nodes (first {bad[:3]})")
+    return sum(seen)
+
+
+def run_wire(torch, n_agents=10_000, n_jobs=64, n_groups=None,
+             workers=8, probe_agents=500):
+    """The wire phase: the port's ``Server(ServerConfig(enable_rpc=
+    True))`` on the card, tracing on, driven over the wire.  A swarm of
+    ``n_agents`` agents (bench.py 5d's fleet, or the fleet the measured
+    registration rate sustains inside the earliest nodes' 10 s TTL,
+    printed beside it) registers mock nodes through ``Node.Register``
+    on shared mux sessions, heartbeats on its own sessions and parks one
+    ``Node.GetAllocs`` long-poll per agent; a client thread then sends
+    bench.py config 5's 64 jobs through ``Job.Register`` on a
+    ``ConnPool``, at ``n_groups`` groups each, or where it is None at
+    the widest width whose measured full read of every node's
+    allocations fits the budget (``read_costs``, ``wire_width``),
+    printed beside 1,000.  The launch counts are set to 0
+    just before the first ``Job.Register`` and read after the last eval
+    completes.  Checks: every eval complete (``check_server_state``);
+    ``Node.GetAllocs`` for every node equal to the store; every node
+    that received allocations saw them in its long-poll; no node left
+    ``ready``; the serving threads are ``workers`` + 1 with the fleet
+    connected; every eval carries ``WIRE_CHAIN``; the registries carry
+    their providers; one more job under ``utils/profiling.device_trace``
+    writes a non-empty trace; teardown leaves no waiter, connection or
+    thread; the first launch at each kernel shape replayed against the
+    plain version, bit for bit."""
+    import gc
+
+    import nomad_tpu_torch.mock as mock
+    import nomad_tpu_torch.structs as structs
+    from nomad_tpu_torch.agent import AgentSwarm
+    from nomad_tpu_torch.obs import REGISTRY, trace
+    from nomad_tpu_torch.server import Server, ServerConfig
+    from nomad_tpu_torch.server.rpc import ConnPool
+    from nomad_tpu_torch.utils import profiling
+
+    before = set(threading.enumerate())
+    t_step = [time.perf_counter()]
+
+    def step(name):
+        now = time.perf_counter()
+        print(f"wire step {name}: {now - t_step[0]:.2f} s", flush=True)
+        t_step[0] = now
+    probe_n = min(probe_agents, n_agents)
+    probe_rate = registration_rate(mock, probe_n, workers)
+    fleet = min(n_agents, max(probe_n, int(probe_rate * 10.0)))
+    print(f"wire fleet: {fleet} agents of {n_agents} requested (probe: "
+          f"{probe_rate:.1f} registrations/s)", flush=True)
+    step("probe")
+    costs = read_costs(mock, structs, n_jobs, fleet)
+    if n_groups is None:
+        n_groups = wire_width(costs)
+    print(f"wire groups: {n_groups} of {CONFIG5_GROUPS} requested (one "
+          f"node's Node.GetAllocs at its share of {n_jobs} jobs, and the "
+          f"fleet's full read: " + ", ".join(
+              f"{g} groups {k} allocs {t * 1e3:.2f} ms {full:.1f} s"
+              for g, (k, t, full) in costs.items())
+          + f"; budget {WIRE_READ_BUDGET_S} s)", flush=True)
+    step("read probe")
+    thresholds = gc.get_threshold()
+    row: dict = dict(agents=fleet, agents_requested=n_agents,
+                     probe_registrations_per_s=probe_rate,
+                     groups_requested=CONFIG5_GROUPS,
+                     read_costs={g: dict(allocs=k, ms=t * 1e3, full_s=full)
+                                 for g, (k, t, full) in costs.items()})
+    with recorded_kernels() as rec, \
+            trace.tracing(seed=10, ring=1 << 18) as tracer:
+        # No workers until the jobs are in: the batch worker then finds
+        # config 5's 64 evals ready at once and fuses them, as the
+        # server phase's does after leadership.
+        srv = Server(ServerConfig(device=DEV, enable_rpc=True,
+                                  num_schedulers=0,
+                                  rpc_dispatch_workers=workers,
+                                  heartbeat_seed=9))
+        probe = swarm = pool = None
+        ok = False
+        try:
+            srv.establish_leadership()
+            addr = srv.rpc_address()
+            state = srv.fsm.state
+            probe = ServerProbe(srv.fsm)
+            swarm = AgentSwarm(
+                addr, fleet, conns=16, hb_conns=4,
+                beat_interval=min(20.0, max(2.0, fleet / 600.0)),
+                poll_wait=60.0, seed=9, node_factory=wire_node(mock))
+            t = time.perf_counter()
+            swarm.start(register_timeout=600.0)
+            row["register_s"] = time.perf_counter() - t
+            row["registered_per_s"] = fleet / row["register_s"]
+            # A table no write has touched answers at once (index 0):
+            # seed the allocs table at the applied index, as bench.py's
+            # swarm row does, so every poll parks.
+            state.upsert_allocs(srv.raft.applied_index(), [])
+            wait_for(lambda: state.watch.live_waiters() >= fleet, 120,
+                     "the long-polls did not all park")
+            row["parked"] = state.watch.live_waiters()
+            step("register and park")
+            threads_mid = serving_threads(addr[1])
+            delivered0 = state.watch.stats()["delivered"]
+            jobs = storm_jobs(mock, structs, "wire", n_jobs, n_groups)
+            ids: list = []
+            marks: dict = {}
+            pool = ConnPool()
+
+            def submit():
+                marks["first"] = time.perf_counter()
+                for job in jobs:
+                    ids.append(pool.call(addr, "Job.Register",
+                                         {"job": job.to_dict()},
+                                         timeout=300)["eval_id"])
+                marks["last"] = time.perf_counter()
+
+            def storm():
+                client = threading.Thread(target=submit,
+                                          name="wire-client")
+                client.start()
+                client.join()
+                require(len(ids) == n_jobs, "wire: Job.Register failed")
+                srv.config.num_schedulers = 2
+                srv._setup_workers()
+                srv.wait_for_evals(ids, timeout=900)
+                marks["done"] = time.perf_counter()
+
+            for fn in rec.counters.values():
+                fn.launches = 0
+            stop = threading.Event()
+            watcher = threading.Thread(
+                target=storm_progress, args=(srv, swarm, ids, stop),
+                name="wire-progress")
+            watcher.start()
+            try:
+                busy_ms, top, _ = device_busy_ms(torch, storm)
+            finally:
+                stop.set()
+                watcher.join()
+            storm_launches = {k: fn.launches
+                              for k, fn in rec.counters.items()}
+            step("jobs")
+            wall = marks["done"] - marks["first"]
+            placed = check_server_state(structs, srv, "wire", ids, probe)
+            require(placed == n_jobs * n_groups,
+                    f"wire: {placed} placed of {n_jobs * n_groups}")
+            print(f"wire storm: {placed} placed through Job.Register in "
+                  f"{wall:.2f} s, "
+                  f"{srv.plan_applier.stats()['commits']} commits",
+                  flush=True)
+            # Every node that received allocations sees them in its
+            # long-poll: its last answer's index reaches their commit.
+            owner = {n.id: i for i, n in enumerate(swarm._nodes)}
+            need: dict = {}
+            for a in state.allocs():
+                need[a.node_id] = max(need.get(a.node_id, 0),
+                                      a.modify_index)
+            def saw() -> int:
+                return sum(swarm._poll_index[owner[nid]] >= ix
+                           for nid, ix in need.items())
+            wait_for(lambda: saw() == len(need), 120,
+                     lambda: f"a node's long-poll never saw its "
+                     f"allocations ({saw()} of {len(need)} nodes saw "
+                     f"theirs in 120 s)")
+            step("state and long-polls")
+            # Then, on the live server: an update of one storm job (its
+            # in-place update makes a plan delta: its own launch, K3),
+            # and the slice's rounds-ineligible job (K4b) under a device
+            # trace, whose file must hold events (no device event is
+            # required of it).
+            update = structs.Job.from_dict(jobs[0].to_dict())
+            update.task_groups[0].count = 2
+            seq = sequence_job(mock, structs)
+            seq.id = "wire-sequence-job"
+            trace_dir = os.path.join(os.path.dirname(
+                os.path.abspath(__file__)), "nomad_tpu_torch", "_build",
+                "wire_trace")
+            later = [pool.call(addr, "Job.Register",
+                               {"job": update.to_dict()},
+                               timeout=300)["eval_id"]]
+            srv.wait_for_evals(later, timeout=300)
+            with profiling.device_trace(trace_dir, device=DEV):
+                later.append(pool.call(addr, "Job.Register",
+                                       {"job": seq.to_dict()},
+                                       timeout=300)["eval_id"])
+                srv.wait_for_evals(later, timeout=300)
+            trace_file = os.path.join(trace_dir, profiling.TRACE_FILE)
+            with open(trace_file) as fh:
+                trace_events = len(json.load(fh).get("traceEvents", []))
+            require(trace_events > 0, "wire: the device trace is empty")
+            live = {}
+            for a in state.allocs():
+                if not a.terminal_status():
+                    live[a.job_id] = live.get(a.job_id, 0) + 1
+            require(live.get(update.id) == n_groups + 1
+                    and live.get(seq.id) == seq.task_groups[0].count,
+                    f"wire: the later jobs placed {live.get(update.id)} "
+                    f"and {live.get(seq.id)}")
+            require(storm_launches["place_rounds"] == 0
+                    and rec.counters["place_rounds"].launches > 0
+                    and rec.counters["place_sequence_batch"].launches > 0,
+                    "wire: the update did not launch K3 or the sequence "
+                    "job K4b")
+            # The phase's main path ends with the later jobs.
+            launches = {k: fn.launches for k, fn in rec.counters.items()}
+            step("later jobs")
+            spans = tracer.snapshot()
+            span_stats = tracer.stats()
+            check_span_chains(spans, ids + later[1:])
+            # An eval with a plan delta takes its own launch and submits
+            # its plan alone: no sched.submit span (as in the JAX
+            # package's batch runner).
+            check_span_chains(spans, later[:1], tuple(
+                n for n in WIRE_CHAIN if n != "sched.submit"))
+            names, stages = span_rows(spans)
+            swarm_stats = swarm.stats()
+            hb = srv.heartbeats.stats()
+            not_ready = [n.id for n in state.nodes() if n.status != "ready"]
+            require(not not_ready and hb["expiries"] == 0
+                    and swarm_stats["beat_errors"] == 0,
+                    f"wire: {len(not_ready)} nodes left ready, "
+                    f"{hb['expiries']} TTL expiries, "
+                    f"{swarm_stats['beat_errors']} beat errors")
+            step("spans")
+            checked = check_node_allocs(addr, state,
+                                        [n.id for n in swarm._nodes])
+            step("Node.GetAllocs for every node")
+            threads_end = serving_threads(addr[1])
+            require(len(threads_mid) == len(threads_end) == workers + 1,
+                    f"wire: serving threads {len(threads_mid)} / "
+                    f"{len(threads_end)}, want {workers + 1}")
+            snap = srv.obs_registry.snapshot()
+            have = {k.split(".")[1] for k in snap}
+            require(set(WIRE_SERVER_PROVIDERS) <= have,
+                    f"wire: the server's registry lacks "
+                    f"{set(WIRE_SERVER_PROVIDERS) - have}")
+            require(set(WIRE_PROCESS_PROVIDERS) <= set(REGISTRY.providers()),
+                    f"wire: REGISTRY has {REGISTRY.providers()}")
+            wakeups = state.watch.stats()["delivered"] - delivered0
+            stats = srv.plan_applier.stats()
+            row.update(
+                jobs=n_jobs, groups=n_groups, placed=placed,
+                wall_s=wall, job_register_s=marks["last"] - marks["first"],
+                evals_per_s=n_jobs / wall, placements_per_s=placed / wall,
+                commits=stats["commits"],
+                plans_committed=stats["plans_committed"],
+                conflict_fallbacks=stats["conflict_fallbacks"],
+                cross_component_speedup=stats["cross_component_speedup"],
+                p50_heartbeat_ms=swarm_stats["p50_beat_ms"],
+                p99_heartbeat_ms=swarm_stats["p99_beat_ms"],
+                beats_ok=swarm_stats["beats_ok"],
+                poll_wakeups=swarm_stats["poll_wakeups"],
+                poll_errors=swarm_stats["poll_errors"],
+                fanout_wakeups=wakeups,
+                get_allocs_checked=checked,
+                serving_threads=len(threads_mid),
+                spans=span_stats["recorded"],
+                spans_dropped=span_stats["dropped"],
+                trace_file_events=trace_events,
+                device_busy_ms=busy_ms, device_top_ms=top,
+                device_idle_share=(1.0 - busy_ms / (wall * 1e3)
+                                   if busy_ms is not None else None),
+                breakdown_ms=probe.breakdown_ms(),
+                storm_launches=storm_launches, launches=launches)
+            ok = True
+        finally:
+            try:
+                if pool is not None:
+                    pool.shutdown()
+                if swarm is not None:
+                    swarm.stop()
+                if probe is not None:
+                    probe.restore()
+                if ok:
+                    # The swarm's sessions are closed: the server must
+                    # have let go of every parked poll and connection.
+                    wait_for(lambda: srv.fsm.state.watch.live_waiters()
+                             == 0, 60, "parked polls outlived the swarm")
+                    wait_for(lambda: srv.rpc_server.stats()["loop"][
+                        "open_conns"] == 0, 60,
+                        "connections outlived the swarm")
+            finally:
+                srv.shutdown()
+                gc.unfreeze()
+                gc.set_threshold(*thresholds)
+                gc.collect()
+    step("teardown")
+    require("swarm" not in REGISTRY.providers(),
+            "wire: the swarm's provider outlived it")
+    wait_for(lambda: not [t for t in threading.enumerate()
+                          if t not in before and t.is_alive()], 30,
+             "threads outlived the phase")
+    print("wire: " + json.dumps(row), flush=True)
+    print("wire stages: " + json.dumps(stages), flush=True)
+    print("wire spans: " + json.dumps(names), flush=True)
+    row["main_path_replay"] = rec.replay(torch, launches, "wire")
+    return row
+
+
+# -- phase 8: the system schedulers (config 3) -----------------------------
 
 
 def run_system(n_nodes=1000, reps=3):
@@ -2830,7 +3406,7 @@ def run_system(n_nodes=1000, reps=3):
                 seq_over_system=seq["median_ms"] / vec["median_ms"])
 
 
-# -- phase 9: the verify engines over a growing fleet ----------------------
+# -- phase 10: the verify engines over a growing fleet ---------------------
 
 
 def result_key(result) -> tuple:
@@ -2958,7 +3534,7 @@ def run_verify_fleet(sizes=(10_000, 131_072, 1_000_000), windows=8,
                 device_flatness=last / first, table=table)
 
 
-# -- phase 8: the executor policy and the pipelined eval runner ------------
+# -- phase 9: the executor policy and the pipelined eval runner ------------
 
 
 EXECUTORS = ("host", "device", "auto")
@@ -3719,6 +4295,15 @@ def main(argv=()) -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(sorted(built)) or 'up to date'})", flush=True)
 
+    if argv[:1] in (["--wire"], ["--wire-groups"]):
+        # The wire phase alone: no kernel checks, no result line;
+        # --wire-groups N forces config 5's width to N groups.
+        groups = int(argv[1]) if argv[0] == "--wire-groups" else None
+        with executor_override("device"):
+            wr = run_wire(torch, n_groups=groups)
+        print("wire launches: " + json.dumps(wr["launches"]), flush=True)
+        print("chip_smoke: --wire run, no result line", flush=True)
+        return 0
     if argv[:1] == ["--executor"]:
         # The executor phase alone (its config-5b storms are not held
         # against a device storm): no kernel checks, no result line.
@@ -3736,7 +4321,8 @@ def main(argv=()) -> int:
         if len(argv) != 2 or argv[0] != "--only" or \
                 not set(argv[1].split(",")) <= set(checks):
             print(f"usage: chip_smoke.py [--only {','.join(checks)}] "
-                  f"[--executor] [--profiler-events SECONDS]",
+                  f"[--executor] [--wire] [--wire-groups N] "
+                  f"[--profiler-events SECONDS]",
                   file=sys.stderr)
             return 2
         for name in argv[1].split(","):
@@ -3775,6 +4361,7 @@ def main(argv=()) -> int:
         print("server: " + json.dumps(
             {k: v for k, v in sv.items() if k != "main_path_replay"}),
             flush=True)
+        wr = phase("wire", lambda: run_wire(torch))
         sy = phase("system", run_system)
         print("system: " + json.dumps(sy), flush=True)
     ex = phase("executor", lambda: run_executor(torch, placed5b=placed5b))
@@ -3788,10 +4375,11 @@ def main(argv=()) -> int:
         {k: v for k, v in vf.items() if k != "table"}), flush=True)
     # Launches on the main paths, each path counted from 0: the slice,
     # the storm (K6 in config 5b under the device policy), the server
-    # phase's shapes, the executor phase's timed pipelined streams and
-    # the verify-fleet phase.
+    # phase's shapes, the wire phase, the executor phase's timed
+    # pipelined streams and the verify-fleet phase.
     launches = {k: sl["launches"].get(k, 0) + st["launches"][k]
-                + sv["launches"][k] + ex["launches"].get(k, 0)
+                + sv["launches"][k] + wr["launches"][k]
+                + ex["launches"].get(k, 0)
                 for k in st["launches"]}
     launches["window_verify"] += vf["launches"]
     replay_err = {name: max([r["err"] for r in sl["main_path_rounds"]
@@ -3799,17 +4387,18 @@ def main(argv=()) -> int:
                              + ex["main_path_rounds"]
                              + ex["main_path_replay"]
                              + sv["main_path_replay"]
+                             + wr["main_path_replay"]
                              if r["kernel"] == name], default=0.0)
                   for name in ("place_rounds", "place_rounds_batch",
                                "scatter_rows", "window_verify")}
     replay_err["place_sequence"] = max(
         [sl["main_path_sequence"]["err"]]
         + [r["err"] for r in ex["main_path_replay"] + sv["main_path_replay"]
-           if r["kernel"] == "place_sequence"])
+           + wr["main_path_replay"] if r["kernel"] == "place_sequence"])
     replay_err["place_sequence_batch"] = max(
         [st[storm]["main_path_sequence_batch"]["err"]
          for storm in ("sequence_storm", "fleet_sequence_storm")]
-        + [r["err"] for r in sv["main_path_replay"]
+        + [r["err"] for r in sv["main_path_replay"] + wr["main_path_replay"]
            if r["kernel"] == "place_sequence_batch"])
     timed = {"place_sequence": seq, "place_rounds": rnd,
              "scatter_rows": sct, "place_rounds_batch": rb,

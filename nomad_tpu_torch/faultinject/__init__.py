@@ -3,7 +3,9 @@
 Counterpart of ``nomad_tpu/faultinject/__init__.py`` and ``plan.py``.
 The port wires the server plane's sites (broker enqueue, raft apply,
 the raft storage sites, heartbeat delivery, the store's watch
-delivery); ``CrashHarness`` (``faultinject/crash.py``) is not ported.
+delivery) and the RPC plane's (``rpc.send``, ``rpc.recv``,
+``rpc.admit``, ``mux.accept``, ``conn.read``); ``CrashHarness``
+(``faultinject/crash.py``) is not ported.
 
 The runtime consults a process-global plan at named *sites* — RPC
 send/receive/admit, raft apply, heartbeat delivery, broker enqueue,

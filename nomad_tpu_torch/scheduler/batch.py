@@ -26,8 +26,7 @@ a storm whose fused cost (lanes x steps x real nodes) is at most
 lane at a time (``_dispatch_fused_host``), or forces either side.  A
 window's lanes finish through ONE native call (``bulk_finish_many`` of
 the port's C extension, csrc/port_alloc.cpp), then each lane's Python
-tail.  Not ported yet: the multi-device mesh branches and the trace
-spans.
+tail.  Not ported yet: the multi-device mesh branches.
 """
 from __future__ import annotations
 
@@ -35,6 +34,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from nomad_tpu_torch.obs import trace as trace_mod
 from nomad_tpu_torch.parallel.devices import put_counted, resolve_device
 from nomad_tpu_torch.structs import (
     EVAL_STATUS_COMPLETE,
@@ -52,6 +52,29 @@ from .torch_binpack import (
     rounds_to_placements,
 )
 from .util import set_status
+
+
+def _tnow() -> float:
+    """Tracer-epoch now, 0.0 when tracing is off (obs/trace.py)."""
+    t = trace_mod.tracer()
+    return t.now() if t is not None else 0.0
+
+
+def _lane_spans(name: str, scheds, t0: float, t1: float, **tags) -> None:
+    """One span per lane sharing the window's [t0, t1] — fused stages
+    (dispatch, finish, submit) run once for the whole window, and every
+    member eval's tree records the window it rode (the shared
+    timestamps make the fusion visible in the exported trace)."""
+    tracer = trace_mod.tracer() if trace_mod.ENABLED else None
+    if tracer is None:
+        # Includes a concurrent disable() racing the ENABLED check:
+        # degrade to untraced, never fail the lane.
+        return
+    for sched in scheds:
+        ev = sched.eval
+        if ev is not None and ev.trace:
+            tracer.record(name, t0, t1 - t0, parent_ctx=ev.trace,
+                          eval_id=ev.id, **tags)
 
 
 def fused_cost(pending: list) -> int:
@@ -136,6 +159,24 @@ class BatchEvalRunner:
         plan instead of submitting it here (deferred is None): the
         pipelined runner routes those submits through its drain stage
         too, so plans commit in eval order."""
+        tracer = trace_mod.tracer() if trace_mod.ENABLED else None
+        if tracer is not None:
+            if not ev.trace:
+                # Harness/bench evals arrive without a server-stamped
+                # anchor: root their tree here so scheduler stages
+                # still form one tree per eval.
+                ev.trace = tracer.anchor("eval.created",
+                                         eval_id=ev.id,
+                                         eval_type=ev.type)
+            t0 = tracer.now()
+            try:
+                return self._begin_eval_inner(ev, finish_noop)
+            finally:
+                tracer.record("sched.begin", t0, tracer.now() - t0,
+                              parent_ctx=ev.trace, eval_id=ev.id)
+        return self._begin_eval_inner(ev, finish_noop)
+
+    def _begin_eval_inner(self, ev: Evaluation, finish_noop: bool = True):
         sched = self._scheduler(self.state, ev)
         sched.eval = ev
         if ev.triggered_by not in VALID_GENERIC_TRIGGERS:
@@ -238,6 +279,7 @@ class BatchEvalRunner:
         rounds = max(a.rounds for _, _, a in pending)
         done = []
         for sched, place, args in pending:
+            t_disp = _tnow()
             if rounds_ok:
                 chosen_s, score_s, _u = place_rounds_host(
                     statics.capacity, statics.reserved, base_usage,
@@ -252,6 +294,8 @@ class BatchEvalRunner:
                     args.view.job_counts, args.feasible_h, args.asks,
                     args.distinct, args.group_idx, args.valid,
                     float(args.penalty), n_real=n_real)
+            _lane_spans("sched.dispatch", [sched], t_disp, _tnow(),
+                        host=True)
             done.append((sched, place, args, chosen, scores))
         return done
 
@@ -261,6 +305,7 @@ class BatchEvalRunner:
         ``[(sched, place, args, chosen, scores), ...]`` in lane order."""
         from nomad_tpu_torch.ops import binpack
 
+        t_disp = _tnow()
         device = self.device
         g_max = max(a.g_pad for _, _, a in pending)
         p_max = max(a.p_pad for _, _, a in pending)
@@ -314,6 +359,8 @@ class BatchEvalRunner:
                 asks, distinct, put_counted(counts, device), penalty,
                 k_cap=k_cap, rounds=rounds)
             chosen_s, score_s = fetch_results(chosen_s, score_s)
+            _lane_spans("sched.dispatch", [s for s, _p, _a in pending],
+                        t_disp, _tnow(), fused=B)
             done = []
             for b, (sched, place, args) in enumerate(pending):
                 chosen, scores = rounds_to_placements(
@@ -325,6 +372,8 @@ class BatchEvalRunner:
             distinct, put_counted(group_idx, device),
             put_counted(valid, device), penalty)
         chosen, scores = fetch_results(chosen, scores)
+        _lane_spans("sched.dispatch", [s for s, _p, _a in pending],
+                    t_disp, _tnow(), fused=B)
         return [(sched, place, args, chosen[b], scores[b])
                 for b, (sched, place, args) in enumerate(pending)]
 
@@ -339,9 +388,13 @@ class BatchEvalRunner:
         self.process(leftovers)
 
     def _run_single(self, sched, place, args, retries=None) -> None:
+        t0 = _tnow()
         handles = sched.dispatch_device(args)
         chosen, scores = sched.collect_device(args, handles)
+        t1 = _tnow()
+        _lane_spans("sched.dispatch", [sched], t0, t1)
         sched.finish_deferred(place, args, chosen, scores)
+        _lane_spans("sched.finish", [sched], t1, _tnow())
         self._finish(sched, retries)
 
     @staticmethod
@@ -352,6 +405,7 @@ class BatchEvalRunner:
         happy-path prefix, then each lane's Python tail runs.
         ``lanes`` is [(sched, place, args, chosen, scores), ...];
         semantics per lane are identical to ``finish_deferred``."""
+        t_fin = _tnow()
         uuid_slab = generate_uuids(
             sum(len(place) for _, place, *_ in lanes))
         states = []
@@ -384,6 +438,8 @@ class BatchEvalRunner:
                             fs, native.bulk_finish(*a))
         for (sched, *_rest), fs in zip(lanes, states):
             sched._finish_python_tail(fs)
+        _lane_spans("sched.finish", [s for s, *_r in lanes],
+                    t_fin, _tnow(), window=len(lanes))
 
     def _finish_window(self, done: list, retries=None) -> None:
         """Windowed finish + group submit for fused lanes
@@ -400,6 +456,7 @@ class BatchEvalRunner:
         order and per-lane status semantics (see ``_finish``).  Uses the
         planner's group path when it has one; per-plan submits
         otherwise."""
+        t_sub = _tnow()
         submitters = []
         for sched in scheds:
             ev = sched.eval
@@ -415,6 +472,8 @@ class BatchEvalRunner:
                 continue
             submitters.append(sched)
         if not submitters:
+            _lane_spans("sched.submit", scheds, t_sub, _tnow(),
+                        window=len(scheds))
             return
         group = getattr(self.planner, "submit_plans", None)
         if group is not None and len(submitters) > 1:
@@ -437,6 +496,8 @@ class BatchEvalRunner:
                 retries.append(ev)  # no status yet: a later round owns it
             else:
                 self._scheduler(sched.state, ev).process(ev)
+        _lane_spans("sched.submit", scheds, t_sub, _tnow(),
+                    window=len(scheds))
 
     def _finish(self, sched, retries=None) -> None:
         """Submit the plan; on rejection/partial commit either queue the

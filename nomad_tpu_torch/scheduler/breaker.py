@@ -40,6 +40,8 @@ import logging
 import threading
 import time
 
+from nomad_tpu_torch.obs import flight, registry
+
 logger = logging.getLogger("nomad_tpu_torch.scheduler.breaker")
 
 CLOSED = "closed"
@@ -126,6 +128,7 @@ class DeviceCircuitBreaker:
                     logger.info("device breaker: probe succeeded; closed")
 
     def record_failure(self, probe: bool = False) -> None:
+        opened = False
         with self._lock:
             self._counts["failures"] += 1
             if probe:
@@ -133,6 +136,7 @@ class DeviceCircuitBreaker:
                 self._state = OPEN
                 self._opened_at = self._clock()
                 self._counts["opens"] += 1
+                opened = True
                 logger.warning("device breaker: probe failed; re-opened")
             else:
                 self._consecutive_failures += 1
@@ -142,11 +146,17 @@ class DeviceCircuitBreaker:
                     self._state = OPEN
                     self._opened_at = self._clock()
                     self._counts["opens"] += 1
+                    opened = True
                     logger.warning(
                         "device breaker: open after %d consecutive "
                         "device failures; holding executor on host "
                         "(re-probe in %.1fs)",
                         self._consecutive_failures, self.cooldown)
+        if opened and flight.INSTALLED:
+            # Flight-recorder trigger (obs/flight.py), OUTSIDE the
+            # breaker lock: the device executor just went unhealthy —
+            # dump spans + stacks + metrics while the evidence is warm.
+            flight.trip("breaker.open", self.stats())
 
     # -- introspection -----------------------------------------------------
     @property
@@ -176,3 +186,8 @@ class DeviceCircuitBreaker:
 # instances share trip state by default.  Tests wanting isolation pass
 # their own instance.
 GLOBAL_BREAKER = DeviceCircuitBreaker()
+
+# The breaker is exactly the kind of process-wide singleton the global
+# metrics registry exists for: one producer, visible as nomad.breaker.*
+# in the process REGISTRY.
+registry.REGISTRY.register("breaker", GLOBAL_BREAKER.stats)

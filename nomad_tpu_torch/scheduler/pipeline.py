@@ -69,7 +69,7 @@ import time
 
 import numpy as np
 
-from .batch import BatchEvalRunner
+from .batch import BatchEvalRunner, _lane_spans, _tnow
 from .breaker import ADMIT_HOST, ADMIT_PROBE, GLOBAL_BREAKER, HALF_OPEN
 
 logger = logging.getLogger("nomad_tpu_torch.scheduler.pipeline")
@@ -219,6 +219,18 @@ class PipelinedEvalRunner(BatchEvalRunner):
         self._collect_worker: "_CollectWorker | None" = None
         self._err_lock = threading.Lock()
         self._drain_err: BaseException | None = None
+        # Registry provider (obs/registry.py): the LIVE runner's stats
+        # under nomad.runner.* — replace-on-name keeps exactly one, and
+        # the weakref means a retired runner is never pinned (its state
+        # snapshot is a whole store generation) just to serve metrics.
+        import weakref
+
+        from nomad_tpu_torch.obs import REGISTRY
+        ref = weakref.ref(self)
+        REGISTRY.register(
+            "runner",
+            lambda: (lambda r: r.stats() if r is not None else {})(
+                ref()))
 
     def process(self, evals: list) -> None:
         from nomad_tpu_torch.utils.gctune import gc_pause
@@ -260,12 +272,15 @@ class PipelinedEvalRunner(BatchEvalRunner):
                 self._admit_inflight()
                 try:
                     place, args = sched.deferred
+                    t_disp = _tnow()
                     handles, probe = self._dispatch(sched, args)
                     if sched.dispatched_host:
                         self.host_dispatches += 1
                     else:
                         self.device_dispatches += 1
                         self._note_rtt(time.perf_counter() - t_begin)
+                    _lane_spans("sched.dispatch", [sched], t_disp,
+                                _tnow(), host=sched.dispatched_host)
                     times["dispatch"] += time.perf_counter() - t_begin
                     q.put(_Item(sched, place, args, handles, start,
                                 probe=probe))
@@ -432,7 +447,11 @@ class PipelinedEvalRunner(BatchEvalRunner):
         # window keeps draining).
         t0 = time.perf_counter()
         work = [it for it in window if it.handles is not None]
-        results = {id(it): self._collect_item(it) for it in work}
+        results = {}
+        for it in work:
+            t_col = _tnow()
+            results[id(it)] = self._collect_item(it)
+            _lane_spans("sched.collect", [it.sched], t_col, _tnow())
         t1 = time.perf_counter()
         times["collect"] += t1 - t0
 

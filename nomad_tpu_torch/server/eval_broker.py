@@ -62,6 +62,7 @@ import time
 from typing import Optional
 
 from nomad_tpu_torch import faultinject
+from nomad_tpu_torch.obs import trace as trace_mod
 from nomad_tpu_torch.structs import Evaluation, generate_uuid
 
 from .overload import ErrOverloaded
@@ -140,6 +141,9 @@ class EvalBroker:
         self._acks = 0               # deliveries acked (the control
         #   plane's throughput gauge: depth / ack rate estimates queue
         #   residence, the portable congestion signal)
+        self._trace_enq: dict = {}   # eval id -> tracer-epoch ready time
+        #   (obs/trace.py: the broker.wait span's t0; stamped per
+        #    _enqueue_locked so nack redeliveries re-time their wait)
         # Delivery-token mirror behind a LEAF lock: the applier's
         # window fence reads here instead of queueing on the big lock.
         # Order is big -> leaf everywhere; nothing acquires the big
@@ -175,6 +179,7 @@ class EvalBroker:
             self._unack.clear()
             self._time_wait.clear()
             self._deadlines.clear()
+            self._trace_enq.clear()
             waiters, self._waiters = self._waiters, {}
             # Token mirror cleared INSIDE the big-lock section (the
             # big->leaf order permits it): clearing it after release
@@ -257,6 +262,11 @@ class EvalBroker:
     def _enqueue_locked(self, ev: Evaluation, queue: str) -> None:
         if not self._enabled:
             return
+        tracer = trace_mod.tracer() if trace_mod.ENABLED else None
+        if tracer is not None and ev.trace:
+            # broker.wait t0: (re-)stamped per (re-)enqueue so a nack
+            # redelivery's wait span times ITS wait, not the first's.
+            self._trace_enq[ev.id] = tracer.now()
         pending = self._job_evals.get(ev.job_id)
         if pending is None:
             self._job_evals[ev.job_id] = ev.id
@@ -382,6 +392,13 @@ class EvalBroker:
             with self._token_lock:
                 self._tokens[ev.id] = token
             self._evals[ev.id] = self._evals.get(ev.id, 0) + 1
+            tracer = trace_mod.tracer() if trace_mod.ENABLED else None
+            if tracer is not None and ev.trace:
+                t0 = self._trace_enq.pop(ev.id, None)
+                if t0 is not None:
+                    tracer.record("broker.wait", t0, tracer.now() - t0,
+                                  parent_ctx=ev.trace, eval_id=ev.id,
+                                  queue=best_sched)
             return ev, token
 
     def _nack_expired(self, eval_id: str) -> None:
@@ -435,6 +452,7 @@ class EvalBroker:
             del self._unack[eval_id]
             self._evals.pop(eval_id, None)
             self._job_evals.pop(job_id, None)
+            self._trace_enq.pop(eval_id, None)
             self._acks += 1
 
             blocked = self._blocked.get(job_id)

@@ -10,9 +10,7 @@ This is also where the state->device bridge hangs: alloc/node applies
 invalidate the fleet-tensor caches (table-generation identity changes do it
 implicitly — see nomad_tpu_torch/models/fleet.py FleetCache).
 
-Counterpart of ``nomad_tpu/server/fsm.py`` without the ``fsm.decode`` /
-``store.upsert`` trace spans (``obs/`` is not ported yet); an entry's
-``_trace`` key, which the JAX applier may ship, is ignored here.
+Counterpart of ``nomad_tpu/server/fsm.py``.
 """
 from __future__ import annotations
 
@@ -22,6 +20,7 @@ from typing import Callable, Optional
 
 import msgpack
 
+from nomad_tpu_torch.obs import trace as trace_mod
 from nomad_tpu_torch.state import StateStore
 from nomad_tpu_torch.structs import (
     Allocation,
@@ -174,9 +173,16 @@ class NomadFSM:
         applier's columnar wire, structs/alloc_slab.py); either way the
         store receives Allocation objects — slab rows as lazy
         SlabAllocs whose heavy fields never materialize on this path."""
+        tracer = trace_mod.tracer() if trace_mod.ENABLED else None
+        t0 = tracer.now() if tracer is not None else 0.0
         slabs = decode_slabs(payload)
         allocs = decode_alloc_list(payload["alloc"], slabs)
+        t1 = tracer.now() if tracer is not None else 0.0
         self.state.upsert_allocs(index, allocs)
+        if tracer is not None:
+            self._record_apply_spans(tracer, payload.get("_trace"),
+                                     [allocs], index, t0, t1,
+                                     tracer.now())
         return None
 
     def _apply_plan_batch(self, index: int, payload: dict):
@@ -189,11 +195,39 @@ class NomadFSM:
         materialization between the wire and the store).  All allocs
         are constructed BEFORE any state moves so a malformed sub-plan
         rejects the entry with the store untouched."""
+        tracer = trace_mod.tracer() if trace_mod.ENABLED else None
+        t0 = tracer.now() if tracer is not None else 0.0
         slabs = decode_slabs(payload)
         items = [(index, decode_alloc_list(sub["alloc"], slabs))
                  for sub in payload["plans"]]
+        t1 = tracer.now() if tracer is not None else 0.0
         self.state.upsert_allocs_batched(items)
+        if tracer is not None:
+            self._record_apply_spans(tracer, payload.get("_trace"),
+                                     [allocs for _i, allocs in items],
+                                     index, t0, t1, tracer.now())
         return None
+
+    @staticmethod
+    def _record_apply_spans(tracer, env, alloc_lists, index: int,
+                            t0: float, t1: float, t2: float) -> None:
+        """Per-sub-plan ``fsm.decode`` + ``store.upsert`` spans from the
+        contexts the applier shipped inside the entry (``_trace`` —
+        obs/trace.py): the raft thread has no ambient context, so the
+        entry itself carries each eval's tree membership.  One upsert
+        span per COMMITTED sub-plan, tagged with its alloc count — the
+        exactly-once proof reads these (tests/test_obs.py)."""
+        if not env:
+            return
+        for ctx, allocs in zip(env, alloc_lists):
+            if not ctx:
+                continue
+            eval_id = ctx.get("eval_id", "")
+            tracer.record("fsm.decode", t0, t1 - t0, parent_ctx=ctx,
+                          eval_id=eval_id, index=index)
+            tracer.record("store.upsert", t1, t2 - t1, parent_ctx=ctx,
+                          eval_id=eval_id, index=index,
+                          n_allocs=len(allocs))
 
     def _apply_alloc_client_update(self, index: int, payload: dict):
         allocs = [Allocation.from_dict(a) for a in payload["alloc"]]

@@ -44,8 +44,7 @@ rate instead of as one storm); the heartbeat TTL wheel consults
 ``in_brownout()`` to defer expiry while the server itself is slow, so
 the server's own slowness can never mass-expire its fleet.
 
-Counterpart of ``nomad_tpu/server/overload.py`` without the flight
-recorder's trip on entering ``overload`` (``obs/`` is not ported yet).
+Counterpart of ``nomad_tpu/server/overload.py``.
 """
 from __future__ import annotations
 
@@ -53,6 +52,7 @@ import threading
 import time
 from typing import Callable, Optional
 
+from nomad_tpu_torch.obs import flight
 from nomad_tpu_torch.utils.retry import OVERLOADED_MARKER
 
 # -- states -----------------------------------------------------------------
@@ -227,6 +227,8 @@ class OverloadController:
         self._admitted: dict = {c: 0 for c in PRIORITY_CLASSES}
         self._heartbeat_lane = 0
         self._transitions = 0
+        self._trip_pending = False   # *->OVERLOAD edge awaiting a
+        #   flight-recorder dump (fired outside the lock; guarded)
 
     # -- wiring ------------------------------------------------------------
     def add_source(self, name: str, fn: Callable) -> None:
@@ -313,12 +315,33 @@ class OverloadController:
                     self._state = NORMAL
         if self._state != prev:
             self._transitions += 1
+            if self._state == OVERLOAD and flight.INSTALLED:
+                # Flight-recorder trigger: entering the shedding state
+                # is exactly when the evidence (queue depths, span
+                # ring, stacks) is worth freezing.  The dump itself
+                # runs OUTSIDE this lock (file I/O) — see _maybe_trip.
+                self._trip_pending = True
         return self._state
+
+    def _maybe_trip(self) -> None:
+        """Fire a pending overload-entry flight dump outside the lock.
+        Gated on the module bool FIRST: with no recorder installed the
+        flag can never be set, and state() sits on the hottest
+        admission path — it must not pay a second lock acquire for a
+        feature that is off (the breaker's trip-site discipline)."""
+        if not flight.INSTALLED:
+            return
+        with self._lock:
+            fire, self._trip_pending = self._trip_pending, False
+        if fire:
+            flight.trip("overload.enter", self.stats())
 
     def state(self) -> str:
         p = self.pressure()
         with self._lock:
-            return self._refresh_locked(p)
+            st = self._refresh_locked(p)
+        self._maybe_trip()
+        return st
 
     def in_brownout(self) -> bool:
         """True in brownout OR overload: the TTL wheel defers expiry in

@@ -34,6 +34,9 @@ from nomad_tpu_torch.structs import (
 )
 from nomad_tpu_torch.utils.metrics import metrics
 
+from nomad_tpu_torch.obs import flight as flight_mod
+from nomad_tpu_torch.obs import trace as trace_mod
+
 logger = logging.getLogger("nomad_tpu_torch.server.plan_apply")
 
 
@@ -321,8 +324,9 @@ class ComponentExecutor:
     the scheduler chose IS the start order; the coordinator (the
     applier thread) participates, so ``workers=0`` degrades to inline
     execution.  ``active()`` snapshots what every thread is verifying
-    right now (the JAX package's flight recorder attaches it to its
-    ``applier.window`` stall dumps; ``obs/`` is not ported yet)."""
+    right now — the flight recorder's ``applier.window`` stall guard
+    attaches it to incident dumps, so a wedged window names the slow
+    component instead of just the window."""
 
     def __init__(self, workers: int = 2,
                  name: str = "plan-components") -> None:
@@ -609,12 +613,11 @@ class PlanApplier:
     writing — and a K5 launch issued after it is queued behind it on
     the stream.  K6's descriptor staging is thread-local
     (``parallel/devices.PinnedStaging``), so this thread's pinned
-    buffer is its own.
+    buffer is its own."""
 
-    Not ported yet (``obs/``): the flight recorder's ``applier.window``
-    stall guard, the trace spans (``plan.queued``, ``applier.window``,
-    ``applier.verify``, ``raft.apply``) and the cross-component speedup,
-    which needs the per-component walls."""
+    # A verify+commit window past this wall is a wedged leader, not a
+    # big window: trip the flight recorder (when one is installed).
+    WINDOW_STALL_S = 30.0
 
     def __init__(self, plan_queue, eval_broker, raft, state_fn,
                  max_window: int = 64, component_workers: int = 2,
@@ -657,6 +660,8 @@ class PlanApplier:
         #                             on a result nobody is waiting for
         self.components_verified = 0  # claim-graph components walked
         self.component_plans = 0      # plans those components carried
+        self._speedup_sum = 0.0       # per-window cross-component
+        self._speedup_n = 0           # concurrency (sum walls / wall)
         # The serialized commit section's wall cost (token fence
         # + window verify + overlay fold — everything the applier
         # thread itself must finish before the next window), and the
@@ -743,7 +748,19 @@ class PlanApplier:
             window += self.plan_queue.drain_pending(
                 self.max_window - 1, horizon=self.deadline_horizon)
             try:
-                snap = self._apply_window(window, snap)
+                # Stall watchdog (obs/flight.py): a window that
+                # overstays WINDOW_STALL_S trips an incident dump with
+                # the applier's stack in it — the leader's serialized
+                # commit point wedging is exactly the failure that is
+                # undebuggable after the fact.  No-op when no flight
+                # recorder is installed.
+                # extra_fn: the incident dump names WHAT was being
+                # verified when the window wedged — the executor's
+                # per-component attribution, not just "the window".
+                with flight_mod.guard("applier.window",
+                                      self.WINDOW_STALL_S,
+                                      extra_fn=self.components.active):
+                    snap = self._apply_window(window, snap)
             except Exception as e:
                 # Popped futures must ALWAYS be responded: an applier
                 # dying with them in hand would park their workers
@@ -839,6 +856,17 @@ class PlanApplier:
         if not pendings:
             _book()
             return snap
+        tracer = trace_mod.tracer() if trace_mod.ENABLED else None
+        if tracer is not None:
+            # Queue-wait spans: enqueue (PlanFuture.trace_t0) -> window
+            # pop, one per plan, parented to the plan's eval anchor.
+            now = tracer.now()
+            for pend in pendings:
+                if pend.plan.trace and pend.trace_t0 is not None:
+                    tracer.record("plan.queued", pend.trace_t0,
+                                  now - pend.trace_t0,
+                                  parent_ctx=pend.plan.trace,
+                                  eval_id=pend.plan.eval_id)
         # Keep verifying against the optimistic overlay while commits
         # are in flight (the verify/apply overlap, plan_apply.go:68-85,
         # extended to whole windows and to the committer pipeline's
@@ -864,10 +892,14 @@ class PlanApplier:
         if snap is None:
             snap = OptimisticSnapshot(self.state_fn().snapshot())
 
+        t_verify = tracer.now() if tracer is not None else 0.0
         outcomes = evaluate_window(
             snap, [p.plan for p in pendings],
             executor=self.components, device=self.device)
         info = getattr(outcomes, "info", None)
+        if tracer is not None:
+            self._verify_spans(tracer, pendings, outcomes, info,
+                               t_verify)
         committers = []  # (pending, result) with state to commit
         fallbacks = 0
         for pending, outcome in zip(pendings, outcomes):
@@ -883,6 +915,8 @@ class PlanApplier:
             if info is not None:
                 self.components_verified += info["components"]
                 self.component_plans += len(pendings)
+                self._speedup_sum += info["speedup"]
+                self._speedup_n += 1
                 dev = info.get("device")
                 if dev is not None:
                     if dev.get("dispatched"):
@@ -922,18 +956,74 @@ class PlanApplier:
             self.commit_backpressure_s += t_mark - t_bp
         try:
             self._committer.submit(
-                lambda: self._commit_job(committers, alloc_lists))
+                lambda: self._commit_job(committers, alloc_lists, tracer))
         except Exception:
             # Committer gone (teardown): commit inline — futures must
             # always resolve.
-            self._commit_job(committers, alloc_lists)
+            self._commit_job(committers, alloc_lists, tracer)
         _book()
         return snap
 
-    def _dispatch_window(self, committers, alloc_lists):
+    @staticmethod
+    def _verify_spans(tracer, pendings, outcomes, info,
+                      t_verify: float) -> None:
+        """Span taxonomy: one applier.window span per member plan
+        (shared t0/dur, tagged window size + component count), and under
+        it one applier.verify span carrying the member's COMPONENT
+        timing — so a trace shows both the group-commit amortization
+        (shared window walls) and which component each eval's verify
+        actually rode."""
+        dur_verify = tracer.now() - t_verify
+        # perf_counter epoch -> tracer epoch for component t0s.
+        perf_off = time.perf_counter() - tracer.now()
+        dev_span = info.get("device") if info is not None else None
+        dev_recorded = False
+        for pending, outcome in zip(pendings, outcomes):
+            if not pending.plan.trace:
+                continue
+            wctx = tracer.record(
+                "applier.window", t_verify, dur_verify,
+                parent_ctx=pending.plan.trace,
+                eval_id=pending.plan.eval_id,
+                window=len(pendings),
+                components=info["components"] if info else 1)
+            if info is not None:
+                k = outcome.component
+                tracer.record(
+                    "applier.verify",
+                    info["comp_t0s"][k] - perf_off,
+                    info["comp_walls"][k],
+                    parent_ctx=wctx,
+                    eval_id=pending.plan.eval_id,
+                    component=k,
+                    size=info["sizes"][info["order"][k]],
+                    fallback=outcome.fallback)
+            else:
+                tracer.record(
+                    "applier.verify", t_verify, dur_verify,
+                    parent_ctx=wctx,
+                    eval_id=pending.plan.eval_id,
+                    component=0, fallback=outcome.fallback)
+            if dev_span is not None and dev_span.get("dispatched") \
+                    and not dev_recorded:
+                # ONE per-window device-dispatch span, beside the
+                # per-component applier.verify spans, anchored to the
+                # first traced member's window span.
+                dev_recorded = True
+                tracer.record(
+                    "applier.verify.device", t_verify,
+                    dev_span.get("wall", 0.0), parent_ctx=wctx,
+                    window=len(pendings),
+                    pairs=dev_span.get("pairs", 0),
+                    bucket=dev_span.get("bucket", 0),
+                    h2d=dev_span.get("h2d", 0),
+                    d2h=dev_span.get("d2h", 0))
+
+    def _dispatch_window(self, committers, alloc_lists, tracer):
         """Encode one window's accepted portions and dispatch ONE raft
-        apply; returns the apply future, or None after answering every
-        member future with the dispatch error.
+        apply; returns (the apply future, its tracer-epoch dispatch
+        time), or (None, 0.0) after answering every member future with
+        the dispatch error.
 
         ONE raft apply for the whole window, sub-plans in eval order
         (the FSM's batched upsert preserves last-writer-wins order, so
@@ -955,6 +1045,19 @@ class PlanApplier:
         else:
             msg_type, payload = (codec.PLAN_BATCH_APPLY_REQUEST,
                                  encode_plan_batch(alloc_lists))
+        t_apply = 0.0
+        if tracer is not None:
+            # Ship each sub-plan's context INSIDE the log entry (the
+            # `_trace` payload key, ignored by decode): the FSM decode
+            # and the batched store upsert run on the raft thread with
+            # no ambient context, and this is how their spans join each
+            # eval's tree.
+            env = [dict(pend.plan.trace, eval_id=pend.plan.eval_id)
+                   if pend.plan.trace else None
+                   for pend, _result in committers]
+            if any(e is not None for e in env):
+                payload["_trace"] = env
+            t_apply = tracer.now()
         entry = codec.encode(msg_type, payload)
         try:
             future = self.raft.apply(entry)
@@ -968,11 +1071,11 @@ class PlanApplier:
                 self.dispatch_failures += 1
             for pending, _result in committers:
                 pending.respond(None, e)
-            return None
+            return None, 0.0
         with self._stats_lock:
             self.commits += 1
             self.plans_committed += len(committers)
-        return future
+        return future, t_apply
 
     # Commit-wait poll slice: the raft-commit wait is re-armed in
     # bounded slices so the waiter can probe queue liveness between
@@ -996,7 +1099,8 @@ class PlanApplier:
                     raise TimeoutError(
                         "plan queue disabled while awaiting raft commit")
 
-    def _await_and_respond(self, future, committers) -> None:
+    def _await_and_respond(self, future, committers, t_apply,
+                           tracer) -> None:
         """The respond tail: wait out one window's commit and answer
         every member future.  From dispatch on, the entry is committed
         (or committing): failures here must not surface as plan errors
@@ -1008,11 +1112,21 @@ class PlanApplier:
             for pend, _res in committers:
                 pend.respond(None, e)
             return
+        if tracer is not None:
+            # raft.apply dispatch -> committed, one span per member
+            # plan (shared t0/dur, like the verify spans).
+            dur = tracer.now() - t_apply
+            for pend, _res in committers:
+                if pend.plan.trace:
+                    tracer.record("raft.apply", t_apply, dur,
+                                  parent_ctx=pend.plan.trace,
+                                  eval_id=pend.plan.eval_id,
+                                  window=len(committers), index=index)
         for pend, res in committers:
             res.alloc_index = index
             pend.respond(res, None)
 
-    def _commit_job(self, committers, alloc_lists) -> None:
+    def _commit_job(self, committers, alloc_lists, tracer) -> None:
         """One committer-pipeline job: encode, dispatch, await, respond
         — the whole commit tail of one window, in FIFO window order.
 
@@ -1034,10 +1148,11 @@ class PlanApplier:
             for pend, _res in committers:
                 pend.respond(None, err)
             return
-        future = self._dispatch_window(committers, alloc_lists)
+        future, t_apply = self._dispatch_window(committers, alloc_lists,
+                                                tracer)
         if future is None:
             return  # dispatch failed: futures answered, flag raised
-        self._await_and_respond(future, committers)
+        self._await_and_respond(future, committers, t_apply, tracer)
 
     def stats(self) -> dict:
         """Group-commit counters: commits, plans carried, mean window
@@ -1051,6 +1166,8 @@ class PlanApplier:
             expired = self.expired_drops
             components = self.components_verified
             comp_plans = self.component_plans
+            speedup_sum = self._speedup_sum
+            speedup_n = self._speedup_n
             serial_s = self.serial_seconds
             serial_plans = self.serial_plans
             backpressure_s = self.commit_backpressure_s
@@ -1081,6 +1198,8 @@ class PlanApplier:
             "components": components,
             "component_occupancy":
                 comp_plans / components if components else 0.0,
+            "cross_component_speedup":
+                speedup_sum / speedup_n if speedup_n else 1.0,
             "serial_seconds": serial_s,
             "serial_ms_per_plan":
                 serial_s / serial_plans * 1000.0 if serial_plans

@@ -26,6 +26,7 @@ import itertools
 import threading
 from typing import Optional
 
+from nomad_tpu_torch.obs import trace as trace_mod
 from nomad_tpu_torch.structs import Plan, PlanResult
 
 from .overload import ErrOverloaded
@@ -39,6 +40,9 @@ class PlanFuture:
         self._event = threading.Event()
         self._result: Optional[PlanResult] = None
         self._error: Optional[Exception] = None
+        # obs/trace.py: tracer-epoch enqueue time; the applier times
+        # the plan.queued span (enqueue -> window pop) from it.
+        self.trace_t0: Optional[float] = None
         # True once popped from EITHER heap (priority or deadline);
         # the other heap's entry dies lazily.  Guarded by the queue
         # lock — only pop paths read or write it.
@@ -107,6 +111,9 @@ class PlanQueue:
                 raise ErrOverloaded(
                     f"plan queue at depth bound {self.max_depth}")
             future = PlanFuture(plan)
+            tracer = trace_mod.tracer() if trace_mod.ENABLED else None
+            if tracer is not None and plan.trace:
+                future.trace_t0 = tracer.now()
             seq = next(self._count)
             heapq.heappush(self._heap, (-plan.priority, seq, future))
             if plan.deadline:

@@ -6,14 +6,15 @@ scheduling pipeline; ``establish_leadership`` enables the leader-only
 machinery (broker, plan queue, plan applier, broker restore from state) and
 ``revoke_leadership`` tears it down.  In-process callers (tests, scripts)
 use the ``job_register`` / ``node_*`` / ``apply_*`` methods directly — the
-same in-proc shortcut the reference uses (agent.go:176-178).
+same in-proc shortcut the reference uses (agent.go:176-178); with
+``enable_rpc`` the RPC plane (server/rpc.py, server/endpoints.py) serves
+the same methods over the wire, with TLS when the cert and key are set.
 
 Counterpart of ``nomad_tpu/server/server.py`` for the single-server path.
-Not ported yet: the RPC/endpoint plane, networked raft, gossip, TLS, the
-feedback control plane and the metrics registry.  A config that asks for
-one of them (``enable_rpc``, ``raft_mode="net"``, ``enable_gossip``,
-``control_enabled``, a TLS file) raises ``ValueError`` at construction
-instead of being ignored.
+Not ported yet: networked raft, gossip and federation, and the feedback
+control plane.  A config that asks for one of them (``raft_mode="net"``,
+``enable_gossip``, ``control_enabled``) raises ``ValueError`` at
+construction instead of being ignored.
 
 The server computes on ``config.device``: ``None`` means ``cuda`` and
 raises ``RuntimeError`` where no CUDA device is present; tests pass
@@ -46,6 +47,8 @@ from nomad_tpu_torch.structs import (
     valid_node_status,
 )
 
+from nomad_tpu_torch.obs import trace as obs_trace
+
 from .eval_broker import FAILED_QUEUE, EvalBroker
 from .fsm import NomadFSM
 from .heartbeat import HeartbeatManager
@@ -58,6 +61,7 @@ from .raft import (
     SnapshotStore,
     resolve_snapshot_dir,
 )
+from .rpc import ConnPool, RPCServer, client_tls_context, server_tls_context
 from .worker import BatchWorker, Worker
 
 logger = logging.getLogger("nomad_tpu_torch.server")
@@ -65,15 +69,11 @@ logger = logging.getLogger("nomad_tpu_torch.server")
 DEFAULT_SCHEDULERS = ["service", "batch", "system", "_core"]
 
 # The keys that ask for a plane this package has not ported: each
-# raises at construction (a silently ignored ``enable_rpc`` would leave
-# a caller waiting on a listener that never opens).
+# raises at construction (a silently ignored ``enable_gossip`` would
+# leave a caller waiting on a peer that never joins).
 UNPORTED = (
-    ("enable_rpc", "the RPC/endpoint plane"),
     ("enable_gossip", "gossip membership"),
     ("control_enabled", "the feedback control plane"),
-    ("tls_cert_file", "TLS on the RPC plane"),
-    ("tls_key_file", "TLS on the RPC plane"),
-    ("tls_ca_file", "TLS on the RPC plane"),
 )
 
 
@@ -118,12 +118,15 @@ class ServerConfig:
         self.control_seed: int = 0
         self.enable_rpc: bool = False
         self.bind_addr: str = "127.0.0.1"
-        self.rpc_port: int = 0
+        self.rpc_port: int = 0      # 0 = ephemeral
+        # Event-driven serving plane (server/mux.py): one selector loop
+        # owns every client socket; a bounded pool runs handlers.
+        # Resource usage is O(these knobs), never O(connected clients).
         self.rpc_dispatch_workers: int = 8
         self.rpc_dispatch_queue: int = 1024
-        self.rpc_max_conns: int = 20000
+        self.rpc_max_conns: int = 20000    # past it: shed ErrOverloaded
         self.rpc_idle_timeout: float = 600.0
-        self.rpc_read_deadline: float = 30.0
+        self.rpc_read_deadline: float = 30.0  # slowloris/partial-frame reap
         self.raft_mode: str = "inmem"   # "inmem" only ("net": not ported)
         self.raft_peers: list = []
         self.enable_gossip: bool = False
@@ -134,11 +137,17 @@ class ServerConfig:
         self.raft_snapshot_threshold: int = 8192
         self.bootstrap_expect: int = 1
         self.tune_gc: bool = True   # server-process GC thresholds+freeze
+        # TLS on the RPC plane (0x04 demux, reference nomad/rpc.go:73-117):
+        # when cert+key are set the listener accepts TLS connections and
+        # the server's own ConnPool dials peers over TLS.
         self.tls_cert_file: str = ""
         self.tls_key_file: str = ""
         self.tls_ca_file: str = ""
         self.tls_verify_client: bool = False
+        # Reject plaintext planes on the listener (mTLS deployments).
         self.tls_require: bool = False
+        # Expected peer cert name for inter-server dials; empty = verify
+        # the CA chain only (servers are usually addressed by raw IP).
         self.tls_server_name: str = ""
         for k, v in kw.items():
             if not hasattr(self, k):
@@ -218,6 +227,31 @@ class Server:
         self._shutdown = threading.Event()
         self._leader_threads: list = []
 
+        # The RPC plane's TLS files load here, before any thread starts:
+        # a bad cert fails the boot.
+        server_tls = client_tls = None
+        if self.config.tls_cert_file:
+            server_tls = server_tls_context(
+                self.config.tls_cert_file, self.config.tls_key_file,
+                ca_file=self.config.tls_ca_file or None,
+                verify_client=self.config.tls_verify_client)
+            client_tls = client_tls_context(
+                ca_file=self.config.tls_ca_file or None,
+                cert_file=self.config.tls_cert_file or None,
+                key_file=self.config.tls_key_file or None,
+                check_hostname=bool(self.config.tls_server_name))
+        self.conn_pool = ConnPool(
+            tls_context=client_tls,
+            server_hostname=self.config.tls_server_name)
+        # Raft gets its own NON-multiplexed pool (the JAX server's
+        # layout): on a shared mux session one large frame written under
+        # the session's write lock would stall every raft RPC queued
+        # behind it.  Nothing dials it until networked raft is ported.
+        self.raft_pool = ConnPool(
+            tls_context=client_tls,
+            server_hostname=self.config.tls_server_name,
+            multiplex=False)
+
         log_store = snapshots = None
         if self.config.data_dir:
             # The JAX package's layout and snapshot format, so one
@@ -234,7 +268,57 @@ class Server:
             self.plan_queue, self.eval_broker, self.raft,
             lambda: self.fsm.state, device=self.device)
 
+        self.rpc_server = None
+        if self.config.enable_rpc:
+            from .endpoints import Endpoints
+            self.rpc_server = RPCServer(
+                self.config.bind_addr,
+                self.config.rpc_port,
+                tls_context=server_tls,
+                require_tls=self.config.tls_require,
+                dispatch_workers=self.config.rpc_dispatch_workers,
+                dispatch_queue=self.config.rpc_dispatch_queue,
+                max_conns=self.config.rpc_max_conns,
+                idle_timeout=self.config.rpc_idle_timeout,
+                read_deadline=self.config.rpc_read_deadline)
+            Endpoints(self).install(self.rpc_server)
+
         self._setup_workers()
+        self._setup_obs_registry()
+        # The listener serves last, once every component a handler
+        # reaches exists (the JAX server starts it first, reference
+        # nomad/server.go:348-363): no request meets a half-built
+        # server, and a failed construction leaves no serving thread.
+        if self.rpc_server is not None:
+            self.rpc_server.start()
+
+    def _setup_obs_registry(self) -> None:
+        """The unified metrics registry (obs/registry.py): every
+        component ``stats()`` becomes a ``nomad.<provider>.*`` gauge
+        tree.  Per-server instance: the providers close over THIS
+        server's components and the registry dies with it (the
+        process-global REGISTRY carries only process singletons like the
+        device breaker)."""
+        from nomad_tpu_torch.obs import MetricsRegistry
+
+        # Importing the breaker registers the process-global
+        # nomad.breaker.* provider in obs.REGISTRY.
+        from nomad_tpu_torch.scheduler import breaker as _breaker  # noqa: F401
+
+        reg = MetricsRegistry()
+        reg.register("broker", self.eval_broker.stats)
+        reg.register("plan_queue", self.plan_queue.stats)
+        reg.register("applier", self.plan_applier.stats)
+        reg.register("applier_components",
+                     self.plan_applier.components.stats)
+        reg.register("overload", self.overload.stats)
+        reg.register("heartbeat", self.heartbeats.stats)
+        # fsm.state is REPLACED on snapshot restore: resolve per read.
+        reg.register("store", lambda: self.fsm.state.stats())
+        reg.register("workers", self._worker_stats)
+        if self.rpc_server is not None:
+            reg.register("rpc", self.rpc_server.stats)
+        self.obs_registry = reg
 
     def _worker_stats(self) -> dict:
         """Aggregate worker-pool counters: deadline drops, and the evals
@@ -245,6 +329,34 @@ class Server:
             "expired_drops": sum(w.expired_drops for w in self.workers),
             "failures": sum(w.failures for w in self.workers),
         }
+
+    # -- regions: one, this server's own ------------------------------------
+    def regions(self) -> list:
+        """Known region names: only this server's own until gossip and
+        federation are ported (ROADMAP Queue 1)."""
+        return [self.config.region]
+
+    def region_server(self, region: str) -> tuple:
+        """A server address in ``region``.  Raises for every region, as
+        the JAX server does for a region it knows no server in: a
+        mis-addressed request must error, not run locally (this server's
+        own region never reaches here — endpoints route it locally)."""
+        raise RuntimeError(f"no path to region {region!r}")
+
+    # -- cluster views -----------------------------------------------------
+    def rpc_address(self) -> Optional[tuple]:
+        return self.rpc_server.address if self.rpc_server else None
+
+    def leader_rpc_address(self) -> Optional[tuple]:
+        """The leader's RPC address: this server's own while it leads
+        (the in-memory raft has no remote leader)."""
+        return self.rpc_address() if self._leader else None
+
+    def has_leader(self) -> bool:
+        return self._leader
+
+    def peers(self) -> list:
+        return [self.rpc_address()] if self.rpc_server else []
 
     # -- setup ------------------------------------------------------------
     def _setup_workers(self) -> None:
@@ -314,8 +426,9 @@ class Server:
 
     def shutdown(self) -> None:
         """Stop and join every thread this server started: the workers,
-        the leader's reaper and periodic GC, the applier with its
-        committer and component executor, the broker's and the
+        the leader's reaper and periodic GC, the RPC plane's edge loop
+        and dispatch pool, the connection pools' readers, the applier
+        with its committer and component executor, the broker's and the
         heartbeats' TTL wheels and the store's watch wheel."""
         self._shutdown.set()
         for w in self.workers:
@@ -328,6 +441,10 @@ class Server:
         for t in self._leader_threads:
             t.join(3.0)
         self._leader_threads = []
+        if self.rpc_server is not None:
+            self.rpc_server.shutdown()
+        self.conn_pool.shutdown()
+        self.raft_pool.shutdown()
         # After revoke (which cleared the timers): reap the heartbeat
         # service threads so nothing fires into the torn-down server.
         self.heartbeats.shutdown()
@@ -338,7 +455,13 @@ class Server:
         log_store = self.raft.log_store
         if log_store is not None:
             log_store.close()
+        # Watch fan-out last: the RPC teardown above already
+        # deregistered every parked long-poll; this reaps the shared
+        # timeout wheel and answers any straggler as timed out.
         self.fsm.state.watch.shutdown()
+        # Drop the metrics providers: their closures hold live
+        # components and a snapshot of a torn-down server is noise.
+        self.obs_registry.clear()
 
     def _restore_eval_broker(self) -> None:
         """Broker is volatile; state is durable.  Re-enqueue all
@@ -424,6 +547,23 @@ class Server:
             if ok and held != token:
                 raise PermissionError(
                     f"eval {ev.id} token does not match outstanding token")
+        tracer = obs_trace.tracer() if obs_trace.ENABLED else None
+        if tracer is not None:
+            # Anchor every freshly created eval (obs/trace.py): the
+            # anchor span is the single root all of this eval's spans —
+            # broker wait, scheduler stages, plan commit, store upsert,
+            # on any thread or after any retry — descend from.  Parent
+            # is the ambient context (the serving RPC's span, or the
+            # creating eval's context for rolling/next evals), so the
+            # tree hangs off the client edge.  This is the one choke
+            # point every server-side eval creation path funnels
+            # through; evals arriving with a context keep it.
+            for ev in evals:
+                if not ev.trace and not ev.terminal_status():
+                    ev.trace = tracer.anchor(
+                        "eval.created", parent_ctx=tracer.ctx(),
+                        eval_id=ev.id, eval_type=ev.type,
+                        triggered_by=ev.triggered_by)
         return self.raft_apply(
             codec.EVAL_UPDATE_REQUEST,
             {"evals": [e.to_dict() for e in evals]})

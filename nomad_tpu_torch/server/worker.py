@@ -12,8 +12,7 @@ call and fuses them through BatchEvalRunner into a single kernel launch on
 the server's device — the device replaces the reference's NumCPU-goroutine
 worker pool as the source of scheduling throughput.
 
-Counterpart of ``nomad_tpu/server/worker.py`` without the
-``worker.invoke`` trace span (``obs/`` is not ported yet).  Every worker
+Counterpart of ``nomad_tpu/server/worker.py``.  Every worker
 carries its server's ``device``: the batch runner launches there, and the
 ``system`` scheduler reads it off its planner (``planner.device``).
 """
@@ -24,6 +23,7 @@ import threading
 import time
 from typing import Optional
 
+from nomad_tpu_torch.obs import trace as trace_mod
 from nomad_tpu_torch.scheduler import new_scheduler
 from nomad_tpu_torch.utils.metrics import metrics
 from nomad_tpu_torch.utils.retry import Backoff
@@ -172,6 +172,21 @@ class Worker:
             time.sleep(0.005)
 
     def _invoke_scheduler(self, ev: Evaluation) -> None:
+        # tracer() re-checked for None behind the gate: a concurrent
+        # disable() degrades this invoke to untraced, never fails it.
+        tracer = trace_mod.tracer() if trace_mod.ENABLED else None
+        if tracer is not None and ev.trace:
+            # The eval's scheduling span, rooted under its anchor; the
+            # context is ambient for the whole invoke so plan submits
+            # and follow-up eval creations nest into the same tree.
+            with tracer.attach(ev.trace):
+                with tracer.span("worker.invoke", eval_id=ev.id,
+                                 eval_type=ev.type):
+                    self._invoke_scheduler_inner(ev)
+            return
+        self._invoke_scheduler_inner(ev)
+
+    def _invoke_scheduler_inner(self, ev: Evaluation) -> None:
         start = time.perf_counter()
         state = self.server.fsm.state.snapshot()
         name = self.scheduler_override or ev.type
@@ -285,6 +300,8 @@ class BatchWorker(Worker):
                 state, _BatchPlanner(self),
                 state_refresh=lambda: self.server.fsm.state.snapshot(),
                 device=self.device)
+            tracer = trace_mod.tracer() if trace_mod.ENABLED else None
+            t_invoke = tracer.now() if tracer is not None else 0.0
             try:
                 runner.process([ev for ev, _ in batch])
             except Exception as e:
@@ -297,11 +314,28 @@ class BatchWorker(Worker):
                     except ValueError:
                         pass
                 continue
+            finally:
+                if tracer is not None:
+                    self._invoke_spans(tracer, batch, t_invoke)
             for ev, token in batch:
                 try:
                     self.server.eval_broker.ack(ev.id, token)
                 except ValueError:
                     pass
+
+    @staticmethod
+    def _invoke_spans(tracer, batch: list, t0: float) -> None:
+        """One ``worker.invoke`` span per eval of the fused batch, each
+        sharing the batch's [t0, now] under the eval's anchor.  The JAX
+        package's batch worker records none (only its plain worker
+        does); here every eval's tree names the worker's share of it,
+        whichever worker ran it."""
+        dur = tracer.now() - t0
+        for ev, _token in batch:
+            if ev.trace:
+                tracer.record("worker.invoke", t0, dur,
+                              parent_ctx=ev.trace, eval_id=ev.id,
+                              eval_type=ev.type, fused=len(batch))
 
 
 class _BatchPlanner:

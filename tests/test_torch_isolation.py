@@ -78,6 +78,12 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "import nomad_tpu_torch.structs.codec, nomad_tpu_torch.utils.retry\n"
         "import nomad_tpu_torch.faultinject\n"
         "import nomad_tpu_torch.faultinject.plan\n"
+        "import nomad_tpu_torch.obs, nomad_tpu_torch.obs.trace\n"
+        "import nomad_tpu_torch.obs.registry, nomad_tpu_torch.obs.flight\n"
+        "import nomad_tpu_torch.utils.profiling\n"
+        "import nomad_tpu_torch.server.mux, nomad_tpu_torch.server.rpc\n"
+        "import nomad_tpu_torch.server.endpoints\n"
+        "import nomad_tpu_torch.agent, nomad_tpu_torch.agent.swarm\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'nomad_tpu')]\n"
         "assert not bad, bad\n"
@@ -88,6 +94,34 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+# The serving plane's modules (obs/, the RPC plane, the agent swarm,
+# profiling): each exists and imports neither JAX nor the JAX package.
+SERVING_PLANE = ("obs/__init__.py", "obs/trace.py", "obs/registry.py",
+                 "obs/flight.py", "agent/__init__.py", "agent/swarm.py",
+                 "server/mux.py", "server/rpc.py", "server/endpoints.py",
+                 "utils/profiling.py")
+
+
+@pytest.mark.parametrize("rel", SERVING_PLANE)
+def test_serving_plane_module_imports_neither_jax_nor_the_jax_package(rel):
+    path = os.path.join(PACKAGE, rel)
+    assert os.path.isfile(path)
+    mods = list(_imported_modules(path))
+    bad = [m for m in mods
+           if m.split(".")[0] in ("jax", "jaxlib", "nomad_tpu")]
+    assert bad == []
+
+
+def test_obs_imports_nothing_of_the_port_outside_utils():
+    """The JAX package's layering: obs/ may be imported by every other
+    subsystem, so it imports only ``utils`` of its own package."""
+    for rel in SERVING_PLANE[:4]:
+        for mod in _imported_modules(os.path.join(PACKAGE, rel)):
+            parts = mod.split(".")
+            if parts[0] == "nomad_tpu_torch":
+                assert parts[1] in ("utils", "obs"), (rel, mod)
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

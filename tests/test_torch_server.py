@@ -17,7 +17,9 @@ finish that draws each plan's dynamic ports.  Placements must be equal
 node for node and port for port, by alloc name.
 
 Also: a ``device=None`` server raises without a card and starts no
-thread; every key of an unported plane raises ``ValueError``; a typo'd
+thread; every key of an unported plane raises ``ValueError``, while
+``enable_rpc`` opens a listener and each TLS file loads into the RPC
+plane's contexts; a typo'd
 ``$NOMAD_TPU_EXECUTOR`` fails the boot; a ``data_dir`` server restarts
 from its log (and its snapshot) to an equal store, in either package;
 ``use_device_scheduler=False`` runs the sequential schedulers; shutdown
@@ -189,14 +191,122 @@ def test_server_without_a_device_raises_and_starts_nothing(monkeypatch):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("enable_rpc", True), ("raft_mode", "net"), ("enable_gossip", True),
-    ("control_enabled", True), ("tls_cert_file", "server.pem"),
-    ("tls_key_file", "server-key.pem"), ("tls_ca_file", "ca.pem")])
+    ("raft_mode", "net"), ("enable_gossip", True),
+    ("control_enabled", True)])
 def test_unported_planes_raise(key, value):
     before = set(threading.enumerate())
     with pytest.raises(ValueError, match="ROADMAP Queue 1 item 5"):
         _port_server(**{key: value})
     assert set(threading.enumerate()) <= before
+
+
+def _joined_after(before, srv):
+    srv.shutdown()
+    return [t for t in threading.enumerate()
+            if t not in before and t.is_alive()]
+
+
+def test_enable_rpc_opens_a_listener_that_answers_ping():
+    from nomad_tpu_torch.server.rpc import ConnPool
+
+    before = set(threading.enumerate())
+    srv = _port_server(num_schedulers=0, enable_rpc=True)
+    pool = ConnPool()
+    try:
+        host, port = srv.rpc_address()
+        assert port > 0
+        assert pool.call((host, port), "Status.Ping", {}, timeout=10) == {}
+        assert srv.obs_registry.providers().count("rpc") == 1
+    finally:
+        pool.shutdown()
+    assert _joined_after(before, srv) == []
+
+
+def test_a_failed_construction_leaves_no_serving_thread(monkeypatch):
+    """The listener starts after every component a handler reaches:
+    a construction step that raises leaves no loop or dispatch thread
+    behind."""
+    from nomad_tpu_torch.server import server as server_mod
+
+    def broken(*a, **kw):
+        raise RuntimeError("worker construction failed")
+    monkeypatch.setattr(server_mod.Server, "_setup_workers", broken)
+    before = set(threading.enumerate())
+    with pytest.raises(RuntimeError, match="worker construction failed"):
+        _port_server(num_schedulers=0, enable_rpc=True)
+    assert [t.name for t in threading.enumerate()
+            if t not in before and t.name.startswith("rpc-")] == []
+
+
+def test_without_enable_rpc_no_listener_opens():
+    srv = _port_server(num_schedulers=0)
+    try:
+        assert srv.rpc_server is None and srv.rpc_address() is None
+        assert "rpc" not in srv.obs_registry.providers()
+    finally:
+        srv.shutdown()
+
+
+def test_tls_cert_and_key_load_into_the_server_context(tmp_path):
+    import ssl
+
+    from nomad_tpu_torch.server.rpc import ConnPool, client_tls_context
+    from tests.test_rpc import _make_cert
+
+    cert, key = _make_cert(tmp_path)
+    srv = _port_server(num_schedulers=0, enable_rpc=True,
+                       tls_cert_file=cert, tls_key_file=key)
+    pool = ConnPool(tls_context=client_tls_context(ca_file=cert),
+                    server_hostname="localhost")
+    try:
+        server_ctx = srv.rpc_server._tls_context
+        assert isinstance(server_ctx, ssl.SSLContext)
+        # without a CA file the server verifies no client
+        assert server_ctx.verify_mode == ssl.CERT_NONE
+        # the cert the server presents is the one loaded
+        assert pool.call(srv.rpc_address(), "Status.Ping", {},
+                         timeout=10) == {}
+    finally:
+        pool.shutdown()
+        srv.shutdown()
+
+
+def test_tls_key_file_that_does_not_match_fails_the_boot(tmp_path):
+    import ssl
+
+    from tests.test_rpc import _make_cert
+
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    cert, _key = _make_cert(tmp_path / "a")
+    _cert, other_key = _make_cert(tmp_path / "b")
+    before = set(threading.enumerate())
+    with pytest.raises(ssl.SSLError):
+        _port_server(num_schedulers=0, enable_rpc=True,
+                     tls_cert_file=cert, tls_key_file=other_key)
+    assert set(threading.enumerate()) <= before
+
+
+def test_tls_ca_file_loads_into_both_contexts(tmp_path):
+    import ssl
+
+    from tests.test_rpc import _make_cert
+
+    cert, key = _make_cert(tmp_path)
+    srv = _port_server(num_schedulers=0, enable_rpc=True,
+                       tls_cert_file=cert, tls_key_file=key,
+                       tls_ca_file=cert, tls_verify_client=True)
+    try:
+        server_ctx = srv.rpc_server._tls_context
+        client_ctx = srv.conn_pool.tls_context
+        assert server_ctx.verify_mode == ssl.CERT_REQUIRED
+        assert server_ctx.cert_store_stats()["x509"] == 1
+        # the server's own pools dial with the client context
+        assert client_ctx.verify_mode == ssl.CERT_REQUIRED
+        assert client_ctx.cert_store_stats()["x509"] == 1
+        assert srv.raft_pool.tls_context is client_ctx
+    finally:
+        srv.shutdown()
 
 
 def test_unknown_config_key_raises_like_jax():
