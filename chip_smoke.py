@@ -8,6 +8,7 @@ one NVIDIA GPU.
     python3 chip_smoke.py --executor            # the executor phase alone
     python3 chip_smoke.py --wire                # the wire phase alone
     python3 chip_smoke.py --wire-groups N       # ... at N groups a job
+    python3 chip_smoke.py --client              # the client phase alone
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -130,13 +131,35 @@ Phases, in order; any failure exits non-zero and prints no result line:
               the spans, the card's busy ms and idle share, every
               kernel's launches, and the first launch at each kernel
               shape replayed against the plain version, bit for bit;
-  8. system   bench.py config 3: mock.system_job() on 1,000 nodes
+  8. client   32 real port Clients (``nomad_tpu_torch.client``: the
+              whole fingerprint chain, so ``accel`` reads the card;
+              ``raw_exec`` on; their own state and alloc dirs) register
+              over the wire with the port's Server on the card, heartbeat
+              and park one ``Node.GetAllocs`` long-poll each; through
+              ``Job.Register``: a batch job of 256 raw_exec tasks that
+              print their alloc's id, a job parsed from HCL by the port's
+              ``jobspec`` (32 copies, ``distinct_hosts``, constrained to
+              ``$attr.accel.platform = "gpu"``), and a service job of 64
+              ``/bin/sleep 300`` tasks; one Client is shut down without
+              touching its tasks and a new one on its state dir
+              re-attaches to them (same PIDs, no second sleeper), then
+              ``Job.Deregister`` kills every sleeper.  Every alloc of the
+              first two jobs ``dead`` with its own id in its stdout log;
+              every eval complete and acked once, each alloc placed once,
+              no node over capacity; teardown leaves no thread, child
+              process or connection; K3/K4a and K5 launched and each
+              recorded launch replayed against its plain version, bit
+              for bit; the registration wall, each job's wall to its
+              last alloc dead, placements/s and allocs/s, the
+              ``Node.UpdateAlloc`` calls, commit-to-client p50/p99, the
+              re-attach wall, the launches and the card's busy ms;
+  9. system   bench.py config 3: mock.system_job() on 1,000 nodes
               through ``system`` (vectorized, native finish) and
               ``system-seq``: equal plans, every node placed, eval ms;
-              phases 4-8 (and 10) run under ``executor_override("device")``,
+              phases 4-9 (and 11) run under ``executor_override("device")``,
               so the cost policy cannot move their walks to the numpy
               twins and their launch checks keep their meaning;
-  9. executor the host executor's crossover and the pipelined runner:
+  10. executor the host executor's crossover and the pipelined runner:
               (a) on real evals' DeviceArgs (configs 1, 2, 4, a config-5b
               lane, config 2's sequence job, and jobs of 8, 64 and 512
               distinct groups on config 4's fleet), ``dispatch_host``,
@@ -158,13 +181,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
               config 5b's storm under host and auto, with the placements
               and counts of the storm phase's device run; the default
               breaker ends closed with every count at 0;
-  10. verify  bench.py's 5f fleet-scaling sub-table on the port: NodeSlab
+  11. verify  bench.py's 5f fleet-scaling sub-table on the port: NodeSlab
               fleets of 10,000, 131,072 and 1,000,000 nodes, 64
               single-placement plans a window, 8 measured windows under
               the host engine and under the device engine (K6); every
               device window must dispatch, make one upload and one
               fetch, and give the host's verdicts;
-  11. report  one ``{"kernels": [...]}`` line, then the card's name and
+  12. report  one ``{"kernels": [...]}`` line, then the card's name and
               power limit exactly as nvidia-smi prints them, then the
               result line ``{"ok": true, "device": {...}}`` last.
 
@@ -2868,13 +2891,13 @@ def serving_threads(port) -> list:
             or t.name.startswith(f"rpc-dispatch:{port}-")]
 
 
-def wait_for(cond, timeout, what) -> None:
+def wait_for(cond, timeout, what, phase="wire") -> None:
     """Wait for ``cond``; past ``timeout`` fail with ``what`` (a string,
-    or a callable giving it then)."""
+    or a callable giving it then), naming ``phase``."""
     deadline = time.monotonic() + timeout
     while not cond():
         if time.monotonic() >= deadline:
-            require(False, f"wire: {what() if callable(what) else what}")
+            require(False, f"{phase}: {what() if callable(what) else what}")
         time.sleep(0.02)
 
 
@@ -3338,7 +3361,499 @@ def run_wire(torch, n_agents=10_000, n_jobs=64, n_groups=None,
     return row
 
 
-# -- phase 8: the system schedulers (config 3) -----------------------------
+# -- phase 8: the client (real port Clients running what the card placed) --
+
+CLIENT_NODES = 32
+CLIENT_BATCH = 256     # job 1's raw_exec tasks
+CLIENT_SLEEPERS = 64   # job 3's /bin/sleep tasks
+# The task of jobs 1 and 2: print the alloc's id, the name of the
+# directory that holds the alloc dir the client hands it.
+CLIENT_ECHO = ("-c 'basename \"$(dirname \"$NOMAD_ALLOC_DIR\")\"'")
+CLIENT_HCL = """
+job "client-hcl" {
+    type = "batch"
+    datacenters = ["dc1"]
+    constraint {
+        attribute = "$attr.accel.platform"
+        value = "%(platform)s"
+    }
+    group "echo" {
+        count = %(count)d
+        constraint {
+            distinct_hosts = true
+        }
+        task "echo" {
+            driver = "raw_exec"
+            config {
+                command = "/bin/sh"
+                args = "%(args)s"
+            }
+            resources {
+                cpu = 20
+                memory = 16
+            }
+        }
+    }
+}
+"""
+
+
+def accel_expected(torch) -> tuple:
+    """The ``accel.platform`` and ``accel.kind.*`` key a Client's
+    fingerprint must report on DEV: JAX's names (``gpu`` and the card's
+    name; ``cpu`` on a CPU rehearsal)."""
+    if DEV == "cpu":
+        return "cpu", "accel.kind.cpu"
+    name = torch.cuda.get_device_name(0).lower().replace(" ", "-")
+    return "gpu", f"accel.kind.{name}"
+
+
+def child_processes() -> dict:
+    """This process's children from /proc: {pid: (state, argv)}; a
+    zombie has state ``Z``."""
+    me = os.getpid()
+    out = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as fh:
+                stat = fh.read()
+            with open(f"/proc/{name}/cmdline", "rb") as fh:
+                argv = fh.read().split(b"\0")
+        except OSError:
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        if int(fields[1]) == me:
+            out[int(name)] = (fields[0], [a.decode() for a in argv if a])
+    return out
+
+
+def sleepers() -> set:
+    """The live ``/bin/sleep`` children of this process."""
+    return {pid for pid, (st, argv) in child_processes().items()
+            if st != "Z" and argv[:1] == ["/bin/sleep"]}
+
+
+class ClientProbe:
+    """The client phase's clocks: the instant each alloc's runner was
+    made on a client (first time only), the instant each raft index's
+    plan commit returned on the FSM, and the calls every client made
+    through ``NetRPCHandler`` by method."""
+
+    def __init__(self, fsm) -> None:
+        from nomad_tpu_torch.client import client as client_mod
+        from nomad_tpu_torch.structs import codec
+
+        self.seen: dict = {}
+        self.committed: dict = {}
+        self.calls: dict = {}
+        self._lock = threading.Lock()
+        self._client_mod = client_mod
+        self._runner = client_mod.AllocRunner
+        self._call = client_mod.NetRPCHandler.call
+        self._handlers = fsm._handlers
+        self._saved_handlers = dict(fsm._handlers)
+        probe = self
+
+        class SeenRunner(self._runner):
+            def __init__(self, alloc, *a, **kw):
+                with probe._lock:
+                    probe.seen.setdefault(alloc.id, time.perf_counter())
+                super().__init__(alloc, *a, **kw)
+
+        def call(handler, method, args, timeout=None):
+            with probe._lock:
+                probe.calls[method] = probe.calls.get(method, 0) + 1
+            return probe._call(handler, method, args, timeout=timeout)
+
+        for msg in (codec.ALLOC_UPDATE_REQUEST,
+                    codec.PLAN_BATCH_APPLY_REQUEST):
+            def handler(index, payload, _fn=fsm._handlers[msg]):
+                try:
+                    return _fn(index, payload)
+                finally:
+                    with probe._lock:
+                        probe.committed[index] = time.perf_counter()
+            fsm._handlers[msg] = handler
+        client_mod.AllocRunner = SeenRunner
+        client_mod.NetRPCHandler.call = call
+
+    def restore(self) -> None:
+        self._client_mod.AllocRunner = self._runner
+        self._client_mod.NetRPCHandler.call = self._call
+        self._handlers.update(self._saved_handlers)
+
+    def seen_s(self, allocs) -> list:
+        """Commit to client, seconds, for each of ``allocs`` (by its
+        create index); every one must have been seen after a recorded
+        commit."""
+        out = []
+        for a in allocs:
+            t0 = self.committed.get(a.create_index)
+            t1 = self.seen.get(a.id)
+            require(t0 is not None and t1 is not None,
+                    f"client: alloc {a.id} has no commit ({t0}) or no "
+                    f"runner ({t1})")
+            out.append(t1 - t0)
+        return out
+
+
+def orphan(client) -> None:
+    """After ``client.shutdown()``: what a client process that exits
+    leaves behind is its tasks, still running, and its state dir.  In
+    one process its runners' threads live on; cut them off from the
+    state dir and the server, so that they only reap their processes
+    (as init would) and the client that re-attaches owns both."""
+    for runner in list(client.alloc_runners.values()):
+        runner.state_dir = ""
+        runner.on_status = lambda alloc: None
+        for tr in list(runner.task_runners.values()):
+            tr.state_dir = ""
+
+
+def client_config(base, i, addr):
+    from nomad_tpu_torch.client import ClientConfig
+
+    return ClientConfig(
+        state_dir=os.path.join(base, f"c{i:02d}", "state"),
+        alloc_dir=os.path.join(base, f"c{i:02d}", "alloc"),
+        servers=[addr], options={"driver.raw_exec.enable": "1"})
+
+
+def client_job(structs, job_id, job_type, count, command, args):
+    return structs.Job(
+        id=job_id, name=job_id, type=job_type, priority=50,
+        region="global", datacenters=["dc1"],
+        task_groups=[structs.TaskGroup(name="tasks", count=count, tasks=[
+            structs.Task(name="task", driver="raw_exec",
+                         config={"command": command, "args": args},
+                         resources=structs.Resources(cpu=20,
+                                                     memory_mb=16))])])
+
+
+def run_client(torch, n_clients=CLIENT_NODES, n_batch=CLIENT_BATCH,
+               n_sleepers=CLIENT_SLEEPERS):
+    """The client phase: the port's ``Server(ServerConfig(enable_rpc=
+    True))`` on the card serves ``n_clients`` real port ``Client``s in
+    this process, each with its own state and alloc dirs, ``raw_exec``
+    on and the whole fingerprint chain (``accel`` reads the card).
+    They register over the wire through ``NetRPCHandler``, heartbeat
+    and park one ``Node.GetAllocs`` long-poll each; the workers start
+    once leadership is established.  Then, through ``Job.Register``:
+    (1) a batch job of ``n_batch`` raw_exec tasks, each printing its
+    alloc's id; (2) the same task parsed from HCL by the port's
+    ``jobspec.parse``, one a node (``distinct_hosts``), on nodes whose
+    ``accel.platform`` is the card's; (3) a service job of
+    ``n_sleepers`` ``/bin/sleep 300`` tasks, then one Client (the one
+    with most of them) shut down without touching its tasks and a new
+    Client on its state dir re-attaching to them, then
+    ``Job.Deregister``.  The launch counts are set to 0 just before the
+    first ``Job.Register`` and read after the deregister.  Checks: every
+    alloc of jobs 1-2 ``dead`` on the server and its stdout its own id;
+    every eval complete, acked once, each alloc placed once, no node
+    over capacity (``check_server_state``); job 2 once on each node,
+    every node's accel attributes the card's; the re-attached runners
+    hold the same PIDs and no second sleeper started; after the
+    deregister no sleeper lives and job 3 is terminal; teardown leaves
+    no client, runner or serving thread, no child process and no
+    connection; K3 or K4a and K5 launched, each recorded launch
+    replayed against its plain version, bit for bit."""
+    import gc
+    import shutil
+
+    import nomad_tpu_torch.structs as structs
+    from nomad_tpu_torch.client import Client
+    from nomad_tpu_torch.jobspec import parse
+    from nomad_tpu_torch.server import Server, ServerConfig
+    from nomad_tpu_torch.server.rpc import ConnPool
+
+    def until(cond, timeout, what):
+        wait_for(cond, timeout, what, phase="client")
+    before = set(threading.enumerate())
+    children0 = set(child_processes())
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "nomad_tpu_torch", "_build", "client_phase")
+    shutil.rmtree(base, ignore_errors=True)
+    platform, kind_key = accel_expected(torch)
+    thresholds = gc.get_threshold()
+    row: dict = dict(clients=n_clients)
+    clients: list = []
+    with recorded_kernels() as rec:
+        srv = Server(ServerConfig(device=DEV, enable_rpc=True,
+                                  num_schedulers=0, heartbeat_seed=11))
+        probe = cprobe = pool = None
+        ok = False
+        try:
+            srv.establish_leadership()
+            srv.config.num_schedulers = 2
+            srv._setup_workers()
+            addr = srv.rpc_address()
+            state = srv.fsm.state
+            probe = ServerProbe(srv.fsm)
+            cprobe = ClientProbe(srv.fsm)
+            t = time.perf_counter()
+            for i in range(n_clients):
+                cfg = client_config(base, i, addr)
+                os.makedirs(cfg.alloc_dir)  # the storage detector reads it
+                c = Client(cfg)
+                c.start()
+                clients.append(c)
+            until(lambda: sum(
+                1 for n in state.nodes() if n.status == "ready")
+                == n_clients, 60, "the clients did not all register")
+            # As the wire phase does: an allocs table no write has
+            # touched answers at once (index 0) and a client then polls
+            # every 0.2 s, so seed it at the applied index (the nodes'
+            # registrations) and every client's next poll parks.
+            state.upsert_allocs(srv.raft.applied_index(), [])
+            until(lambda: state.watch.live_waiters() >= n_clients, 60,
+                  "the clients' long-polls did not all park")
+            row["register_s"] = time.perf_counter() - t
+            nodes = {n.id: n for n in state.nodes()}
+            require(sorted(nodes) == sorted(c.node.id for c in clients),
+                    "client: the store's nodes are not the clients'")
+            for n in nodes.values():
+                require(n.attributes.get("accel.platform") == platform
+                        and n.attributes.get(kind_key) is not None
+                        and n.attributes.get("driver.raw_exec") == "1",
+                        f"client: node {n.id} reports accel "
+                        f"{n.attributes.get('accel.platform')} and "
+                        f"{sorted(k for k in n.attributes if k.startswith('accel.kind'))}")
+            print(f"client: {n_clients} clients registered and parked in "
+                  f"{row['register_s']:.2f} s", flush=True)
+            by_node = {c.node.id: c for c in clients}
+            pool = ConnPool()
+            ids: list = []
+
+            def register(job) -> float:
+                t = time.perf_counter()
+                ids.append(pool.call(addr, "Job.Register",
+                                     {"job": job.to_dict()},
+                                     timeout=120)["eval_id"])
+                return t
+
+            def allocs_of(job_id):
+                return state.allocs_by_job(job_id)
+
+            def run_to_dead(job, count) -> dict:
+                t0 = register(job)
+                srv.wait_for_evals(ids[-1:], timeout=120)
+                t_placed = time.perf_counter()
+                until(lambda: len(allocs_of(job.id)) == count and all(
+                    a.client_status == "dead" for a in allocs_of(job.id)),
+                    120, lambda: f"{job.id}: "
+                    f"{[a.client_status for a in allocs_of(job.id)]}")
+                wall = time.perf_counter() - t0
+                for a in allocs_of(job.id):
+                    log = os.path.join(by_node[a.node_id]._alloc_root(a.id),
+                                       "alloc", "logs",
+                                       a.job.task_groups[0].tasks[0].name
+                                       + ".stdout")
+                    with open(log) as fh:
+                        got = fh.read()
+                    require(got == a.id + "\n",
+                            f"client: {job.id} alloc {a.id} wrote {got!r}")
+                return dict(placed=count, wall_s=wall,
+                            placed_s=t_placed - t0,
+                            placements_per_s=count / (t_placed - t0),
+                            allocs_per_s=count / wall,
+                            nodes=len({a.node_id for a in allocs_of(job.id)}))
+
+            job1 = client_job(structs, "client-batch", "batch", n_batch,
+                              "/bin/sh", CLIENT_ECHO)
+            job2 = parse(CLIENT_HCL % dict(platform=platform,
+                                           count=n_clients,
+                                           args=CLIENT_ECHO.replace(
+                                               '"', '\\"')))
+            job3 = client_job(structs, "client-sleep", "service",
+                              n_sleepers, "/bin/sleep", "300")
+            reattach: dict = {}
+
+            def jobs():
+                row["job1"] = run_to_dead(job1, n_batch)
+                row["job2"] = run_to_dead(job2, n_clients)
+                require(sorted(a.node_id for a in allocs_of(job2.id))
+                        == sorted(nodes),
+                        "client: job 2 is not once on every node")
+                register(job3)
+                srv.wait_for_evals(ids[-1:], timeout=120)
+                until(lambda: len(allocs_of(job3.id)) == n_sleepers
+                      and all(a.client_status == "running"
+                              for a in allocs_of(job3.id)), 120,
+                      "the sleepers did not all run")
+                running = sleepers()
+                require(len(running) == n_sleepers,
+                        f"client: {len(running)} sleepers for "
+                        f"{n_sleepers} allocs")
+                # The client holding most sleepers goes down without
+                # touching its tasks; a new one on its state dir
+                # re-attaches.
+                counts: dict = {}
+                for a in allocs_of(job3.id):
+                    counts[a.node_id] = counts.get(a.node_id, 0) + 1
+                node_id = max(counts, key=lambda k: (counts[k], k))
+                k = clients.index(by_node[node_id])
+                old = clients[k]
+                pids = {aid: r.task_runners["task"].handle.pid
+                        for aid, r in old.alloc_runners.items()
+                        if r.alloc.job_id == job3.id}
+                require(len(pids) == counts[node_id],
+                        "client: the chosen client's runners are not its "
+                        "allocs")
+                old.shutdown()
+                orphan(old)
+                t = time.perf_counter()
+                new = Client(client_config(base, k, addr))
+                got = {aid: r.task_runners["task"].handle.pid
+                       for aid, r in new.alloc_runners.items()
+                       if r.alloc.job_id == job3.id
+                       and r.task_runners.get("task") is not None
+                       and r.task_runners["task"].handle is not None}
+                reattach.update(wall_s=time.perf_counter() - t,
+                                allocs=len(pids))
+                clients.append(old)  # its threads are joined at teardown
+                clients[k] = new
+                by_node[node_id] = new
+                new.start()
+                require(new.node.id == node_id and got == pids,
+                        f"client: the restarted client re-attached "
+                        f"{len(got)} of {len(pids)} tasks "
+                        f"({sum(got.get(a) == p for a, p in pids.items())} "
+                        f"with the same PID)")
+                until(lambda: all(
+                    r.task_runners["task"].state == "running"
+                    for aid, r in new.alloc_runners.items()
+                    if aid in pids), 30, "the re-attached tasks did not run")
+                # Its registration makes one node-update eval for each
+                # job with allocs on the node (create_node_evals).
+                node_jobs = {a.job_id for a in state.allocs_by_node(node_id)}
+                def node_evals():
+                    return [e.id for e in state.evals()
+                            if e.triggered_by == "node-update"
+                            and e.node_id == node_id]
+                until(lambda: len(node_evals()) == len(node_jobs), 30,
+                      lambda: f"the restarted client's registration made "
+                      f"{len(node_evals())} node evals for "
+                      f"{len(node_jobs)} jobs")
+                ids.extend(node_evals())
+                srv.wait_for_evals(ids[-len(node_jobs):], timeout=120)
+                until(lambda: state.watch.live_waiters() >= n_clients,
+                      60, "the restarted client's poll did not park")
+                require(sleepers() == running,
+                        f"client: sleepers {len(sleepers())} after the "
+                        f"restart, {len(running)} before")
+                print(f"client re-attach: {len(pids)} tasks on node "
+                      f"{node_id} in {reattach['wall_s'] * 1e3:.1f} ms",
+                      flush=True)
+                t = time.perf_counter()
+                ids.append(pool.call(addr, "Job.Deregister",
+                                     {"job_id": job3.id},
+                                     timeout=120)["eval_id"])
+                srv.wait_for_evals(ids[-1:], timeout=120)
+                until(lambda: not sleepers() and all(
+                    a.terminal_status() for a in allocs_of(job3.id)), 60,
+                    lambda: f"{len(sleepers())} sleepers outlived the "
+                    f"deregister")
+                # and every client has told the server so
+                until(lambda: all(a.client_status == "dead"
+                                  for a in allocs_of(job3.id)), 60,
+                      lambda: "the sleepers' kills did not all reach the "
+                      "server: "
+                      f"{[a.client_status for a in allocs_of(job3.id)]}")
+                row["deregister_s"] = time.perf_counter() - t
+
+            for fn in rec.counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            busy_ms, top, _ = device_busy_ms(torch, jobs)
+            wall = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in rec.counters.items()}
+            placed = check_server_state(structs, srv, "client", ids, probe)
+            require(placed == n_batch + n_clients,
+                    f"client: {placed} live allocs, want "
+                    f"{n_batch + n_clients}")
+            require(launches["place_rounds"]
+                    + launches["place_rounds_batch"] > 0
+                    and launches["scatter_rows"] > 0,
+                    f"client: the jobs launched {launches}")
+            seen = {j.id: cprobe.seen_s(allocs_of(j.id))
+                    for j in (job1, job2, job3)}
+            every = [t for ts in seen.values() for t in ts]
+            row.update(
+                reattach=reattach, wall_s=wall,
+                update_alloc_calls=cprobe.calls.get("Node.UpdateAlloc", 0),
+                rpc_calls=dict(sorted(cprobe.calls.items())),
+                seen_p50_ms=percentile(every, 50),
+                seen_p99_ms=percentile(every, 99),
+                seen_ms_by_job={k: dict(p50=percentile(ts, 50),
+                                        p99=percentile(ts, 99),
+                                        max=max(ts) * 1e3)
+                                for k, ts in seen.items()},
+                commits=srv.plan_applier.stats()["commits"],
+                device_busy_ms=busy_ms, device_top_ms=top,
+                device_idle_share=(1.0 - busy_ms / (wall * 1e3)
+                                   if busy_ms is not None else None),
+                breakdown_ms=probe.breakdown_ms(), launches=launches)
+            ok = True
+        finally:
+            try:
+                for c in clients:
+                    c.shutdown()
+                    c.destroy_all()
+                if pool is not None:
+                    pool.shutdown()
+                if cprobe is not None:
+                    cprobe.restore()
+                if probe is not None:
+                    probe.restore()
+                if ok:
+                    until(lambda: srv.fsm.state.watch.live_waiters()
+                          == 0, 60, "parked polls outlived the clients")
+                    until(lambda: srv.rpc_server.stats()["loop"][
+                        "open_conns"] == 0, 60,
+                        lambda: f"connections outlived the clients: "
+                        f"{srv.rpc_server.stats()['loop']}; clients with "
+                        f"a session: " + str([
+                            i for i, c in enumerate(clients)
+                            if c.rpc.pool._sessions or c.rpc.pool._pools]))
+            finally:
+                srv.shutdown()
+                gc.unfreeze()
+                gc.set_threshold(*thresholds)
+                gc.collect()
+    until(lambda: not [t for t in threading.enumerate()
+                       if t not in before and t.is_alive()], 30,
+          lambda: "threads outlived the phase: " + ", ".join(sorted(
+              t.name for t in threading.enumerate()
+              if t not in before and t.is_alive())))
+    until(lambda: set(child_processes()) <= children0, 30,
+          lambda: f"child processes outlived the phase: "
+          f"{sorted(set(child_processes()) - children0)}")
+    shutil.rmtree(base, ignore_errors=True)
+    for j in ("job1", "job2"):
+        r = row[j]
+        print(f"client {j}: {r['placed']} allocs on {r['nodes']} nodes, "
+              f"placed in {r['placed_s']:.3f} s "
+              f"({r['placements_per_s']:.1f} placements/s), all dead in "
+              f"{r['wall_s']:.3f} s ({r['allocs_per_s']:.1f} allocs/s)",
+              flush=True)
+    print(f"client sync: {row['update_alloc_calls']} Node.UpdateAlloc "
+          f"calls; commit to client p50 {row['seen_p50_ms']:.1f} ms, p99 "
+          f"{row['seen_p99_ms']:.1f} ms (" + ", ".join(
+              f"{k} {v['p50']:.1f} / {v['p99']:.1f}"
+              for k, v in row["seen_ms_by_job"].items()) + ")", flush=True)
+    print("client launches: " + json.dumps(launches), flush=True)
+    print("client card: busy "
+          + (f"{busy_ms:.2f} ms of {wall:.2f} s, idle "
+             f"{row['device_idle_share'] * 100:.2f}%"
+             if busy_ms is not None else "not measured"), flush=True)
+    print("client: " + json.dumps(row), flush=True)
+    row["main_path_replay"] = rec.replay(torch, launches, "client")
+    return row
+
+
+# -- phase 9: the system schedulers (config 3) -----------------------------
 
 
 def run_system(n_nodes=1000, reps=3):
@@ -3406,7 +3921,7 @@ def run_system(n_nodes=1000, reps=3):
                 seq_over_system=seq["median_ms"] / vec["median_ms"])
 
 
-# -- phase 10: the verify engines over a growing fleet ---------------------
+# -- phase 11: the verify engines over a growing fleet ---------------------
 
 
 def result_key(result) -> tuple:
@@ -3534,7 +4049,7 @@ def run_verify_fleet(sizes=(10_000, 131_072, 1_000_000), windows=8,
                 device_flatness=last / first, table=table)
 
 
-# -- phase 9: the executor policy and the pipelined eval runner ------------
+# -- phase 10: the executor policy and the pipelined eval runner -----------
 
 
 EXECUTORS = ("host", "device", "auto")
@@ -4304,6 +4819,12 @@ def main(argv=()) -> int:
         print("wire launches: " + json.dumps(wr["launches"]), flush=True)
         print("chip_smoke: --wire run, no result line", flush=True)
         return 0
+    if argv[:1] == ["--client"]:
+        # The client phase alone: no kernel checks, no result line.
+        with executor_override("device"):
+            run_client(torch)
+        print("chip_smoke: --client run, no result line", flush=True)
+        return 0
     if argv[:1] == ["--executor"]:
         # The executor phase alone (its config-5b storms are not held
         # against a device storm): no kernel checks, no result line.
@@ -4321,7 +4842,7 @@ def main(argv=()) -> int:
         if len(argv) != 2 or argv[0] != "--only" or \
                 not set(argv[1].split(",")) <= set(checks):
             print(f"usage: chip_smoke.py [--only {','.join(checks)}] "
-                  f"[--executor] [--wire] [--wire-groups N] "
+                  f"[--executor] [--wire] [--wire-groups N] [--client] "
                   f"[--profiler-events SECONDS]",
                   file=sys.stderr)
             return 2
@@ -4362,6 +4883,7 @@ def main(argv=()) -> int:
             {k: v for k, v in sv.items() if k != "main_path_replay"}),
             flush=True)
         wr = phase("wire", lambda: run_wire(torch))
+        cl = phase("client", lambda: run_client(torch))
         sy = phase("system", run_system)
         print("system: " + json.dumps(sy), flush=True)
     ex = phase("executor", lambda: run_executor(torch, placed5b=placed5b))
@@ -4375,11 +4897,11 @@ def main(argv=()) -> int:
         {k: v for k, v in vf.items() if k != "table"}), flush=True)
     # Launches on the main paths, each path counted from 0: the slice,
     # the storm (K6 in config 5b under the device policy), the server
-    # phase's shapes, the wire phase, the executor phase's timed
-    # pipelined streams and the verify-fleet phase.
+    # phase's shapes, the wire and client phases, the executor phase's
+    # timed pipelined streams and the verify-fleet phase.
     launches = {k: sl["launches"].get(k, 0) + st["launches"][k]
                 + sv["launches"][k] + wr["launches"][k]
-                + ex["launches"].get(k, 0)
+                + cl["launches"][k] + ex["launches"].get(k, 0)
                 for k in st["launches"]}
     launches["window_verify"] += vf["launches"]
     replay_err = {name: max([r["err"] for r in sl["main_path_rounds"]
@@ -4388,17 +4910,20 @@ def main(argv=()) -> int:
                              + ex["main_path_replay"]
                              + sv["main_path_replay"]
                              + wr["main_path_replay"]
+                             + cl["main_path_replay"]
                              if r["kernel"] == name], default=0.0)
                   for name in ("place_rounds", "place_rounds_batch",
                                "scatter_rows", "window_verify")}
     replay_err["place_sequence"] = max(
         [sl["main_path_sequence"]["err"]]
         + [r["err"] for r in ex["main_path_replay"] + sv["main_path_replay"]
-           + wr["main_path_replay"] if r["kernel"] == "place_sequence"])
+           + wr["main_path_replay"] + cl["main_path_replay"]
+           if r["kernel"] == "place_sequence"])
     replay_err["place_sequence_batch"] = max(
         [st[storm]["main_path_sequence_batch"]["err"]
          for storm in ("sequence_storm", "fleet_sequence_storm")]
         + [r["err"] for r in sv["main_path_replay"] + wr["main_path_replay"]
+           + cl["main_path_replay"]
            if r["kernel"] == "place_sequence_batch"])
     timed = {"place_sequence": seq, "place_rounds": rnd,
              "scatter_rows": sct, "place_rounds_batch": rb,

@@ -84,6 +84,12 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "import nomad_tpu_torch.server.mux, nomad_tpu_torch.server.rpc\n"
         "import nomad_tpu_torch.server.endpoints\n"
         "import nomad_tpu_torch.agent, nomad_tpu_torch.agent.swarm\n"
+        "import nomad_tpu_torch.client, nomad_tpu_torch.client.client\n"
+        "import nomad_tpu_torch.client.driver\n"
+        "import nomad_tpu_torch.client.fingerprint\n"
+        "import nomad_tpu_torch.client.alloc_runner\n"
+        "import nomad_tpu_torch.jobspec, nomad_tpu_torch.jobspec.parse\n"
+        "import nomad_tpu_torch.utils.duration\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'nomad_tpu')]\n"
         "assert not bad, bad\n"
@@ -112,6 +118,41 @@ def test_serving_plane_module_imports_neither_jax_nor_the_jax_package(rel):
     bad = [m for m in mods
            if m.split(".")[0] in ("jax", "jaxlib", "nomad_tpu")]
     assert bad == []
+
+
+# The client slice's modules: the client agent, its six drivers, the
+# jobspec parser and the duration strings it reads.
+CLIENT_SLICE = ("client/__init__.py", "client/client.py",
+                "client/config.py", "client/task_env.py",
+                "client/allocdir.py", "client/artifact.py",
+                "client/fingerprint.py", "client/task_runner.py",
+                "client/alloc_runner.py", "client/driver/__init__.py",
+                "client/driver/base.py", "client/driver/raw_exec.py",
+                "client/driver/exec_driver.py", "client/driver/java.py",
+                "client/driver/qemu.py", "client/driver/docker.py",
+                "client/driver/rkt.py", "jobspec/__init__.py",
+                "jobspec/hcl.py", "jobspec/parse.py", "utils/duration.py")
+
+
+@pytest.mark.parametrize("rel", CLIENT_SLICE)
+def test_client_slice_module_imports_neither_jax_nor_the_jax_package(rel):
+    path = os.path.join(PACKAGE, rel)
+    assert os.path.isfile(path)
+    mods = list(_imported_modules(path))
+    bad = [m for m in mods
+           if m.split(".")[0] in ("jax", "jaxlib", "nomad_tpu")]
+    assert bad == []
+
+
+def test_client_modules_are_the_jax_packages():
+    """Every module of the JAX package's client/ and jobspec/ has its
+    port at the same path."""
+    jax_pkg = os.path.join(REPO, "nomad_tpu")
+    for sub in ("client", "client/driver", "jobspec"):
+        names = sorted(n for n in os.listdir(os.path.join(jax_pkg, sub))
+                       if n.endswith(".py"))
+        assert [f"{sub}/{n}" for n in names] == sorted(
+            r for r in CLIENT_SLICE if os.path.dirname(r) == sub)
 
 
 def test_obs_imports_nothing_of_the_port_outside_utils():
