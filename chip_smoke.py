@@ -9,6 +9,7 @@ one NVIDIA GPU.
     python3 chip_smoke.py --wire                # the wire phase alone
     python3 chip_smoke.py --wire-groups N       # ... at N groups a job
     python3 chip_smoke.py --client              # the client phase alone
+    python3 chip_smoke.py --agent               # the agent phase alone
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -153,13 +154,41 @@ Phases, in order; any failure exits non-zero and prints no result line:
               last alloc dead, placements/s and allocs/s, the
               ``Node.UpdateAlloc`` calls, commit-to-client p50/p99, the
               re-attach wall, the launches and the card's busy ms;
-  9. system   bench.py config 3: mock.system_job() on 1,000 nodes
+  9. agent    SURVEY.md's canonical path (``run`` -> HTTP ``PUT
+              /v1/jobs`` -> the agent's ``Job.Register`` -> the server ->
+              placement on the card -> the client runs the task ->
+              ``eval-monitor`` / ``alloc-status``): (a) in this process,
+              ``Agent(AgentConfig.dev())`` on the card (the server with
+              gossip, the HTTP API, its own client with ``raw_exec`` on
+              ``dc2``); an ``AgentSwarm`` registers config 4's 10,000
+              mock nodes (``dc1``) and heartbeats them, no long-poll;
+              ``nomad_tpu_torch.cli`` ``run -detach`` submits config 4's
+              1,000-group job written as HCL (K3/K4a at N=16,384, K5);
+              ``alloc-status`` on one alloc; ``run`` of a raw_exec job of
+              8 tasks on the agent's own node (``$attr.accel.platform``),
+              each printing its alloc's id, then ``status``,
+              ``eval-monitor``, ``alloc-status``, ``server-members``,
+              ``/v1/agent/self`` and ``/v1/agent/metrics``, ``stop`` of
+              both jobs.  Every eval complete, acked once, each alloc
+              placed once, no node over capacity; every task ``dead``
+              with its own id; no TTL expiry; one gossip member; K3/K4a
+              and K5 launched and each recorded launch replayed against
+              its plain version, bit for bit; teardown leaves no thread,
+              child process or connection.  (b) ``python3 -m
+              nomad_tpu_torch.cli agent -dev -http-port 0`` as a process
+              of its own, on the card: ``cli run`` of a raw_exec job in a
+              second process exits 0, ``status`` and ``alloc-status``
+              read it back, nvidia-smi's count of contexts on the card
+              is one higher while its tasks run, SIGHUP reloads
+              ``log_level``, SIGTERM exits 0, leaves no task running
+              and the count goes back down;
+  10. system  bench.py config 3: mock.system_job() on 1,000 nodes
               through ``system`` (vectorized, native finish) and
               ``system-seq``: equal plans, every node placed, eval ms;
-              phases 4-9 (and 11) run under ``executor_override("device")``,
+              phases 4-10 (and 12) run under ``executor_override("device")``,
               so the cost policy cannot move their walks to the numpy
               twins and their launch checks keep their meaning;
-  10. executor the host executor's crossover and the pipelined runner:
+  11. executor the host executor's crossover and the pipelined runner:
               (a) on real evals' DeviceArgs (configs 1, 2, 4, a config-5b
               lane, config 2's sequence job, and jobs of 8, 64 and 512
               distinct groups on config 4's fleet), ``dispatch_host``,
@@ -181,13 +210,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
               config 5b's storm under host and auto, with the placements
               and counts of the storm phase's device run; the default
               breaker ends closed with every count at 0;
-  11. verify  bench.py's 5f fleet-scaling sub-table on the port: NodeSlab
+  12. verify  bench.py's 5f fleet-scaling sub-table on the port: NodeSlab
               fleets of 10,000, 131,072 and 1,000,000 nodes, 64
               single-placement plans a window, 8 measured windows under
               the host engine and under the device engine (K6); every
               device window must dispatch, make one upload and one
               fetch, and give the host's verdicts;
-  12. report  one ``{"kernels": [...]}`` line, then the card's name and
+  13. report  one ``{"kernels": [...]}`` line, then the card's name and
               power limit exactly as nvidia-smi prints them, then the
               result line ``{"ok": true, "device": {...}}`` last.
 
@@ -287,10 +316,12 @@ def sequence_lane_bytes(n, group_idx, valid) -> int:
             + n * 6 * 4)
 
 
-def time_ms(torch, fn, reps: int) -> float:
+def time_ms(torch, fn, reps: int, warm: bool = False) -> float:
     """Mean ms of ``fn`` over ``reps`` calls, CUDA events, after one
-    warm-up call."""
-    fn()
+    warm-up call (``warm``: the caller has just made that call, as a
+    plain version's reference result is one)."""
+    if not warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1063,7 +1094,8 @@ def check_sequence_batch(torch, binpack, n, lanes, p, rng, reps, *,
         require(after < before, f"{what}: no -0.0 usage entry turned +0.0")
     ms = time_ms(torch, lambda: binpack.place_sequence_batch(*args), reps)
     plain_ms = time_ms(torch,
-                       lambda: binpack.place_sequence_batch_plain(*args), 1)
+                       lambda: binpack.place_sequence_batch_plain(*args), 1,
+                       warm=True)
     chosen_h = want[0].cpu().numpy()
     nbytes = shared_fleet_bytes(n) + sum(
         4 + sequence_lane_bytes(n, gi_h[b], valid_h[b])
@@ -3203,6 +3235,20 @@ def run_wire(torch, n_agents=10_000, n_jobs=64, n_groups=None,
                 watcher.join()
             storm_launches = {k: fn.launches
                               for k, fn in rec.counters.items()}
+            # The storm goes through the fused launch (K4a).  K3 only
+            # for an eval the batch worker handed to the per-eval retry
+            # after its fused rounds, at most its scheduler's attempts.
+            from nomad_tpu_torch.scheduler.generic import (
+                MAX_SERVICE_SCHEDULE_ATTEMPTS)
+            solo = sum(getattr(w, "solo_evals", 0) for w in srv.workers)
+            row["storm_solo_evals"] = solo
+            require(storm_launches["place_rounds_batch"] > 0
+                    and storm_launches["place_rounds"]
+                    <= solo * MAX_SERVICE_SCHEDULE_ATTEMPTS,
+                    f"wire: the storm launched K4a "
+                    f"{storm_launches['place_rounds_batch']} and K3 "
+                    f"{storm_launches['place_rounds']} times, with "
+                    f"{solo} evals on the per-eval retry")
             step("jobs")
             wall = marks["done"] - marks["first"]
             placed = check_server_state(structs, srv, "wire", ids, probe)
@@ -3243,6 +3289,8 @@ def run_wire(torch, n_agents=10_000, n_jobs=64, n_groups=None,
                                {"job": update.to_dict()},
                                timeout=300)["eval_id"]]
             srv.wait_for_evals(later, timeout=300)
+            update_k3 = (rec.counters["place_rounds"].launches
+                         - storm_launches["place_rounds"])
             with profiling.device_trace(trace_dir, device=DEV):
                 later.append(pool.call(addr, "Job.Register",
                                        {"job": seq.to_dict()},
@@ -3260,9 +3308,11 @@ def run_wire(torch, n_agents=10_000, n_jobs=64, n_groups=None,
                     and live.get(seq.id) == seq.task_groups[0].count,
                     f"wire: the later jobs placed {live.get(update.id)} "
                     f"and {live.get(seq.id)}")
-            require(storm_launches["place_rounds"] == 0
-                    and rec.counters["place_rounds"].launches > 0
-                    and rec.counters["place_sequence_batch"].launches > 0,
+            # Counted across each job (a storm retry that the batch
+            # worker takes alone launches K3 too).
+            require(update_k3 > 0
+                    and rec.counters["place_sequence_batch"].launches
+                    > storm_launches["place_sequence_batch"],
                     "wire: the update did not launch K3 or the sequence "
                     "job K4b")
             # The phase's main path ends with the later jobs.
@@ -3408,30 +3458,48 @@ def accel_expected(torch) -> tuple:
     return "gpu", f"accel.kind.{name}"
 
 
-def child_processes() -> dict:
-    """This process's children from /proc: {pid: (state, argv)}; a
-    zombie has state ``Z``."""
-    me = os.getpid()
+def proc_stat(pid):
+    """(state, parent pid) of ``pid`` from /proc, or None once it is
+    gone; a zombie has state ``Z``."""
+    try:
+        with open(f"/proc/{pid}/stat") as fh:
+            stat = fh.read()
+    except OSError:
+        return None
+    fields = stat[stat.rindex(")") + 2:].split()
+    return fields[0], int(fields[1])
+
+
+def alive(pid) -> bool:
+    """``pid`` exists and is not a zombie."""
+    st = proc_stat(pid)
+    return st is not None and st[0] != "Z"
+
+
+def child_processes(parent=None) -> dict:
+    """The children of ``parent`` (this process by default) from /proc:
+    {pid: (state, argv)}."""
+    me = parent or os.getpid()
     out = {}
     for name in os.listdir("/proc"):
         if not name.isdigit():
             continue
+        st = proc_stat(name)
+        if st is None or st[1] != me:
+            continue
         try:
-            with open(f"/proc/{name}/stat") as fh:
-                stat = fh.read()
             with open(f"/proc/{name}/cmdline", "rb") as fh:
                 argv = fh.read().split(b"\0")
         except OSError:
             continue
-        fields = stat[stat.rindex(")") + 2:].split()
-        if int(fields[1]) == me:
-            out[int(name)] = (fields[0], [a.decode() for a in argv if a])
+        out[int(name)] = (st[0], [a.decode() for a in argv if a])
     return out
 
 
-def sleepers() -> set:
-    """The live ``/bin/sleep`` children of this process."""
-    return {pid for pid, (st, argv) in child_processes().items()
+def sleepers(parent=None) -> set:
+    """The live ``/bin/sleep`` children of ``parent`` (this process by
+    default)."""
+    return {pid for pid, (st, argv) in child_processes(parent).items()
             if st != "Z" and argv[:1] == ["/bin/sleep"]}
 
 
@@ -3853,7 +3921,489 @@ def run_client(torch, n_clients=CLIENT_NODES, n_batch=CLIENT_BATCH,
     return row
 
 
-# -- phase 9: the system schedulers (config 3) -----------------------------
+# -- phase 9: the agent (the HTTP API, the CLI, gossip) --------------------
+
+AGENT_NODES = 10_000   # config 4's fleet, registered by an AgentSwarm
+AGENT_GROUPS = 1000    # config 4's job
+AGENT_TASKS = 8        # the raw_exec job on the agent's own node
+AGENT_GROUP_HCL = """\
+    group "tg-%d" {
+        task "web" {
+            driver = "exec"
+            resources {
+                cpu = 100
+                memory = 64
+                network {
+                    mbits = 5
+                    dynamic_ports = ["http"]
+                }
+            }
+        }
+    }
+"""
+AGENT_ECHO_HCL = """
+job "agent-echo" {
+    type = "batch"
+    datacenters = ["dc2"]
+    constraint {
+        attribute = "$attr.accel.platform"
+        value = "%(platform)s"
+    }
+    group "echo" {
+        count = %(count)d
+        task "echo" {
+            driver = "raw_exec"
+            config {
+                command = "/bin/sh"
+                args = "%(args)s"
+            }
+            resources {
+                cpu = 20
+                memory = 16
+            }
+        }
+    }
+}
+"""
+AGENT_SLEEP_HCL = """
+job "agent-sleep" {
+    datacenters = ["dc1"]
+    group "sleep" {
+        count = 2
+        task "sleep" {
+            driver = "raw_exec"
+            config {
+                command = "/bin/sleep"
+                args = "300"
+            }
+            resources {
+                cpu = 20
+                memory = 16
+            }
+        }
+    }
+}
+"""
+
+
+def config4_hcl(n_groups) -> str:
+    """Config 4's job (``mock.job()`` with ``n_groups`` groups of
+    ``bench_task_group``'s shape) as a jobspec, on ``dc1``."""
+    return ('job "agent-config4" {\n    datacenters = ["dc1"]\n'
+            '    constraint {\n        attribute = "$attr.kernel.name"\n'
+            '        value = "linux"\n    }\n'
+            + "".join(AGENT_GROUP_HCL % g for g in range(n_groups)) + "}\n")
+
+
+def cli(argv) -> tuple:
+    """``nomad_tpu_torch.cli.main(argv)`` in this process: (exit code,
+    what it printed, host seconds)."""
+    import io
+
+    from nomad_tpu_torch.cli import main as cli_main
+
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(list(argv))
+    return rc, out.getvalue(), time.perf_counter() - t
+
+
+def compute_apps() -> list:
+    """What nvidia-smi lists as holding a context on the card: one
+    (pid, used memory) row per process.  In a PID namespace the PIDs
+    are the host's (the chip machine's sandbox shows every one as 1),
+    so a caller counts the rows."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30, check=True).stdout
+    return [tuple(x.strip() for x in ln.split(","))
+            for ln in out.splitlines() if ln.strip()]
+
+
+def run_agent(torch, n_nodes=AGENT_NODES, n_groups=AGENT_GROUPS,
+              n_tasks=AGENT_TASKS):
+    """The agent phase, SURVEY.md's canonical path on the card.  (a) In
+    this process, counted: ``Agent(AgentConfig.dev())`` on DEV (the
+    server with gossip, the HTTP API and its own client with
+    ``raw_exec``, its node in ``dc2``); an ``AgentSwarm`` registers
+    config 4's fleet of ``n_nodes`` mock nodes (``dc1``) on its RPC port
+    and heartbeats them, with no long-poll; ``cli run -detach`` submits
+    config 4's job of ``n_groups`` groups, written as HCL, over HTTP;
+    ``GET /v1/evaluation/<id>`` reads it complete; ``alloc-status``
+    reads one of its allocs; ``cli run`` submits a raw_exec job of
+    ``n_tasks`` tasks parsed from HCL, constrained to ``dc2`` and the
+    card's ``accel.platform`` (the agent's own node), each printing its
+    alloc's id, and monitors its eval; ``status``, ``eval-monitor`` and
+    ``alloc-status`` read it back; ``server-members``,
+    ``/v1/agent/self`` and ``/v1/agent/metrics``; ``stop`` both jobs.
+    The launch counts are set to 0 just before the first ``cli run``
+    and read after the last deregister.  Checks: every eval complete,
+    acked once, each alloc placed once, no node over capacity
+    (``check_server_state``) with ``n_groups`` placed on ``dc1`` and the
+    ``n_tasks`` on the agent's node, each ``dead`` with its own id in
+    its stdout; every swarm node still ready, no TTL expiry, no beat
+    error; one alive gossip member with the agent's region and RPC
+    address; K3 or K4a at N=16,384 and K5 launched, each recorded
+    launch replayed against its plain version, bit for bit; teardown
+    leaves no thread, child process or connection.  (b) Across the
+    process boundary: ``python3 -m nomad_tpu_torch.cli agent -dev
+    -http-port 0`` (no ``-device``: the card) with a ``-config`` file;
+    ``python3 -m nomad_tpu_torch.cli run`` of a raw_exec job exits 0
+    with its eval complete, ``status`` and ``alloc-status`` read it
+    back; while its tasks run, nvidia-smi lists one context on the card
+    more than before the agent started (this process holds the other),
+    and after SIGTERM one fewer again; SIGHUP after a ``log_level``
+    change is reported as reloaded; SIGTERM: exit 0, no task left."""
+    import logging
+    import shutil
+
+    import nomad_tpu_torch.mock as mock
+    import nomad_tpu_torch.structs as structs
+    from nomad_tpu_torch.agent import Agent, AgentConfig, AgentSwarm
+    from nomad_tpu_torch.api import APIClient
+    from nomad_tpu_torch.models import fleet as fleet_mod
+
+    def until(cond, timeout, what):
+        wait_for(cond, timeout, what, phase="agent")
+    before = set(threading.enumerate())
+    children0 = set(child_processes())
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "nomad_tpu_torch", "_build", "agent_phase")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    platform, _kind = accel_expected(torch)
+    row: dict = dict(nodes=n_nodes, groups=n_groups, tasks=n_tasks)
+    agent = swarm = probe = None
+    ok = False
+    with recorded_kernels() as rec:
+        try:
+            t = time.perf_counter()
+            cfg = AgentConfig.dev()
+            cfg.datacenter = "dc2"
+            cfg.data_dir = os.path.join(base, "agent")
+            cfg.log_level = "INFO"
+            if DEV == "cpu":
+                cfg.device = "cpu"
+            agent = Agent(cfg)
+            row["boot_s"] = time.perf_counter() - t
+            srv = agent.server
+            state = srv.fsm.state
+            probe = ServerProbe(srv.fsm)
+            url = f"http://127.0.0.1:{agent.http.address[1]}"
+            api = APIClient(url)
+            until(lambda: len(state.nodes()) == 1, 60,
+                  "the agent's own client did not register")
+            own = agent.client.node.id
+            require(state.node_by_id(own).attributes.get(
+                "accel.platform") == platform,
+                f"agent: its node reports accel "
+                f"{state.node_by_id(own).attributes.get('accel.platform')}")
+            t = time.perf_counter()
+            swarm = AgentSwarm(srv.rpc_address(), n_nodes, conns=16,
+                               hb_conns=4, beat_interval=20.0, seed=12,
+                               node_factory=wire_node(mock),
+                               long_polls=False)
+            swarm.start(register_timeout=300.0)
+            row["register_s"] = time.perf_counter() - t
+            row["registered_per_s"] = n_nodes / row["register_s"]
+            until(lambda: sum(1 for n in state.nodes()
+                              if n.status == "ready") == n_nodes + 1,
+                  60, "the fleet is not all ready")
+            print(f"agent: booted in {row['boot_s']:.2f} s; {n_nodes} "
+                  f"nodes registered in {row['register_s']:.2f} s "
+                  f"({row['registered_per_s']:.1f}/s)", flush=True)
+            ids: list = []
+            job1 = os.path.join(base, "config4.hcl")
+            with open(job1, "w") as fh:
+                fh.write(config4_hcl(n_groups))
+            job2 = os.path.join(base, "echo.hcl")
+            with open(job2, "w") as fh:
+                fh.write(AGENT_ECHO_HCL % dict(
+                    platform=platform, count=n_tasks,
+                    args=CLIENT_ECHO.replace('"', '\\"')))
+            walls: dict = {}
+
+            def run_cli(*argv):
+                rc, out, s = cli(["-address", url] + list(argv))
+                walls.setdefault(argv[0], []).append(s)
+                require(rc == 0, f"agent: cli {' '.join(argv)} exited {rc}:"
+                        f" {out}")
+                return out
+
+            def eval_of(out):
+                ev = [ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                      if ln.startswith("Evaluation ID:")]
+                require(len(ev) == 1 and ev[0], f"agent: no eval id in {out!r}")
+                return ev[0]
+
+            def allocs_of(job_id):
+                return sorted(state.allocs_by_job(job_id),
+                              key=lambda a: a.name)
+
+            def jobs():
+                # (1) config 4 through cli run -detach, over HTTP.
+                t = time.perf_counter()
+                ids.append(eval_of(run_cli("run", "-detach", job1)))
+                until(lambda: api.eval_info(ids[0])[0].status
+                      == structs.EVAL_STATUS_COMPLETE, 300,
+                      "config 4's eval did not complete")
+                row["job1_s"] = time.perf_counter() - t
+                placed = allocs_of("agent-config4")
+                require(len(placed) == n_groups and all(
+                    state.node_by_id(a.node_id).datacenter == "dc1"
+                    for a in placed),
+                    f"agent: config 4 placed {len(placed)} allocs")
+                out = run_cli("alloc-status", placed[0].id)
+                require(placed[0].id in out and "Placement metrics" in out,
+                        f"agent: alloc-status printed {out!r}")
+                # (2) the raw_exec job on the agent's own node.
+                t = time.perf_counter()
+                out = run_cli("run", job2)
+                require("Evaluation status: complete" in out,
+                        f"agent: cli run printed {out!r}")
+                ids.append([e.id for e in state.evals()
+                            if e.job_id == "agent-echo"][0])
+                until(lambda: len(allocs_of("agent-echo")) == n_tasks
+                      and all(a.client_status == "dead"
+                              for a in allocs_of("agent-echo")), 120,
+                      lambda: "the echo tasks did not all end: " + str(
+                          [a.client_status for a in allocs_of("agent-echo")]))
+                row["job2_s"] = time.perf_counter() - t
+                for a in allocs_of("agent-echo"):
+                    require(a.node_id == own, f"agent: {a.id} on {a.node_id}")
+                    log = os.path.join(agent.client._alloc_root(a.id),
+                                       "alloc", "logs", "echo.stdout")
+                    with open(log) as fh:
+                        got = fh.read()
+                    require(got == a.id + "\n",
+                            f"agent: alloc {a.id} wrote {got!r}")
+                out = run_cli("status", "agent-echo")
+                require(all(a.id in out for a in allocs_of("agent-echo")),
+                        f"agent: status printed {out!r}")
+                out = run_cli("eval-monitor", ids[1])
+                require("Evaluation status: complete" in out,
+                        f"agent: eval-monitor printed {out!r}")
+                out = run_cli("alloc-status", allocs_of("agent-echo")[0].id)
+                require("Client     = dead" in out,
+                        f"agent: alloc-status printed {out!r}")
+                row["placed"] = check_server_state(structs, srv, "agent",
+                                                   ids, probe)
+                require(row["placed"] == n_groups + n_tasks,
+                        f"agent: {row['placed']} live allocs")
+                out = run_cli("server-members")
+                members = api.agent_members()
+                require(len(members) == 1 and members[0]["status"] == "alive"
+                        and members[0]["tags"]["region"] == cfg.region
+                        and tuple(members[0]["tags"]["rpc"])
+                        == srv.rpc_address() and "nomad-server" in out,
+                        f"agent: members {members}")
+                me = api.agent_self()
+                require(me["stats"]["nomad"]["leader"] == "true"
+                        and me["stats"]["client"]["node_id"] == own
+                        and me["config"]["datacenter"] == "dc2",
+                        f"agent: /v1/agent/self {me['stats']}")
+                metrics = api.agent_metrics()["providers"]
+                for key in ("nomad.http.accepts", "nomad.broker.total_ready",
+                            "nomad.applier.commits",
+                            "nomad.heartbeat.expiries", "nomad.client.allocs"):
+                    require(key in metrics, f"agent: no {key} in the metrics")
+                # (3) stop both jobs.
+                for job_id in ("agent-config4", "agent-echo"):
+                    ids.append(eval_of(run_cli("stop", job_id)))
+                srv.wait_for_evals(ids[-2:], timeout=120)
+
+            for fn in rec.counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            busy_ms, top, _ = device_busy_ms(torch, jobs)
+            wall = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in rec.counters.items()}
+            require(check_server_state(structs, srv, "agent", ids, probe)
+                    == 0, "agent: allocs live after the deregisters")
+            require(launches["place_rounds"]
+                    + launches["place_rounds_batch"] > 0
+                    and launches["scatter_rows"] > 0,
+                    f"agent: the jobs launched {launches}")
+            # The fleet and the agent's own node, padded: 16,384.
+            n_pad = fleet_mod._pad_to(n_nodes + 1)
+            shapes = sorted({k[1] for k in rec.rounds_calls})
+            require(n_pad in shapes,
+                    f"agent: K3/K4a ran at N={shapes}, not {n_pad}")
+            hb = srv.heartbeats.stats()
+            sw = swarm.stats()
+            ready = sum(1 for n in state.nodes() if n.status == "ready")
+            require(hb["expiries"] == 0 and ready == n_nodes + 1
+                    and sw["beat_errors"] == 0 and sw["polls_issued"] == 0,
+                    f"agent: heartbeats {hb}, {ready} ready, swarm {sw}")
+            row.update(wall_s=wall, launches=launches, rounds_shapes=shapes,
+                       cli_s={k: sum(v) for k, v in walls.items()},
+                       beats_ok=sw["beats_ok"], heartbeats=hb,
+                       commits=srv.plan_applier.stats()["commits"],
+                       device_busy_ms=busy_ms, device_top_ms=top,
+                       device_idle_share=(1.0 - busy_ms / (wall * 1e3)
+                                          if busy_ms is not None else None),
+                       breakdown_ms=probe.breakdown_ms())
+            swarm.stop()
+            until(lambda: srv.rpc_server.stats()["loop"]["open_conns"] == 0,
+                  60, lambda: "connections outlived the swarm: "
+                  f"{srv.rpc_server.stats()['loop']}")
+            until(lambda: agent.http.stats()["open_conns"] == 0, 60,
+                  lambda: f"HTTP connections left: {agent.http.stats()}")
+            ok = True
+        finally:
+            try:
+                if swarm is not None and not ok:
+                    swarm.stop()
+                if probe is not None:
+                    probe.restore()
+            finally:
+                if agent is not None:
+                    agent.shutdown()
+                logging.getLogger("nomad_tpu_torch").setLevel(logging.NOTSET)
+    until(lambda: not [t for t in threading.enumerate()
+                       if t not in before and t.is_alive()], 30,
+          lambda: "threads outlived the agent: " + ", ".join(sorted(
+              t.name for t in threading.enumerate()
+              if t not in before and t.is_alive())))
+    until(lambda: set(child_processes()) <= children0, 30,
+          lambda: f"child processes outlived the agent: "
+          f"{sorted(set(child_processes()) - children0)}")
+    print(f"agent config 4: {n_groups} groups on {n_nodes} nodes through "
+          f"cli run, eval complete in {row['job1_s']:.3f} s; echo job: "
+          f"{n_tasks} tasks dead in {row['job2_s']:.3f} s; cli "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in row["cli_s"].items()),
+          flush=True)
+    print("agent launches: " + json.dumps(launches), flush=True)
+    print("agent card: busy "
+          + (f"{busy_ms:.2f} ms of {wall:.2f} s, idle "
+             f"{row['device_idle_share'] * 100:.2f}%"
+             if busy_ms is not None else "not measured"), flush=True)
+    row["process"] = agent_process(base)
+    print("agent: " + json.dumps(row), flush=True)
+    shutil.rmtree(base, ignore_errors=True)
+    row["main_path_replay"] = rec.replay(torch, launches, "agent")
+    return row
+
+
+def agent_process(base) -> dict:
+    """Phase 9 (b): the agent as an operator runs it, in processes of
+    its own (see ``run_agent``)."""
+    import signal
+
+    from nomad_tpu_torch.api import APIClient
+
+    def until(cond, timeout, what):
+        wait_for(cond, timeout, what, phase="agent process")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = os.path.join(base, "tmp")
+    os.makedirs(tmp, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=repo, PYTHONUNBUFFERED="1",
+               TMPDIR=tmp)
+    conf = os.path.join(base, "agent.hcl")
+    with open(conf, "w") as fh:
+        fh.write('log_level = "INFO"\n')
+    job = os.path.join(base, "sleep.hcl")
+    with open(job, "w") as fh:
+        fh.write(AGENT_SLEEP_HCL)
+    argv = [sys.executable, "-m", "nomad_tpu_torch.cli", "agent", "-dev",
+            "-http-port", "0", "-rpc-port", "0", "-config", conf]
+    if DEV == "cpu":
+        argv += ["-device", "cpu"]
+    row: dict = {}
+    lines: list = []
+    tasks: set = set()
+    # The card's contexts before the agent: this process's own.
+    apps0 = compute_apps() if DEV != "cpu" else []
+    err = open(os.path.join(base, "agent.stderr"), "w")
+    t = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=repo, env=env, stdout=subprocess.PIPE,
+                            stderr=err, text=True)
+    reader = threading.Thread(target=lambda: lines.extend(proc.stdout),
+                              name="agent-stdout")
+    reader.start()
+    try:
+        until(lambda: any("HTTP: " in ln for ln in lines)
+              or proc.poll() is not None, 120, "the agent never served")
+        require(proc.poll() is None, f"agent process: exited "
+                f"{proc.returncode}: {''.join(lines)}")
+        url = next(ln for ln in lines if "HTTP: " in ln).split(
+            "HTTP: ", 1)[1].strip()
+        row["boot_s"] = time.perf_counter() - t
+        api = APIClient(url)
+
+        def run_cli(*args):
+            t = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, "-m", "nomad_tpu_torch.cli", "-address",
+                 url] + list(args), cwd=repo, env=env, capture_output=True,
+                text=True, timeout=120)
+            row.setdefault("cli_s", {})[args[0]] = time.perf_counter() - t
+            require(out.returncode == 0, f"agent process: cli "
+                    f"{' '.join(args)} exited {out.returncode}: "
+                    f"{out.stdout} {out.stderr}")
+            return out.stdout
+        until(lambda: len(api.nodes_list()[0]) == 1, 60,
+              "the agent's client did not register")
+        out = run_cli("run", job)
+        require("Evaluation status: complete" in out,
+                f"agent process: cli run printed {out!r}")
+
+        def running():
+            return [a for a in api.job_allocations("agent-sleep")[0]
+                    if a.client_status == "running"]
+        until(lambda: len(running()) == 2, 60, "the sleepers did not run")
+        out = run_cli("status", "agent-sleep")
+        require(all(a.id in out for a in running()),
+                f"agent process: status printed {out!r}")
+        out = run_cli("alloc-status", running()[0].id)
+        require("Client     = running" in out,
+                f"agent process: alloc-status printed {out!r}")
+        tasks = sleepers(proc.pid)
+        require(len(tasks) == 2, f"agent process: sleepers {tasks}")
+        if DEV != "cpu":
+            apps = compute_apps()
+            row["card_contexts"] = dict(before=apps0, running=apps)
+            require(len(apps) == len(apps0) + 1,
+                    f"agent process: nvidia-smi lists {apps} with the "
+                    f"agent running, {apps0} before it")
+        with open(conf, "w") as fh:
+            fh.write('log_level = "WARN"\n')
+        proc.send_signal(signal.SIGHUP)
+        until(lambda: any("reloaded: log_level" in ln for ln in lines), 30,
+              lambda: f"SIGHUP not reported: {''.join(lines)}")
+        t = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(60)
+        row["sigterm_s"] = time.perf_counter() - t
+        require(rc == 0, f"agent process: SIGTERM exit {rc}")
+        until(lambda: not [p for p in tasks if alive(p)], 30,
+              lambda: f"tasks outlived the agent: {tasks}")
+        if DEV != "cpu":
+            until(lambda: len(compute_apps()) == len(apps0), 30,
+                  lambda: f"the agent's context outlived it: "
+                  f"{compute_apps()}")
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(30)
+        for pid in tasks:
+            if alive(pid):
+                os.kill(pid, signal.SIGKILL)
+        reader.join(30)
+        err.close()
+    require(any("shutting down" in ln for ln in lines),
+            f"agent process: {''.join(lines)}")
+    print("agent process: " + json.dumps(row), flush=True)
+    return row
+
+
+# -- phase 10: the system schedulers (config 3) -----------------------------
 
 
 def run_system(n_nodes=1000, reps=3):
@@ -3921,7 +4471,7 @@ def run_system(n_nodes=1000, reps=3):
                 seq_over_system=seq["median_ms"] / vec["median_ms"])
 
 
-# -- phase 11: the verify engines over a growing fleet ---------------------
+# -- phase 12: the verify engines over a growing fleet ---------------------
 
 
 def result_key(result) -> tuple:
@@ -4049,7 +4599,7 @@ def run_verify_fleet(sizes=(10_000, 131_072, 1_000_000), windows=8,
                 device_flatness=last / first, table=table)
 
 
-# -- phase 10: the executor policy and the pipelined eval runner -----------
+# -- phase 11: the executor policy and the pipelined eval runner -----------
 
 
 EXECUTORS = ("host", "device", "auto")
@@ -4825,6 +5375,12 @@ def main(argv=()) -> int:
             run_client(torch)
         print("chip_smoke: --client run, no result line", flush=True)
         return 0
+    if argv[:1] == ["--agent"]:
+        # The agent phase alone: no kernel checks, no result line.
+        with executor_override("device"):
+            run_agent(torch)
+        print("chip_smoke: --agent run, no result line", flush=True)
+        return 0
     if argv[:1] == ["--executor"]:
         # The executor phase alone (its config-5b storms are not held
         # against a device storm): no kernel checks, no result line.
@@ -4843,6 +5399,7 @@ def main(argv=()) -> int:
                 not set(argv[1].split(",")) <= set(checks):
             print(f"usage: chip_smoke.py [--only {','.join(checks)}] "
                   f"[--executor] [--wire] [--wire-groups N] [--client] "
+                  f"[--agent] "
                   f"[--profiler-events SECONDS]",
                   file=sys.stderr)
             return 2
@@ -4884,6 +5441,7 @@ def main(argv=()) -> int:
             flush=True)
         wr = phase("wire", lambda: run_wire(torch))
         cl = phase("client", lambda: run_client(torch))
+        ag = phase("agent", lambda: run_agent(torch))
         sy = phase("system", run_system)
         print("system: " + json.dumps(sy), flush=True)
     ex = phase("executor", lambda: run_executor(torch, placed5b=placed5b))
@@ -4897,11 +5455,12 @@ def main(argv=()) -> int:
         {k: v for k, v in vf.items() if k != "table"}), flush=True)
     # Launches on the main paths, each path counted from 0: the slice,
     # the storm (K6 in config 5b under the device policy), the server
-    # phase's shapes, the wire and client phases, the executor phase's
-    # timed pipelined streams and the verify-fleet phase.
+    # phase's shapes, the wire, client and agent phases, the executor
+    # phase's timed pipelined streams and the verify-fleet phase.
     launches = {k: sl["launches"].get(k, 0) + st["launches"][k]
                 + sv["launches"][k] + wr["launches"][k]
-                + cl["launches"][k] + ex["launches"].get(k, 0)
+                + cl["launches"][k] + ag["launches"][k]
+                + ex["launches"].get(k, 0)
                 for k in st["launches"]}
     launches["window_verify"] += vf["launches"]
     replay_err = {name: max([r["err"] for r in sl["main_path_rounds"]
@@ -4911,6 +5470,7 @@ def main(argv=()) -> int:
                              + sv["main_path_replay"]
                              + wr["main_path_replay"]
                              + cl["main_path_replay"]
+                             + ag["main_path_replay"]
                              if r["kernel"] == name], default=0.0)
                   for name in ("place_rounds", "place_rounds_batch",
                                "scatter_rows", "window_verify")}
@@ -4918,12 +5478,13 @@ def main(argv=()) -> int:
         [sl["main_path_sequence"]["err"]]
         + [r["err"] for r in ex["main_path_replay"] + sv["main_path_replay"]
            + wr["main_path_replay"] + cl["main_path_replay"]
+           + ag["main_path_replay"]
            if r["kernel"] == "place_sequence"])
     replay_err["place_sequence_batch"] = max(
         [st[storm]["main_path_sequence_batch"]["err"]
          for storm in ("sequence_storm", "fleet_sequence_storm")]
         + [r["err"] for r in sv["main_path_replay"] + wr["main_path_replay"]
-           + cl["main_path_replay"]
+           + cl["main_path_replay"] + ag["main_path_replay"]
            if r["kernel"] == "place_sequence_batch"])
     timed = {"place_sequence": seq, "place_rounds": rnd,
              "scatter_rows": sct, "place_rounds_batch": rb,

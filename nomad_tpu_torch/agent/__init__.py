@@ -1,7 +1,13 @@
-"""Agents: the client side of the serving plane.
+"""Agent: server and/or client in one process + the HTTP API.
 
-Counterpart of ``nomad_tpu/agent``.  Only the simulated agent swarm
-(:mod:`nomad_tpu_torch.agent.swarm`) is ported; the agent process, its
-config and its HTTP server come with the client in a later slice.
+Capability parity with reference command/agent/: the deployable unit.
+A colocated client short-circuits RPC in-process (reference
+agent.go:176-178); the HTTP server exposes the /v1 REST surface with
+blocking-query support.  The simulated agent swarm
+(:mod:`nomad_tpu_torch.agent.swarm`) drives a server over the wire.
+
+Counterpart of ``nomad_tpu/agent``.
 """
+from .agent import Agent, AgentConfig  # noqa: F401
+from .http_server import HTTPServer  # noqa: F401
 from .swarm import AgentSwarm  # noqa: F401

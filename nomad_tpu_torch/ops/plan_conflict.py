@@ -688,7 +688,11 @@ def _evaluate_window_vec(overlay, plans: list, executor, partition: bool,
             from nomad_tpu_torch.parallel.devices import resolve_device
             dev = resolve_device(device)
             # Forced intent: warm the copies now (no-op when resident)
-            # so this window — or the next — holds the lease.
+            # so this window holds the lease.  The mirror syncs to the
+            # window's snapshot first: a fresh fleet generation's first
+            # sync is a rebuild, which drops any copy warmed before it.
+            if not mirror.sync_net(base):
+                return None  # snapshot older than the mirror
             statics.device_capacity_reserved(dev)
             mirror.device_usage(dev)
 

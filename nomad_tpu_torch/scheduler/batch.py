@@ -128,6 +128,9 @@ class BatchEvalRunner:
         self.planner = planner
         self.state_refresh = state_refresh
         self.device = resolve_device(device)
+        # Evals that left the fused launches for the per-eval sequential
+        # retry (a scheduler of their own: K3, not K4a).
+        self.solo_evals = 0
 
     def _scheduler(self, state, ev: Evaluation) -> TorchBinPackScheduler:
         return TorchBinPackScheduler(state, self.planner,
@@ -221,6 +224,7 @@ class BatchEvalRunner:
                     return
                 pending = retries
                 self.state = self.state_refresh()
+            self.solo_evals += len(pending)
             for ev in pending:
                 self._scheduler(self.state, ev).process(ev)
 
@@ -495,6 +499,7 @@ class BatchEvalRunner:
             elif retries is not None:
                 retries.append(ev)  # no status yet: a later round owns it
             else:
+                self.solo_evals += 1
                 self._scheduler(sched.state, ev).process(ev)
         _lane_spans("sched.submit", scheds, t_sub, _tnow(),
                     window=len(scheds))
@@ -517,4 +522,5 @@ class BatchEvalRunner:
         elif retries is not None:
             retries.append(ev)  # no status yet: a later round owns it
         else:
+            self.solo_evals += 1
             self._scheduler(sched.state, ev).process(ev)

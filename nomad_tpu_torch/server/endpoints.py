@@ -12,7 +12,8 @@ Wire shapes are the structs' dict forms; query options ride in the args map
 ("min_query_index", "max_query_time", "stale", "region").
 
 Counterpart of ``nomad_tpu/server/endpoints.py``, with every service
-of its ``install``; the port's server knows one region, its own.
+of its ``install``; a request for another region goes to a server the
+port's server knows there (gossip or ``add_region_server``).
 """
 from __future__ import annotations
 

@@ -425,10 +425,14 @@ class EdgeLoop:
         self.wake()
 
     def shutdown(self, timeout: float = 2.0) -> None:
+        if self._thread is None:
+            # Never started (a server whose construction raised): no
+            # loop thread will close the listener and the waker.
+            self._teardown()
+            return
         self._stop.set()
         self.wake()
-        if self._thread is not None and \
-                self._thread is not threading.current_thread():
+        if self._thread is not threading.current_thread():
             self._thread.join(timeout)
 
     # -- cross-thread API --------------------------------------------------

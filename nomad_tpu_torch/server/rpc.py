@@ -952,9 +952,18 @@ class ConnPool:
         self._lock = threading.Lock()
         self._pools: dict = {}   # address -> [idle _PooledConn]
         self._sessions: dict = {}  # address -> MuxConn
+        # Set by shutdown: a later call raises instead of dialing a
+        # session nothing would close (a client thread mid-call while
+        # its client shuts down).  guarded by _lock
+        self._closed = False
+
+    def _refuse(self) -> None:
+        raise ConnectionError("connection pool is shut down")
 
     def _session(self, address: tuple) -> MuxConn:
         with self._lock:
+            if self._closed:
+                self._refuse()
             sess = self._sessions.get(address)
             if sess is not None and not sess.broken:
                 return sess
@@ -965,10 +974,12 @@ class ConnPool:
         # same address may race; the loser's session is closed.
         fresh = MuxConn(address, tls_context=self.tls_context,
                         server_hostname=self.server_hostname)
-        stale = loser = None
+        stale = loser = keep = None
         with self._lock:
             current = self._sessions.get(address)
-            if current is not None and not current.broken and \
+            if self._closed:
+                loser = fresh  # shut down while this thread dialed
+            elif current is not None and not current.broken and \
                     current is not sess:
                 keep, loser = current, fresh  # another thread won
             else:
@@ -979,6 +990,8 @@ class ConnPool:
             stale.close()
         if loser is not None:
             loser.close()
+        if keep is None:
+            self._refuse()
         return keep
 
     def _call_mux(self, address: tuple, method: str, args: dict,
@@ -1052,6 +1065,8 @@ class ConnPool:
 
     def _checkout(self, address: tuple) -> _PooledConn:
         with self._lock:
+            if self._closed:
+                self._refuse()
             pool = self._pools.get(address)
             if pool:
                 return pool.pop()
@@ -1059,8 +1074,9 @@ class ConnPool:
 
     def _checkin(self, address: tuple, conn: _PooledConn) -> None:
         with self._lock:
-            pool = self._pools.setdefault(address, [])
-            if len(pool) < self.max_per_host:
+            pool = None if self._closed else \
+                self._pools.setdefault(address, [])
+            if pool is not None and len(pool) < self.max_per_host:
                 pool.append(conn)
                 return
         conn.close()
@@ -1069,6 +1085,7 @@ class ConnPool:
         # Detach under the lock, close outside it (MuxConn.close joins
         # its reader thread).
         with self._lock:
+            self._closed = True
             pools = list(self._pools.values())
             self._pools.clear()
             sessions = list(self._sessions.values())

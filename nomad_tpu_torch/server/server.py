@@ -10,11 +10,12 @@ same in-proc shortcut the reference uses (agent.go:176-178); with
 ``enable_rpc`` the RPC plane (server/rpc.py, server/endpoints.py) serves
 the same methods over the wire, with TLS when the cert and key are set.
 
-Counterpart of ``nomad_tpu/server/server.py`` for the single-server path.
-Not ported yet: networked raft, gossip and federation, and the feedback
+Counterpart of ``nomad_tpu/server/server.py`` for the single-server path,
+with gossip membership and region federation (``enable_gossip``,
+``add_region_server``).  Not ported yet: networked raft and the feedback
 control plane.  A config that asks for one of them (``raft_mode="net"``,
-``enable_gossip``, ``control_enabled``) raises ``ValueError`` at
-construction instead of being ignored.
+``control_enabled``) raises ``ValueError`` at construction instead of
+being ignored.
 
 The server computes on ``config.device``: ``None`` means ``cuda`` and
 raises ``RuntimeError`` where no CUDA device is present; tests pass
@@ -69,10 +70,9 @@ logger = logging.getLogger("nomad_tpu_torch.server")
 DEFAULT_SCHEDULERS = ["service", "batch", "system", "_core"]
 
 # The keys that ask for a plane this package has not ported: each
-# raises at construction (a silently ignored ``enable_gossip`` would
-# leave a caller waiting on a peer that never joins).
+# raises at construction (a silently ignored ``control_enabled`` would
+# leave a caller waiting on a knob that never moves).
 UNPORTED = (
-    ("enable_gossip", "gossip membership"),
     ("control_enabled", "the feedback control plane"),
 )
 
@@ -156,18 +156,18 @@ class ServerConfig:
 
     def check_ported(self) -> None:
         """Raise ``ValueError`` when the config asks for a plane this
-        package has not ported (ROADMAP Queue 1 item 5)."""
+        package has not ported (ROADMAP Queue 1 item 3)."""
         for key, what in UNPORTED:
             if getattr(self, key):
                 raise ValueError(
                     f"server config {key}={getattr(self, key)!r} needs "
                     f"{what}, which nomad_tpu_torch has not ported "
-                    "(ROADMAP Queue 1 item 5)")
+                    "(ROADMAP Queue 1 item 3)")
         if self.raft_mode != "inmem":
             raise ValueError(
                 f"server config raft_mode={self.raft_mode!r}: only "
                 "'inmem' is ported; networked raft is ROADMAP Queue 1 "
-                "item 5")
+                "item 3")
 
 
 class Server:
@@ -252,6 +252,18 @@ class Server:
             server_hostname=self.config.tls_server_name,
             multiplex=False)
 
+        # From here on the components start threads and bind ports: a
+        # step that raises (a taken RPC or gossip port, a bad data dir)
+        # tears down what the earlier steps started.
+        self.raft = self.plan_applier = self.rpc_server = None
+        self.gossip = self.obs_registry = None
+        try:
+            self._start_components(server_tls)
+        except BaseException:
+            self.shutdown()
+            raise
+
+    def _start_components(self, server_tls) -> None:
         log_store = snapshots = None
         if self.config.data_dir:
             # The JAX package's layout and snapshot format, so one
@@ -268,7 +280,6 @@ class Server:
             self.plan_queue, self.eval_broker, self.raft,
             lambda: self.fsm.state, device=self.device)
 
-        self.rpc_server = None
         if self.config.enable_rpc:
             from .endpoints import Endpoints
             self.rpc_server = RPCServer(
@@ -283,12 +294,37 @@ class Server:
                 read_deadline=self.config.rpc_read_deadline)
             Endpoints(self).install(self.rpc_server)
 
+        # Multi-region federation: region name -> {rpc address, ...} of
+        # known servers there, maintained from gossip member tags
+        # (reference nomad/server.go:503-538 — serf WAN tags feed the
+        # peers-by-region table consulted by rpc.go forwardRegion) or
+        # statically via add_region_server (join_wan analogue).
+        self._region_servers: dict = {}
+        self._region_lock = threading.Lock()
+
         self._setup_workers()
         self._setup_obs_registry()
-        # The listener serves last, once every component a handler
-        # reaches exists (the JAX server starts it first, reference
+        # Gossip membership: servers discover one another (reference
+        # nomad/serf.go).  The listener is bound, so the member tags
+        # carry its address; gossip and then the listener start last,
+        # once every component a handler or a join event reaches exists
+        # (the JAX server starts them first, reference
         # nomad/server.go:348-363): no request meets a half-built
-        # server, and a failed construction leaves no serving thread.
+        # server.
+        if self.config.enable_gossip:
+            from .gossip import Gossip
+            rpc_addr = self.rpc_address()
+            self.gossip = Gossip(
+                tags={"role": "nomad-server",
+                      "region": self.config.region,
+                      "name": self.config.server_name,
+                      "rpc": list(rpc_addr) if rpc_addr else None},
+                bind=self.config.bind_addr,
+                port=self.config.gossip_port,
+                on_join=self._gossip_join,
+                on_fail=self._gossip_fail,
+                on_leave=self._gossip_fail,
+            )
         if self.rpc_server is not None:
             self.rpc_server.start()
 
@@ -330,18 +366,57 @@ class Server:
             "failures": sum(w.failures for w in self.workers),
         }
 
-    # -- regions: one, this server's own ------------------------------------
+    def _gossip_join(self, member) -> None:
+        """A server joined the gossip pool: record its region for
+        cross-region forwarding (reference serf.go nodeJoin).  The JAX
+        server also adds a same-region member as a raft peer; the
+        in-memory raft has no peers, so that waits for networked
+        raft."""
+        if member.tags.get("role") != "nomad-server":
+            return
+        rpc = member.tags.get("rpc")
+        region = member.tags.get("region")
+        if rpc and region:
+            self.add_region_server(region, (rpc[0], rpc[1]))
+
+    def _gossip_fail(self, member) -> None:
+        if member.tags.get("role") != "nomad-server":
+            return
+        rpc = member.tags.get("rpc")
+        region = member.tags.get("region")
+        if rpc and region:
+            self.remove_region_server(region, (rpc[0], rpc[1]))
+
+    # -- multi-region federation ------------------------------------------
+    def add_region_server(self, region: str, addr: tuple) -> None:
+        with self._region_lock:
+            self._region_servers.setdefault(region, set()).add(
+                (addr[0], addr[1]))
+
+    def remove_region_server(self, region: str, addr: tuple) -> None:
+        with self._region_lock:
+            servers = self._region_servers.get(region)
+            if servers:
+                servers.discard((addr[0], addr[1]))
+                if not servers:
+                    del self._region_servers[region]
+
     def regions(self) -> list:
-        """Known region names: only this server's own until gossip and
-        federation are ported (ROADMAP Queue 1)."""
-        return [self.config.region]
+        """Known region names, ours included (reference Region list API)."""
+        with self._region_lock:
+            known = set(self._region_servers)
+        known.add(self.config.region)
+        return sorted(known)
 
     def region_server(self, region: str) -> tuple:
-        """A server address in ``region``.  Raises for every region, as
-        the JAX server does for a region it knows no server in: a
-        mis-addressed request must error, not run locally (this server's
-        own region never reaches here — endpoints route it locally)."""
-        raise RuntimeError(f"no path to region {region!r}")
+        """A server address in ``region``, chosen at random (reference
+        nomad/rpc.go:207-227 forwardRegion).  Raises when the region is
+        unknown — a mis-addressed request must error, not run locally."""
+        with self._region_lock:
+            servers = list(self._region_servers.get(region, ()))
+        if not servers:
+            raise RuntimeError(f"no path to region {region!r}")
+        return random.choice(servers)
 
     # -- cluster views -----------------------------------------------------
     def rpc_address(self) -> Optional[tuple]:
@@ -427,9 +502,12 @@ class Server:
     def shutdown(self) -> None:
         """Stop and join every thread this server started: the workers,
         the leader's reaper and periodic GC, the RPC plane's edge loop
-        and dispatch pool, the connection pools' readers, the applier
+        and dispatch pool, gossip's receive and probe loops, the
+        connection pools' readers, the applier
         with its committer and component executor, the broker's and the
-        heartbeats' TTL wheels and the store's watch wheel."""
+        heartbeats' TTL wheels and the store's watch wheel.  A
+        construction that raised calls it too, with the parts it never
+        built left None."""
         self._shutdown.set()
         for w in self.workers:
             w.stop()
@@ -441,6 +519,10 @@ class Server:
         for t in self._leader_threads:
             t.join(3.0)
         self._leader_threads = []
+        # Gossip leaves first (its leave broadcast tells the peers),
+        # then the listener closes.
+        if self.gossip is not None:
+            self.gossip.shutdown()
         if self.rpc_server is not None:
             self.rpc_server.shutdown()
         self.conn_pool.shutdown()
@@ -451,8 +533,9 @@ class Server:
         # Broker nack wheel + the applier's component executor are
         # service threads with the same contract.
         self.eval_broker.shutdown()
-        self.plan_applier.shutdown()
-        log_store = self.raft.log_store
+        if self.plan_applier is not None:
+            self.plan_applier.shutdown()
+        log_store = self.raft.log_store if self.raft is not None else None
         if log_store is not None:
             log_store.close()
         # Watch fan-out last: the RPC teardown above already
@@ -461,7 +544,8 @@ class Server:
         self.fsm.state.watch.shutdown()
         # Drop the metrics providers: their closures hold live
         # components and a snapshot of a torn-down server is noise.
-        self.obs_registry.clear()
+        if self.obs_registry is not None:
+            self.obs_registry.clear()
 
     def _restore_eval_broker(self) -> None:
         """Broker is volatile; state is durable.  Re-enqueue all

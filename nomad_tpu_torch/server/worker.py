@@ -252,6 +252,8 @@ class BatchWorker(Worker):
         super().__init__(server, scheduler_override=None)
         self.max_batch = max_batch
         self._tokens: dict = {}
+        # Evals its runners took one at a time after the fused rounds.
+        self.solo_evals = 0
 
     # The fused device runner implements generic (service/batch) semantics;
     # system and _core evals go to the plain workers.
@@ -315,6 +317,7 @@ class BatchWorker(Worker):
                         pass
                 continue
             finally:
+                self.solo_evals += runner.solo_evals
                 if tracer is not None:
                     self._invoke_spans(tracer, batch, t_invoke)
             for ev, token in batch:

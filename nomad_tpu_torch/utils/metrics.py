@@ -8,10 +8,12 @@ SetGauge for queue depths, an in-memory sink dumpable on demand).
 ``metrics.timers`` and a sample to the windowed in-memory sink
 (``metrics.inmem``, which the flight recorder snapshots);
 ``incr_counter`` and ``set_gauge`` keep go-metrics' cumulative /
-last-write semantics.  The statsd fanout is not ported.
+last-write semantics.  ``add_statsd`` adds a statsd UDP fanout (the
+agent's ``telemetry`` block, reference command/agent/command.go:487-533).
 """
 from __future__ import annotations
 
+import socket
 import threading
 import time
 from collections import defaultdict
@@ -94,10 +96,36 @@ class InmemSink:
             return out
 
 
+class StatsdSink:
+    """Fire-and-forget statsd UDP fanout."""
+
+    def __init__(self, address: tuple) -> None:
+        self.address = tuple(address)
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+
+    def _send(self, payload: str) -> None:
+        try:
+            self.sock.sendto(payload.encode(), self.address)
+        except OSError:
+            pass
+
+    def incr_counter(self, key: str, value: float) -> None:
+        self._send(f"{key}:{value}|c")
+
+    def set_gauge(self, key: str, value: float) -> None:
+        self._send(f"{key}:{value}|g")
+
+    def add_sample(self, key: str, value: float) -> None:
+        self._send(f"{key}:{value * 1000:.3f}|ms")
+
+
 class Metrics:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self.inmem = InmemSink()
+        # Every sink a value goes to: the in-memory one, then each
+        # statsd fanout ``add_statsd`` added.
+        self.sinks: list = [self.inmem]
         # key -> [count, total seconds]
         self.timers: dict = {}
         self.counters: dict = {}
@@ -106,12 +134,14 @@ class Metrics:
     def incr_counter(self, key: str, value: float = 1.0) -> None:
         with self._lock:
             self.counters[key] = self.counters.get(key, 0.0) + value
-        self.inmem.incr_counter(key, value)
+        for sink in self.sinks:
+            sink.incr_counter(key, value)
 
     def set_gauge(self, key: str, value: float) -> None:
         with self._lock:
             self.gauges[key] = value
-        self.inmem.set_gauge(key, value)
+        for sink in self.sinks:
+            sink.set_gauge(key, value)
 
     def measure_since(self, key: str, start: float) -> None:
         elapsed = time.perf_counter() - start
@@ -119,7 +149,11 @@ class Metrics:
             entry = self.timers.setdefault(key, [0, 0.0])
             entry[0] += 1
             entry[1] += elapsed
-        self.inmem.add_sample(key, elapsed)
+        for sink in self.sinks:
+            sink.add_sample(key, elapsed)
+
+    def add_statsd(self, host: str, port: int) -> None:
+        self.sinks.append(StatsdSink((host, port)))
 
 
 # Global registry, mirroring go-metrics' package-level default.

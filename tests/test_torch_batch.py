@@ -569,6 +569,39 @@ def test_contended_storm_through_verifying_planner_like_jax(cpu):
         assert fit, f"node {node.id} oversubscribed on {dim}"
 
 
+@pytest.mark.parametrize("cpu,refresh", [(600, True), (800, False),
+                                         (800, True)])
+def test_solo_evals_count_the_per_eval_retries(cpu, refresh, monkeypatch):
+    """``solo_evals`` counts the evals the runner hands to a scheduler
+    of their own after its fused rounds (the per-eval path, K3 on the
+    card): each call of that scheduler's ``process``, and none when
+    every plan commits whole."""
+    from nomad_tpu_torch.scheduler.torch_binpack import \
+        TorchBinPackScheduler
+
+    calls = []
+    real = TorchBinPackScheduler.process
+
+    def process(self, ev):
+        calls.append(ev.id)
+        return real(self, ev)
+    monkeypatch.setattr(TorchBinPackScheduler, "process", process)
+    jobs = _contended_jobs(cpu)
+    _jh, th = _worlds([mock.node(i) for i in range(8)], jobs,
+                      verifying=True)
+    evals = [TEvaluation.from_dict(_make_eval(j).to_dict()) for j in jobs]
+    runner = TRunner(th.state.snapshot(), th,
+                     state_refresh=th.snapshot if refresh else None,
+                     device="cpu")
+    with t_executor_override("device"), _seeded():
+        runner.process(evals)
+    assert runner.solo_evals == len(calls)
+    if th.planner.conflicts == 0:
+        assert runner.solo_evals == 0
+    if not refresh and cpu == 800:
+        assert runner.solo_evals > 0, "the storm was meant to retry"
+
+
 def test_runner_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):

@@ -835,11 +835,20 @@ def test_alloc_state_restores_across_packages(writer, reader, tmp_path):
     w = _pkg(writer)["alloc_runner"].AllocRunner(
         _sleeper_alloc(writer), root, state_dir=state_dir)
     w.run()
-    wait_until(lambda: w.alloc.client_status == "running",
-               msg="writer's task running")
-    pid = w.task_runners["sleeper"].handle.pid
     paths = [os.path.join(state_dir, n)
              for n in ("state.json", "task-sleeper.json")]
+
+    def persisted_running():
+        # The runner publishes the status, then writes state.json: wait
+        # for the file, or it may still hold the pending alloc.
+        try:
+            with open(paths[0]) as fh:
+                return json.load(fh)["alloc"]["client_status"] == "running"
+        except (OSError, ValueError, KeyError):
+            return False
+    wait_until(lambda: w.alloc.client_status == "running"
+               and persisted_running(), msg="writer's task running")
+    pid = w.task_runners["sleeper"].handle.pid
     written = []
     for path in paths:
         with open(path, "rb") as fh:

@@ -294,3 +294,57 @@ def test_every_call_was_answered_as_the_jax_server_answered(twin_replies):
     assert {label for label, k in kinds.items() if k == "error"} == {
         "eval-ack-unknown", "eval-nack-unknown", "plan-submit-fenced",
         "wrong-region", "unknown-job"}
+
+
+@pytest.mark.parametrize("method,args", [
+    ("Status.Ping", {}),
+    ("Job.List", {}),
+    ("Job.GetJob", {"job_id": "job0"}),
+], ids=["status-ping", "job-list", "job-get"])
+def test_known_region_forwards_on_both_packages(method, args):
+    """A request for a region the server knows (``add_region_server``)
+    goes to a server there and comes back with its answer, on both
+    packages; the reply equals the JAX pair's once masked."""
+    jobs = _jobs()
+    replies = {}
+    for name in ("jax", "port"):
+        if name == "jax":
+            make = lambda region: JServer(JServerConfig(  # noqa: E731
+                region=region, num_schedulers=0, enable_rpc=True,
+                tune_gc=False))
+            pool, world = JConnPool(), jobs
+        else:
+            make = lambda region: Server(ServerConfig(  # noqa: E731
+                region=region, device="cpu", num_schedulers=0,
+                enable_rpc=True, tune_gc=False))
+            pool, world = ConnPool(), convert.jobs_from_reference(jobs)
+        servers = []
+        try:
+            for region in ("global", "r2"):
+                servers.append(make(region))
+                servers[-1].establish_leadership()
+            first, second = servers
+            first.add_region_server("r2", second.rpc_address())
+            second.job_register(world[0])
+            first.job_register(world[1])
+            filled = {k: world[0].id if v == "job0" else v
+                      for k, v in args.items()}
+            replies[name] = (
+                _call(pool, first.rpc_address(), method,
+                      dict(filled, region="r2")),
+                _call(pool, first.rpc_address(), method, filled),
+                first.regions())
+        finally:
+            pool.shutdown()
+            for srv in servers:
+                srv.shutdown()
+    keep = {j.id for j in jobs}
+    assert _mask(replies["port"], keep) == _mask(replies["jax"], keep)
+    remote, local, regions = replies["port"]
+    assert remote[0] == local[0] == "ok" and regions == ["global", "r2"]
+    if method == "Job.List":
+        assert [j["id"] for j in remote[1]["jobs"]] == [jobs[0].id]
+        assert [j["id"] for j in local[1]["jobs"]] == [jobs[1].id]
+    if method == "Job.GetJob":
+        assert remote[1]["job"]["id"] == jobs[0].id
+        assert local[1]["job"] is None

@@ -90,6 +90,12 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "import nomad_tpu_torch.client.alloc_runner\n"
         "import nomad_tpu_torch.jobspec, nomad_tpu_torch.jobspec.parse\n"
         "import nomad_tpu_torch.utils.duration\n"
+        "import nomad_tpu_torch.agent.agent, nomad_tpu_torch.agent.config\n"
+        "import nomad_tpu_torch.agent.http_server\n"
+        "import nomad_tpu_torch.api, nomad_tpu_torch.api.client\n"
+        "import nomad_tpu_torch.cli, nomad_tpu_torch.cli.main\n"
+        "import nomad_tpu_torch.utils.gated_log\n"
+        "import nomad_tpu_torch.server.gossip\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'nomad_tpu')]\n"
         "assert not bad, bad\n"
@@ -155,6 +161,37 @@ def test_client_modules_are_the_jax_packages():
             r for r in CLIENT_SLICE if os.path.dirname(r) == sub)
 
 
+# The agent slice's modules: the agent, its config files and HTTP API,
+# the api client, the CLI, the boot-log gate and gossip.
+AGENT_SLICE = ("agent/agent.py", "agent/config.py", "agent/http_server.py",
+               "api/__init__.py", "api/client.py", "cli/__init__.py",
+               "cli/__main__.py", "cli/main.py", "utils/gated_log.py",
+               "server/gossip.py")
+
+
+@pytest.mark.parametrize("rel", AGENT_SLICE)
+def test_agent_slice_module_imports_neither_jax_nor_the_jax_package(rel):
+    path = os.path.join(PACKAGE, rel)
+    assert os.path.isfile(path)
+    mods = list(_imported_modules(path))
+    bad = [m for m in mods
+           if m.split(".")[0] in ("jax", "jaxlib", "nomad_tpu")]
+    assert bad == []
+
+
+def test_agent_modules_are_the_jax_packages():
+    """Every module of the JAX package's agent/, api/ and cli/ has its
+    port at the same path (agent/swarm.py came with the serving
+    plane)."""
+    jax_pkg = os.path.join(REPO, "nomad_tpu")
+    for sub in ("agent", "api", "cli"):
+        names = sorted(n for n in os.listdir(os.path.join(jax_pkg, sub))
+                       if n.endswith(".py"))
+        ported = sorted(n for n in os.listdir(os.path.join(PACKAGE, sub))
+                        if n.endswith(".py"))
+        assert ported == names, sub
+
+
 def test_obs_imports_nothing_of_the_port_outside_utils():
     """The JAX package's layering: obs/ may be imported by every other
     subsystem, so it imports only ``utils`` of its own package."""
@@ -183,6 +220,42 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         devices.put_counted(np.zeros(3), "cuda")
     h = Harness(device="cpu")
     assert h.device == torch.device("cpu")
+    from nomad_tpu_torch.agent import Agent, AgentConfig
+    with pytest.raises(RuntimeError):
+        Agent(AgentConfig.dev())
+
+
+def test_cli_agent_runs_on_the_card():
+    """``python -m nomad_tpu_torch.cli agent -dev`` means the card: with
+    none visible it exits 1 naming it; ``-device cpu`` is how a caller
+    asks for the CPU (the agent then starts, shown by its HTTP line,
+    and stops on SIGTERM with exit 0)."""
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="",
+               PYTHONUNBUFFERED="1")
+    argv = [sys.executable, "-m", "nomad_tpu_torch.cli", "agent", "-dev",
+            "-http-port", "0", "-rpc-port", "0"]
+    out = subprocess.run(argv, cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 1
+    assert "no CUDA device" in out.stderr
+    proc = subprocess.Popen(argv + ["-device", "cpu"], cwd=REPO, env=env,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.DEVNULL, text=True)
+    try:
+        lines = []
+        for line in proc.stdout:
+            lines.append(line)
+            if "HTTP:" in line:
+                break
+        assert any("HTTP: http://127.0.0.1:" in ln for ln in lines), lines
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(10)
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():

@@ -267,6 +267,65 @@ def test_sever_drops_every_connection_and_shutdown_joins():
     assert left == []
 
 
+@pytest.mark.parametrize("multiplex", [True, False])
+def test_a_shut_down_pool_refuses_calls_and_opens_nothing(multiplex):
+    """A call after ``ConnPool.shutdown`` raises ``ConnectionError`` and
+    dials nothing, so no connection outlives the pool (the JAX pool
+    dials a fresh one that nothing closes)."""
+    srv = _echo_server(RPCServer)
+    pool = ConnPool(multiplex=multiplex)
+    try:
+        assert pool.call(srv.address, "Echo.Hello", {"x": 1},
+                         timeout=10)["hi"] == 1
+        pool.shutdown()
+        with pytest.raises(ConnectionError, match="shut down"):
+            pool.call(srv.address, "Echo.Hello", {"x": 2}, timeout=10)
+        assert pool._sessions == {} and pool._pools == {}
+        wait_until(lambda: srv.stats()["loop"]["open_conns"] == 0,
+                   msg="the pool's connection closed")
+    finally:
+        pool.shutdown()
+        srv.shutdown()
+
+
+def test_a_session_dialed_across_shutdown_is_closed(monkeypatch):
+    """A thread that dials while another shuts the pool down (a client
+    thread mid-call as its client stops): its fresh session is closed
+    and its call raises, so the server sees no connection left."""
+    srv = _echo_server(RPCServer)
+    pool = ConnPool()
+    dialing, shut = threading.Event(), threading.Event()
+    real = rpc.MuxConn
+
+    def slow_dial(*a, **kw):
+        conn = real(*a, **kw)
+        dialing.set()
+        shut.wait(10)
+        return conn
+    monkeypatch.setattr(rpc, "MuxConn", slow_dial)
+    errors = []
+
+    def call():
+        try:
+            pool.call(srv.address, "Echo.Hello", {"x": 1}, timeout=10)
+        except ConnectionError as e:
+            errors.append(e)
+    caller = threading.Thread(target=call)
+    try:
+        caller.start()
+        assert dialing.wait(10)
+        pool.shutdown()
+        shut.set()
+        caller.join(10)
+        assert len(errors) == 1 and pool._sessions == {}
+        wait_until(lambda: srv.stats()["loop"]["open_conns"] == 0,
+                   msg="the dialed session closed")
+    finally:
+        shut.set()
+        caller.join(10)
+        srv.shutdown()
+
+
 def test_server_stats_have_the_jax_keys():
     tsrv, jsrv = _echo_server(RPCServer), _echo_server(jrpc.RPCServer)
     try:

@@ -191,11 +191,10 @@ def test_server_without_a_device_raises_and_starts_nothing(monkeypatch):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("raft_mode", "net"), ("enable_gossip", True),
-    ("control_enabled", True)])
+    ("raft_mode", "net"), ("control_enabled", True)])
 def test_unported_planes_raise(key, value):
     before = set(threading.enumerate())
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 5"):
+    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 3"):
         _port_server(**{key: value})
     assert set(threading.enumerate()) <= before
 
@@ -236,6 +235,44 @@ def test_a_failed_construction_leaves_no_serving_thread(monkeypatch):
         _port_server(num_schedulers=0, enable_rpc=True)
     assert [t.name for t in threading.enumerate()
             if t not in before and t.name.startswith("rpc-")] == []
+
+
+def _sockets() -> set:
+    """This process's open sockets, by inode."""
+    import os
+
+    out = set()
+    for fd in os.listdir("/proc/self/fd"):
+        try:
+            link = os.readlink(f"/proc/self/fd/{fd}")
+        except OSError:
+            continue
+        if link.startswith("socket:"):
+            out.add(link)
+    return out
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_a_taken_gossip_port_leaves_nothing_running(workers):
+    """Gossip binds its port after the applier, the RPC listener and the
+    workers exist: when that port is taken the constructor raises and
+    stops them all, and closes the listener."""
+    import socket
+
+    held = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    held.bind(("127.0.0.1", 0))
+    try:
+        before = set(threading.enumerate())
+        socks = _sockets()
+        with pytest.raises(OSError):
+            _port_server(num_schedulers=workers, enable_rpc=True,
+                         enable_gossip=True,
+                         gossip_port=held.getsockname()[1])
+        assert [t.name for t in threading.enumerate()
+                if t not in before and t.is_alive()] == []
+        assert _sockets() - socks == set()
+    finally:
+        held.close()
 
 
 def test_without_enable_rpc_no_listener_opens():

@@ -159,10 +159,12 @@ def test_seeded_random_windows_across_fleet_sizes(n_nodes):
     assert any(o.result.refresh_index for o in out)
 
 
-def test_device_info_and_fallback_taxonomy():
+def test_device_info_and_fallback_taxonomy(monkeypatch):
     """host: no device record; no device given: ``no-mesh``; a cold
     lease: ``lease-miss``; a warm one: the dispatch with its counts.
     The JAX package's record carries the same keys."""
+    from nomad_tpu_torch.models.fleet import UsageMirror
+
     nodes = [mock.node(i) for i in range(8)]
     plans = [place_plan(make_alloc(n, cpu=100)) for n in nodes]
     js, ts = _worlds(nodes)
@@ -173,12 +175,16 @@ def test_device_info_and_fallback_taxonomy():
     with t_policy.verify_override("device"):
         assert t_window(ts, tplans).info["device"] == \
             {"dispatched": False, "fallback": "no-mesh"}
-    # A fresh fleet generation: the first window's mirror build drops the
-    # copy it just warmed, so the lease misses.
+    # A fresh fleet generation whose warm-up upload is not installed
+    # (as when a commit replaces the mirror's usage during the upload):
+    # the lease misses.
     _js, ts = _worlds(nodes)
+    install = UsageMirror._install
+    monkeypatch.setattr(UsageMirror, "_install", lambda *a, **kw: None)
     with t_policy.verify_override("device"):
         cold = t_window(ts, tplans, device="cpu").info["device"]
         assert cold == {"dispatched": False, "fallback": "lease-miss"}
+        monkeypatch.setattr(UsageMirror, "_install", install)
         before = tmesh.window_verify.launches
         warm = t_window(ts, tplans, device="cpu").info["device"]
     assert warm["dispatched"] and warm["fallback"] is None
@@ -198,6 +204,25 @@ def test_device_info_and_fallback_taxonomy():
         {k: jwarm[k] for k in ("pairs", "bucket", "seq_ok")}
 
 
+def test_the_first_window_of_a_fresh_fleet_holds_the_lease():
+    """The mirror syncs to the window's snapshot before the warm-up,
+    so a fresh fleet generation's first window (whose sync is a
+    rebuild) keeps the copy it warmed and dispatches, with the same
+    verdicts as the host engine."""
+    nodes = [mock.node(i) for i in range(8)]
+    plans = [place_plan(make_alloc(n, cpu=100)) for n in nodes]
+    tplans = convert.plans_from_reference(plans)
+    _js, ts = _worlds(nodes)
+    with t_policy.verify_override("host"):
+        host = t_window(ts, tplans, device="cpu")
+    _js, ts = _worlds(nodes)
+    with t_policy.verify_override("device"):
+        first = t_window(ts, tplans, device="cpu")
+    assert first.info["device"]["dispatched"], first.info["device"]
+    assert [o.result.to_dict() for o in first] == \
+        [o.result.to_dict() for o in host]
+
+
 def test_a_dispatch_that_fails_raises():
     """No fallback around the launch: a K6 failure surfaces."""
     nodes = [mock.node(i) for i in range(4)]
@@ -209,7 +234,7 @@ def test_a_dispatch_that_fails_raises():
     def broken(*a, **kw):
         raise RuntimeError("window_verify: CUDA error 700")
     with t_policy.verify_override("device"):
-        t_window(ts, tplans, device="cpu")  # cold: lease-miss
+        t_window(ts, tplans, device="cpu")  # warms the lease
         tmesh.window_verify = broken
         try:
             with pytest.raises(RuntimeError, match="CUDA error"):
@@ -234,7 +259,7 @@ def test_the_engine_passes_the_windows_real_counts():
                      tmesh.kernel_counts(desc, counts)))
         return saved(*a, counts=counts, **kw)
     with t_policy.verify_override("device"):
-        t_window(ts, tplans, device="cpu")  # cold: lease-miss
+        t_window(ts, tplans, device="cpu")  # warms the lease
         tmesh.window_verify = recording
         try:
             out = t_window(ts, tplans, device="cpu")
