@@ -10,6 +10,8 @@ one NVIDIA GPU.
     python3 chip_smoke.py --wire-groups N       # ... at N groups a job
     python3 chip_smoke.py --client              # the client phase alone
     python3 chip_smoke.py --agent               # the agent phase alone
+    python3 chip_smoke.py --failover            # the failover phase alone
+    python3 chip_smoke.py --control             # the control phase alone
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -182,13 +184,45 @@ Phases, in order; any failure exits non-zero and prints no result line:
               is one higher while its tasks run, SIGHUP reloads
               ``log_level``, SIGTERM exits 0, leaves no task running
               and the count goes back down;
-  10. system  bench.py config 3: mock.system_job() on 1,000 nodes
+  10. failover bench.py config 5e's leader-kill failover at config 4's
+              width on the card: three durable ``raft_mode="net"``
+              servers in this process (``device`` cuda, their own
+              data_dirs, the JAX package's raft timings) under the
+              ``device`` verify policy; an ``AgentSwarm`` registers
+              10,000 mock nodes through the cluster's RPC plane and
+              heartbeats them; a probe writer on its own pool writes
+              every few ms; config 4's 1,000-group job completes, then
+              three rounds each send two more from two submitters and
+              hard-kill the leader (``CrashHarness.kill``) once both are
+              acked, while their evals are placed;
+              the victim reboots from its data_dir and catches up, once
+              by InstallSnapshot and at least once by log replay.  Per
+              kill: election latency, recovery and unavailability (the
+              probe), the new leader's first committed plan from the
+              kill split into its fleet build, uploads, fetches and
+              kernels (CUDA events on its own threads), the rejoin.
+              Checks: every eval complete, identical store digests,
+              each group of each job placed once, no node over
+              capacity, ``committed_plan_loss`` 0, K3/K4a launched by an
+              elected leader, K6 dispatched by an elected leader with no
+              window falling back to the host (no lease miss), the
+              first job's placements equal to a single server's on the
+              same fleet, recorded launches replayed bit for bit; prints
+              the elections no kill caused and the snapshot sizes;
+  11. control the runner's depth knob (``control.runner_controller``)
+              over config 2's evals on 1,000 nodes through
+              PipelinedEvalRunner on the card, with a ``device.dispatch``
+              delay injected for a bounded window: the depth retreats
+              below its start and climbs back after, the plans equal an
+              uncontrolled run's; prints the knob's trajectory and
+              reversals;
+  12. system  bench.py config 3: mock.system_job() on 1,000 nodes
               through ``system`` (vectorized, native finish) and
               ``system-seq``: equal plans, every node placed, eval ms;
-              phases 4-10 (and 12) run under ``executor_override("device")``,
+              phases 4-12 (and 14) run under ``executor_override("device")``,
               so the cost policy cannot move their walks to the numpy
               twins and their launch checks keep their meaning;
-  11. executor the host executor's crossover and the pipelined runner:
+  13. executor the host executor's crossover and the pipelined runner:
               (a) on real evals' DeviceArgs (configs 1, 2, 4, a config-5b
               lane, config 2's sequence job, and jobs of 8, 64 and 512
               distinct groups on config 4's fleet), ``dispatch_host``,
@@ -210,13 +244,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
               config 5b's storm under host and auto, with the placements
               and counts of the storm phase's device run; the default
               breaker ends closed with every count at 0;
-  12. verify  bench.py's 5f fleet-scaling sub-table on the port: NodeSlab
+  14. verify  bench.py's 5f fleet-scaling sub-table on the port: NodeSlab
               fleets of 10,000, 131,072 and 1,000,000 nodes, 64
               single-placement plans a window, 8 measured windows under
               the host engine and under the device engine (K6); every
               device window must dispatch, make one upload and one
               fetch, and give the host's verdicts;
-  13. report  one ``{"kernels": [...]}`` line, then the card's name and
+  15. report  one ``{"kernels": [...]}`` line, then the card's name and
               power limit exactly as nvidia-smi prints them, then the
               result line ``{"ok": true, "device": {...}}`` last.
 
@@ -1243,7 +1277,8 @@ def device_timeline(torch):
     the port's libraries (every ``nomad_*`` entry point of
     ``kernels.PROTOTYPES`` but the plan queries) and each call of its
     device seams (``DEVICE_SEAMS``) made inside the block.  Yields a
-    list of (name, start event, end event).  The stream time between a
+    list of (name, start event, end event, thread ident, host instant
+    the call began).  The stream time between a
     call's two events is the card's work for it plus any stretch where
     the card waited on the host inside the call (a pageable upload's
     staging), so their sum bounds the card's busy time from above
@@ -1255,7 +1290,8 @@ def device_timeline(torch):
     sessions long and short lose every device event at random, and
     the events that come back sit tens of ms off the host's clock
     (``profiler_events``), which is why config 5's busy time read
-    None."""
+    None.  The failover phase splits one server's work out of the
+    others' by thread and instant."""
     from nomad_tpu_torch.ops import kernels
     from nomad_tpu_torch.parallel import devices
 
@@ -1268,6 +1304,7 @@ def device_timeline(torch):
             if getattr(nesting, "depth", 0):
                 return fn(*a, **kw)
             nesting.depth = 1
+            t0 = time.perf_counter()
             start = torch.cuda.Event(enable_timing=True)
             start.record()
             try:
@@ -1275,7 +1312,7 @@ def device_timeline(torch):
             finally:
                 end = torch.cuda.Event(enable_timing=True)
                 end.record()
-                pairs.append((name, start, end))
+                pairs.append((name, start, end, threading.get_ident(), t0))
                 nesting.depth = 0
         return call
 
@@ -1359,7 +1396,7 @@ def device_busy_ms(torch, fn):
         result = fn()
         torch.cuda.synchronize()
     by_name: dict = {}
-    for name, start, end in pairs:
+    for name, start, end, *_ in pairs:
         by_name[name] = by_name.get(name, 0.0) + start.elapsed_time(end)
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
@@ -1696,10 +1733,11 @@ class RoundsRecording(Recording):
 
 
 def main_path_replay(torch, modules, calls) -> list:
-    """K2 or K5 at each shape the main path launched it (``calls`` from
-    Recording): the first launch at each shape replayed on its inputs
-    and held to the plain version (``<name>_plain`` in
-    ``modules[name]``) bit for bit."""
+    """K2, K4b or K5 at each shape the main path launched it (``calls``
+    from Recording): the first launch at each shape replayed on its
+    inputs and held to the plain version (``<name>_plain`` in
+    ``modules[name]``) bit for bit; K4b also timed there, with its
+    plain version's time and its bound (``main_path_sequence_batch``)."""
     out = []
     for key, (args, kw, count) in calls.items():
         name = key[0]
@@ -1717,6 +1755,16 @@ def main_path_replay(torch, modules, calls) -> list:
             err = compare(torch, what, got[:3], want[:3])
         row = dict(kernel=name, shapes=[list(x) for x in key[1:]],
                    launches=count, err=err)
+        if name == "place_sequence_batch" and not kw:
+            # K4b on the server's and the wire's sequence job: timed on
+            # its recorded inputs beside its plain version and bound.
+            timed = main_path_sequence_batch(torch, module, args, reps=20)
+            row.update({k: timed[k] for k in (
+                "n", "lanes", "groups", "steps", "placed", "cluster",
+                "mode", "ms", "bound_ms", "bound_by")},
+                err=max(err, timed["err"]),
+                plain_ms=time_ms(torch, lambda: module.
+                                 place_sequence_batch_plain(*args), 2))
         print("main path " + json.dumps(row), flush=True)
         out.append(row)
     return out
@@ -4403,7 +4451,895 @@ def agent_process(base) -> dict:
     return row
 
 
-# -- phase 10: the system schedulers (config 3) -----------------------------
+# -- phase 10: failover (networked raft, hard leader kills, the card) -------
+
+FAILOVER_NODES = 10_000    # config 4's fleet
+FAILOVER_GROUPS = 1000     # config 4's job
+FAILOVER_KILLS = 3
+# Entries between raft compactions: the fleet's registration compacts
+# twice, and a kill round's downtime stays well under one threshold, so
+# a victim rebooted at once rejoins by log replay while the round that
+# keeps its victim down until the leader compacted past the victim's
+# last entry rejoins by InstallSnapshot.
+FAILOVER_SNAPSHOT = 4096
+FAILOVER_REJOINS = ("replay", "snapshot", "replay")
+# Raft's election timeout range and heartbeat interval (s).  The JAX
+# package's defaults, (0.15, 0.30) and 0.05, starve in one interpreter
+# that holds three servers, the fleet's swarm and config 4's commits
+# (PERF.md §6): those servers held no leader for a minute.
+FAILOVER_ELECTION = (1.0, 2.0)
+FAILOVER_HEARTBEAT = 0.1
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+class FailoverWatch:
+    """The failover phase's class-level hooks over every server of the
+    process: each leadership gain (``NetRaft._become_leader``), each
+    leadership bring-up done (``Server.establish_leadership``), each
+    InstallSnapshot a follower installed, each snapshot persisted (its
+    size), each commit job that committed plans (its applier and end
+    instant) and each fleet build (``build_fleet``: thread and host
+    span).  ``restore`` puts the originals back."""
+
+    def __init__(self) -> None:
+        from nomad_tpu_torch.models import fleet
+        from nomad_tpu_torch.server.plan_apply import PlanApplier
+        from nomad_tpu_torch.server.raft import SnapshotStore
+        from nomad_tpu_torch.server.raft_net import NetRaft
+        from nomad_tpu_torch.server.server import Server
+
+        self.gains: list = []     # (t, raft)
+        self.established: list = []  # (t, server) leadership bring-up done
+        self.installs: list = []  # (t, raft, index, bytes)
+        self.snapshots: list = []  # bytes of each persisted snapshot
+        self.commits: list = []   # (t_end, applier)
+        self.builds: list = []    # (t0, t1, thread ident)
+        self._lock = threading.Lock()
+        watch = self
+        become = NetRaft.__dict__["_become_leader"]
+        install = NetRaft.__dict__["_handle_install_snapshot"]
+        save = SnapshotStore.__dict__["save"]
+        commit = PlanApplier.__dict__["_commit_job"]
+        establish = Server.__dict__["establish_leadership"]
+        build = fleet.build_fleet
+
+        def _become_leader(self):
+            with watch._lock:
+                watch.gains.append((time.perf_counter(), self))
+            return become(self)
+
+        def _handle_install_snapshot(self, args):
+            before = self._last_applied
+            out = install(self, args)
+            if self._last_applied > before and \
+                    self._snap_index == args["last_included_index"]:
+                with watch._lock:
+                    watch.installs.append((time.perf_counter(), self,
+                                           self._snap_index,
+                                           len(args["data"])))
+            return out
+
+        def _save(self, index, blob):
+            out = save(self, index, blob)
+            with watch._lock:
+                watch.snapshots.append(len(blob))
+            return out
+
+        def _commit_job(self, *a, **kw):
+            before = self.plans_committed
+            try:
+                return commit(self, *a, **kw)
+            finally:
+                if self.plans_committed > before:
+                    with watch._lock:
+                        watch.commits.append((time.perf_counter(), self))
+
+        def establish_leadership(self):
+            out = establish(self)
+            if self.is_leader():
+                with watch._lock:
+                    watch.established.append((time.perf_counter(), self))
+            return out
+
+        def build_fleet(nodes):
+            t = time.perf_counter()
+            try:
+                return build(nodes)
+            finally:
+                with watch._lock:
+                    watch.builds.append((t, time.perf_counter(),
+                                         threading.get_ident()))
+
+        self._saved = [(NetRaft, "_become_leader", become),
+                       (NetRaft, "_handle_install_snapshot", install),
+                       (SnapshotStore, "save", save),
+                       (PlanApplier, "_commit_job", commit),
+                       (Server, "establish_leadership", establish),
+                       (fleet, "build_fleet", build)]
+        for owner, name, fn in zip(
+                [s[0] for s in self._saved], [s[1] for s in self._saved],
+                (_become_leader, _handle_install_snapshot, _save,
+                 _commit_job, establish_leadership, build_fleet)):
+            setattr(owner, name, fn)
+
+    def restore(self) -> None:
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+class ThreadLaunches:
+    """A kernel wrapper (a Recording), counting its launches by the
+    thread that made them; ``launches`` stays the wrapper's own."""
+
+    def __init__(self, fn) -> None:
+        self.fn = fn
+        self.by_thread: dict = {}
+        self._lock = threading.Lock()
+
+    @property
+    def __name__(self) -> str:
+        return self.fn.__name__
+
+    @property
+    def launches(self) -> int:
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self.fn.launches = value
+
+    def __call__(self, *a, **kw):
+        before = self.fn.launches
+        try:
+            return self.fn(*a, **kw)
+        finally:
+            n = self.fn.launches - before
+            if n:
+                ident = threading.get_ident()
+                with self._lock:
+                    self.by_thread[ident] = self.by_thread.get(ident, 0) + n
+
+
+def register_until(swarm, deadline_s) -> int:
+    """Register the swarm's fleet (``AgentSwarm.register_all``), then
+    register again each agent whose registration failed (a leader
+    change under the registration's load: "no cluster leader", a reset
+    forward) until every one landed or ``deadline_s`` passed; each
+    landed agent starts heartbeating at once.  Returns the failed
+    registrations retried."""
+    retried = 0
+    deadline = time.monotonic() + deadline_s
+    pending = list(range(swarm.n_agents))
+    while pending:
+        require(time.monotonic() < deadline,
+                f"failover: {len(pending)} nodes never registered")
+        failed: list = []
+        cond = threading.Condition()
+        state = {"inflight": 0, "done": 0}
+
+        def finish(i, exc):
+            with cond:
+                state["inflight"] -= 1
+                state["done"] += 1
+                if exc is not None:
+                    failed.append(i)
+                cond.notify_all()
+            if exc is None:
+                swarm._wheel.arm(f"hb:{i}", swarm._rng.uniform(0.05, 5.0))
+        for i in pending:
+            with cond:
+                while state["inflight"] >= 128:
+                    cond.wait(5.0)
+                state["inflight"] += 1
+            swarm._call_async(
+                swarm._chans[i % len(swarm._chans)], "Node.Register",
+                {"node": swarm._nodes[i].to_dict()},
+                lambda _r, e, i=i: finish(i, e), timeout=swarm.rpc_timeout)
+        with cond:
+            while state["done"] < len(pending):
+                cond.wait(5.0)
+        retried += len(failed)
+        pending = sorted(failed)
+        if pending:
+            time.sleep(0.5)
+    return retried
+
+
+def store_digest(state) -> str:
+    """The store's fingerprint (``StateStore.fingerprint``: every
+    table's objects sorted by id, and the per-table raft indexes; the
+    alloc changelog left out, as a restored store's starts empty) with
+    each alloc's embedded job replaced by the digest of that job's
+    dict, computed once a job object.  The fingerprint itself
+    serializes the whole job again for each alloc: 56 s for one
+    1,000-group job's allocs on a CPU, minutes for the failover phase's
+    stores."""
+    import dataclasses
+    import hashlib
+
+    import msgpack
+
+    from nomad_tpu_torch.state.store import TABLES
+    from nomad_tpu_torch.structs.model import _to_plain
+
+    t = state.snapshot()._t
+    jobs: dict = {}
+
+    def job_digest(job):
+        if job is None:
+            return None
+        if id(job) not in jobs:
+            jobs[id(job)] = (job, hashlib.sha256(msgpack.packb(
+                job.to_dict(), use_bin_type=True)).hexdigest())
+        return jobs[id(job)][1]
+
+    def plain(obj, table):
+        if table != "allocs":
+            return obj.to_dict()
+        return {f.name: job_digest(obj.job) if f.name == "job"
+                else _to_plain(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    payload = {
+        "indexes": {name: t.indexes.get(name, 0) for name in TABLES},
+        "tables": {name: sorted((plain(o, name)
+                                 for o in t.tables[name].values()),
+                                key=lambda d: d.get("id", ""))
+                   for name in TABLES}}
+    return hashlib.sha256(msgpack.packb(payload,
+                                        use_bin_type=True)).hexdigest()
+
+
+def server_threads(srv) -> set:
+    """The idents of a server's scheduling workers and its applier."""
+    idents = {w._thread.ident for w in srv.workers
+              if w._thread is not None}
+    if srv.plan_applier._thread is not None:
+        idents.add(srv.plan_applier._thread.ident)
+    return idents
+
+
+def failover_split(torch, watch, stamps, srv, t0, t1) -> dict:
+    """What ``srv``'s own threads did on the card between ``t0`` and
+    ``t1`` (host clock): the fleet builds' host ms, and from the stamped
+    device timeline the device ms of its uploads (``put_counted``,
+    ``ensure_on_default``), its fetches (``copy_to_host_async``) and its
+    kernel launches, each by name."""
+    idents = server_threads(srv)
+    out = dict(build_host_ms=sum(
+        (b1 - b0) * 1e3 for b0, b1, ident in watch.builds
+        if ident in idents and t0 <= b0 <= t1))
+    torch.cuda.synchronize()
+    upload = fetch = 0.0
+    kernels_ms: dict = {}
+    for name, start, end, ident, t in stamps:
+        if ident not in idents or not t0 <= t <= t1:
+            continue
+        ms = start.elapsed_time(end)
+        if name in ("put_counted", "ensure_on_default"):
+            upload += ms
+        elif name == "copy_to_host_async":
+            fetch += ms
+        else:
+            kernels_ms[name] = kernels_ms.get(name, 0.0) + ms
+    out.update(upload_device_ms=upload, fetch_device_ms=fetch,
+               kernel_device_ms=sum(kernels_ms.values()),
+               kernels=kernels_ms)
+    return out
+
+
+def failover_timeline(torch):
+    """The stamped device timeline the failover phase splits per kill
+    (a CPU rehearsal stubs it)."""
+    return device_timeline(torch)
+
+
+def first_job_reference(nodes, job) -> dict:
+    """Config 4's job on one server on DEV (in-memory raft), over
+    ``nodes`` registered in the order the cluster's store holds them:
+    alloc name -> node id."""
+    from nomad_tpu_torch.server import Server, ServerConfig
+
+    srv = Server(ServerConfig(device=DEV, num_schedulers=0,
+                              tune_gc=False))
+    try:
+        for node in nodes:
+            srv.node_register(node)
+        srv.establish_leadership()
+        srv.config.num_schedulers = 2
+        srv._setup_workers()
+        _, eid = srv.job_register(job)
+        srv.wait_for_evals([eid], timeout=600)
+        return {a.name: a.node_id for a in srv.fsm.state.allocs_by_job(
+            job.id) if not a.terminal_status()}
+    finally:
+        srv.shutdown()
+
+
+def run_failover(torch, n_nodes=FAILOVER_NODES, n_groups=FAILOVER_GROUPS,
+                 kills=FAILOVER_KILLS, snapshot_threshold=FAILOVER_SNAPSHOT,
+                 rejoins=FAILOVER_REJOINS, election=FAILOVER_ELECTION,
+                 heartbeat=FAILOVER_HEARTBEAT):
+    """The failover phase, bench 5e's failover at config 4's width on
+    the card.  Three durable ``raft_mode="net"`` servers in this process
+    (``device=DEV``, their own data_dirs and RPC ports, the JAX
+    package's raft timings, ``snapshot_threshold`` entries a
+    compaction), under the ``device`` verify policy.  An
+    ``AgentSwarm`` registers ``n_nodes`` mock nodes through the leader's
+    RPC port and heartbeats them; a probe writer on its own pool
+    re-upserts one terminal eval (``Eval.Update``, no nodes-table
+    write, so no fleet generation moves) every few ms on every server
+    in turn.  The launch counts are set to 0 once the fleet is ready
+    and read at the end.  The first job (config 4's: ``n_groups``
+    groups) goes through ``Job.Register`` and completes.  Then
+    ``kills`` rounds: two submitters each send one more config 4 job;
+    the leader is hard-killed
+    (``CrashHarness.kill``: storage frozen, ``abandon``) once both
+    are acked, while their evals are being placed; the survivors
+    elect; the victim reboots from its data_dir (``rejoins[k]``:
+    "replay" at once, "snapshot" once the leader compacted past the
+    victim's last entry, writing filler ``Eval.Update``s until then)
+    and must reach the leader's commit index; the burst is placed
+    before the next round.  Per kill: election
+    latency, recovery (kill -> the probe's first ack after it) and
+    unavailability (its last ack before -> first after), the new
+    leader's first committed plan from the kill, split into its fleet
+    build (host), uploads, fetches and kernels (device, CUDA events on
+    its own threads), the rejoin's catch-up and whether it rode
+    InstallSnapshot or log replay.  Checks: every eval complete,
+    identical store digests on the three servers, each group of each
+    job placed once, no node over capacity, ``committed_plan_loss`` 0
+    (every acked job, every alloc a dead leader had applied, the probe
+    eval), K3 or K4a launched by an elected leader's worker, K6
+    dispatched by an elected leader with no applier falling back to the
+    host (no lease miss), one rejoin of each kind; the first job's
+    placements equal a single server's on the same fleet.  Prints the
+    elections no kill caused and the snapshot sizes.  Teardown leaves
+    no thread."""
+    import gc
+    import shutil
+
+    import nomad_tpu_torch.mock as mock
+    import nomad_tpu_torch.structs as structs
+    from nomad_tpu_torch.agent import AgentSwarm
+    from nomad_tpu_torch.faultinject.crash import CrashHarness
+    from nomad_tpu_torch.ops import binpack
+    from nomad_tpu_torch.ops.verify_policy import verify_override
+    from nomad_tpu_torch.server import Server, ServerConfig
+    from nomad_tpu_torch.server.rpc import ConnPool
+
+    def until(cond, timeout, what):
+        wait_for(cond, timeout, what, phase="failover")
+    require(len(rejoins) == kills, "failover: one rejoin policy a kill")
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "nomad_tpu_torch", "_build", "failover_phase")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    thresholds = gc.get_threshold()
+    before = set(threading.enumerate())
+    ports = [free_port() for _ in range(3)]
+    peers = [("127.0.0.1", p) for p in ports]
+
+    def cfg(i):
+        return ServerConfig(
+            device=DEV, data_dir=os.path.join(base, f"s{i}"),
+            raft_mode="net", rpc_port=ports[i], raft_peers=list(peers),
+            num_schedulers=2, raft_snapshot_threshold=snapshot_threshold,
+            raft_election_timeout=tuple(election),
+            raft_heartbeat_interval=heartbeat)
+
+    first_job, = storm_jobs(mock, structs, "failover-first", 1, n_groups)
+    rounds = [storm_jobs(mock, structs, f"failover-{k}", 2, n_groups)
+              for k in range(kills)]
+    probe_ev = structs.Evaluation(
+        id=structs.generate_uuid(), priority=50, type="service",
+        triggered_by="failover-probe", job_id="failover-probe",
+        status=structs.EVAL_STATUS_COMPLETE)
+    row: dict = dict(nodes=n_nodes, groups=n_groups, kills=kills,
+                     snapshot_threshold=snapshot_threshold,
+                     election_timeout=list(election),
+                     heartbeat_interval=heartbeat)
+    watch = FailoverWatch()
+    harness = CrashHarness()
+    pool, probe_pool, fill_pool = ConnPool(), ConnPool(), ConnPool()
+    stop = threading.Event()
+    alive: dict = {}
+    swarm = None
+    threads: list = []
+    probe_log: list = []     # (t_start, t_end, ok)
+    acked: dict = {}
+    errors: list = []
+    husk_allocs: set = set()
+    elected: list = []       # servers that won a post-kill election
+    kill_rows: list = []
+    rr = [0]
+
+    def addr_fn():
+        targets = list(alive.values())
+        rr[0] += 1
+        return targets[rr[0] % len(targets)].rpc_address()
+
+    def leader_of(timeout=60.0):
+        found = []
+
+        def one():
+            leaders = [s for s in list(alive.values())
+                       if s.raft.is_leader() and s.is_leader()]
+            if len(leaders) == 1:
+                found[:] = leaders
+                return True
+            return False
+        until(one, timeout, "no single leader")
+        return found[0]
+
+    def probe():
+        while not stop.is_set():
+            t = time.perf_counter()
+            try:
+                probe_pool.call(addr_fn(), "Eval.Update",
+                                {"evals": [probe_ev.to_dict()]},
+                                timeout=0.25)
+                probe_log.append((t, time.perf_counter(), True))
+            except Exception:
+                probe_log.append((t, time.perf_counter(), False))
+            time.sleep(0.004)
+
+    def submit(job):
+        end = time.monotonic() + 300.0
+        while not stop.is_set():
+            try:
+                resp = pool.call(addr_fn(), "Job.Register",
+                                 {"job": job.to_dict()}, timeout=30.0)
+                acked[job.id] = resp["index"]
+                return
+            except Exception as e:
+                if time.monotonic() >= end:
+                    errors.append(f"{job.id}: {e}")
+                    return
+                time.sleep(0.05)
+
+    with recorded_kernels() as rec, verify_override("device"), \
+            failover_timeline(torch) as stamps:
+        rounds_k = {name: ThreadLaunches(rec.counters[name])
+                    for name in ("place_rounds", "place_rounds_batch")}
+        saved_k = (binpack.place_rounds, binpack.place_rounds_batch)
+        binpack.place_rounds = rounds_k["place_rounds"]
+        binpack.place_rounds_batch = rounds_k["place_rounds_batch"]
+        try:
+            t = time.perf_counter()
+            for i in range(3):
+                alive[i] = Server(cfg(i))
+            leader = leader_of()
+            row["boot_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            swarm = AgentSwarm(leader.rpc_address(), n_nodes, conns=16,
+                               hb_conns=4, beat_interval=20.0, seed=13,
+                               node_factory=wire_node(mock),
+                               long_polls=False)
+            row["register_retries"] = register_until(swarm, 600.0)
+            row["elections_while_registering"] = len(watch.gains) - 1
+            until(lambda: all(len(s.fsm.state.nodes()) == n_nodes
+                              for s in alive.values()), 300,
+                  "the fleet did not reach every server")
+            row["register_s"] = time.perf_counter() - t
+            row["registered_per_s"] = n_nodes / row["register_s"]
+            print(f"failover: 3 servers up in {row['boot_s']:.2f} s; "
+                  f"{n_nodes} nodes registered through the cluster in "
+                  f"{row['register_s']:.2f} s "
+                  f"({row['registered_per_s']:.1f}/s), "
+                  f"{row['register_retries']} registrations retried, "
+                  f"{row['elections_while_registering']} elections",
+                  flush=True)
+            gains0 = len(watch.gains)
+            for fn in rec.counters.values():
+                fn.launches = 0
+            prober = threading.Thread(target=probe, daemon=True,
+                                      name="failover-probe")
+            prober.start()
+            threads.append(prober)
+
+            # The first job, on the fleet as the cluster holds it.
+            leader = leader_of()
+            order = [n.copy() for n in leader.fsm.state.nodes()]
+            t = time.perf_counter()
+            submit(first_job)
+            require(first_job.id in acked, f"failover: {errors}")
+            until(lambda: [e.status for e in leader_of().fsm.state
+                           .evals_by_job(first_job.id)] == ["complete"],
+                  300, "the first job did not complete")
+            row["first_job_s"] = time.perf_counter() - t
+            first = {a.name: a.node_id for a in leader_of().fsm.state
+                     .allocs_by_job(first_job.id)
+                     if not a.terminal_status()}
+
+            t_rounds = time.perf_counter()
+            for k in range(kills):
+                lanes = [threading.Thread(target=submit, args=(job,),
+                                          daemon=True,
+                                          name=f"failover-submit-{k}-{i}")
+                         for i, job in enumerate(rounds[k])]
+                threads.extend(lanes)
+                n_acked = len(acked)
+                for lane in lanes:
+                    lane.start()
+                # The kill lands once the burst's registrations are
+                # acked, while their evals are being placed: a
+                # registration retried across a kill would register the
+                # job again, and that version's in-place update embeds
+                # the 214 KB job in each of its 1,000 allocs, a raft
+                # entry past the RPC plane's 128 MB frame (ROADMAP
+                # Queue 3).
+                until(lambda: len(acked) >= n_acked + len(lanes)
+                      or errors, 120,
+                      f"kill {k}: the burst's jobs were not acked")
+                require(not errors, f"failover: {errors}")
+                leader = leader_of()
+                victim = next(i for i, s in alive.items() if s is leader)
+                t_kill = time.perf_counter()
+                harness.kill(leader)
+                del alive[victim]
+                # Frozen storage: nothing more enters the husk's log,
+                # in memory or on disk.
+                with leader.raft._lock:
+                    husk_last = leader.raft._last_index()
+                husk_allocs.update(a.id for a in leader.fsm.state.allocs())
+                new = leader_of()
+                t_elected = time.perf_counter()
+                elected.append(new)
+                kr = dict(kill=k, victim=victim,
+                          leader=next(i for i, s in alive.items()
+                                      if s is new),
+                          election_ms=(t_elected - t_kill) * 1e3)
+                firsts = []
+
+                def placed():
+                    return all(e.terminal_status() for j in rounds[k]
+                               for e in new.fsm.state.evals_by_job(j.id))
+
+                def first_plan():
+                    firsts[:] = [t for t, applier in list(watch.commits)
+                                 if applier is new.plan_applier
+                                 and t > t_kill]
+                    return bool(firsts) or placed()
+                until(first_plan, 300,
+                      f"kill {k}: the new leader committed no plan")
+                # None: the dead leader had committed the whole burst.
+                kr["first_plan_ms"] = (firsts[0] - t_kill) * 1e3 \
+                    if firsts else None
+                # Leadership's bring-up (barrier, broker restore) done.
+                ready = [t for t, srv in list(watch.established)
+                         if srv is new and t > t_kill]
+                kr["established_ms"] = (ready[0] - t_kill) * 1e3 \
+                    if ready else None
+                if firsts:
+                    kr.update(failover_split(torch, watch, stamps, new,
+                                             t_kill, firsts[0]))
+                fillers = [0]
+                if rejoins[k] == "snapshot":
+                    # The victim stays down, four writers filling the
+                    # log, until the leader compacted past its last
+                    # entry.
+                    def compacted():
+                        with new.raft._lock:
+                            return new.raft._log_base_index > husk_last
+                    deadline = time.monotonic() + 300.0
+
+                    def fill():
+                        while not compacted() and \
+                                time.monotonic() < deadline:
+                            try:
+                                fill_pool.call(
+                                    addr_fn(), "Eval.Update",
+                                    {"evals": [probe_ev.to_dict()]},
+                                    timeout=30.0)
+                                fillers[0] += 1
+                            except Exception:
+                                time.sleep(0.01)  # a leader change
+                    writers = [threading.Thread(
+                        target=fill, daemon=True,
+                        name=f"failover-fill-{i}") for i in range(4)]
+                    for w in writers:
+                        w.start()
+                    for w in writers:
+                        w.join(310)
+                    require(compacted(), f"failover kill {k}: the leader "
+                            "never compacted past the victim's log")
+                t_boot = time.perf_counter()
+                reborn = harness.reboot(cfg(victim))
+                alive[victim] = reborn
+                kr["reboot_ms"] = (time.perf_counter() - t_boot) * 1e3
+                target = leader_of().raft.applied_index()
+                until(lambda: reborn.raft.applied_index() >= target, 300,
+                      f"kill {k}: the rebooted server did not catch up")
+                kr["rejoin_ms"] = (time.perf_counter() - t_boot) * 1e3
+                rode = [i for i in watch.installs if i[1] is reborn.raft]
+                kr["rejoin"] = "InstallSnapshot" if rode else "log replay"
+                kr["install_bytes"] = rode[0][3] if rode else 0
+                kr["filler_writes"] = fillers[0]
+                kr["policy"] = rejoins[k]
+                for lane in lanes:
+                    lane.join(300)
+                require(not errors and all(j.id in acked
+                                           for j in rounds[k]),
+                        f"failover kill {k}: submissions {errors}")
+                # The burst is placed before the next round kills.
+                until(lambda: all(e.terminal_status() for j in rounds[k]
+                                  for e in leader_of().fsm.state
+                                  .evals_by_job(j.id)), 300,
+                      f"kill {k}: the burst was not placed")
+                kr["round_ms"] = (time.perf_counter() - t_kill) * 1e3
+                print(f"failover kill {k}: " + json.dumps(kr), flush=True)
+                kill_rows.append((t_kill, kr))
+
+            row["rounds_s"] = time.perf_counter() - t_rounds
+            t_checks = time.perf_counter()
+            stop.set()
+            for t in threads:
+                t.join(60)
+            leader = leader_of()
+            state = leader.fsm.state
+            jobs = [first_job] + [j for r in rounds for j in r]
+
+            def terminal():
+                evs = [e for j in jobs for e in state.evals_by_job(j.id)]
+                return evs and all(e.terminal_status() for e in evs)
+            until(terminal, 300, "evals did not finish")
+            until(lambda: len({s.raft.applied_index()
+                               for s in alive.values()}) == 1, 120,
+                  "the servers did not apply the same log")
+            # What only the live cluster can say, read before it goes.
+            elected_idents = set()
+            for srv in elected:
+                elected_idents |= {w._thread.ident for w in srv.workers
+                                   if w._thread is not None}
+            by_elected = {name: sum(n for ident, n in k.by_thread.items()
+                                    if ident in elected_idents)
+                          for name, k in rounds_k.items()}
+            row["elected_launches"] = by_elected
+            fallbacks = sum(s.plan_applier.stats()["device_verify_fallbacks"]
+                            for s in list(alive.values()) + harness.dead)
+            k6 = sum(s.plan_applier.stats()["device_verify_dispatches"]
+                     for s in {id(s): s for s in elected}.values())
+            row.update(device_verify_dispatches_elected=k6,
+                       device_verify_fallbacks=fallbacks)
+            row["elections_not_caused_by_a_kill"] = \
+                len(watch.gains) - gains0 - kills
+            t_start = watch.gains[0][0]
+            row["leadership_gains_s"] = [round(t - t_start, 3)
+                                         for t, _raft in watch.gains]
+            row["kills_s"] = [round(t - t_start, 3) for t, _kr in kill_rows]
+            row["snapshot_bytes_max"] = max(watch.snapshots, default=0)
+            row["snapshots_persisted"] = len(watch.snapshots)
+            row["swarm"] = swarm.stats()
+            launches = {k: fn.launches for k, fn in rec.counters.items()}
+            row["launches"] = launches
+            # The stores are read with the cluster stopped: a digest of
+            # 10,000 nodes holds the interpreter long enough to starve
+            # raft's heartbeats.
+            swarm.stop()
+            swarm = None
+            stores = {i: s.fsm.state for i, s in alive.items()}
+            t_reap = time.perf_counter()
+            harness.reap(also=list(alive.values()))
+            alive.clear()
+            row["reap_s"] = time.perf_counter() - t_reap
+            bad = sorted({e.status for j in jobs
+                          for e in state.evals_by_job(j.id)} - {"complete"})
+            require(not bad, f"failover: evals ended {bad}")
+            for job in jobs:
+                live = [a for a in state.allocs_by_job(job.id)
+                        if not a.terminal_status()]
+                names = [a.name for a in live]
+                require(len(names) == len(set(names)) == n_groups,
+                        f"failover: job {job.id} has {len(names)} live "
+                        f"allocs, {len(set(names))} names, want {n_groups}")
+            final_ids = {a.id for a in state.allocs()}
+            lost = [j.id for j in jobs if state.job_by_id(j.id) is None]
+            lost += sorted(husk_allocs - final_ids)
+            if state.eval_by_id(probe_ev.id) is None:
+                lost.append(probe_ev.id)
+            row["committed_plan_loss"] = len(lost)
+            require(not lost, f"failover: committed writes lost: {lost[:5]}")
+            for node in state.nodes():
+                fit, dim, _ = structs.allocs_fit(
+                    node, [a for a in state.allocs_by_node(node.id)
+                           if not a.terminal_status()])
+                require(fit, f"failover: node {node.name} oversubscribed "
+                        f"on {dim}")
+            t_digest = time.perf_counter()
+            digests = {i: store_digest(st) for i, st in stores.items()}
+            row["digest_s"] = time.perf_counter() - t_digest
+            require(len(set(digests.values())) == 1,
+                    f"failover: the stores differ: {digests}")
+            row["digest"] = next(iter(digests.values()))
+            if DEV != "cpu":
+                require(sum(by_elected.values()) > 0,
+                        "failover: no elected leader launched K3 or K4a")
+            require(fallbacks == 0, f"failover: {fallbacks} windows fell "
+                    "back to the host engine (a lease miss)")
+            require(k6 > 0, "failover: no elected leader launched K6")
+            kinds = {kr["rejoin"] for _t, kr in kill_rows}
+            require(kinds == {"InstallSnapshot", "log replay"},
+                    f"failover: rejoins rode {sorted(kinds)}")
+            ok_acks = [t1 for _t0, t1, ok in probe_log if ok]
+            for t_kill, kr in kill_rows:
+                after = [t1 for t1 in ok_acks if t1 > t_kill]
+                before_k = [t1 for t1 in ok_acks if t1 <= t_kill]
+                require(after, f"failover kill {kr['kill']}: the probe "
+                        "never wrote again")
+                kr["recovery_ms"] = (after[0] - t_kill) * 1e3
+                kr["unavailability_ms"] = (after[0] - (
+                    before_k[-1] if before_k else t_kill)) * 1e3
+            row["checks_s"] = time.perf_counter() - t_checks
+            row["kills_detail"] = [kr for _t, kr in kill_rows]
+            row["probe_writes_ok"] = len(ok_acks)
+            row["probe_writes_failed"] = len(probe_log) - len(ok_acks)
+        finally:
+            stop.set()
+            binpack.place_rounds, binpack.place_rounds_batch = saved_k
+            if swarm is not None:
+                swarm.stop()
+            for t in threads:
+                t.join(60)
+            for p in (pool, probe_pool, fill_pool):
+                p.shutdown()
+            harness.reap(also=list(alive.values()))
+            watch.restore()
+            gc.unfreeze()
+            gc.set_threshold(*thresholds)
+            gc.collect()
+        replay = rec.replay(torch, launches, "failover")
+    t = time.perf_counter()
+    ref = first_job_reference(order, first_job)
+    row["reference_s"] = time.perf_counter() - t
+    require(ref == first, f"failover: the first job's placements differ "
+            f"from a single server's on {sum(ref.get(n) != v for n, v in first.items())} "
+            f"of {len(first)} groups")
+    until(lambda: not [t for t in threading.enumerate()
+                       if t not in before and t.is_alive()], 60,
+          lambda: "threads outlived the phase: " + ", ".join(
+              t.name for t in threading.enumerate()
+              if t not in before and t.is_alive()))
+    shutil.rmtree(base, ignore_errors=True)
+    row["main_path_replay"] = replay
+    print("failover: " + json.dumps(
+        {k: v for k, v in row.items() if k != "main_path_replay"}),
+        flush=True)
+    return row
+
+
+# -- phase 11: control (the runner's depth under an injected delay) --------
+
+CONTROL_NODES = 1000       # config 2's fleet
+CONTROL_ROUNDS = (("warm", 1), ("healthy", 2), ("delayed", 2),
+                  ("recovery", 10))
+CONTROL_BATCH = 4          # evals a round trip
+CONTROL_DELAY_S = 0.05
+
+
+def control_stream(torch, structs, Harness, PipelinedEvalRunner, nodes, jobs,
+                   controlled, seed=23):
+    """Config 2's jobs through one PipelinedEvalRunner on DEV at depth 8,
+    ``CONTROL_BATCH`` evals a round trip, the Harness committing every
+    plan; the round trips of ``CONTROL_ROUNDS``' "delayed" rounds under
+    a ``device.dispatch`` delay of ``CONTROL_DELAY_S`` on every
+    dispatch.  ``controlled``: ``runner_controller`` ticked by hand
+    after each round trip (warm-up samples dropped first).  Returns the
+    plans, the depth each round trip ran at with its round's name, the
+    RTT gauge after each and the controller's knob stats."""
+    from nomad_tpu_torch import faultinject
+    from nomad_tpu_torch.control import runner_controller
+    from nomad_tpu_torch.faultinject import FaultPlan
+
+    h = stream_cluster(structs, Harness, nodes, jobs)
+    random.seed(seed)
+    runner = PipelinedEvalRunner(h.snapshot(), h, depth=8,
+                                 state_refresh=h.snapshot, device=DEV)
+    ctl = None
+    trace: list = []
+    it = iter(jobs)
+    for name, trips in CONTROL_ROUNDS:
+        for _ in range(trips):
+            batch = [make_eval(structs, next(it))
+                     for _ in range(CONTROL_BATCH)]
+            depth = runner.depth
+            if name == "delayed":
+                plan = FaultPlan(seed=5).add(
+                    "device.dispatch", "delay", secs=CONTROL_DELAY_S,
+                    count=CONTROL_BATCH)
+                with faultinject.injected(plan):
+                    runner.process(batch)
+                require(plan.fire_count("device.dispatch")
+                        == CONTROL_BATCH, "control: the delay fired "
+                        f"{plan.fire_count('device.dispatch')} times")
+            else:
+                runner.process(batch)
+            rtt = runner.stats()["rtt_ms_ewma"]
+            if name == "warm":
+                with runner._count_lock:
+                    runner._rtt_ewma = 0.0
+                if controlled:
+                    ctl = runner_controller(runner, seed=7, lo=1, hi=8)
+            elif ctl is not None:
+                ctl.tick()
+            trace.append((name, depth, rtt))
+    torch.cuda.synchronize()
+    require(runner.device_dispatches == len(jobs)
+            and runner.breaker_reruns == 0,
+            f"control: {runner.device_dispatches} device dispatches, "
+            f"{runner.breaker_reruns} re-runs for {len(jobs)} evals")
+    names = {n.id: n.name for n in h.state.nodes()}
+    plans = [plan_summary(p, names) for p in h.plans]
+    knob = ctl.stats()["knobs"]["pipeline.depth"] if ctl else None
+    return plans, trace, knob
+
+
+def run_control(torch, n_nodes=CONTROL_NODES):
+    """The control phase, the card half of the JAX package's
+    TestChaosDepthRetreat: config 2's stream (``CONTROL_ROUNDS``) under
+    ``runner_controller``, once uncontrolled (the reference), then
+    controlled with the launch counts set to 0 just before it and read
+    after.  Checks: during the delayed round trips the depth retreats
+    below its start, afterwards it climbs back above its lowest; the
+    controlled run's plans equal the uncontrolled run's, eval for eval
+    (nodes and ports); every eval dispatched to the card, no re-run.
+    Prints the knob's trajectory, its reversals and each round trip's
+    depth and RTT gauge; the recorded K2/K3 launches are replayed
+    against the plain versions."""
+    import nomad_tpu_torch.mock as mock
+    import nomad_tpu_torch.structs as structs
+    from nomad_tpu_torch.scheduler import Harness
+    from nomad_tpu_torch.scheduler.pipeline import PipelinedEvalRunner
+
+    n_jobs = sum(t for _n, t in CONTROL_ROUNDS) * CONTROL_BATCH
+    nodes = [mock.node(i) for i in range(n_nodes)]
+    jobs = [config2_job(mock, structs, 1000 + k) for k in range(n_jobs)]
+    want, plain_trace, _ = control_stream(
+        torch, structs, Harness, PipelinedEvalRunner, nodes, jobs,
+        controlled=False)
+    require(all(d == 8 for _n, d, _r in plain_trace),
+            "control: the uncontrolled runner's depth moved")
+    with recorded_kernels() as rec:
+        for fn in rec.counters.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        got, trace, knob = control_stream(
+            torch, structs, Harness, PipelinedEvalRunner, nodes, jobs,
+            controlled=True)
+        wall = time.perf_counter() - t
+        launches = {k: fn.launches for k, fn in rec.counters.items()}
+        replay = rec.replay(torch, launches, "control")
+    require(got == want, "control: the controlled run's plans differ "
+            "from the uncontrolled run's")
+    depths = [d for _n, d, _r in trace]
+    delayed_end = max(i for i, (n, _d, _r) in enumerate(trace)
+                      if n == "delayed")
+    low = min(depths[:delayed_end + 2])
+    require(low < 8, f"control: the depth never retreated: {trace}")
+    require(max(depths[depths.index(low):]) > low,
+            f"control: the depth never climbed back: {trace}")
+    row = dict(nodes=n_nodes, evals=n_jobs, wall_s=wall,
+               delay_s=CONTROL_DELAY_S, lowest_depth=low,
+               final_depth=depths[-1], trajectory=knob["trajectory"],
+               reversals=knob["reversals"], rail_hits=knob["rail_hits"],
+               trips=[dict(round=n, depth=d, rtt_ms_ewma=r)
+                      for n, d, r in trace],
+               launches=launches, main_path_replay=replay)
+    print("control: " + json.dumps(
+        {k: v for k, v in row.items() if k != "main_path_replay"}),
+        flush=True)
+    return row
+
+
+# -- phase 12: the system schedulers (config 3) -----------------------------
 
 
 def run_system(n_nodes=1000, reps=3):
@@ -4471,7 +5407,7 @@ def run_system(n_nodes=1000, reps=3):
                 seq_over_system=seq["median_ms"] / vec["median_ms"])
 
 
-# -- phase 12: the verify engines over a growing fleet ---------------------
+# -- phase 14: the verify engines over a growing fleet ---------------------
 
 
 def result_key(result) -> tuple:
@@ -4599,7 +5535,7 @@ def run_verify_fleet(sizes=(10_000, 131_072, 1_000_000), windows=8,
                 device_flatness=last / first, table=table)
 
 
-# -- phase 11: the executor policy and the pipelined eval runner -----------
+# -- phase 13: the executor policy and the pipelined eval runner -----------
 
 
 EXECUTORS = ("host", "device", "auto")
@@ -5381,6 +6317,20 @@ def main(argv=()) -> int:
             run_agent(torch)
         print("chip_smoke: --agent run, no result line", flush=True)
         return 0
+    if argv[:1] == ["--failover"]:
+        # The failover phase alone: no kernel checks, no result line.
+        with executor_override("device"):
+            fo = run_failover(torch)
+        print("failover launches: " + json.dumps(fo["launches"]),
+              flush=True)
+        print("chip_smoke: --failover run, no result line", flush=True)
+        return 0
+    if argv[:1] == ["--control"]:
+        # The control phase alone: no kernel checks, no result line.
+        with executor_override("device"):
+            run_control(torch)
+        print("chip_smoke: --control run, no result line", flush=True)
+        return 0
     if argv[:1] == ["--executor"]:
         # The executor phase alone (its config-5b storms are not held
         # against a device storm): no kernel checks, no result line.
@@ -5399,7 +6349,7 @@ def main(argv=()) -> int:
                 not set(argv[1].split(",")) <= set(checks):
             print(f"usage: chip_smoke.py [--only {','.join(checks)}] "
                   f"[--executor] [--wire] [--wire-groups N] [--client] "
-                  f"[--agent] "
+                  f"[--agent] [--failover] [--control] "
                   f"[--profiler-events SECONDS]",
                   file=sys.stderr)
             return 2
@@ -5442,6 +6392,8 @@ def main(argv=()) -> int:
         wr = phase("wire", lambda: run_wire(torch))
         cl = phase("client", lambda: run_client(torch))
         ag = phase("agent", lambda: run_agent(torch))
+        fo = phase("failover", lambda: run_failover(torch))
+        co = phase("control", lambda: run_control(torch))
         sy = phase("system", run_system)
         print("system: " + json.dumps(sy), flush=True)
     ex = phase("executor", lambda: run_executor(torch, placed5b=placed5b))
@@ -5455,11 +6407,13 @@ def main(argv=()) -> int:
         {k: v for k, v in vf.items() if k != "table"}), flush=True)
     # Launches on the main paths, each path counted from 0: the slice,
     # the storm (K6 in config 5b under the device policy), the server
-    # phase's shapes, the wire, client and agent phases, the executor
-    # phase's timed pipelined streams and the verify-fleet phase.
+    # phase's shapes, the wire, client, agent, failover and control
+    # phases, the executor phase's timed pipelined streams and the
+    # verify-fleet phase.
     launches = {k: sl["launches"].get(k, 0) + st["launches"][k]
                 + sv["launches"][k] + wr["launches"][k]
                 + cl["launches"][k] + ag["launches"][k]
+                + fo["launches"][k] + co["launches"][k]
                 + ex["launches"].get(k, 0)
                 for k in st["launches"]}
     launches["window_verify"] += vf["launches"]
@@ -5471,6 +6425,8 @@ def main(argv=()) -> int:
                              + wr["main_path_replay"]
                              + cl["main_path_replay"]
                              + ag["main_path_replay"]
+                             + fo["main_path_replay"]
+                             + co["main_path_replay"]
                              if r["kernel"] == name], default=0.0)
                   for name in ("place_rounds", "place_rounds_batch",
                                "scatter_rows", "window_verify")}
@@ -5478,13 +6434,15 @@ def main(argv=()) -> int:
         [sl["main_path_sequence"]["err"]]
         + [r["err"] for r in ex["main_path_replay"] + sv["main_path_replay"]
            + wr["main_path_replay"] + cl["main_path_replay"]
-           + ag["main_path_replay"]
+           + ag["main_path_replay"] + fo["main_path_replay"]
+           + co["main_path_replay"]
            if r["kernel"] == "place_sequence"])
     replay_err["place_sequence_batch"] = max(
         [st[storm]["main_path_sequence_batch"]["err"]
          for storm in ("sequence_storm", "fleet_sequence_storm")]
         + [r["err"] for r in sv["main_path_replay"] + wr["main_path_replay"]
            + cl["main_path_replay"] + ag["main_path_replay"]
+           + fo["main_path_replay"] + co["main_path_replay"]
            if r["kernel"] == "place_sequence_batch"])
     timed = {"place_sequence": seq, "place_rounds": rnd,
              "scatter_rows": sct, "place_rounds_batch": rb,

@@ -207,8 +207,6 @@ class Agent:
         elif cfg.bootstrap_expect > 1:
             # Gossip-bootstrapped cluster: networked raft with deferred
             # elections until bootstrap_expect servers are visible.
-            # Networked raft is not ported: the server refuses both
-            # (ValueError, ROADMAP Queue 1 item 3).
             cfg.raft_mode = "net"
         self.server = Server(cfg)
         if not self.config.raft_peers and cfg.bootstrap_expect <= 1:

@@ -3,9 +3,10 @@
 Counterpart of ``nomad_tpu/faultinject/__init__.py`` and ``plan.py``.
 The port wires the server plane's sites (broker enqueue, raft apply,
 the raft storage sites, heartbeat delivery, the store's watch
-delivery) and the RPC plane's (``rpc.send``, ``rpc.recv``,
-``rpc.admit``, ``mux.accept``, ``conn.read``); ``CrashHarness``
-(``faultinject/crash.py``) is not ported.
+delivery), the RPC plane's (``rpc.send``, ``rpc.recv``,
+``rpc.admit``, ``mux.accept``, ``conn.read``) and the pipelined runner's
+(``device.dispatch``, ``device.collect``); ``CrashHarness``
+(``faultinject/crash.py``) hard-kills and reboots a server.
 
 The runtime consults a process-global plan at named *sites* — RPC
 send/receive/admit, raft apply, heartbeat delivery, broker enqueue,

@@ -1020,5 +1020,15 @@ class FleetCache:
             self._statics[id(table)] = (table, fleet)
         return fleet
 
+    def forget(self, state) -> None:
+        """Drop the generation cached for ``state``'s nodes table (a
+        dead server's store: its statics and device copies go with
+        it)."""
+        table = self._table(state, "nodes")
+        if table is not None:
+            hit = self._statics.get(id(table))
+            if hit is not None and hit[0] is table:
+                del self._statics[id(table)]
+
 
 fleet_cache = FleetCache()

@@ -45,7 +45,10 @@ Executor and failures: every dispatch goes through the executor policy
 before the dispatch) and then the device circuit breaker
 (scheduler/breaker.py).  The CUDA kernels are built when a runner is
 constructed on a CUDA device, so a failed build raises there and never
-reaches the breaker.  On a CUDA device a dispatch or collect that fails
+reaches the breaker.  The ``device.dispatch`` and ``device.collect``
+fault sites (nomad_tpu_torch/faultinject) fire where the JAX runner
+fires them: just before each device dispatch and inside each device
+collect.  On a CUDA device a dispatch or collect that fails
 at run time is recorded with the breaker and raised: the stream fails,
 and no walk meant for the card moves to the host (an open breaker
 raises too).  On the CPU, where the "device" walks are the kernels'
@@ -68,6 +71,8 @@ import threading
 import time
 
 import numpy as np
+
+from nomad_tpu_torch import faultinject
 
 from .batch import BatchEvalRunner, _lane_spans, _tnow
 from .breaker import ADMIT_HOST, ADMIT_PROBE, GLOBAL_BREAKER, HALF_OPEN
@@ -326,6 +331,8 @@ class PipelinedEvalRunner(BatchEvalRunner):
             # On a card, evals behind an in-flight probe ride the card.
         probe = admit == ADMIT_PROBE
         try:
+            if faultinject.ACTIVE:
+                faultinject.fire("device.dispatch")
             # force=True: the executor decision was made above (policy
             # + breaker); re-deciding it inside dispatch_device could
             # route a half-open probe to the host twin and orphan it.
@@ -514,6 +521,8 @@ class PipelinedEvalRunner(BatchEvalRunner):
         worker finishes its hung call whenever the device returns, then
         exits via the sentinel."""
         def _collect():
+            if faultinject.ACTIVE:
+                faultinject.fire("device.collect")
             return it.sched.collect_device(it.args, it.handles)
 
         if self.device_deadline is None:

@@ -69,8 +69,15 @@ PRIORITY_CLASSES = (CLASS_SYSTEM, CLASS_SERVICE, CLASS_BATCH)
 
 # RPC methods that bypass admission entirely: the liveness lane.  A
 # heartbeat shed during overload *causes* the TTL-expiry storm that
-# admission exists to prevent — it must always get through.
-HEARTBEAT_LANE = frozenset({"Node.Heartbeat"})
+# admission exists to prevent — it must always get through.  Networked
+# raft's RPCs are the servers' own liveness: an AppendEntries or a vote
+# queued behind a fleet's registrations or heartbeats past the election
+# timeout deposes a healthy leader, and every request then waits on the
+# election that follows.  (The JAX package's lane holds the heartbeat
+# alone; raft's handlers take no admission in either package, so the
+# difference is the dispatch queue's order.)
+HEARTBEAT_LANE = frozenset({"Node.Heartbeat", "Raft.RequestVote",
+                            "Raft.AppendEntries", "Raft.InstallSnapshot"})
 
 # Deadline envelope keys.  ``_deadline`` is RELATIVE seconds remaining,
 # stamped by the sender (monotonic clocks don't transfer between

@@ -7,10 +7,9 @@ ApplyFuture``) mirroring how the reference submits type-prefixed log entries
   - ``InmemRaft``: single-node, applies synchronously — the dev-mode /
     single-server path, optionally durable via FileLogStore + snapshots
     (BoltDB + FileSnapshotStore parity, reference nomad/server.go:397-500).
-  - ``NetRaft`` (``nomad_tpu/server/raft_net.py`` in the JAX package):
-    leader election + log replication over TCP for multi-server
-    clusters.  Not ported yet; the on-disk formats here are the ones it
-    shares.
+  - ``NetRaft`` (nomad_tpu_torch/server/raft_net.py): leader election +
+    log replication over TCP for multi-server clusters; the on-disk
+    formats here are the ones it shares.
 
 Counterpart of ``nomad_tpu/server/raft.py``.
 """

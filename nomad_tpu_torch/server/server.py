@@ -1,21 +1,22 @@
 """Server: wires raft/FSM, broker, plan queue, applier, and workers.
 
-Capability parity with reference nomad/server.go + leader.go for the
-single-server path: construction brings up the replicated log and the
-scheduling pipeline; ``establish_leadership`` enables the leader-only
-machinery (broker, plan queue, plan applier, broker restore from state) and
+Capability parity with reference nomad/server.go + leader.go:
+construction brings up the replicated log and the scheduling pipeline;
+``establish_leadership`` enables the leader-only machinery (broker, plan
+queue, plan applier, broker restore from state) and
 ``revoke_leadership`` tears it down.  In-process callers (tests, scripts)
 use the ``job_register`` / ``node_*`` / ``apply_*`` methods directly — the
 same in-proc shortcut the reference uses (agent.go:176-178); with
 ``enable_rpc`` the RPC plane (server/rpc.py, server/endpoints.py) serves
 the same methods over the wire, with TLS when the cert and key are set.
 
-Counterpart of ``nomad_tpu/server/server.py`` for the single-server path,
-with gossip membership and region federation (``enable_gossip``,
-``add_region_server``).  Not ported yet: networked raft and the feedback
-control plane.  A config that asks for one of them (``raft_mode="net"``,
-``control_enabled``) raises ``ValueError`` at construction instead of
-being ignored.
+Counterpart of ``nomad_tpu/server/server.py``: the in-memory raft or
+networked raft (``raft_mode="net"``, server/raft_net.py; a leadership
+change runs ``establish_leadership``/``revoke_leadership`` in order),
+gossip membership that reconciles raft peers and region federation
+(``enable_gossip``, ``add_region_server``), the feedback control plane
+(``control_enabled``, nomad_tpu_torch/control) and ``abandon``, the
+crash model of faultinject/crash.py.
 
 The server computes on ``config.device``: ``None`` means ``cuda`` and
 raises ``RuntimeError`` where no CUDA device is present; tests pass
@@ -69,14 +70,6 @@ logger = logging.getLogger("nomad_tpu_torch.server")
 
 DEFAULT_SCHEDULERS = ["service", "batch", "system", "_core"]
 
-# The keys that ask for a plane this package has not ported: each
-# raises at construction (a silently ignored ``control_enabled`` would
-# leave a caller waiting on a knob that never moves).
-UNPORTED = (
-    ("control_enabled", "the feedback control plane"),
-)
-
-
 class ServerConfig:
     """Tunables (reference nomad/config.go:46-236).
 
@@ -111,8 +104,11 @@ class ServerConfig:
         self.heartbeat_seed: Optional[int] = None  # seeded TTL jitter
         self.heartbeat_reconcile_rate: float = 32.0  # expiries/s pacing
         self.heartbeat_reconcile_burst: float = 8.0
-        # Keys of the planes that are not ported (see UNPORTED): kept so
-        # a JAX package config dict loads, refused when set.
+        # Feedback control plane (nomad_tpu_torch/control): a seeded
+        # tick thread adjusting the live knobs above (broker depth limit,
+        # brownout/overload ratios, applier window/run-ahead/gather)
+        # from the metrics registry's gauges, inside hard rails.  Off
+        # by default: tuning is an opt-in behavior change.
         self.control_enabled: bool = False
         self.control_interval: float = 0.25
         self.control_seed: int = 0
@@ -127,8 +123,8 @@ class ServerConfig:
         self.rpc_max_conns: int = 20000    # past it: shed ErrOverloaded
         self.rpc_idle_timeout: float = 600.0
         self.rpc_read_deadline: float = 30.0  # slowloris/partial-frame reap
-        self.raft_mode: str = "inmem"   # "inmem" only ("net": not ported)
-        self.raft_peers: list = []
+        self.raft_mode: str = "inmem"   # "inmem" | "net"
+        self.raft_peers: list = []      # [(host, port), ...]
         self.enable_gossip: bool = False
         self.gossip_port: int = 0
         self.server_name: str = ""
@@ -154,28 +150,10 @@ class ServerConfig:
                 raise TypeError(f"unknown config key {k!r}")
             setattr(self, k, v)
 
-    def check_ported(self) -> None:
-        """Raise ``ValueError`` when the config asks for a plane this
-        package has not ported (ROADMAP Queue 1 item 3)."""
-        for key, what in UNPORTED:
-            if getattr(self, key):
-                raise ValueError(
-                    f"server config {key}={getattr(self, key)!r} needs "
-                    f"{what}, which nomad_tpu_torch has not ported "
-                    "(ROADMAP Queue 1 item 3)")
-        if self.raft_mode != "inmem":
-            raise ValueError(
-                f"server config raft_mode={self.raft_mode!r}: only "
-                "'inmem' is ported; networked raft is ROADMAP Queue 1 "
-                "item 3")
-
 
 class Server:
     def __init__(self, config: Optional[ServerConfig] = None) -> None:
         self.config = config or ServerConfig()
-        # Refusals first: nothing is started for a config that cannot
-        # run here.
-        self.config.check_ported()
         self.device = resolve_device(self.config.device)
         from nomad_tpu_torch.scheduler.executor import (
             executor_policy,
@@ -226,6 +204,11 @@ class Server:
         self._leader = False
         self._shutdown = threading.Event()
         self._leader_threads: list = []
+        # Set once construction finished (or shutdown began): networked
+        # raft can elect this server while its components are still
+        # being built, and the leadership callback waits for them.
+        self._built = threading.Event()
+        self.controller = None
 
         # The RPC plane's TLS files load here, before any thread starts:
         # a bad cert fails the boot.
@@ -246,7 +229,8 @@ class Server:
         # Raft gets its own NON-multiplexed pool (the JAX server's
         # layout): on a shared mux session one large frame written under
         # the session's write lock would stall every raft RPC queued
-        # behind it.  Nothing dials it until networked raft is ported.
+        # behind it: election and heartbeat latency stay independent of
+        # bulk RPC traffic.
         self.raft_pool = ConnPool(
             tls_context=client_tls,
             server_hostname=self.config.tls_server_name,
@@ -262,26 +246,12 @@ class Server:
         except BaseException:
             self.shutdown()
             raise
+        self._built.set()
 
     def _start_components(self, server_tls) -> None:
-        log_store = snapshots = None
-        if self.config.data_dir:
-            # The JAX package's layout and snapshot format, so one
-            # data_dir restores under either package.
-            log_store = FileLogStore(
-                f"{self.config.data_dir}/raft/log.bin")
-            snapshots = SnapshotStore(
-                resolve_snapshot_dir(self.config.data_dir))
-        self.raft = InmemRaft(
-            self.fsm, log_store, snapshots,
-            snapshot_threshold=self.config.raft_snapshot_threshold)
-
-        self.plan_applier = PlanApplier(
-            self.plan_queue, self.eval_broker, self.raft,
-            lambda: self.fsm.state, device=self.device)
-
-        if self.config.enable_rpc:
-            from .endpoints import Endpoints
+        # The listener binds first (networked raft rides it and takes
+        # its address), but it starts serving last, below.
+        if self.config.enable_rpc or self.config.raft_mode == "net":
             self.rpc_server = RPCServer(
                 self.config.bind_addr,
                 self.config.rpc_port,
@@ -292,6 +262,48 @@ class Server:
                 max_conns=self.config.rpc_max_conns,
                 idle_timeout=self.config.rpc_idle_timeout,
                 read_deadline=self.config.rpc_read_deadline)
+
+        if self.config.raft_mode == "net":
+            from .raft_net import NetRaft
+            # bootstrap-expect > 1 with no static peer list: stay passive
+            # (no self-election) until gossip shows the expected server
+            # count, so a booting server can never commit entries as the
+            # leader of its own one-node cluster (reference serf.go
+            # maybeBootstrap).  Its handlers are registered on the
+            # listener here, before it serves, and its election timer
+            # starts once the listener serves (below); its replicators
+            # may dial a peer that cannot answer yet, a failed exchange.
+            defer = self.config.bootstrap_expect > 1 and \
+                not self.config.raft_peers and self.config.enable_gossip
+            self.raft = NetRaft(
+                self.fsm, self.rpc_server, self.raft_pool,
+                peers=self.config.raft_peers,
+                election_timeout=self.config.raft_election_timeout,
+                heartbeat_interval=self.config.raft_heartbeat_interval,
+                snapshot_threshold=self.config.raft_snapshot_threshold,
+                data_dir=self.config.data_dir,
+                defer_elections=defer, start=False)
+            self.raft.notify_leadership(self._on_leadership_change)
+        else:
+            log_store = snapshots = None
+            if self.config.data_dir:
+                # The JAX package's layout and snapshot format (shared
+                # with NetRaft), so one data_dir restores under either
+                # package and either raft backend.
+                log_store = FileLogStore(
+                    f"{self.config.data_dir}/raft/log.bin")
+                snapshots = SnapshotStore(
+                    resolve_snapshot_dir(self.config.data_dir))
+            self.raft = InmemRaft(
+                self.fsm, log_store, snapshots,
+                snapshot_threshold=self.config.raft_snapshot_threshold)
+
+        self.plan_applier = PlanApplier(
+            self.plan_queue, self.eval_broker, self.raft,
+            lambda: self.fsm.state, device=self.device)
+
+        if self.rpc_server is not None:
+            from .endpoints import Endpoints
             Endpoints(self).install(self.rpc_server)
 
         # Multi-region federation: region name -> {rpc address, ...} of
@@ -304,6 +316,21 @@ class Server:
 
         self._setup_workers()
         self._setup_obs_registry()
+
+        # Feedback control plane (nomad_tpu_torch/control): reads this
+        # server's registry gauges, adjusts the live knobs through
+        # railed actuators, and publishes its own decisions as the
+        # ``controller`` provider — so /v1/agent/metrics carries every
+        # knob position and reversal count.  It actuates host-local
+        # performance knobs off this server's own metrics and never
+        # touches replicated state, so it runs on every server, leader
+        # or not.
+        if self.config.control_enabled:
+            from nomad_tpu_torch.control import server_controller
+            self.controller = server_controller(self)
+            self.obs_registry.register("controller",
+                                       self.controller.stats)
+            self.controller.start()
         # Gossip membership: servers discover one another (reference
         # nomad/serf.go).  The listener is bound, so the member tags
         # carry its address; gossip and then the listener start last,
@@ -327,6 +354,11 @@ class Server:
             )
         if self.rpc_server is not None:
             self.rpc_server.start()
+        start = getattr(self.raft, "start", None)
+        if callable(start):
+            # Networked raft campaigns only once its peers can reach
+            # this server.
+            start()
 
     def _setup_obs_registry(self) -> None:
         """The unified metrics registry (obs/registry.py): every
@@ -368,16 +400,28 @@ class Server:
 
     def _gossip_join(self, member) -> None:
         """A server joined the gossip pool: record its region for
-        cross-region forwarding (reference serf.go nodeJoin).  The JAX
-        server also adds a same-region member as a raft peer; the
-        in-memory raft has no peers, so that waits for networked
-        raft."""
+        cross-region forwarding, and (same region only) add it as a raft
+        peer (reference serf.go nodeJoin + leader.go reconcileMember)."""
         if member.tags.get("role") != "nomad-server":
             return
         rpc = member.tags.get("rpc")
         region = member.tags.get("region")
         if rpc and region:
             self.add_region_server(region, (rpc[0], rpc[1]))
+        if region != self.config.region:
+            return  # other regions federate, they don't share raft
+        add_peer = getattr(self.raft, "add_peer", None)
+        if rpc and callable(add_peer):
+            add_peer((rpc[0], rpc[1]))
+        # bootstrap-expect: arm elections once the expected quorum of
+        # same-region servers is visible (self + peers).
+        enable = getattr(self.raft, "enable_elections", None)
+        if callable(enable) and not self.raft.elections_enabled() and \
+                len(self.raft.peer_addresses()) >= \
+                self.config.bootstrap_expect:
+            logger.info("bootstrap-expect %d reached; enabling elections",
+                        self.config.bootstrap_expect)
+            enable()
 
     def _gossip_fail(self, member) -> None:
         if member.tags.get("role") != "nomad-server":
@@ -386,6 +430,9 @@ class Server:
         region = member.tags.get("region")
         if rpc and region:
             self.remove_region_server(region, (rpc[0], rpc[1]))
+        remove_peer = getattr(self.raft, "remove_peer", None)
+        if rpc and callable(remove_peer):
+            remove_peer((rpc[0], rpc[1]))
 
     # -- multi-region federation ------------------------------------------
     def add_region_server(self, region: str, addr: tuple) -> None:
@@ -418,19 +465,40 @@ class Server:
             raise RuntimeError(f"no path to region {region!r}")
         return random.choice(servers)
 
+    def _on_leadership_change(self, is_leader: bool) -> None:
+        """monitorLeadership parity (leader.go:16-50): raft's notifier
+        delivers gains and losses in order.  A gain that lands while the
+        server is still being built waits for it; none runs once
+        shutdown began."""
+        self._built.wait()
+        if self._shutdown.is_set():
+            return
+        if is_leader:
+            self.establish_leadership()
+        else:
+            self.revoke_leadership()
+
     # -- cluster views -----------------------------------------------------
     def rpc_address(self) -> Optional[tuple]:
         return self.rpc_server.address if self.rpc_server else None
 
     def leader_rpc_address(self) -> Optional[tuple]:
-        """The leader's RPC address: this server's own while it leads
-        (the in-memory raft has no remote leader)."""
-        return self.rpc_address() if self._leader else None
+        """The leader's RPC address (self when leading; NetRaft supplies
+        the remote leader otherwise)."""
+        if self._leader:
+            return self.rpc_address()
+        leader = getattr(self.raft, "leader_address", None)
+        if callable(leader):
+            return leader()
+        return None
 
     def has_leader(self) -> bool:
-        return self._leader
+        return self._leader or self.leader_rpc_address() is not None
 
     def peers(self) -> list:
+        peer_fn = getattr(self.raft, "peer_addresses", None)
+        if callable(peer_fn):
+            return peer_fn()
         return [self.rpc_address()] if self.rpc_server else []
 
     # -- setup ------------------------------------------------------------
@@ -470,12 +538,12 @@ class Server:
         self._leader = True
         if self.workers:
             self.workers[0].set_pause(True)
-        # Barrier: ensure our FSM has applied everything committed before
-        # rebuilding leader state from it (leader.go:52).
-        try:
-            self.raft.barrier()
-        except Exception:
-            logger.warning("leadership barrier failed", exc_info=True)
+        if not self._barrier():
+            # Leadership lost (its revoke follows from raft's notifier)
+            # or shutdown began while the barrier waited: start nothing.
+            if self.workers:
+                self.workers[0].set_pause(False)
+            return
         self.plan_queue.set_enabled(True)
         self.eval_broker.set_enabled(True)
         self.plan_applier.start()
@@ -490,6 +558,35 @@ class Server:
             t.start()
             self._leader_threads.append(t)
 
+    def _barrier(self) -> bool:
+        """Ensure the FSM has applied everything committed before leader
+        state is rebuilt from it (leader.go:52).  As the reference's
+        leader loop does, a barrier that fails is tried again, and
+        leadership is not established on an FSM that may lag the log:
+        the broker restored from it would hand out an eval whose plan
+        already committed, and that eval would be placed twice (the
+        JAX server logs the failure and goes on).  The in-memory raft
+        applies each entry as it commits, so its FSM never lags: a
+        failed barrier there (dead storage) is logged and leadership
+        goes on, as in the JAX server.  False when raft lost leadership
+        or the server is shutting down."""
+        is_leader = getattr(self.raft, "is_leader", None)
+        if not callable(is_leader):
+            try:
+                self.raft.barrier()
+            except Exception:
+                logger.warning("leadership barrier failed", exc_info=True)
+            return not self._shutdown.is_set()
+        while not self._shutdown.is_set():
+            try:
+                self.raft.barrier()
+                return True
+            except Exception:
+                logger.warning("leadership barrier failed", exc_info=True)
+            if not is_leader():
+                return False
+        return False
+
     def revoke_leadership(self) -> None:
         self._leader = False
         self.plan_queue.set_enabled(False)
@@ -499,16 +596,71 @@ class Server:
     def is_leader(self) -> bool:
         return self._leader
 
+    def abandon(self) -> None:
+        """Crash simulation (faultinject/crash.py CrashHarness): drop
+        the server WITHOUT graceful teardown.  Storage must already be
+        frozen (``freeze_storage``) — this only models the OS reaping a
+        dead process: stop events are signalled so daemon threads wind
+        down on their own, listener and client sockets are severed
+        mid-frame, and nothing is flushed, snapshotted, persisted, or
+        responded.  The data_dir stays byte-exact as the crash left it.
+        A worker inside a launch on the card finishes it and finds the
+        broker and plan queue disabled; its device work is its own and
+        leaves the card to the next leader.  ``CrashHarness.reap()``
+        does the joins later."""
+        self._shutdown.set()
+        self._built.set()
+        self._leader = False
+        if self.controller is not None:
+            self.controller._stop.set()  # signal only: crashes don't join
+        for w in self.workers:
+            w.stop()
+        # Pop workers/pollers out of their blocking waits; in-memory
+        # only — the broker and plan queue of a dead process are gone
+        # anyway, and nothing here answers a client.
+        self.eval_broker.set_enabled(False)
+        self.plan_queue.set_enabled(False)
+        # Raft loops: signal, never join, never close the log store
+        # (a close is a graceful act; the store is already frozen).
+        stop = getattr(self.raft, "_stop", None)
+        if stop is not None:
+            stop.set()
+        for repl in list(getattr(self.raft, "_replicators", {}).values()):
+            repl.stop.set()
+            repl.wake.set()
+        notify_q = getattr(self.raft, "_notify_queue", None)
+        if notify_q is not None:
+            notify_q.put(None)
+        # Sever the network edge the way a dead process's OS would:
+        # every socket drops mid-frame; peers and clients see resets.
+        # NOT shutdown() — that joins the loop and dispatch workers and
+        # drains in-flight handlers, which is a graceful act; reap()
+        # runs the real shutdown() later.  A call still in flight on
+        # the pools ends with the pool's ConnectionError.
+        if self.rpc_server is not None:
+            self.rpc_server.sever()
+        self.conn_pool.shutdown()
+        self.raft_pool.shutdown()
+        gossip_stop = getattr(self.gossip, "_stop", None)
+        if gossip_stop is not None and hasattr(gossip_stop, "set"):
+            gossip_stop.set()  # no leave broadcast: crashes don't say bye
+
     def shutdown(self) -> None:
-        """Stop and join every thread this server started: the workers,
-        the leader's reaper and periodic GC, the RPC plane's edge loop
-        and dispatch pool, gossip's receive and probe loops, the
-        connection pools' readers, the applier
-        with its committer and component executor, the broker's and the
+        """Stop and join every thread this server started: the
+        controller, the workers, the leader's reaper and periodic GC,
+        networked raft's ticker, replicators and notifier, the RPC
+        plane's edge loop and dispatch pool, gossip's receive and probe
+        loops, the connection pools' readers, the applier with its
+        committer and component executor, the broker's and the
         heartbeats' TTL wheels and the store's watch wheel.  A
         construction that raised calls it too, with the parts it never
         built left None."""
         self._shutdown.set()
+        self._built.set()
+        # Controller first: no knob may move while the components it
+        # actuates are being torn down.
+        if self.controller is not None:
+            self.controller.stop()
         for w in self.workers:
             w.stop()
         self.revoke_leadership()
@@ -523,6 +675,9 @@ class Server:
         # then the listener closes.
         if self.gossip is not None:
             self.gossip.shutdown()
+        raft_shutdown = getattr(self.raft, "shutdown", None)
+        if callable(raft_shutdown):
+            raft_shutdown()
         if self.rpc_server is not None:
             self.rpc_server.shutdown()
         self.conn_pool.shutdown()
@@ -535,7 +690,7 @@ class Server:
         self.eval_broker.shutdown()
         if self.plan_applier is not None:
             self.plan_applier.shutdown()
-        log_store = self.raft.log_store if self.raft is not None else None
+        log_store = getattr(self.raft, "log_store", None)
         if log_store is not None:
             log_store.close()
         # Watch fan-out last: the RPC teardown above already

@@ -2,9 +2,11 @@
 through its pipelined runner.
 
 Twins of the breaker tests in tests/test_faultinject.py on
-device="cpu".  The port has no fault-injection module yet, so faults
-are injected by replacing TorchBinPackScheduler.dispatch_device /
-collect_device for a counted number of calls.  Then what the port adds:
+device="cpu", twice: faults injected by replacing
+TorchBinPackScheduler.dispatch_device / collect_device for a counted
+number of calls, and faults fired at the runner's ``device.dispatch``
+and ``device.collect`` sites by a nomad_tpu_torch.faultinject plan, as
+the JAX tests fire them.  Then what the port adds:
 a kernel that fails to build raises from the runner's constructor and
 never reaches the breaker, a run-time re-run (CPU only) is logged at
 warning, and on a CUDA device a run-time failure or an open breaker
@@ -21,7 +23,8 @@ import pytest
 import torch
 
 import nomad_tpu.mock as jmock
-from nomad_tpu_torch import convert
+from nomad_tpu_torch import convert, faultinject
+from nomad_tpu_torch.faultinject import FaultInjected, FaultPlan
 from nomad_tpu_torch.scheduler import Harness, TorchBinPackScheduler
 from nomad_tpu_torch.scheduler.breaker import (
     ADMIT_DEVICE,
@@ -99,6 +102,94 @@ def _window(runner, jobs):
         window.append(_Item(sched, place, args, handles, start,
                             probe=probe))
     return window
+
+
+class TestDeviceBreakerAtTheFaultSites:
+    """The same cases with the fault fired at the runner's sites."""
+
+    def test_dispatch_fault_trips_breaker_then_probe_closes(self):
+        h, jobs = _cluster(8, 3)
+        breaker = DeviceCircuitBreaker(failure_threshold=1, cooldown=30.0)
+        plan = FaultPlan().add("device.dispatch", "error", count=1)
+        with faultinject.injected(plan), executor_override("device"):
+            r1 = PipelinedEvalRunner(h.state.snapshot(), h, depth=2,
+                                     breaker=breaker, device="cpu")
+            r1.process([_make_eval(j) for j in jobs[:2]])
+            assert breaker.state == OPEN
+            assert r1.breaker_reruns == 1
+            assert breaker.stats()["opens"] == 1
+            assert breaker.stats()["host_holds"] >= 1
+            with breaker._lock:
+                breaker._opened_at = -1e9
+            r2 = PipelinedEvalRunner(h.state.snapshot(), h, depth=2,
+                                     breaker=breaker,
+                                     state_refresh=lambda:
+                                     h.state.snapshot(), device="cpu")
+            r2.process([_make_eval(jobs[2])])
+            assert breaker.state == CLOSED
+            assert breaker.stats()["probes"] == 1
+            assert breaker.stats()["closes"] == 1
+            assert r2.parity_checks == 1
+        assert plan.fire_count("device.dispatch") == 1
+        assert all(e.status == "complete" for e in h.evals)
+        assert len(h.plans) == 3
+
+    def test_collect_fault_reruns_on_host(self):
+        h, jobs = _cluster(8, 3)
+        breaker = DeviceCircuitBreaker(failure_threshold=2, cooldown=30.0)
+        plan = FaultPlan().add("device.collect", "error", count=1)
+        with executor_override("device"):
+            runner = PipelinedEvalRunner(h.state.snapshot(), h, depth=8,
+                                         breaker=breaker, device="cpu")
+            window = _window(runner, jobs)
+            with faultinject.injected(plan):
+                runner._drain_window(window)
+        assert plan.fire_count("device.collect") == 1
+        assert runner.breaker_reruns == 1
+        assert breaker.stats()["failures"] == 1
+        assert breaker.state == CLOSED
+        assert all(e.status == "complete" for e in h.evals)
+        assert len(h.plans) == 3
+
+    def test_collect_deadline_breaks_hang(self):
+        h, jobs = _cluster(8, 1)
+        breaker = DeviceCircuitBreaker(failure_threshold=1, cooldown=30.0)
+        plan = FaultPlan().add("device.collect", "hang", secs=1.5,
+                               count=1)
+        t0 = time.monotonic()
+        with executor_override("device"):
+            runner = PipelinedEvalRunner(h.state.snapshot(), h, depth=2,
+                                         breaker=breaker,
+                                         device_deadline=0.2,
+                                         device="cpu")
+            window = _window(runner, jobs)
+            with faultinject.injected(plan):
+                runner._drain_window(window)
+            runner._stop_collect_worker()
+        assert time.monotonic() - t0 < 1.2
+        assert runner.breaker_reruns == 1
+        assert breaker.state == OPEN
+        assert all(e.status == "complete" for e in h.evals)
+
+    @pytest.mark.parametrize("site", ["device.dispatch", "device.collect"])
+    def test_on_a_card_a_device_failure_raises(self, site):
+        """With ``host_reruns`` False (a CUDA runner's setting) a fault
+        at either site is recorded with the breaker and raised; nothing
+        moves to the host and no plan is submitted."""
+        h, jobs = _cluster(8, 2)
+        breaker = DeviceCircuitBreaker(failure_threshold=1, cooldown=30.0)
+        plan = FaultPlan().add(site, "error", count=1)
+        with faultinject.injected(plan), executor_override("device"):
+            runner = PipelinedEvalRunner(h.state.snapshot(), h, depth=2,
+                                         breaker=breaker, device="cpu")
+            runner.host_reruns = False
+            with pytest.raises(FaultInjected):
+                runner.process([_make_eval(j) for j in jobs])
+        assert breaker.stats()["failures"] == 1
+        assert breaker.state == OPEN
+        assert runner.breaker_reruns == 0
+        assert runner.host_dispatches == 0
+        assert h.plans == []
 
 
 class TestDeviceBreaker:

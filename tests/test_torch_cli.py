@@ -6,8 +6,8 @@ analyzers are not ported, refusing by name; ``agent -dev`` without
 ``-device`` meaning the card; and twins of tests/test_blackbox.py's
 process-boundary cases on subprocess agents ``agent ... -device cpu``
 (the real agent process driven over HTTP: submit, schedule, run,
-reload, graceful shutdown, SIGKILL and re-attach).  The three-server
-failover case needs networked raft, which is not ported.
+reload, graceful shutdown, SIGKILL and re-attach, and three server
+agents bootstrapping networked raft whose leader is SIGKILLed).
 """
 from __future__ import annotations
 
@@ -451,6 +451,116 @@ def test_blackbox_agent_kill9_reattach(tmp_path):
             except ProcessLookupError:
                 pass
         for proc in (client2, client, server):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(10)
+
+
+def test_blackbox_leader_kill_failover(tmp_path):
+    """Full-stack failover: three server agent processes bootstrap one
+    raft cluster through gossip (``bootstrap_expect = 3`` with
+    ``retry_join``), a client agent runs a job, the leader is
+    SIGKILLed, the survivors elect, and a new job still schedules while
+    the first job's task keeps running (tests/test_blackbox.py's
+    case)."""
+    servers = []
+    client = None
+    try:
+        serf_seed = _free_port()
+        srv_cfg = tmp_path / "server.hcl"
+        srv_cfg.write_text(
+            'log_level = "WARN"\n'
+            'server {\n'
+            '  bootstrap_expect = 3\n'
+            f'  retry_join = ["127.0.0.1:{serf_seed}"]\n'
+            '}\n')
+        servers.append(list(_spawn_agent(
+            tmp_path, "s0", "-server", "-serf-port", str(serf_seed),
+            "-config", str(srv_cfg))))
+        for i in (1, 2):
+            servers.append(list(_spawn_agent(
+                tmp_path, f"s{i}", "-server", "-config", str(srv_cfg))))
+        for proc, base, _ in servers:
+            _wait_http(proc, base)
+        wait_for(lambda: all(
+            len(_http("GET", b + "/v1/agent/members")["members"]) == 3
+            for _p, b, _r in servers), "3-member gossip", timeout=60)
+        wait_for(lambda: _http(
+            "GET", servers[0][1] + "/v1/status/leader") != "",
+            "first leader", timeout=60)
+
+        cli_cfg = _write_client_cfg(tmp_path)
+        all_rpc = ",".join(f"127.0.0.1:{r}" for _p, _b, r in servers)
+        client, client_base, _ = _spawn_agent(
+            tmp_path, "cli", "-client", "-servers", all_rpc,
+            "-config", str(cli_cfg))
+        _wait_http(client, client_base)
+        wait_for(lambda: any(
+            n["status"] == "ready"
+            for n in _http("GET", servers[0][1] + "/v1/nodes")),
+            "client ready", timeout=60)
+
+        job1 = {"job": dict(JOB["job"], id="pre", name="pre")}
+        _http("PUT", servers[0][1] + "/v1/jobs", job1)
+        wait_for(lambda: any(
+            a["client_status"] == "running"
+            for a in _http("GET",
+                           servers[0][1] + "/v1/job/pre/allocations")),
+            "job pre running", timeout=60)
+
+        leader_addr = _http("GET", servers[0][1] + "/v1/status/leader")
+        leader_i = next(i for i, (_p, _b, r) in enumerate(servers)
+                        if leader_addr.endswith(f":{r}"))
+        servers[leader_i][0].kill()
+        servers[leader_i][0].wait(10)
+        survivors = [s for i, s in enumerate(servers) if i != leader_i]
+        converged = []
+
+        def new_leader():
+            for _p, b, _r in survivors:
+                try:
+                    lead = _http("GET", b + "/v1/status/leader",
+                                 timeout=2)
+                except Exception:
+                    continue
+                if lead and not lead.endswith(f":{servers[leader_i][2]}"):
+                    converged.append(b)
+                    return True
+            return False
+        wait_for(new_leader, "re-election", timeout=60)
+        base = converged[0]
+
+        def http_retry(method, url, body=None, timeout=30):
+            deadline = time.monotonic() + timeout
+            while True:
+                try:
+                    return _http(method, url, body)
+                except Exception:
+                    if time.monotonic() >= deadline:
+                        raise
+                    time.sleep(0.5)  # sleep-ok: bounded retry
+
+        job2 = {"job": dict(JOB["job"], id="post", name="post")}
+        http_retry("PUT", base + "/v1/jobs", job2)
+        wait_for(lambda: any(
+            a["client_status"] == "running"
+            for a in http_retry("GET",
+                                base + "/v1/job/post/allocations")),
+            "job post running after failover", timeout=90)
+        assert any(
+            a["client_status"] == "running"
+            for a in http_retry("GET", base + "/v1/job/pre/allocations"))
+        for jid in ("pre", "post"):
+            http_retry("DELETE", base + f"/v1/job/{jid}")
+        wait_for(lambda: all(
+            a["client_status"] != "running"
+            for jid in ("pre", "post")
+            for a in http_retry("GET",
+                                base + f"/v1/job/{jid}/allocations")),
+            "tasks stopped", timeout=60)
+    finally:
+        for proc in ([client] if client else []) + \
+                [p for p, _b, _r in servers]:
             if proc is not None and proc.poll() is None:
                 proc.kill()
                 proc.wait(10)

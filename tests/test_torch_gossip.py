@@ -5,12 +5,16 @@ Twins of tests/test_gossip.py's gossip-only cases on
 ``Gossip`` joining each other (the wire is the same msgpack); two port
 servers with ``enable_gossip`` in two regions finding each other,
 knowing the regions a JAX pair knows and forwarding a request for the
-other region; and the planes that stay unported (networked raft, so
-``bootstrap_expect > 1``, and the control plane) still refused.
+other region; and twins of tests/test_gossip.py's raft cases: gossip
+joins reconciling networked-raft peers, ``bootstrap_expect`` deferring
+elections until quorum (on servers and on agents with ``retry_join``)
+and not deferring after a restart, and an agent with static
+``raft_peers``.
 """
 from __future__ import annotations
 
 import threading
+import time
 
 import pytest
 
@@ -189,31 +193,151 @@ def test_server_failure_drops_its_region():
         second.shutdown()
 
 
-@pytest.mark.parametrize("kw", [
-    dict(raft_mode="net"),
-    dict(control_enabled=True),
-], ids=["raft-net", "control"])
-def test_unported_server_planes_still_raise(kw):
-    before = set(threading.enumerate())
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 3"):
-        Server(ServerConfig(device="cpu", tune_gc=False,
-                            enable_gossip=True, enable_rpc=True, **kw))
-    assert not [t for t in threading.enumerate()
-                if t not in before and t.is_alive()]
+RAFT_GOSSIP = dict(raft_mode="net", raft_election_timeout=(0.05, 0.10),
+                   raft_heartbeat_interval=0.02, num_schedulers=1,
+                   enable_gossip=True, device="cpu", tune_gc=False)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(bootstrap_expect=3),
-    dict(raft_peers=[("127.0.0.1", 1)]),
-], ids=["bootstrap-expect", "raft-peers"])
-def test_agent_asking_for_networked_raft_raises(kw):
-    """An agent asks for networked raft with ``bootstrap_expect > 1``
-    or ``raft_peers``; the server refuses it and the agent leaves
-    nothing running."""
+def _leaders(servers) -> int:
+    return sum(1 for s in servers if s.raft.is_leader())
+
+
+def test_gossip_reconciles_raft_peers():
+    """Servers discover each other through gossip and converge on one
+    raft cluster with a single leader (tests/test_gossip.py's case)."""
+    servers = [Server(ServerConfig(**RAFT_GOSSIP)) for _ in range(3)]
+    try:
+        for s in servers[1:]:
+            s.gossip.join(servers[0].gossip.addr)
+        wait_until(lambda: all(len(s.raft.peer_addresses()) == 3
+                               for s in servers),
+                   timeout=20, msg="raft peers from gossip")
+        wait_until(lambda: _leaders(servers) == 1, timeout=20,
+                   msg="single leader")
+        leader = next(s for s in servers if s.raft.is_leader())
+        node = convert.nodes_from_reference([jmock.node()])[0]
+        leader.node_register(node)
+        wait_until(lambda: all(
+            s.fsm.state.node_by_id(node.id) is not None
+            for s in servers), timeout=20, msg="replication")
+        # Every server knows every raft peer by its RPC address.
+        rpc = sorted(s.rpc_address() for s in servers)
+        assert all(sorted(s.peers()) == rpc for s in servers)
+    finally:
+        for s in servers:
+            s.shutdown()
+
+
+def test_bootstrap_expect_defers_elections_until_quorum():
+    """``bootstrap_expect > 1``: no server elects itself before gossip
+    shows the expected count; the third arrival arms elections and the
+    cluster elects one leader and replicates."""
+    cfg = dict(RAFT_GOSSIP, bootstrap_expect=3)
+    servers = [Server(ServerConfig(**cfg)) for _ in range(2)]
+    try:
+        servers[1].gossip.join(servers[0].gossip.addr)
+        wait_until(lambda: all(len(s.raft.peer_addresses()) == 2
+                               for s in servers),
+                   timeout=20, msg="two of three in gossip")
+        time.sleep(0.8)  # sleep-ok: nobody elects
+        assert not any(s.raft.is_leader() for s in servers)
+        assert not any(s.raft.elections_enabled() for s in servers)
+
+        servers.append(Server(ServerConfig(**cfg)))
+        servers[2].gossip.join(servers[0].gossip.addr)
+        wait_until(lambda: _leaders(servers) == 1, timeout=20,
+                   msg="single leader after bootstrap quorum")
+        leader = next(s for s in servers if s.raft.is_leader())
+        node = convert.nodes_from_reference([jmock.node()])[0]
+        leader.node_register(node)
+        wait_until(lambda: all(
+            s.fsm.state.node_by_id(node.id) is not None
+            for s in servers), timeout=20,
+            msg="replication after bootstrap")
+    finally:
+        for s in servers:
+            s.shutdown()
+
+
+def test_agent_bootstrap_expect_cluster():
+    """Three server agents with ``bootstrap_expect=3`` and
+    ``retry_join`` form one raft cluster through the agent layer
+    (reference ``nomad agent -server -bootstrap-expect 3
+    -retry-join``); leaving nothing running once shut down."""
     before = set(threading.enumerate())
-    with pytest.raises(ValueError, match="networked raft"):
-        Agent(AgentConfig(server_enabled=True, http_port=0, rpc_port=0,
-                          serf_port=0, device="cpu", **kw))
+    agents = []
+    try:
+        first = Agent(AgentConfig(
+            server_enabled=True, dev_mode=False, bootstrap_expect=3,
+            http_port=0, rpc_port=0, serf_port=0, num_schedulers=1,
+            device="cpu"))
+        agents.append(first)
+        seed = first.server.gossip.addr
+        for _ in range(2):
+            agents.append(Agent(AgentConfig(
+                server_enabled=True, dev_mode=False, bootstrap_expect=3,
+                http_port=0, rpc_port=0, serf_port=0, num_schedulers=1,
+                retry_join=[seed], device="cpu")))
+        assert all(a.server.config.raft_mode == "net" for a in agents)
+        wait_until(lambda: all(
+            len(a.server.raft.peer_addresses()) == 3 for a in agents),
+            timeout=30, msg="full gossip->raft membership")
+        wait_until(lambda: sum(
+            1 for a in agents if a.server.raft.is_leader()) == 1,
+            timeout=30, msg="agent cluster leader")
+    finally:
+        for a in agents:
+            a.shutdown()
     wait_until(lambda: not [t for t in threading.enumerate()
                             if t not in before and t.is_alive()],
-               msg="no thread outlives the refused boot")
+               timeout=15, msg="no thread outlives the agents")
+
+
+def test_bootstrap_deferral_skipped_after_restart(tmp_path):
+    """A restarted server with persisted raft state does not defer
+    elections (reference maybeBootstrap skips when LastIndex != 0); a
+    fresh one does."""
+    import json
+    import os
+
+    def mk(data_dir):
+        return ServerConfig(**dict(RAFT_GOSSIP, bootstrap_expect=3,
+                                   data_dir=str(data_dir)))
+
+    fresh = Server(mk(tmp_path / "fresh"))
+    try:
+        assert not fresh.raft.elections_enabled()
+    finally:
+        fresh.shutdown()
+
+    veteran_dir = tmp_path / "veteran"
+    os.makedirs(veteran_dir / "raft")
+    with open(veteran_dir / "raft" / "meta.json", "w") as fh:
+        json.dump({"term": 3, "voted_for": None}, fh)
+    veteran = Server(mk(veteran_dir))
+    try:
+        assert veteran.raft.elections_enabled()
+    finally:
+        veteran.shutdown()
+
+
+def test_agent_with_raft_peers_runs_networked_raft():
+    """An agent with static ``raft_peers`` runs networked raft with
+    those peers and elections armed (no bootstrap deferral), as the JAX
+    agent does."""
+    import socket
+
+    spare = socket.socket()
+    spare.bind(("127.0.0.1", 0))
+    peer = spare.getsockname()
+    spare.close()
+    agent = Agent(AgentConfig(server_enabled=True, http_port=0,
+                              rpc_port=0, serf_port=0, device="cpu",
+                              raft_peers=[peer]))
+    try:
+        assert agent.server.config.raft_mode == "net"
+        assert agent.server.raft.elections_enabled()
+        assert tuple(peer) in agent.server.raft.peer_addresses()
+        assert not agent.server.raft.is_leader()  # one of two: no quorum
+    finally:
+        agent.shutdown()

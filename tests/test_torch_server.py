@@ -17,13 +17,15 @@ finish that draws each plan's dynamic ports.  Placements must be equal
 node for node and port for port, by alloc name.
 
 Also: a ``device=None`` server raises without a card and starts no
-thread; every key of an unported plane raises ``ValueError``, while
-``enable_rpc`` opens a listener and each TLS file loads into the RPC
+thread; ``raft_mode="net"`` and ``control_enabled`` construct and run,
+and ``enable_rpc`` opens a listener and each TLS file loads into the RPC
 plane's contexts; a typo'd
 ``$NOMAD_TPU_EXECUTOR`` fails the boot; a ``data_dir`` server restarts
 from its log (and its snapshot) to an equal store, in either package;
 ``use_device_scheduler=False`` runs the sequential schedulers; shutdown
-joins every thread the server started.
+joins every thread the server started; a server abandoned
+mid-placement (``CrashHarness``) leaves the next leader placing as the
+JAX package's next leader does.
 """
 from __future__ import annotations
 
@@ -192,11 +194,118 @@ def test_server_without_a_device_raises_and_starts_nothing(monkeypatch):
 
 @pytest.mark.parametrize("key,value", [
     ("raft_mode", "net"), ("control_enabled", True)])
-def test_unported_planes_raise(key, value):
+def test_net_raft_and_control_planes_run(key, value):
+    """``raft_mode="net"`` (a one-server networked raft: it elects
+    itself and leads) and ``control_enabled`` (the controller ticks and
+    publishes ``controller``) construct and run; shutdown joins every
+    thread they started."""
+    from tests.conftest import wait_until
+
     before = set(threading.enumerate())
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 3"):
-        _port_server(**{key: value})
-    assert set(threading.enumerate()) <= before
+    srv = _port_server(num_schedulers=0, **{key: value})
+    try:
+        if key == "raft_mode":
+            assert srv.rpc_server is not None
+            wait_until(lambda: srv.is_leader(), timeout=10,
+                       msg="self-election")
+            assert srv.peers() == [srv.rpc_address()]
+            assert srv.leader_rpc_address() == srv.rpc_address()
+        else:
+            wait_until(lambda: srv.controller.stats()["ticks"] >= 1,
+                       timeout=10, msg="controller ticking")
+            assert "controller" in srv.obs_registry.providers()
+    finally:
+        srv.shutdown()
+    assert [t for t in threading.enumerate()
+            if t not in before and t.is_alive()] == []
+
+
+def _abandon_mid_placement(pkg, tmp_path, nodes, jobs):
+    """A durable server (``data_dir``) of ``pkg`` with ``nodes`` and
+    ``jobs`` registered before leadership is hard-killed while its batch
+    worker is inside its fused placement (held there until the kill
+    lands); a server rebooted over the same data_dir leads, restores
+    the broker from the replicated evals and places them.  Returns the
+    reborn server's placements and whether the husk committed any
+    plan."""
+    if pkg == "jax":
+        from nomad_tpu.faultinject.crash import CrashHarness
+        from nomad_tpu.scheduler import batch
+
+        def config(**kw):
+            return JServerConfig(tune_gc=False, **kw)
+        scope = contextlib.ExitStack()
+        scope.enter_context(mesh_override("off"))
+        scope.enter_context(j_executor("device"))
+    else:
+        from nomad_tpu_torch.faultinject.crash import CrashHarness
+        from nomad_tpu_torch.scheduler import batch
+
+        def config(**kw):
+            return ServerConfig(device="cpu", tune_gc=False, **kw)
+        scope = t_executor("device")
+    inside, release = threading.Event(), threading.Event()
+    process = batch.BatchEvalRunner.process
+
+    def held(self, evals):
+        if not inside.is_set():
+            inside.set()
+            release.wait(30)
+        return process(self, evals)
+
+    harness = CrashHarness()
+    reborn = None
+    data_dir = str(tmp_path / pkg)
+    with scope:
+        server = harness.reboot(config(data_dir=data_dir,
+                                       num_schedulers=0))
+        try:
+            for n in nodes:
+                server.node_register(n)
+            ids = [server.job_register(j)[1] for j in jobs]
+            batch.BatchEvalRunner.process = held
+            try:
+                server.config.num_schedulers = 2
+                server._setup_workers()
+                assert inside.wait(30), "the batch worker never placed"
+                harness.kill(server)
+                release.set()
+                # The husk's worker finishes its walk against a
+                # disabled plan queue; nothing it planned commits.
+                server.workers[0].join(10)
+            finally:
+                batch.BatchEvalRunner.process = process
+                release.set()
+            husk_allocs = len(list(server.fsm.state.allocs()))
+            with _seeded(11):
+                reborn = harness.reboot(config(data_dir=data_dir,
+                                               num_schedulers=0))
+                reborn.config.num_schedulers = 2
+                reborn._setup_workers()
+                reborn.wait_for_evals(ids, timeout=WAIT_S)
+            return _placements(reborn), husk_allocs
+        finally:
+            harness.reap(also=[reborn] if reborn is not None else None)
+
+
+def test_an_abandoned_server_leaves_the_next_leader_placing_like_jax(
+        tmp_path):
+    """A server hard-killed mid-placement (``CrashHarness.kill``: storage
+    frozen, ``abandon``) commits nothing more; the server that leads
+    next from its data_dir places every eval, node for node and port
+    for port as the JAX package's next leader does after the same
+    kill."""
+    nodes = _sized_nodes(16, 3)
+    jobs = _storm_jobs()
+    (j_placed, j_status), j_husk = _abandon_mid_placement(
+        "jax", tmp_path, nodes, jobs)
+    (t_placed, t_status), t_husk = _abandon_mid_placement(
+        "torch", tmp_path, convert.nodes_from_reference(nodes),
+        convert.jobs_from_reference(jobs))
+    assert t_husk == j_husk == 0
+    assert t_placed == j_placed
+    assert len(t_placed) == 19
+    assert t_status == j_status == ["complete"] * 6
 
 
 def _joined_after(before, srv):
@@ -479,3 +588,62 @@ def test_worker_failure_is_recorded_and_nacked(monkeypatch):
             assert not list(srv.fsm.state.allocs())
         finally:
             srv.shutdown()
+
+
+def _failing_barrier(srv, fails):
+    calls = []
+    barrier = srv.raft.barrier
+
+    def flaky():
+        calls.append(srv.eval_broker.enabled())
+        if len(calls) <= fails:
+            raise TimeoutError("timed out waiting for raft apply")
+        return barrier()
+    srv.raft.barrier = flaky
+    return calls
+
+
+def test_leadership_waits_for_a_barrier_that_succeeds():
+    """A networked-raft leader's broker is restored only from an FSM
+    that has applied every committed entry: a failed barrier is tried
+    again before the broker is enabled (the reference's leader loop),
+    where the JAX server logs the failure and restores at once (an eval
+    whose plan committed meanwhile would be placed twice)."""
+    from tests.conftest import wait_until
+
+    jfast = dict(raft_mode="net", raft_election_timeout=(0.05, 0.10),
+                 raft_heartbeat_interval=0.02, num_schedulers=0,
+                 tune_gc=False)
+    srv = Server(ServerConfig(device="cpu", **jfast))
+    jsrv = JServer(JServerConfig(**jfast))
+    try:
+        for server in (srv, jsrv):
+            wait_until(lambda: server.is_leader(), timeout=10,
+                       msg="self-election")
+            server.revoke_leadership()
+        calls = _failing_barrier(srv, 2)
+        srv.establish_leadership()
+        assert calls == [False, False, False]
+        assert srv.eval_broker.enabled() and srv.is_leader()
+        jcalls = _failing_barrier(jsrv, 2)
+        jsrv.establish_leadership()
+        assert jcalls == [False]
+        assert jsrv.eval_broker.enabled()
+    finally:
+        srv.shutdown()
+        jsrv.shutdown()
+
+
+def test_a_barrier_that_fails_after_leadership_is_lost_gives_up():
+    """A barrier that fails because raft lost leadership establishes
+    nothing: the broker stays disabled and the worker unpaused."""
+    srv = _port_server(num_schedulers=0, raft_mode="net",
+                       raft_election_timeout=(30.0, 60.0))
+    try:
+        calls = _failing_barrier(srv, 10)
+        srv.raft.is_leader = lambda: False
+        srv.establish_leadership()
+        assert calls == [False]
+        assert not srv.eval_broker.enabled()
+    finally:
+        srv.shutdown()

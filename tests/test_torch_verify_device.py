@@ -223,6 +223,57 @@ def test_the_first_window_of_a_fresh_fleet_holds_the_lease():
         [o.result.to_dict() for o in host]
 
 
+def test_the_first_window_of_an_elected_leader_holds_the_lease():
+    """A server that becomes leader through an election (its
+    predecessor hard-killed) verifies its first window of more than
+    one plan on the device engine — its fleet is a fresh generation
+    there, and the window keeps the lease it warmed — with the
+    verdicts the host engine gives an elected leader on the same
+    world: both place every job on the same nodes."""
+    from nomad_tpu_torch.faultinject.crash import CrashHarness
+    from nomad_tpu_torch.scheduler.executor import executor_override
+    from tests.conftest import wait_until
+    from tests.test_torch_raft_net import make_cluster, wait_for_leader
+    from tests.test_torch_server import (_placements, _seeded,
+                                         _sized_nodes, _storm_jobs)
+
+    nodes = convert.nodes_from_reference(_sized_nodes(12, 5))
+    jobs = convert.jobs_from_reference(_storm_jobs())
+    out = {}
+    for policy in ("host", "device"):
+        harness = CrashHarness()
+        servers = make_cluster(3, num_schedulers=0)
+        try:
+            with t_policy.verify_override(policy), \
+                    executor_override("device"):
+                first = wait_for_leader(servers)
+                for n in nodes:
+                    first.node_register(n)
+                ids = [first.job_register(j)[1] for j in jobs]
+                harness.kill(first)
+                survivors = [s for s in servers if s is not first]
+                leader = wait_for_leader(survivors, timeout=30)
+                wait_until(lambda: leader.eval_broker.stats()["depth"]
+                           >= len(ids), timeout=15,
+                           msg="the broker restored from the store")
+                with _seeded(11):
+                    leader.config.num_schedulers = 2
+                    leader._setup_workers()
+                    leader.wait_for_evals(ids, timeout=60)
+                stats = leader.plan_applier.stats()
+                out[policy] = _placements(leader), stats
+        finally:
+            harness.reap(also=servers)
+    (placed, status), stats = out["device"]
+    assert stats["device_verify_dispatches"] >= 1, stats
+    assert stats["device_verify_fallbacks"] == 0, stats
+    assert out["host"][1]["device_verify_dispatches"] == 0
+    # Nodes, not ports: raft's election timers draw from ``random`` on
+    # their own threads, so the dynamic ports' draws are not seeded.
+    assert [p[:3] for p in placed] == [p[:3] for p in out["host"][0][0]]
+    assert status == out["host"][0][1] == ["complete"] * len(jobs)
+
+
 def test_a_dispatch_that_fails_raises():
     """No fallback around the launch: a K6 failure surfaces."""
     nodes = [mock.node(i) for i in range(4)]
