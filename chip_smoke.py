@@ -12,6 +12,7 @@ one NVIDIA GPU.
     python3 chip_smoke.py --agent               # the agent phase alone
     python3 chip_smoke.py --failover            # the failover phase alone
     python3 chip_smoke.py --control             # the control phase alone
+    python3 chip_smoke.py --mesh                # the mesh phase alone
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -250,7 +251,35 @@ Phases, in order; any failure exits non-zero and prints no result line:
               the host engine and under the device engine (K6); every
               device window must dispatch, make one upload and one
               fetch, and give the host's verdicts;
-  15. report  one ``{"kernels": [...]}`` line, then the card's name and
+  15. mesh    K7, the node-axis-sharded forms, on a mesh of four shards
+              that all name cuda:0 (``mesh_override``): (1) K7a
+              (shard_select) at N=16,384 on 4 shards for k=1 and k_cap
+              1,024 and at B=64, K7b (merge_select) on those 4 lists of
+              B=64 lanes, K7c (shard_apply) on K7b's updates and K7d
+              (shard_gather) on the 5f window's 1,048,576 rows, each
+              against its plain version bit for bit and timed with CUDA
+              events beside ``torch.topk`` / ``index_add_``; (2) each
+              sharded wrapper against its unsharded kernel, bit for bit,
+              both timed on the host clock: place_rounds_sharded against
+              K3 at config 4, place_sequence_sharded against K2 at
+              N=16,384, P=1,024, place_rounds_batch_sharded against K4a
+              at config 5's B=64 on a 2x2 storm mesh,
+              place_sequence_batch_sharded against K4b at B=8, P=256,
+              window_verify_sharded against K6 at the 5f window; (3) the
+              system path: config 4 through Harness.process (the
+              dispatch sharded, the plan equal to an unsharded run's,
+              nodes and ports), config 2 as a PipelinedEvalRunner stream
+              with commits between evals (every device dispatch sharded,
+              equal plans, the mirror's sharded usage equal to the host
+              mirror), config 5's storm through BatchEvalRunner on the
+              2x2 storm mesh (placements equal lane for lane), config 5b
+              under the ``device`` verify policy (every window of more
+              than one plan verified through window_verify_sharded, the
+              commits equal the host engine's); K7a-K7d launched there
+              and K2-K4 not; (4) steps 2 and 3 again on distinct cards
+              where there are two or more, else a line saying the
+              cross-card exchange went untested;
+  16. report  one ``{"kernels": [...]}`` line, then the card's name and
               power limit exactly as nvidia-smi prints them, then the
               result line ``{"ok": true, "device": {...}}`` last.
 
@@ -6095,6 +6124,616 @@ def run_executor(torch, n1=100, n2=1000, n4=10_000, n5b=160, evals1=64,
 
 
 # The kernels of the kernels phase, in the order it checks them.
+# -- phase 15: the mesh (K7) -------------------------------------------------
+
+MESH_SHARDS = 4
+MESH_LAUNCH_NAMES = ("shard_select", "merge_select", "shard_apply",
+                     "shard_gather")
+
+
+def mesh_counters():
+    """The K7 kernels' wrappers (their launch counts) and those of K5
+    and K6, which the mesh's mirror maintenance and verify launch."""
+    from nomad_tpu_torch.models import fleet
+    from nomad_tpu_torch.ops import binpack
+    from nomad_tpu_torch.parallel import mesh
+
+    return {"shard_select": binpack.shard_select,
+            "merge_select": binpack.merge_select,
+            "shard_apply": binpack.shard_apply,
+            "shard_gather": mesh.shard_gather,
+            "scatter_rows": fleet.scatter_rows,
+            "window_verify": mesh.window_verify,
+            "place_sequence": binpack.place_sequence,
+            "place_rounds": binpack.place_rounds,
+            "place_rounds_batch": binpack.place_rounds_batch,
+            "place_sequence_batch": binpack.place_sequence_batch}
+
+
+def launches_of(fn, total=None) -> tuple:
+    """Launch counts of every wrapper in ``mesh_counters`` moved by
+    ``fn()``, each set to 0 just before it and read just after; returns
+    (what fn returned, counts), and adds the counts into ``total`` when
+    given."""
+    counters = mesh_counters()
+    saved = {k: c.launches for k, c in counters.items()}
+    for c in counters.values():
+        c.launches = 0
+    try:
+        out = fn()
+    finally:
+        counts = {k: c.launches for k, c in counters.items()}
+        for k, c in counters.items():
+            c.launches = saved[k] + counts[k]
+    if total is not None:
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return out, counts
+
+
+def shard_case(c, s, rows, lanes=None):
+    """Shard ``s`` (``rows`` rows) of a fleet_case / lanes_case, in the
+    batch layout K7a takes (a lane axis; ``lanes`` None: one lane)."""
+    lo, hi = s * rows, (s + 1) * rows
+
+    def one(x):
+        return x.unsqueeze(0) if lanes is None else x
+    return dict(
+        capacity=c["capacity"][lo:hi].contiguous(),
+        reserved=c["reserved"][lo:hi].contiguous(),
+        usage=c["usage0"][lo:hi].unsqueeze(0).repeat(
+            1 if lanes is None else lanes, 1, 1),
+        job_counts=one(c["jc0"])[:, lo:hi].contiguous(),
+        feasible=one(c["feasible"])[:, :, lo:hi].contiguous(),
+        asks=one(c["asks"]).contiguous(),
+        distinct=one(c["distinct"]).contiguous())
+
+
+def check_shard_select(torch, binpack, n, k, rng, reps, lanes=None):
+    """K7a on each of MESH_SHARDS shards of an N-row fleet against its
+    plain version, bit for bit (values and global indices), for slot 0;
+    the first shard's launch timed beside ``torch.topk`` on its masked
+    scores.  Returns the row and the shards' candidates."""
+    rows = n // MESH_SHARDS
+    c = fleet_case(torch, n, rng) if lanes is None else \
+        lanes_case(torch, n, lanes, rng, uniform=False)
+    b = 1 if lanes is None else lanes
+    pen = torch.full((b,), 10.0, dtype=torch.float32, device=DEV)
+    cands = []
+    for s in range(MESH_SHARDS):
+        sc = shard_case(c, s, rows, lanes)
+        args = (sc["capacity"], sc["reserved"], sc["usage"],
+                sc["job_counts"], sc["feasible"], sc["asks"],
+                sc["distinct"], pen, 0, k, s * rows)
+        got = binpack.shard_select(*args)
+        torch.cuda.synchronize()
+        want = binpack.shard_select_plain(*args)
+        what = f"shard_select N={n} k={k} B={b} shard {s}"
+        require(torch.equal(got[1], want[1]), f"{what}: indices differ")
+        require(torch.equal(got[0], want[0]), f"{what}: values differ")
+        cands.append(got)
+        if s == 0:
+            out = (torch.empty_like(got[0]), torch.empty_like(got[1]))
+            scratch = binpack.select_scratch(rows, k, b, DEV)
+            ms = time_ms(torch, lambda: binpack.launch_shard_select(
+                *args, None, out, scratch), reps)
+            plain_ms = time_ms(torch, lambda: binpack.shard_select_plain(
+                *args), 1)
+            masked = torch.stack([binpack.score_all_nodes(
+                sc["capacity"], sc["reserved"], sc["usage"][i],
+                sc["job_counts"][i], sc["asks"][i, 0], sc["feasible"][i, 0],
+                sc["distinct"][i, 0], 10.0) for i in range(b)])
+            library_ms = time_ms(torch, lambda: torch.topk(masked, k), reps)
+    # Bytes: the shard's capacity and reserved rows once (every lane
+    # reads the same ones), each lane's usage, job counts and slot 0's
+    # feasibility on those rows once, the candidates written once.
+    nbytes = 2 * rows * 24 + b * rows * (24 + 4 + 1) + b * k * 8
+    b_ms, b_by = bound(nbytes, b * rows * OPS_PER_NODE)
+    return dict(err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=b_ms, bound_by=b_by, lanes=b, rows=rows,
+                k=k), cands
+
+
+def check_merge_select(torch, binpack, cands, rows, k_cap, reps):
+    """K7b on MESH_SHARDS lists of real K7a candidates (the first round
+    of slot 0, 1,000 copies a lane) against its plain version, bit for
+    bit (chosen, scores, the shards' updates, the copies left), timed
+    beside ``torch.topk`` over the lists' values."""
+    cand_v = torch.stack([c[0] for c in cands]).contiguous()
+    cand_i = torch.stack([c[1] for c in cands]).contiguous()
+    s, b, k = cand_v.shape
+    g = 8
+    counts = torch.zeros((b, g), dtype=torch.int32, device=DEV)
+    counts[:, 0] = 1000
+
+    def outs():
+        return (torch.empty((s, b, k_cap), dtype=torch.int32, device=DEV),
+                torch.full((b, g, k_cap), -7, dtype=torch.int32, device=DEV),
+                torch.zeros((b, g, k_cap), dtype=torch.float32, device=DEV),
+                torch.zeros(b, dtype=torch.int32, device=DEV))
+    got, want = outs(), outs()
+    binpack.merge_select(cand_v, cand_i, rows, *got[:3], slot=0, m=got[3],
+                         counts=counts)
+    torch.cuda.synchronize()
+    binpack.merge_select_plain(cand_v, cand_i, rows, *want[:3], slot=0,
+                               m=want[3], counts=counts)
+    for name, x, y in zip(("upd", "chosen", "scores", "m"), got, want):
+        require(torch.equal(x, y),
+                f"merge_select S={s} B={b}: {name} differs from the plain "
+                "version")
+    ms = time_ms(torch, lambda: binpack.launch_merge_select(
+        cand_v, cand_i, rows, *got[:3], 0, 0, got[3], counts, None), reps)
+    plain_ms = time_ms(torch, lambda: binpack.merge_select_plain(
+        cand_v, cand_i, rows, *want[:3], slot=0, m=want[3], counts=counts),
+        1)
+    flat = cand_v.permute(1, 0, 2).reshape(b, s * k)
+    library_ms = time_ms(torch, lambda: torch.topk(flat, k_cap), reps)
+    # Bytes: the candidates read once, the chosen, scores and updates
+    # written once; operations: a binary search of each other list for
+    # every candidate.
+    nbytes = s * b * k * 8 + b * k_cap * (8 + 4 * s) + b * 8
+    ops = s * b * k * (s - 1) * max(1, int(np.log2(k)))
+    b_ms, b_by = bound(nbytes, ops)
+    return dict(err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=b_ms, bound_by=b_by, shards=s, lanes=b,
+                placed=int((got[1] >= 0).sum())), got[0]
+
+
+def check_shard_apply(torch, binpack, n, lanes, upd, rng, reps):
+    """K7c on shard 0 of a fleet with K7b's updates for it: usage and
+    job counts against the plain version, bit for bit, timed beside one
+    ``index_add_`` of the same rows."""
+    rows = n // MESH_SHARDS
+    c = lanes_case(torch, n, lanes, rng, uniform=False)
+    sc = shard_case(c, 0, rows, lanes)
+    mine = upd[0].contiguous()
+    got_u, got_j = sc["usage"].clone(), sc["job_counts"].clone()
+    binpack.shard_apply(got_u, got_j, mine, sc["asks"], slot=0)
+    torch.cuda.synchronize()
+    want_u, want_j = sc["usage"].clone(), sc["job_counts"].clone()
+    binpack.shard_apply_plain(want_u, want_j, mine, sc["asks"], slot=0)
+    require(torch.equal(got_u.view(torch.int32), want_u.view(torch.int32))
+            and torch.equal(got_j, want_j),
+            "shard_apply: usage or job counts differ from the plain version")
+    u, j = sc["usage"].clone(), sc["job_counts"].clone()
+    ms = time_ms(torch, lambda: binpack.launch_shard_apply(
+        u, j, mine, sc["asks"], 0, None), reps)
+    plain_ms = time_ms(torch, lambda: binpack.shard_apply_plain(
+        u, j, mine, sc["asks"], slot=0), 1)
+    owned = mine >= 0
+    lane = torch.arange(lanes, device=DEV)[:, None].expand_as(mine)
+    flat_rows = (lane * rows + (mine >> 1))[owned].long()
+    take = (mine & 1).bool()[owned]
+    vals = torch.where(take[:, None], sc["asks"][:, 0][lane[owned]],
+                       torch.zeros(1, 6, device=DEV))
+    flat = u.view(-1, 6)
+    library_ms = time_ms(torch, lambda: flat.index_add_(0, flat_rows, vals),
+                         reps)
+    n_owned = int(owned.sum())
+    # Bytes: the updates and each lane's slot-0 ask read once, each
+    # owned row's usage and job count read and written once.
+    nbytes = lanes * (mine.shape[1] * 4 + 24) + n_owned * (2 * 24 + 2 * 4)
+    b_ms, b_by = bound(nbytes, n_owned * 7)
+    return dict(err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=b_ms, bound_by=b_by, rows_updated=n_owned)
+
+
+def check_shard_gather(torch, mesh_mod, rng, reps):
+    """K7d on each of MESH_SHARDS shards of the 5f window's 1,048,576-row
+    fleet against its plain version, bit for bit; the first shard's
+    launch timed."""
+    n_real, n_pad = 1_000_000, 1_048_576
+    t = window_fleet(torch, rng, n_real, n_pad)
+    desc, _counts = window_case(rng, n_real, 64, 1, 64, 0.0)
+    rows = n_pad // MESH_SHARDS
+    ni = torch.from_numpy(desc["pair_ni"]).to(DEV)
+    for s in range(MESH_SHARDS):
+        part = [x[s * rows:(s + 1) * rows].contiguous() for x in t]
+        got = mesh_mod.shard_gather(*part, s * rows, ni)
+        torch.cuda.synchronize()
+        want = mesh_mod.shard_gather_plain(*part, s * rows, ni)
+        require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                f"shard_gather shard {s}: differs from the plain version")
+        if s == 0:
+            out = torch.empty_like(got)
+            ms = time_ms(torch, lambda: mesh_mod.shard_gather(
+                *part, 0, ni, out=out), reps)
+            plain_ms = time_ms(torch, lambda: mesh_mod.shard_gather_plain(
+                *part, 0, ni), reps)
+    b = ni.shape[0]
+    owned = int(((ni >= 0) & (ni < rows)).sum())
+    b_ms, b_by = bound(b * (4 + 48) + owned * 48, 0)
+    return dict(err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by, pairs=b, owned=owned)
+
+
+def mesh_kernel_checks(torch, rng, reps=20) -> dict:
+    """Step 1 of the mesh phase: each K7 kernel against its plain
+    version on the card, bit for bit, timed with CUDA events."""
+    from nomad_tpu_torch.ops import binpack
+    from nomad_tpu_torch.parallel import mesh as mesh_mod
+
+    n = 16384
+    rows = n // MESH_SHARDS
+    sel1, _ = check_shard_select(torch, binpack, n, 1, rng, reps)
+    selk, _ = check_shard_select(torch, binpack, n, 1024, rng, reps)
+    # The storm's width (B = 64): K7a's candidates feed K7b, whose
+    # updates feed K7c.
+    sel64, cands = check_shard_select(torch, binpack, n, 1024, rng, 5,
+                                      lanes=64)
+    merge, upd = check_merge_select(torch, binpack, cands, rows, 1024, reps)
+    apply_ = check_shard_apply(torch, binpack, n, 64, upd, rng, reps)
+    gather = check_shard_gather(torch, mesh_mod, rng, reps)
+    return {"shard_select k=1": sel1, "shard_select k=1024": selk,
+            "shard_select B=64 k=1024": sel64,
+            "merge_select S=4 B=64": merge, "shard_apply B=64": apply_,
+            "shard_gather 5f window": gather}
+
+
+def wall_ms(torch, fn, reps) -> float:
+    """Mean ms of ``fn`` on the host clock, the card synchronized after
+    each call (a sharded walk's host loop is part of its time)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t) / reps * 1e3
+
+
+def mesh_wrapper_checks(torch, devices, rng, reps=3) -> dict:
+    """Step 2 of the mesh phase: each sharded wrapper on ``devices``
+    against its unsharded kernel on the same inputs, bit for bit
+    (chosen everywhere, every score, the final usage), each timed on
+    the host clock beside that kernel."""
+    from nomad_tpu_torch.ops import binpack
+    from nomad_tpu_torch.parallel import mesh as mesh_mod
+
+    fmesh = mesh_mod.fleet_mesh(devices)
+    smesh = mesh_mod.storm_mesh(2, devices)
+    out = {}
+
+    def held(name, sharded, single):
+        got = sharded()
+        want = single()
+        torch.cuda.synchronize()
+        compare(torch, f"{name} against its unsharded kernel",
+                [x.to(DEV) for x in got], want)
+        out[name] = dict(ms=wall_ms(torch, sharded, reps),
+                         unsharded_ms=wall_ms(torch, single, reps),
+                         placed=int((want[0] >= 0).sum()))
+
+    # Config 4's K3 launch: 10,000 nodes on N = 16,384, one slot of
+    # 1,000 copies, the job's other slots padding, k_cap 1,024.
+    c = fleet_case(torch, 16384, rng, uniform=True)
+    for k in ("capacity", "feasible"):
+        c[k][10_000:] = 0 if k == "capacity" else False
+    pad_slots(c, 1, 0)
+    counts = torch.zeros(8, dtype=torch.int32, device=DEV)
+    counts[0] = 1000
+    args = (c["capacity"], c["reserved"], c["usage0"], c["jc0"],
+            c["feasible"], c["asks"], c["distinct"], counts)
+    held("place_rounds_sharded config 4",
+         lambda: mesh_mod.place_rounds_sharded(fmesh, *args, 10.0,
+                                               k_cap=1024, rounds=1),
+         lambda: binpack.place_rounds(*args, 10.0, k_cap=1024, rounds=1))
+    # K2 at N = 16,384, P = 1,024 (three groups drawn, the last 8 steps
+    # invalid).
+    c = fleet_case(torch, 16384, rng)
+    gi = torch.from_numpy(sequence_groups(rng, 1024, 3, "random")).to(DEV)
+    valid = torch.ones(1024, dtype=torch.bool, device=DEV)
+    valid[-8:] = False
+    args = (c["capacity"], c["reserved"], c["usage0"], c["jc0"],
+            c["feasible"], c["asks"], c["distinct"], gi, valid, 10.0)
+    held("place_sequence_sharded N=16384 P=1024",
+         lambda: mesh_mod.place_sequence_sharded(fmesh, *args),
+         lambda: binpack.place_sequence(*args))
+    # Config 5's storm on the 2x2 storm mesh: B = 64, one slot of 1,000
+    # copies a lane on a uniform fleet, k_cap 1,024.
+    c = lanes_case(torch, 16384, 64, rng, uniform=True)
+    pad_slots(c, 1, 1)
+    counts = torch.zeros((64, 8), dtype=torch.int32, device=DEV)
+    counts[:, 0] = 1000
+    pen = torch.full((64,), 10.0, dtype=torch.float32, device=DEV)
+    args = (c["capacity"], c["reserved"], c["usage0"], c["jc0"],
+            c["feasible"], c["asks"], c["distinct"], counts, pen)
+    held("place_rounds_batch_sharded config 5 2x2",
+         lambda: mesh_mod.place_rounds_batch_sharded(
+             smesh, *args, k_cap=1024, rounds=1),
+         lambda: binpack.place_rounds_batch(*args, k_cap=1024, rounds=1))
+    # K4b at B = 8, N = 16,384, P = 256.
+    c = lanes_case(torch, 16384, 8, rng, uniform=False)
+    gi = torch.from_numpy(np.stack([sequence_groups(rng, 256, 3, "random")
+                                    for _ in range(8)])).to(DEV)
+    valid = torch.ones((8, 256), dtype=torch.bool, device=DEV)
+    valid[:, -8:] = False
+    pen = torch.full((8,), 10.0, dtype=torch.float32, device=DEV)
+    args = (c["capacity"], c["reserved"], c["usage0"], c["jc0"],
+            c["feasible"], c["asks"], c["distinct"], gi, valid, pen)
+    held("place_sequence_batch_sharded B=8 P=256",
+         lambda: mesh_mod.place_sequence_batch_sharded(fmesh, *args),
+         lambda: binpack.place_sequence_batch(*args))
+    # K6 at the 5f window on 1,048,576 rows, the fleet resident on the
+    # mesh as the applier's twins are.
+    t = window_fleet(torch, rng, 1_000_000, 1_048_576)
+    desc, _counts = window_case(rng, 1_000_000, 64, 1, 64, 0.0)
+    twins = [mesh_mod._put(x, fmesh, mesh_mod.NODE) for x in t]
+    got = mesh_mod.window_verify_sharded(fmesh, *twins, **desc)
+    want = mesh_mod.window_verify(*t, **desc)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("used", "caps", "fits"), got, want):
+        require(torch.equal(g.to(DEV), w),
+                f"window_verify_sharded: {name} differs from K6")
+    out["window_verify_sharded 5f window"] = dict(
+        ms=wall_ms(torch, lambda: mesh_mod.window_verify_sharded(
+            fmesh, *twins, **desc), 20),
+        unsharded_ms=wall_ms(torch, lambda: mesh_mod.window_verify(
+            *t, **desc), 20), fits=int(want[2].sum()))
+    return out
+
+
+def mesh_plans(plans, names) -> list:
+    """Each plan's placements as (alloc name -> (node name, ports))."""
+    return [{k: (names[v[0]], v[1]) for k, v in plan_placements(p).items()}
+            for p in plans]
+
+
+def mesh_config4(torch, mock, structs, Harness, devices, mesh_mod, total):
+    """Config 4 through Harness.process, unsharded and on ``devices``:
+    the sharded eval dispatched on the mesh, equal plans (nodes and
+    ports, the port draws seeded alike)."""
+    from nomad_tpu_torch.scheduler.torch_binpack import \
+        TorchBinPackScheduler
+
+    sharded_flags = []
+    orig = TorchBinPackScheduler.dispatch_device
+
+    def recorded(self, *a, **kw):
+        out = orig(self, *a, **kw)
+        sharded_flags.append(self.dispatched_sharded)
+        return out
+
+    def run(policy):
+        h = Harness(device=DEV)
+        for i in range(10_000):
+            h.state.upsert_node(h.next_index(), mock.node(i))
+        job = mock.job()
+        job.id = "config4-mesh"
+        job.task_groups = [bench_task_group(structs, f"tg-{g}")
+                           for g in range(1000)]
+        random.seed(41)
+        with mesh_mod.mesh_override(policy):
+            t = time.perf_counter()
+            placed, failed = run_eval(structs, h, job, [])
+            wall = time.perf_counter() - t
+        require(len(placed) == 1000 and not failed,
+                f"config 4 on {policy}: {len(placed)} placed")
+        names = {n.id: n.name for n in h.state.nodes()}
+        return mesh_plans(h.plans, names), wall
+
+    # In turns (unsharded, sharded, sharded, unsharded): the first run
+    # of each also loads its kernels and plans.
+    TorchBinPackScheduler.dispatch_device = recorded
+    try:
+        single, single_s = run("off")
+        (sharded, sharded_s), _ = launches_of(lambda: run(devices), total)
+        sharded2, sharded2_s = run(devices)
+        single2, single2_s = run("off")
+    finally:
+        TorchBinPackScheduler.dispatch_device = orig
+    require(sharded_flags == [False, True, True, False],
+            f"config 4: dispatched_sharded {sharded_flags}, want the mesh "
+            "runs and only they sharded")
+    require(sharded == single == sharded2 == single2,
+            "config 4: the plan on the mesh differs from the unsharded "
+            "run's (nodes or ports)")
+    return dict(eval_s=[sharded_s, sharded2_s],
+                unsharded_eval_s=[single_s, single2_s], placements=1000)
+
+
+def mesh_config2_stream(torch, mock, structs, Harness, devices, mesh_mod,
+                        total):
+    """Config 2's batch jobs as a PipelinedEvalRunner stream on 1,000
+    nodes, each eval's plan committed before the next (the mirror's
+    sharded twin scatters between evals), unsharded and on ``devices``:
+    every device dispatch sharded, equal plans, and the mirror's
+    sharded usage equal to the host mirror byte for byte."""
+    from nomad_tpu_torch.models.fleet import fleet_cache, mirror_for
+    from nomad_tpu_torch.scheduler.pipeline import PipelinedEvalRunner
+
+    def run(policy):
+        h = Harness(device=DEV)
+        for i in range(1000):
+            h.state.upsert_node(h.next_index(), mock.node(i))
+        jobs = [config2_job(mock, structs, seed) for seed in range(6)]
+        for j in jobs:
+            h.state.upsert_job(h.next_index(), j)
+        runner = PipelinedEvalRunner(h.state.snapshot(), h, depth=3,
+                                     state_refresh=h.snapshot, device=DEV)
+        random.seed(42)
+        with mesh_mod.mesh_override(policy):
+            for job in jobs:
+                runner.state = h.snapshot()
+                runner.process([make_eval(structs, job)])
+        names = {n.id: n.name for n in h.state.nodes()}
+        return mesh_plans(h.plans, names), runner, h
+
+    single, r_single, _h = run("off")
+    (sharded, r_mesh, h), _ = launches_of(lambda: run(devices), total)
+    require(r_single.sharded_dispatches == 0,
+            "config 2 unsharded: a dispatch ran on a mesh")
+    require(r_mesh.device_dispatches > 0 and r_mesh.sharded_dispatches
+            == r_mesh.device_dispatches,
+            f"config 2 on the mesh: {r_mesh.sharded_dispatches} of "
+            f"{r_mesh.device_dispatches} device dispatches sharded")
+    require(sharded == single,
+            "config 2: the stream's plans on the mesh differ")
+    require(sum(len(p) for p in sharded) == 6 * 40,
+            "config 2: not every copy placed")
+    statics = fleet_cache.statics_for(h.state)
+    mirror = mirror_for(statics)
+    mirror.sync(h.state)
+    with mesh_mod.mesh_override(devices):
+        mesh = mesh_mod.dispatch_mesh(1, statics.n_pad, device=DEV)
+    buf = mirror.device_usage_sharded(mesh, mirror.usage)
+    require(buf is not None, "config 2: no sharded usage twin")
+    require(np.array_equal(mesh_mod.gather(buf).cpu().numpy().view(np.int32),
+                           mirror.usage.view(np.int32)),
+            "config 2: the sharded usage twin differs from the host mirror")
+    return dict(evals=6, device_dispatches=r_mesh.device_dispatches,
+                sharded_dispatches=r_mesh.sharded_dispatches)
+
+
+def mesh_config5(torch, mock, structs, Harness, BatchEvalRunner, devices,
+                 mesh_mod, total):
+    """Config 5's storm (64 jobs x 1,000 groups on 10,000 nodes) through
+    BatchEvalRunner with the record-only planner, unsharded and on
+    ``devices``' 2x2 storm mesh: placements equal lane for lane."""
+    h = Harness(device=DEV)
+    for i in range(10_000):
+        h.state.upsert_node(h.next_index(), mock.node(i))
+    jobs = storm_jobs(mock, structs, "config5-mesh", 64, 1000)
+    for j in jobs:
+        h.state.upsert_job(h.next_index(), j)
+    snap = h.snapshot()
+    names = {n.id: n.name for n in h.state.nodes()}
+
+    def run(policy):
+        planner = RecordOnlyPlanner(structs)
+        random.seed(43)
+        with mesh_mod.mesh_override(policy):
+            t = time.perf_counter()
+            BatchEvalRunner(snap, planner, device=DEV).process(
+                [make_eval(structs, j) for j in jobs])
+            wall = time.perf_counter() - t
+        return mesh_plans(planner.plans, names), wall
+
+    single, single_s = run("off")
+    with mesh_mod.mesh_override(devices):
+        storm = mesh_mod.dispatch_mesh(64, 16384, device=DEV)
+    require(storm is not None and storm.lane_ways == 2
+            and storm.fleet_ways == 2,
+            f"config 5: the storm resolved {storm}, not a 2x2 mesh")
+    (sharded, sharded_s), _ = launches_of(lambda: run(devices), total)
+    require(len(sharded) == 64 and all(len(p) == 1000 for p in sharded),
+            "config 5 on the mesh: not every lane placed 1,000")
+    require(sharded == single,
+            "config 5: the storm's placements on the mesh differ")
+    return dict(evals=64, placements=64_000, wall_s=sharded_s,
+                unsharded_wall_s=single_s)
+
+
+def mesh_verify(torch, mock, structs, Harness, VerifyingPlanner,
+                BatchEvalRunner, devices, mesh_mod, total):
+    """Config 5b through the verifying applier: under the ``host``
+    verify policy unsharded, and under ``device`` on ``devices``, where
+    every window of more than one plan must verify through
+    window_verify_sharded (K7d on each shard, then K6) with no fallback:
+    equal commits, so equal verdicts."""
+    from nomad_tpu_torch.ops.verify_policy import verify_override
+
+    with verify_override("host"), mesh_mod.mesh_override("off"):
+        want, want_counts = storm_config5b(mock, structs, Harness,
+                                           VerifyingPlanner, BatchEvalRunner)
+    records, restore = window_records()
+    try:
+        with verify_override("device"), mesh_mod.mesh_override(devices):
+            (got, got_counts), counts = launches_of(
+                lambda: storm_config5b(mock, structs, Harness,
+                                       VerifyingPlanner, BatchEvalRunner),
+                total)
+    finally:
+        restore()
+    windows = [r for r in records if r is not None]
+    require(windows and all(r["dispatched"] and r["fallback"] is None
+                            for r in windows),
+            f"config 5b on the mesh: windows {windows[:3]} did not all "
+            "verify on the device")
+    require(counts["shard_gather"] == MESH_SHARDS * len(windows)
+            and counts["window_verify"] == len(windows),
+            f"config 5b on the mesh: {counts['shard_gather']} K7d and "
+            f"{counts['window_verify']} K6 launches for {len(windows)} "
+            "windows")
+    require(got == want, "config 5b: the commits under the sharded device "
+            "verify differ from the host engine's")
+    for k in ("placed", "conflicts", "commits", "conflict_fallbacks"):
+        require(got_counts[k] == want_counts[k],
+                f"config 5b: {k} {got_counts[k]} on the mesh, "
+                f"{want_counts[k]} on the host engine")
+    return dict(windows=len(windows), placed=got_counts["placed"],
+                wall_s=got_counts["wall_s"],
+                host_wall_s=want_counts["wall_s"])
+
+
+def mesh_system(torch, devices) -> tuple:
+    """Step 3 of the mesh phase: the system path on ``devices``, each
+    configuration also run unsharded to compare with.  Returns the
+    results and the launches of the sharded runs alone, each run's
+    counted from 0."""
+    import nomad_tpu_torch.mock as mock
+    import nomad_tpu_torch.structs as structs
+    from nomad_tpu_torch.parallel import mesh as mesh_mod
+    from nomad_tpu_torch.scheduler import Harness, VerifyingPlanner
+    from nomad_tpu_torch.scheduler.batch import BatchEvalRunner
+
+    out, total = {}, {}
+    out["config4"] = mesh_config4(torch, mock, structs, Harness, devices,
+                                  mesh_mod, total)
+    out["config2_stream"] = mesh_config2_stream(
+        torch, mock, structs, Harness, devices, mesh_mod, total)
+    out["config5_storm"] = mesh_config5(torch, mock, structs, Harness,
+                                        BatchEvalRunner, devices, mesh_mod,
+                                        total)
+    out["config5b_device_verify"] = mesh_verify(
+        torch, mock, structs, Harness, VerifyingPlanner, BatchEvalRunner,
+        devices, mesh_mod, total)
+    for name in MESH_LAUNCH_NAMES:
+        require(total[name] > 0,
+                f"mesh: {name} was not launched on the system path")
+    for name in ("place_sequence", "place_rounds", "place_rounds_batch",
+                 "place_sequence_batch"):
+        require(total[name] == 0,
+                f"mesh: {name} launched on the mesh's system path")
+    return out, total
+
+
+def run_mesh(torch) -> dict:
+    """The mesh phase: K7's kernels against their plain versions, the
+    sharded wrappers against the unsharded kernels and the system path,
+    on a mesh of MESH_SHARDS entries naming cuda:0; again on distinct
+    cards where the machine has two or more.  The system path's
+    launches are counted from 0."""
+    rng = np.random.default_rng([1234, 15])
+    t = time.perf_counter()
+    kernels_ = mesh_kernel_checks(torch, rng)
+    for name, r in kernels_.items():
+        print(f"mesh kernel {name}: " + json.dumps(r), flush=True)
+    one_card = [f"{DEV}:0"] * MESH_SHARDS
+    wrappers = mesh_wrapper_checks(torch, one_card, rng)
+    print("mesh wrappers: " + json.dumps(wrappers), flush=True)
+    system, launches = mesh_system(torch, one_card)
+    print("mesh system: " + json.dumps(system), flush=True)
+    print("mesh launches: " + json.dumps(launches), flush=True)
+    n_cards = torch.cuda.device_count()
+    cross = None
+    if n_cards >= 2:
+        cards = [f"{DEV}:{i}" for i in range(min(n_cards, MESH_SHARDS))]
+        cards = cards[:1 << (len(cards).bit_length() - 1)]
+        if len(cards) < MESH_SHARDS:
+            cards = (cards * MESH_SHARDS)[:MESH_SHARDS]
+        cross = dict(cards=cards,
+                     wrappers=mesh_wrapper_checks(torch, cards, rng),
+                     system=mesh_system(torch, cards)[0])
+        print("mesh cross-card: " + json.dumps(cross), flush=True)
+    else:
+        print(f"mesh: cross-card exchange untested ({n_cards} card)",
+              flush=True)
+    return dict(kernels=kernels_, wrappers=wrappers, system=system,
+                launches=launches, cross_card=cross,
+                seconds=time.perf_counter() - t)
+
+
 KERNEL_NAMES = ("place_sequence", "place_rounds", "scatter_rows",
                 "window_verify", "place_rounds_batch", "place_sequence_batch")
 
@@ -6325,6 +6964,13 @@ def main(argv=()) -> int:
               flush=True)
         print("chip_smoke: --failover run, no result line", flush=True)
         return 0
+    if argv[:1] == ["--mesh"]:
+        # The mesh phase alone: no other checks, no result line.
+        with executor_override("device"):
+            ms = run_mesh(torch)
+        print(f"phase mesh: {ms['seconds']:.1f} s", flush=True)
+        print("chip_smoke: --mesh run, no result line", flush=True)
+        return 0
     if argv[:1] == ["--control"]:
         # The control phase alone: no kernel checks, no result line.
         with executor_override("device"):
@@ -6349,7 +6995,7 @@ def main(argv=()) -> int:
                 not set(argv[1].split(",")) <= set(checks):
             print(f"usage: chip_smoke.py [--only {','.join(checks)}] "
                   f"[--executor] [--wire] [--wire-groups N] [--client] "
-                  f"[--agent] [--failover] [--control] "
+                  f"[--agent] [--failover] [--control] [--mesh] "
                   f"[--profiler-events SECONDS]",
                   file=sys.stderr)
             return 2
@@ -6405,6 +7051,8 @@ def main(argv=()) -> int:
         vf = phase("verify fleet", run_verify_fleet)
     print("verify fleet: " + json.dumps(
         {k: v for k, v in vf.items() if k != "table"}), flush=True)
+    with executor_override("device"):
+        ms = phase("mesh", lambda: run_mesh(torch))
     # Launches on the main paths, each path counted from 0: the slice,
     # the storm (K6 in config 5b under the device policy), the server
     # phase's shapes, the wire, client, agent, failover and control
@@ -6417,6 +7065,8 @@ def main(argv=()) -> int:
                 + ex["launches"].get(k, 0)
                 for k in st["launches"]}
     launches["window_verify"] += vf["launches"]
+    for name in ("scatter_rows", "window_verify") + MESH_LAUNCH_NAMES:
+        launches[name] = launches.get(name, 0) + ms["launches"][name]
     replay_err = {name: max([r["err"] for r in sl["main_path_rounds"]
                              + st["main_path_rounds"]
                              + ex["main_path_rounds"]
@@ -6444,19 +7094,39 @@ def main(argv=()) -> int:
            + cl["main_path_replay"] + ag["main_path_replay"]
            + fo["main_path_replay"] + co["main_path_replay"]
            if r["kernel"] == "place_sequence_batch"])
+    mk = ms["kernels"]
     timed = {"place_sequence": seq, "place_rounds": rnd,
              "scatter_rows": sct, "place_rounds_batch": rb,
-             "place_sequence_batch": sb, "window_verify": wv5f}
+             "place_sequence_batch": sb, "window_verify": wv5f,
+             # K7a at k_cap (its k = 1 time beside it as k1_*)
+             "shard_select": dict(mk["shard_select k=1024"], **{
+                 f"k1_{key}": mk["shard_select k=1"][key]
+                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}),
+             "merge_select": mk["merge_select S=4 B=64"],
+             "shard_apply": mk["shard_apply B=64"],
+             "shard_gather": mk["shard_gather 5f window"]}
     sources = {"scatter_rows": "scatter_rows.cu",
-               "window_verify": "window_verify.cu"}
+               "window_verify": "window_verify.cu",
+               "shard_gather": "window_verify.cu"}
     replaces = {"place_sequence": "nomad_tpu/ops/binpack.py:78",
                 "place_rounds": "nomad_tpu/ops/binpack.py:123",
                 "scatter_rows": "nomad_tpu/models/fleet.py:1108",
                 "place_rounds_batch": "nomad_tpu/ops/binpack.py:185",
                 "place_sequence_batch": "nomad_tpu/ops/binpack.py:203",
-                "window_verify": "nomad_tpu/parallel/mesh.py:357"}
+                "window_verify": "nomad_tpu/parallel/mesh.py:357",
+                # K7: the per-shard selection, the cross-shard merge and
+                # the owner's update of the sharded jits at :210, :252,
+                # :279 and :314; the row gather of :408.
+                "shard_select": "nomad_tpu/parallel/mesh.py:210",
+                "merge_select": "nomad_tpu/parallel/mesh.py:252",
+                "shard_apply": "nomad_tpu/parallel/mesh.py:279",
+                "shard_gather": "nomad_tpu/parallel/mesh.py:408"}
+    k.update({name: mk for name in MESH_LAUNCH_NAMES})
     kernels_line = {"kernels": []}
     for name, r in timed.items():
+        if name in MESH_LAUNCH_NAMES:
+            require(launches[name] > 0,
+                    f"{name} was not launched on the mesh's main path")
         row = dict(
             name=name, route="cuda",
             source="nomad_tpu_torch/csrc/" + sources.get(name, "binpack.cu"),
@@ -6467,6 +7137,7 @@ def main(argv=()) -> int:
             bound_by=r["bound_by"], library_ms=r.get("library_ms"))
         if "device_ms" in r:
             row["device_ms"] = r["device_ms"]
+        row.update({key: v for key, v in r.items() if key.startswith("k1_")})
         if "library_device_ms" in r:
             row["library_device_ms"] = r["library_device_ms"]
         kernels_line["kernels"].append(row)

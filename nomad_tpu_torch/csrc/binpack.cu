@@ -7,7 +7,12 @@
 //                             cluster walking place_sequence_cluster_lane;
 //   _place_rounds    (K3)  -> place_rounds_kernel;
 //   place_rounds_batch    (K4a, a vmap of K3) -> place_rounds_batch_kernel;
-//   place_sequence_batch  (K4b, a vmap of K2) -> place_sequence_batch_kernel.
+//   place_sequence_batch  (K4b, a vmap of K2) -> place_sequence_batch_kernel;
+// and the three kernels of the node-axis-sharded walks that replace
+// nomad_tpu/parallel/mesh.py _place_sharded, _place_rounds_sharded_jit,
+// _place_rounds_batch_sharded_jit and _place_sequence_batch_sharded_jit
+// (K7; see the section "K7" below): shard_select_kernel (K7a),
+// merge_select_kernel (K7b) and shard_apply_kernel (K7c).
 //
 // One body for the sequence walk: K2 runs place_sequence_cluster_lane
 // (below) on one thread-block cluster, K4b on one cluster per lane (its
@@ -1273,6 +1278,227 @@ static int sequence_csize(Kernel kernel, int n, int slots) {
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// K7: the node-axis-sharded walks (nomad_tpu/parallel/mesh.py :210, :252,
+// :279, :314; driven by nomad_tpu_torch/parallel/mesh.py).
+//
+// The node axis is split into S shards of R = N / S rows, each shard its
+// own tensors on its own device (several shards may name one card).  XLA
+// turns the JAX walks' argmax and top_k over a sharded axis into
+// per-shard work, a cross-shard merge and a row update on the owner;
+// here each step of a walk (one placement of K2/K4b, one round of a slot
+// of K3/K4a) is three launches, driven by the host without waiting:
+//
+//   K7a shard_select_kernel, on every shard, one block a lane: the lane's
+//       step ask scored on the shard's R rows (score_node, K1), and the
+//       shard's best k (score, global index) pairs in the order of K3's
+//       top-k (score descending, -0.0 tied with 0.0, then index
+//       ascending): a block argmax for k = 1 (the sequence walks), K3's
+//       select_topk or full sort for k = min(k_cap, R) (the rounds);
+//   K7b merge_select_kernel, on the lead device, one block a lane: the
+//       global top kout of the S sorted lists, each candidate placed at
+//       its rank (its position in its own list plus, per other list, a
+//       binary search for the keys above it: keys are distinct, global
+//       indices being); what K2/K3 keep of it (the sequence walk:
+//       valid & best > -1e30/2; the rounds: pos < m & vals > -1e30/2,
+//       m -= placed, m carried on the device from round to round); the
+//       step's chosen and scores where K2-K4 put them; and for every
+//       shard the rows it owns to update, (local row << 1 | taken) or -1;
+//   K7c shard_apply_kernel, on every shard, one block a lane: + ask (and
+//       + 1 to the job count) on a taken row, + 0.0 on a round's winner
+//       not taken (K3 adds 0.0f), + ask * 0.0 on a sequence step's
+//       winner not taken (K2 adds ask * 0.0), so every row gets the same
+//       adds as in the unsharded kernels and the walks equal them bit
+//       for bit.
+//
+// Each lane evolves its own usage and job counts on every shard, from a
+// copy of the shared base (the vmap's carry in K4a/K4b).  The global top
+// k_cap of the rounds is the merge of each shard's top min(k_cap, R) in
+// the same total order, whatever ties straddle a shard edge, and a shard
+// of fewer rows than k_cap hands in all of them (S * R = N >= k_cap).
+//
+// Bound on an H100: a step reads each shard's R rows of fleet state once
+// (and a round writes k_cap rows): at config 4 (N = 16,384 over 4 shards,
+// one round of k_cap = 1,024) a few hundred kilobytes, well under a
+// microsecond.  What bounds a walk is its chain: 2 S + 1 launches a step,
+// enqueued by the host, each waiting on the one before it.  The kernels
+// are simple on purpose (a first port); the chain is the cost.
+
+// K7a: the shard's best k (score, global index) pairs of each lane for
+// the step's ask (`step` is the slot of a rounds walk; a sequence walk
+// passes group_idx [lanes][p_len] and the step's position).  usage
+// [lanes][rows][NDIMS], jc [lanes][rows], feas [lanes][g_len][rows],
+// asks [lanes][g_len][NDIMS], distinct [lanes][g_len], penalty [lanes].
+// Writes out_v / out_i [lanes][k], sorted; a value is the score as K1
+// computed it (k = 1) or as K3's keys hold it (k > 1: -0.0 as 0.0).
+__global__ void __launch_bounds__(THREADS) shard_select_kernel(
+    const float* __restrict__ cap, const float* __restrict__ res,
+    const float* usage, const int* jc, const uint8_t* __restrict__ feas,
+    const float* __restrict__ asks, const uint8_t* __restrict__ distinct,
+    const int* __restrict__ group_idx, const float* __restrict__ penalty,
+    int rows, int g_len, int p_len, int step, int k, int path, int row_lo,
+    int key_words, float* __restrict__ out_v, int* __restrict__ out_i,
+    uint32_t* scratch) {
+  extern __shared__ unsigned long long s_keys[];
+  __shared__ float s_ask[NDIMS];
+  __shared__ float s_v[WARPS];
+  __shared__ int s_i[WARPS];
+  __shared__ int s_hist[RADIX_BINS];
+  __shared__ int s_cnt[2][WARPS];
+  __shared__ TopkSel s_sel;
+  const size_t b = blockIdx.x;
+  const size_t rr = (size_t)rows;
+  const int g = group_idx != nullptr ? group_idx[b * p_len + step] : step;
+  const size_t lg = b * g_len + g;
+  if (threadIdx.x < NDIMS) s_ask[threadIdx.x] = asks[lg * NDIMS + threadIdx.x];
+  __syncthreads();
+  const float* u = usage + b * rr * NDIMS;
+  const int* j = jc + b * rr;
+  const uint8_t* f = feas + lg * rr;
+  const bool dist = distinct[lg] != 0;
+  const float pen = penalty[b];
+  if (k == 1) {
+    // Threads past the last row hold -inf at index INT_MAX: below every
+    // row's score (-1e30 at the least).
+    float v = __int_as_float(0xff800000);
+    int i = 0x7fffffff;
+    for (int r = threadIdx.x; r < rows; r += THREADS) {
+      const float sc = score_node(cap, res, u, j, s_ask, f, dist, pen, r);
+      if (better(sc, r, v, i)) {
+        v = sc;
+        i = r;
+      }
+    }
+    block_argmax(v, i, s_v, s_i);
+    if (threadIdx.x == 0) {
+      out_v[b] = v;
+      out_i[b] = row_lo + i;
+    }
+    return;
+  }
+  void* keys = scratch != nullptr ? (void*)(scratch + b * (size_t)key_words)
+                                  : (void*)s_keys;
+  unsigned long long* keys64 = reinterpret_cast<unsigned long long*>(keys);
+  if (path == TOPK_SELECT) {
+    select_topk(cap, res, u, j, s_ask, f, dist, pen, rows, k, keys, s_hist,
+                &s_sel, s_cnt);
+  } else {
+    for (int r = threadIdx.x; r < rows; r += THREADS)
+      keys64[r] = sort_key(
+          ordered_bits(score_node(cap, res, u, j, s_ask, f, dist, pen, r)),
+          r);
+    __syncthreads();
+    bitonic_sort_desc(keys64, rows);
+  }
+  for (int t = threadIdx.x; t < k; t += THREADS) {
+    const unsigned long long key = keys64[t];
+    out_v[b * k + t] = from_ordered((uint32_t)(key >> 32));
+    out_i[b * k + t] = row_lo + (int)(~(uint32_t)(key & 0xffffffffull));
+  }
+}
+
+// The 64-bit key of a K7 candidate: K3's order (ordered score bits, then
+// the inverted global index).
+__device__ __forceinline__ unsigned long long cand_key(const float* v,
+                                                       const int* i,
+                                                       size_t at) {
+  return sort_key(ordered_bits(v[at]), i[at]);
+}
+
+// K7b: per lane, the global top kout of the shards' sorted lists
+// cand_v / cand_i [shards][lanes][k], and what the walk keeps of them.
+// seq: the sequence step `slot` (chosen / scores [lanes][out_len], valid
+// [lanes][out_len], kout = 1); else round `rnd` of slot `slot` (chosen /
+// scores [lanes][g_len][out_len], out_len = rounds * kout, counts
+// [lanes][g_len]; m [lanes] the copies left, read from counts at round
+// 0).  upd [shards][lanes][kout] gets, per shard, the local row and the
+// taken bit of each winner it owns, -1 elsewhere; a shard owns rows
+// [s * rows, (s + 1) * rows).
+__global__ void __launch_bounds__(THREADS) merge_select_kernel(
+    const float* __restrict__ cand_v, const int* __restrict__ cand_i,
+    int shards, int lanes, int k, int kout, int rows, int seq, int slot,
+    int rnd, int g_len, int out_len, const int* __restrict__ counts,
+    const uint8_t* __restrict__ valid, int* m, int* __restrict__ upd,
+    int* __restrict__ chosen, float* __restrict__ scores) {
+  const size_t b = blockIdx.x;
+  const size_t list = (size_t)lanes * k;  // one shard's lists
+  int left = 0;  // copies left (rounds) / the step's valid flag (seq)
+  if (seq)
+    left = valid[b * out_len + slot] != 0;
+  else
+    left = rnd == 0 ? counts[b * g_len + slot] : m[b];
+  const size_t base = seq ? b * out_len + slot
+                          : (b * g_len + slot) * out_len + (size_t)rnd * kout;
+  int placed = 0;
+  const int total = shards * k;
+  for (int t0 = 0; t0 < total; t0 += THREADS) {
+    const int t = t0 + threadIdx.x;
+    bool take = false;
+    if (t < total) {
+      const int s = t / k;
+      const int jj = t % k;
+      const size_t at = s * list + b * k + jj;
+      const unsigned long long key = cand_key(cand_v, cand_i, at);
+      int rank = jj;
+      for (int o = 0; o < shards && rank < kout; ++o) {
+        if (o == s) continue;
+        // Keys of list o above `key`: a lower bound in a descending list.
+        const size_t lo0 = o * list + b * k;
+        int lo = 0, hi = k;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (cand_key(cand_v, cand_i, lo0 + mid) > key)
+            lo = mid + 1;
+          else
+            hi = mid;
+        }
+        rank += lo;
+      }
+      if (rank < kout) {
+        const int idx = cand_i[at];
+        const float val =
+            seq ? cand_v[at] : from_ordered((uint32_t)(key >> 32));
+        take = (seq ? left != 0 : rank < left) && val > NEG_INF / 2;
+        chosen[base + rank] = take ? idx : -1;
+        scores[base + rank] = val;
+        const int owner = idx / rows;
+        for (int o = 0; o < shards; ++o)
+          upd[((size_t)o * lanes + b) * kout + rank] =
+              o == owner ? (((idx - o * rows) << 1) | (take ? 1 : 0)) : -1;
+      }
+    }
+    placed += __syncthreads_count(take);
+  }
+  if (!seq && threadIdx.x == 0) m[b] = left - placed;
+}
+
+// K7c: a shard's updates of each lane's usage [lanes][rows][NDIMS] and
+// job counts [lanes][rows] from its slice of K7b's upd [lanes][kout].
+// The ask is that of slot `slot` (rounds) or of sequence step `slot`'s
+// group (group_idx [lanes][p_len]).  A lane's winners are distinct rows:
+// no two threads write one row.
+__global__ void __launch_bounds__(THREADS) shard_apply_kernel(
+    float* usage, int* jc, const int* __restrict__ upd,
+    const float* __restrict__ asks, const int* __restrict__ group_idx,
+    int rows, int g_len, int p_len, int kout, int slot) {
+  const size_t b = blockIdx.x;
+  const bool seq = group_idx != nullptr;
+  const int g = seq ? group_idx[b * p_len + slot] : slot;
+  const float* ask = asks + (b * g_len + g) * NDIMS;
+  for (int t = threadIdx.x; t < kout; t += THREADS) {
+    const int e = upd[b * kout + t];
+    if (e < 0) continue;
+    const size_t row = (size_t)(e >> 1);
+    const bool take = (e & 1) != 0;
+    float* u = usage + (b * rows + row) * NDIMS;
+#pragma unroll
+    for (int d = 0; d < NDIMS; ++d)
+      u[d] = __fadd_rn(u[d], take ? ask[d]
+                                  : (seq ? __fmul_rn(ask[d], 0.0f) : 0.0f));
+    if (take) jc[b * rows + row] += 1;
+  }
+}
+
 extern "C" {
 
 const char* nomad_error_string(int code) {
@@ -1446,6 +1672,66 @@ int nomad_place_rounds_batch(
       cap, res, usage0, jc0, feas, asks, distinct, counts, penalty, n, g_len,
       k_cap, rounds, path, (int)(bytes / 4), chosen, scores, usage, jc,
       scratch);
+  return (int)cudaGetLastError();
+}
+
+// K7a on `lanes` lanes of a shard of `rows` rows (a power of two) whose
+// first row is row_lo of the fleet, for k candidates: k = 1, the block
+// argmax; else the top-k path `path` of nomad_place_rounds_plan(rows,
+// k), its key region in shared memory or in `scratch` (key_words
+// 32-bit words a lane).  group_idx null: a rounds walk, `step` its slot.
+int nomad_shard_select(const float* cap, const float* res, const float* usage,
+                       const int* jc, const uint8_t* feas, const float* asks,
+                       const uint8_t* distinct, const int* group_idx,
+                       const float* penalty, int lanes, int rows, int g_len,
+                       int p_len, int step, int k, int path, int row_lo,
+                       float* out_v, int* out_i, uint32_t* scratch,
+                       void* stream) {
+  if (lanes < 1 || k < 1 || k > rows || (k > 1 && !rounds_args_ok(
+          rows, k, 1, path)) || step < 0 ||
+      step >= (group_idx != nullptr ? p_len : g_len))
+    return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  size_t bytes = 0;
+  if (k > 1) {
+    bytes = topk_key_bytes(rows, k, path);
+    const int e = keys_smem(shard_select_kernel, bytes, scratch, &smem);
+    if (e != 0) return e;
+  }
+  shard_select_kernel<<<lanes, THREADS, smem, (cudaStream_t)stream>>>(
+      cap, res, usage, jc, feas, asks, distinct, group_idx, penalty, rows,
+      g_len, p_len, step, k, path, row_lo, (int)(bytes / 4), out_v, out_i,
+      scratch);
+  return (int)cudaGetLastError();
+}
+
+// K7b over `shards` lists of k candidates per lane; see the kernel.
+int nomad_merge_select(const float* cand_v, const int* cand_i, int shards,
+                       int lanes, int k, int kout, int rows, int seq,
+                       int slot, int rnd, int g_len, int out_len,
+                       const int* counts, const uint8_t* valid, int* m,
+                       int* upd, int* chosen, float* scores, void* stream) {
+  if (shards < 1 || lanes < 1 || k < 1 || kout < 1 || kout > shards * k ||
+      rows < 1 || slot < 0 || rnd < 0 ||
+      (seq ? (kout != 1 || valid == nullptr || slot >= out_len)
+           : (counts == nullptr || m == nullptr || slot >= g_len ||
+              (size_t)(rnd + 1) * kout > (size_t)out_len)))
+    return (int)cudaErrorInvalidValue;
+  merge_select_kernel<<<lanes, THREADS, 0, (cudaStream_t)stream>>>(
+      cand_v, cand_i, shards, lanes, k, kout, rows, seq, slot, rnd, g_len,
+      out_len, counts, valid, m, upd, chosen, scores);
+  return (int)cudaGetLastError();
+}
+
+// K7c on a shard's lanes; group_idx null for a rounds walk.
+int nomad_shard_apply(float* usage, int* jc, const int* upd, const float* asks,
+                      const int* group_idx, int lanes, int rows, int g_len,
+                      int p_len, int kout, int slot, void* stream) {
+  if (lanes < 1 || rows < 1 || kout < 1 || slot < 0 ||
+      slot >= (group_idx != nullptr ? p_len : g_len))
+    return (int)cudaErrorInvalidValue;
+  shard_apply_kernel<<<lanes, THREADS, 0, (cudaStream_t)stream>>>(
+      usage, jc, upd, asks, group_idx, rows, g_len, p_len, kout, slot);
   return (int)cudaGetLastError();
 }
 

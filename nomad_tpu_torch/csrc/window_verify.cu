@@ -4,7 +4,10 @@
 // (plan, node) claim ("pair") of one verify window, the claim-scatter of
 // its placement rows, the base fit against the resident fleet tensors,
 // and the component-local overlay fold of the earlier plans' entries.
-// Launched once per window by parallel/mesh.window_verify.
+// Launched once per window by parallel/mesh.window_verify; on a mesh
+// (parallel/mesh.window_verify_sharded) the same body runs on rows that
+// each shard's K7d (shard_gather_kernel, below) gathered, through
+// nomad_window_verify_gathered.
 //
 // Inputs: capacity/reserved/usage f32[N, D] row-major, resident on the
 // card (only the D=6 rows the pairs claim are read, columns 0-3); one
@@ -220,14 +223,21 @@ __device__ __forceinline__ void load_entries(
   }
 }
 
-template <int kThreads>
+// kGathered: the pairs' rows come pre-gathered, `gathered` holding
+// `shards` partials [shards][b][12] (usage, reserved, capacity columns
+// 0-3 of pair p's node on the shard that owns it, zeros on the others),
+// summed here; capacity/reserved/usage are not read (K7d, the sharded
+// window verify).  pair_ni still names each pair's node: the fold
+// compares it with the entries' nodes.
+template <int kThreads, bool kGathered = false>
 __global__ void __launch_bounds__(kThreads)
     window_verify_kernel(const float* __restrict__ capacity,
                          const float* __restrict__ reserved,
                          const float* __restrict__ usage, int d,
                          const int* __restrict__ desc, int b, int pairs,
                          int rows, int entries,
-                         unsigned char* __restrict__ out) {
+                         unsigned char* __restrict__ out,
+                         const float* __restrict__ gathered, int shards) {
   const int* pair_ni = desc;
   const int* row_pair = desc + b;
   const int* seq_ni = desc + 2 * b;
@@ -308,13 +318,27 @@ __global__ void __launch_bounds__(kThreads)
   if (mine) {
     const size_t row = (size_t)ni * d;
     for (int j = 0; j < 4; ++j) {
-      if constexpr (kNarrowBlock) {
-        node_u[j] = usage[row + j];
-        rs[j] = reserved[row + j];
+      float uj, rj, cj;
+      if constexpr (kGathered) {
+        uj = rj = cj = 0.0f;
+        for (int s = 0; s < shards; ++s) {
+          const float* g = gathered + ((size_t)s * b + p) * 12;
+          uj = __fadd_rn(uj, g[j]);
+          rj = __fadd_rn(rj, g[4 + j]);
+          cj = __fadd_rn(cj, g[8 + j]);
+        }
       } else {
-        node_u[j] = __fadd_rn(usage[row + j], reserved[row + j]);
+        uj = usage[row + j];
+        rj = reserved[row + j];
+        cj = capacity[row + j];
       }
-      cap[j] = capacity[row + j];
+      if constexpr (kNarrowBlock) {
+        node_u[j] = uj;
+        rs[j] = rj;
+      } else {
+        node_u[j] = __fadd_rn(uj, rj);
+      }
+      cap[j] = cj;
     }
     removed = pair_removed[p];
   }
@@ -526,6 +550,13 @@ int nomad_window_verify_setup() {
                                    (int)smem_bytes(kWide));
 }
 
+// A window's bucket (a power of two >= 8) and real counts, as K6 takes
+// them.
+static bool window_args_ok(int b, int pairs, int rows, int entries) {
+  return b >= 8 && (b & (b - 1)) == 0 && pairs >= 0 && pairs <= b &&
+         rows >= 0 && rows <= b && entries >= 0 && entries <= b;
+}
+
 // K6 over a window of bucket b whose first `pairs` pairs may fold, with
 // `rows` placement rows and `entries` fold entries (the real counts, in
 // window order; see the header); `out` holds b records of 36 bytes.  A
@@ -535,18 +566,86 @@ int nomad_window_verify(const float* capacity, const float* reserved,
                         const float* usage, int d, const int* desc, int b,
                         int pairs, int rows, int entries, unsigned char* out,
                         void* stream) {
-  if (b < 8 || (b & (b - 1)) != 0 || pairs < 0 || pairs > b || rows < 0 ||
-      rows > b || entries < 0 || entries > b)
+  if (!window_args_ok(b, pairs, rows, entries))
     return (int)cudaErrorInvalidValue;
   const int blocks = (b + kPairs - 1) / kPairs;
   if (small_window(rows, entries))
     window_verify_kernel<kNarrow>
         <<<blocks, kNarrow, smem_bytes(kNarrow), (cudaStream_t)stream>>>(
-            capacity, reserved, usage, d, desc, b, pairs, rows, entries, out);
+            capacity, reserved, usage, d, desc, b, pairs, rows, entries, out,
+            nullptr, 0);
   else
     window_verify_kernel<kWide>
         <<<blocks, kWide, smem_bytes(kWide), (cudaStream_t)stream>>>(
-            capacity, reserved, usage, d, desc, b, pairs, rows, entries, out);
+            capacity, reserved, usage, d, desc, b, pairs, rows, entries, out,
+            nullptr, 0);
+  return (int)cudaGetLastError();
+}
+
+// Raises the shared memory of the gathered K6's wide blocks on the
+// current device; once per device, before its first launch there.
+int nomad_window_verify_gathered_setup() {
+  return (int)cudaFuncSetAttribute(window_verify_kernel<kWide, true>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem_bytes(kWide));
+}
+
+// K6 on rows gathered by K7d: `gathered` [shards][b][12] on this device
+// (see window_verify_kernel); otherwise as nomad_window_verify.
+int nomad_window_verify_gathered(const float* gathered, int shards,
+                                 const int* desc, int b, int pairs, int rows,
+                                 int entries, unsigned char* out,
+                                 void* stream) {
+  if (!window_args_ok(b, pairs, rows, entries) || shards < 1)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (b + kPairs - 1) / kPairs;
+  if (small_window(rows, entries))
+    window_verify_kernel<kNarrow, true>
+        <<<blocks, kNarrow, smem_bytes(kNarrow), (cudaStream_t)stream>>>(
+            nullptr, nullptr, nullptr, 0, desc, b, pairs, rows, entries, out,
+            gathered, shards);
+  else
+    window_verify_kernel<kWide, true>
+        <<<blocks, kWide, smem_bytes(kWide), (cudaStream_t)stream>>>(
+            nullptr, nullptr, nullptr, 0, desc, b, pairs, rows, entries, out,
+            gathered, shards);
+  return (int)cudaGetLastError();
+}
+
+// K7d: one shard's part of a sharded window's rows.  The shard holds
+// fleet rows [row_lo, row_lo + rows) of capacity/reserved/usage f32
+// [rows][d]; for each of the b pairs (pair_ni, global node ids) it
+// writes to out [b][12] the usage, reserved and capacity columns 0-3 of
+// the pair's node where the shard owns it, and zeros where it does not.
+// Each node has one owner, so the partials of all shards sum to the
+// rows exactly (the gathered K6 sums them).  Bound: 48 bytes a pair
+// written, the owned rows read: bytes, far under a microsecond at
+// b = 64; the launch is the cost.
+__global__ void shard_gather_kernel(const float* __restrict__ capacity,
+                                    const float* __restrict__ reserved,
+                                    const float* __restrict__ usage, int d,
+                                    int row_lo, int rows,
+                                    const int* __restrict__ pair_ni, int b,
+                                    float* __restrict__ out) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= b) return;
+  const int local = pair_ni[p] - row_lo;
+  const bool own = local >= 0 && local < rows;
+  const size_t row = own ? (size_t)local * d : 0;
+  float* o = out + (size_t)p * 12;
+  for (int j = 0; j < 4; ++j) {
+    o[j] = own ? usage[row + j] : 0.0f;
+    o[4 + j] = own ? reserved[row + j] : 0.0f;
+    o[8 + j] = own ? capacity[row + j] : 0.0f;
+  }
+}
+
+int nomad_shard_gather(const float* capacity, const float* reserved,
+                       const float* usage, int d, int row_lo, int rows,
+                       const int* pair_ni, int b, float* out, void* stream) {
+  if (d < 4 || rows < 1 || b < 1) return (int)cudaErrorInvalidValue;
+  shard_gather_kernel<<<(b + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+      capacity, reserved, usage, d, row_lo, rows, pair_ni, b, out);
   return (int)cudaGetLastError();
 }
 

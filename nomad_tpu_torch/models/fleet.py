@@ -97,6 +97,81 @@ def _pad_to(n: int) -> int:
 _FLEET_GEN = itertools.count()
 
 
+class ShardedResidency:
+    """THE residency policy for node-axis-sharded device caches.
+
+    Every mesh-resident twin (statics capacity/reserved, per-job
+    feasibility rows, the usage mirror's sharded copies) lives in one of
+    these: entries are keyed by (class, ..., mesh) where ``key[0]`` names
+    the entry's class ("capres" / "feas" / "usage"), bounded at
+    ``max_resident`` entries PER CLASS with the whole class evicted at
+    its bound, so a stream of distinct job versions churning feasibility
+    entries can never evict the capacity/reserved or usage twins.  Each
+    entry carries its scatters-since-upload count.  When a mesh resolves
+    for a dispatch (parallel/mesh.dispatch_mesh), the operands here are
+    the PRIMARY device copies."""
+
+    __slots__ = ("max_resident", "_res")
+
+    def __init__(self, max_resident: int = 4) -> None:
+        self.max_resident = max_resident
+        self._res: dict = {}   # key -> [operands tuple, scatter count]
+
+    def lookup(self, key):
+        entry = self._res.get(key)
+        return entry[0] if entry is not None else None
+
+    def prepare(self, mesh, arrays, spec=None) -> tuple:
+        """EXPLICIT sharded upload (counted, one h2d per array) of
+        ``arrays`` for ``mesh`` (node axis by default; ``spec`` cuts
+        e.g. [G, N] group-major rows) WITHOUT touching the residency
+        dict: a caller that serves readers under a lock (the usage
+        mirror) uploads through this outside the lock, then ``adopt``s
+        the result under it."""
+        from nomad_tpu_torch.parallel.devices import note_transfer
+        from nomad_tpu_torch.parallel.mesh import NODE, _shard
+
+        note_transfer("h2d", len(arrays))
+        return tuple(_shard(a, mesh, NODE if spec is None else spec)
+                     for a in arrays)
+
+    def adopt(self, key, arrays) -> tuple:
+        """Make already-uploaded ``arrays`` (from ``prepare``) resident
+        under ``key``; the per-class eviction bound applies here."""
+        if key not in self._res:
+            kind = key[0]
+            same = [k for k in self._res if k[0] == kind]
+            if len(same) >= self.max_resident:
+                for k in same:
+                    del self._res[k]
+        self._res[key] = [arrays, 0]
+        return arrays
+
+    def install(self, key, mesh, arrays, spec=None) -> tuple:
+        """prepare + adopt in one step, for callers holding no lock."""
+        return self.adopt(key, self.prepare(mesh, arrays, spec=spec))
+
+    def replace(self, key, arrays) -> None:
+        """Swap a maintained entry's operands (scatter update) and count
+        the scatter against its refresh budget."""
+        entry = self._res[key]
+        entry[0] = arrays
+        entry[1] += 1
+
+    def scatters(self, key) -> int:
+        entry = self._res.get(key)
+        return entry[1] if entry is not None else 0
+
+    def drop(self, key) -> None:
+        self._res.pop(key, None)
+
+    def clear(self) -> None:
+        self._res.clear()
+
+    def keys(self) -> list:
+        return list(self._res)
+
+
 @dataclass
 class FleetStatics:
     """Node-static tensors + host mirrors, cached per nodes-table generation."""
@@ -124,6 +199,10 @@ class FleetStatics:
     # Keeping these resident avoids re-uploading the fleet every eval —
     # at 10k nodes the feasibility matrix transfer dominates eval latency.
     device_cache: dict = field(default_factory=dict)
+    # Mesh-resident twins (capacity/reserved, sharded feasibility rows)
+    # behind the one residency policy; PRIMARY when a mesh resolves for
+    # the dispatch.
+    sharded: ShardedResidency = field(default_factory=ShardedResidency)
     # node_index -> (frozen used_ports, bw_used, bw_avail, ip, device) or
     # None: the node-static half of the fast network assigner
     # (scheduler/torch_binpack.py _node_net_init).
@@ -156,6 +235,30 @@ class FleetStatics:
         if hit is None or not on_default_platform(hit[0], device):
             return None
         return hit
+
+
+    def device_capacity_reserved_sharded(self, mesh):
+        """Mesh-resident (node-axis-sharded) capacity/reserved, the
+        PRIMARY copies for sharded dispatches, uploaded once per (fleet
+        generation, mesh) under the residency policy."""
+        key = ("capres", mesh)
+        hit = self.sharded.lookup(key)
+        if hit is None:
+            hit = self.sharded.install(key, mesh,
+                                       (self.capacity, self.reserved))
+        return hit
+
+    def device_feasible_sharded(self, mesh, feas_key, host: np.ndarray):
+        """Mesh-resident [G, N] feasibility rows of one prep-cache
+        feasibility entry, node axis sharded (group axis whole),
+        uploaded once per (feas_key, mesh) like capacity/reserved."""
+        from nomad_tpu_torch.parallel.mesh import GROUP_NODE
+
+        key = ("feas", feas_key, mesh)
+        hit = self.sharded.lookup(key)
+        if hit is None:
+            hit = self.sharded.install(key, mesh, (host,), spec=GROUP_NODE)
+        return hit[0]
 
 
 def build_fleet(nodes: list[Node]) -> FleetStatics:
@@ -452,6 +555,12 @@ class UsageMirror:
         # Invariant: _usage_d is None or exactly equals self.usage.
         self._usage_d = None
         self._scatters_since_upload = 0
+        # Mesh twins of _usage_d behind the residency policy: node-axis-
+        # sharded resident copies (the PRIMARY usage of sharded
+        # dispatches), one per mesh, bounded, maintained by the same
+        # scatters as the single-device copy.  Invariant: every resident
+        # value exactly equals self.usage.
+        self._sharded = ShardedResidency()
         # Per-node port/bandwidth tracking for the vectorized plan
         # verifier (server/plan_apply).  Disabled until sync_net() is
         # first called so scheduler-only users pay nothing; once
@@ -608,6 +717,7 @@ class UsageMirror:
         self.alloc_rows = rows
         self.rebuilds += 1
         self._usage_d = None
+        self._sharded.clear()
         if self._net_ready:
             self._rebuild_net(table)
 
@@ -739,20 +849,34 @@ class UsageMirror:
     # -- device mirror -----------------------------------------------------
     def _update_device(self, new_usage: np.ndarray,
                        touched_rows: set) -> None:
-        """Keep the device copy equal to the (about-to-be-installed) host
-        usage: scatter the touched rows into a new buffer (K5), or drop
-        the copy when a fresh upload is cheaper.  Called under the lock
-        from _apply_deltas."""
-        if self._usage_d is None:
+        """Keep the device copies (single-device and mesh-sharded) equal
+        to the (about-to-be-installed) host usage: scatter the touched
+        rows into new buffers (K5; on a mesh, one launch on each shard
+        that owns some, with its local row indices), or drop a copy when
+        a fresh upload is cheaper.  Called under the lock from
+        _apply_deltas."""
+        sharded = self._sharded
+        if self._usage_d is None and not sharded.keys():
             return
-        if len(touched_rows) > self.MAX_SCATTER_ROWS or \
-                self._scatters_since_upload >= self.DEVICE_REFRESH_EVERY:
-            self._usage_d = None
-            return
-        idx = np.fromiter(touched_rows, dtype=np.int32,
-                          count=len(touched_rows))
-        self._usage_d = _scatter_rows(self._usage_d, idx, new_usage[idx])
-        self._scatters_since_upload += 1
+        big = len(touched_rows) > self.MAX_SCATTER_ROWS
+        idx = rows = None
+        if not big:
+            idx = np.fromiter(touched_rows, dtype=np.int32,
+                              count=len(touched_rows))
+            rows = new_usage[idx]
+        if self._usage_d is not None:
+            if big or self._scatters_since_upload >= \
+                    self.DEVICE_REFRESH_EVERY:
+                self._usage_d = None
+            else:
+                self._usage_d = _scatter_rows(self._usage_d, idx, rows)
+                self._scatters_since_upload += 1
+        for key in sharded.keys():
+            if big or sharded.scatters(key) >= self.DEVICE_REFRESH_EVERY:
+                sharded.drop(key)
+            else:
+                (buf,) = sharded.lookup(key)
+                sharded.replace(key, (_scatter_sharded(buf, idx, rows),))
 
     def device_usage(self, device):
         """Copy of the mirror's usage resident on ``device`` (uploaded on
@@ -776,9 +900,36 @@ class UsageMirror:
         self._install(host, fresh, device)
         return fresh
 
+    def device_usage_sharded(self, mesh, expect_usage):
+        """Mesh-resident (node-axis-sharded) copy of the mirror's usage,
+        the PRIMARY usage of a sharded dispatch, or None when the mirror
+        has moved past the caller's view (``expect_usage`` is the view's
+        host array; the caller then uploads that itself).  Uploaded on
+        first use PER MESH under the residency policy, scatter-maintained
+        alongside every host delta like the single-device copy.  The
+        upload runs OUTSIDE the mirror lock
+        (ShardedResidency.prepare/adopt)."""
+        key = ("usage", mesh)
+        with self._lock:
+            if self.usage is not expect_usage:
+                return None
+            hit = self._sharded.lookup(key)
+            if hit is not None:
+                return hit[0]
+        arrays = self._sharded.prepare(mesh, (expect_usage,))
+        with self._lock:
+            if self.usage is not expect_usage:
+                return None  # moved past us mid-upload
+            hit = self._sharded.lookup(key)
+            if hit is None:
+                hit = self._sharded.adopt(key, arrays)
+            return hit[0]
+
     def window_lease(self, device):
         """Residency LEASE for a window verify: the usage copy resident
-        on ``device`` for the mirror's CURRENT generation, or None.
+        on ``device`` for the mirror's CURRENT generation, or None; for
+        a mesh (parallel/mesh.Mesh) its resident sharded copy, which a
+        sync likewise replaces and never writes.
         Must be called under ``self.lock``.  Never uploads (that would
         be a fleet-sized transfer under the lock); cold callers warm
         the copy through ``device_usage`` OUTSIDE the lock and take the
@@ -792,6 +943,11 @@ class UsageMirror:
         sync therefore replaces the copy the lease holds and never
         mutates it."""
         from nomad_tpu_torch.parallel.devices import on_default_platform
+        from nomad_tpu_torch.parallel.mesh import Mesh
+
+        if isinstance(device, Mesh):
+            hit = self._sharded.lookup(("usage", device))
+            return hit[0] if hit is not None else None
         buf = self._usage_d
         if buf is not None and on_default_platform(buf, device):
             return buf
@@ -943,6 +1099,30 @@ def _scatter_rows(usage_d, idx: np.ndarray, rows: np.ndarray):
     return scatter_rows(usage_d, idx_d, rows_d)
 
 
+def _scatter_sharded(buf, idx: np.ndarray, rows: np.ndarray):
+    """K5 on a sharded usage copy: the touched rows split by the shard
+    that owns them, one scatter (a new buffer) on each shard that owns
+    some, with its local indices; the other shards keep their tensors.
+    Returns a new Sharded."""
+    from nomad_tpu_torch.parallel.mesh import Sharded
+
+    width = buf.mesh.fleet_ways
+    local_rows = buf.shape[0] // width
+    owner = idx // local_rows
+    done: dict = {}
+    shards = []
+    for pos, shard in enumerate(buf):
+        out = done.get(id(shard))
+        if out is None:
+            c = pos % width
+            mine = owner == c
+            out = done[id(shard)] = _scatter_rows(
+                shard, idx[mine] - c * local_rows, rows[mine]) \
+                if mine.any() else shard
+        shards.append(out)
+    return Sharded(shards, buf.mesh, buf.spec, buf.shape)
+
+
 def scatter_rows_plain(usage, idx, rows):
     """Plain version of K5 (``usage.at[idx].set(rows)``): a new tensor
     equal to ``usage`` with rows ``idx`` replaced by ``rows``."""
@@ -1029,6 +1209,13 @@ class FleetCache:
             hit = self._statics.get(id(table))
             if hit is not None and hit[0] is table:
                 del self._statics[id(table)]
+                # Its mesh-resident twins go too, so a reaped server's
+                # shards stop holding the card.
+                fleet = hit[1]
+                fleet.sharded.clear()
+                if fleet.mirror is not None:
+                    with fleet.mirror.lock:
+                        fleet.mirror._sharded.clear()
 
 
 fleet_cache = FleetCache()

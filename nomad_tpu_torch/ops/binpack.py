@@ -71,7 +71,7 @@ def score_all_nodes(capacity, reserved, usage, job_counts, ask, feasible,
     safe_mem = torch.where(node_mem > 0, node_mem, one)
     free_cpu = 1.0 - util[:, DIM_CPU] / safe_cpu
     free_mem = 1.0 - util[:, DIM_MEM] / safe_mem
-    score = 20.0 - (torch.pow(10.0, free_cpu) + torch.pow(10.0, free_mem))
+    score = 20.0 - (_pow10(free_cpu) + _pow10(free_mem))
     score = torch.clamp(score, 0.0, 18.0)
     score = torch.where((node_cpu > 0) & (node_mem > 0), score,
                         torch.zeros_like(score))
@@ -79,6 +79,28 @@ def score_all_nodes(capacity, reserved, usage, job_counts, ask, feasible,
     ok = feasible & fit
     ok = torch.where(distinct, ok & (job_counts == 0), ok)
     return torch.where(ok, score, torch.full_like(score, NEG_INF))
+
+
+# Elements of one CPU pow call in _pow10: a multiple of 32, under ATen's
+# parallel grain.
+_POW_CHUNK = 16384
+
+
+def _pow10(x):
+    """10 ** x elementwise (x 1-D).  On the CPU, PyTorch's vectorized pow
+    and its loop's scalar tail can round one ulp apart, so a shard's
+    slice would score otherwise than the same rows of the whole fleet.
+    There the input is padded to whole blocks of 32 elements and raised
+    in calls of at most ``_POW_CHUNK`` elements: each call stays under
+    ATen's parallel grain (32,768), so it runs as one loop on one thread
+    and every element takes the vectorized path, whatever the length and
+    the thread count.  On the card pow is elementwise."""
+    if x.device.type != "cpu":
+        return torch.pow(10.0, x)
+    n = x.shape[0]
+    padded = torch.cat([x, x.new_zeros(-n % 32)])
+    return torch.cat([torch.pow(10.0, c)
+                      for c in padded.split(_POW_CHUNK)])[:n]
 
 
 def place_sequence_plain(capacity, reserved, usage0, job_counts0, feasible,
@@ -523,3 +545,293 @@ def place_sequence_batch(capacity, reserved, usage0, job_counts, feasible,
 
 
 place_sequence_batch.launches = 0
+
+
+# -- K7: the kernels of the node-axis-sharded walks (parallel/mesh.py) ----
+#
+# A sharded walk splits the node axis into S shards of R = N / S rows,
+# each its own tensors on its own device.  Each step of a walk (one
+# placement of K2/K4b, one round of a slot of K3/K4a) is K7a on every
+# shard, K7b on the lead device and K7c on every shard
+# (``csrc/binpack.cu``, the section "K7").  Per-lane operands keep K4's
+# leading lane axis B (a single eval is one lane); every shard's tensors
+# cover only its R rows.
+
+
+def shard_select_plain(capacity, reserved, usage, job_counts, feasible,
+                       asks, distinct, penalty, step: int, k: int,
+                       row_lo: int, group_idx=None):
+    """Plain version of K7a: per lane, the step's ask scored on the
+    shard's rows (:func:`score_all_nodes` on the slice), and the best
+    ``k`` as (values f32[B, k], global indices i32[B, k]) in K3's order:
+    the argmax for k = 1, else a stable sort (:func:`topk_plain`).  The
+    step's group is ``group_idx[b, step]`` (a sequence walk) or ``step``
+    itself (a slot of the rounds)."""
+    lanes = usage.shape[0]
+    vals = torch.empty((lanes, k), dtype=torch.float32, device=usage.device)
+    idx = torch.empty((lanes, k), dtype=torch.int32, device=usage.device)
+    for b in range(lanes):
+        g = step if group_idx is None else int(group_idx[b, step])
+        masked = score_all_nodes(capacity, reserved, usage[b], job_counts[b],
+                                 asks[b, g], feasible[b, g], distinct[b, g],
+                                 float(penalty[b]))
+        if k == 1:
+            order = torch.argmax(masked).reshape(1)  # the first maximum
+        else:
+            order = topk_plain(masked, k)[1]
+        vals[b] = masked[order]
+        idx[b] = order.to(torch.int32) + row_lo
+    return vals, idx
+
+
+def merge_select_plain(cand_vals, cand_idx, rows: int, upd, chosen, scores,
+                       *, slot: int, rnd: int = 0, m=None, counts=None,
+                       valid=None):
+    """Plain version of K7b: per lane, a sorted merge of the S lists of
+    ``cand_vals``/``cand_idx`` f32/i32[S, B, k] (score descending, -0.0
+    tied with 0.0, then global index ascending) down to ``kout =
+    upd.shape[2]`` winners; writes in place what the walk keeps of them.
+    A sequence walk passes ``valid`` bool[B, P] and its step as
+    ``slot``: chosen/scores [B, P] at column ``slot``.  A rounds walk
+    passes ``counts`` i32[B, G] and the copies left ``m`` i32[B] (read
+    from counts at round 0, decreased by what the round places):
+    chosen/scores [B, G, rounds * kout] at round ``rnd`` of ``slot``.
+    ``upd`` i32[S, B, kout] gets, for each shard of ``rows`` rows, the
+    local row and taken bit (row << 1 | taken) of each winner it owns,
+    -1 elsewhere."""
+    n_shards, lanes, k = cand_vals.shape
+    kout = upd.shape[2]
+    vals = cand_vals.permute(1, 0, 2).reshape(lanes, n_shards * k)
+    idx = cand_idx.permute(1, 0, 2).reshape(lanes, n_shards * k)
+    for b in range(lanes):
+        order = torch.argsort(idx[b], stable=True)
+        order = order[torch.sort(-(vals[b][order] + 0.0),
+                                 stable=True).indices][:kout]
+        wv, wi = vals[b][order], idx[b][order]
+        if valid is None:
+            left = int(counts[b, slot]) if rnd == 0 else int(m[b])
+            take = (torch.arange(kout, device=wv.device) < left) \
+                & (wv > NEG_INF / 2)
+            m[b] = left - int(take.sum())
+            lo = rnd * kout
+            chosen[b, slot, lo:lo + kout] = torch.where(take, wi, -1)
+            scores[b, slot, lo:lo + kout] = wv
+        else:
+            take = valid[b, slot] & (wv > NEG_INF / 2)
+            chosen[b, slot] = torch.where(take, wi, -1)[0]
+            scores[b, slot] = wv[0]
+        owner = torch.div(wi, rows, rounding_mode="floor")
+        for c in range(n_shards):
+            upd[c, b] = torch.where(owner == c,
+                                    (wi - c * rows) * 2 + take.to(wi.dtype),
+                                    -1)
+
+
+def shard_apply_plain(usage, job_counts, upd, asks, *, slot: int,
+                      group_idx=None):
+    """Plain version of K7c, in place: per lane, ``index_add_`` of the
+    step's ask (and 1 to the job count) on the taken rows of the shard's
+    ``upd`` i32[B, kout], and of 0.0 (a round) or ask * 0.0 (a sequence
+    step, ``group_idx`` given) on its other winners."""
+    for b in range(usage.shape[0]):
+        e = upd[b]
+        e = e[e >= 0]
+        rows = (e >> 1).long()
+        take = (e & 1).bool()
+        g = slot if group_idx is None else int(group_idx[b, slot])
+        ask = asks[b, g]
+        miss = ask * 0.0 if group_idx is not None else torch.zeros_like(ask)
+        usage[b].index_add_(0, rows, torch.where(take[:, None], ask[None, :],
+                                                 miss[None, :]))
+        job_counts[b].index_add_(0, rows, take.to(job_counts.dtype))
+
+
+def shard_select(capacity, reserved, usage, job_counts, feasible, asks,
+                 distinct, penalty, step: int, k: int, row_lo: int,
+                 group_idx=None, out=None):
+    """K7a (the per-shard half of ``nomad_tpu/parallel/mesh.py``'s
+    sharded argmax and top_k): the plain version for CPU tensors, the
+    ``shard_select_kernel`` launch (one block a lane) for CUDA tensors.
+    capacity/reserved f32[R, D] (R a power of two), usage f32[B, R, D],
+    job_counts i32[B, R], feasible bool[B, G, R], asks f32[B, G, D],
+    distinct bool[B, G], penalty f32[B], group_idx i32[B, P] or None.
+    Returns (values f32[B, k], global indices i32[B, k]), written into
+    ``out`` (a pair of such tensors, e.g. views of the lead device's
+    candidate buffers) when given."""
+    args = dict(capacity=capacity, reserved=reserved, usage=usage,
+                job_counts=job_counts, feasible=feasible, asks=asks,
+                distinct=distinct, penalty=penalty)
+    if group_idx is not None:
+        args["group_idx"] = group_idx
+    device = kernels.route(args)
+    rows = _node_axis(capacity)
+    if not 1 <= k <= rows:
+        raise ValueError(f"k {k} must lie in [1, {rows}]")
+    if device.type == "cpu":
+        got = shard_select_plain(capacity, reserved, usage, job_counts,
+                                 feasible, asks, distinct, penalty, step, k,
+                                 row_lo, group_idx)
+        if out is None:
+            return got
+        out[0].copy_(got[0])
+        out[1].copy_(got[1])
+        return out
+    lanes, g = feasible.shape[0], feasible.shape[1]
+    specs = _batch_specs(rows, lanes, g, dict(
+        usage=(torch.float32, (lanes, rows, NDIMS))))
+    del specs["usage0"]
+    if group_idx is not None:
+        specs["group_idx"] = (torch.int32, (lanes, group_idx.shape[-1]))
+    kernels.check_args(args, specs)
+    if out is None:
+        out = (torch.empty((lanes, k), dtype=torch.float32, device=device),
+               torch.empty((lanes, k), dtype=torch.int32, device=device))
+    kernels.check_args(dict(vals=out[0], idx=out[1]), dict(
+        vals=(torch.float32, (lanes, k)), idx=(torch.int32, (lanes, k))))
+    launch_shard_select(capacity, reserved, usage, job_counts, feasible,
+                        asks, distinct, penalty, step, k, row_lo, group_idx,
+                        out)
+    return out
+
+
+def launch_shard_select(capacity, reserved, usage, job_counts, feasible,
+                        asks, distinct, penalty, step, k, row_lo, group_idx,
+                        out, scratch=None):
+    """K7a's launch alone, on arguments :func:`shard_select` checked (a
+    walk checks them once for all its steps).  ``scratch`` is the key
+    region of each lane where :func:`select_scratch` puts it in device
+    memory."""
+    device = usage.device
+    lanes, rows = job_counts.shape
+    g = feasible.shape[1]
+    path = 0
+    if k > 1:
+        path = rounds_plan(rows, k)[0]
+        if scratch is None:
+            scratch = select_scratch(rows, k, lanes, device)
+    lib = kernels.library("binpack")
+    code = lib.nomad_shard_select(
+        capacity.data_ptr(), reserved.data_ptr(), usage.data_ptr(),
+        job_counts.data_ptr(), feasible.data_ptr(), asks.data_ptr(),
+        distinct.data_ptr(),
+        None if group_idx is None else group_idx.data_ptr(),
+        penalty.data_ptr(), lanes, rows, g,
+        1 if group_idx is None else group_idx.shape[-1], step, k, path,
+        row_lo, out[0].data_ptr(), out[1].data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        kernels.stream_handle(device))
+    kernels.check(lib, "shard_select", code)
+    shard_select.launches += 1
+
+
+shard_select.launches = 0
+
+
+def select_scratch(rows: int, k: int, lanes: int, device):
+    """The key regions of K7a's lanes in device memory where its plan
+    does not keep them in shared memory, else None; a walk allocates
+    them once for all its steps."""
+    if k == 1:
+        return None
+    _path, words, in_smem = rounds_plan(rows, k)
+    return None if in_smem else \
+        torch.empty((lanes, words), dtype=torch.int32, device=device)
+
+
+def merge_select(cand_vals, cand_idx, rows: int, upd, chosen, scores, *,
+                 slot: int, rnd: int = 0, m=None, counts=None, valid=None):
+    """K7b (the cross-shard merge of ``nomad_tpu/parallel/mesh.py``'s
+    sharded argmax and top_k): the plain version for CPU tensors, the
+    ``merge_select_kernel`` launch (one block a lane) for CUDA tensors;
+    arguments and in-place results as :func:`merge_select_plain`."""
+    args = dict(cand_vals=cand_vals, cand_idx=cand_idx, upd=upd,
+                chosen=chosen, scores=scores)
+    for name, t in (("m", m), ("counts", counts), ("valid", valid)):
+        if t is not None:
+            args[name] = t
+    device = kernels.route(args)
+    if (valid is None) == (counts is None or m is None):
+        raise ValueError("merge_select takes valid (a sequence step) or "
+                         "counts and m (a round)")
+    if device.type == "cpu":
+        return merge_select_plain(cand_vals, cand_idx, rows, upd, chosen,
+                                  scores, slot=slot, rnd=rnd, m=m,
+                                  counts=counts, valid=valid)
+    n_shards, lanes, k = cand_vals.shape
+    kout = upd.shape[2]
+    specs = dict(cand_vals=(torch.float32, (n_shards, lanes, k)),
+                 cand_idx=(torch.int32, (n_shards, lanes, k)),
+                 upd=(torch.int32, (n_shards, lanes, kout)),
+                 chosen=(torch.int32, tuple(chosen.shape)),
+                 scores=(torch.float32, tuple(chosen.shape)))
+    if valid is not None:
+        specs["valid"] = (torch.bool, tuple(chosen.shape))
+    else:
+        specs["counts"] = (torch.int32, tuple(chosen.shape[:2]))
+        specs["m"] = (torch.int32, (lanes,))
+    kernels.check_args(args, specs)
+    launch_merge_select(cand_vals, cand_idx, rows, upd, chosen, scores,
+                        slot, rnd, m, counts, valid)
+
+
+def launch_merge_select(cand_vals, cand_idx, rows, upd, chosen, scores, slot,
+                        rnd, m, counts, valid):
+    """K7b's launch alone, on arguments :func:`merge_select` checked."""
+    n_shards, lanes, k = cand_vals.shape
+    seq = valid is not None
+    lib = kernels.library("binpack")
+    code = lib.nomad_merge_select(
+        cand_vals.data_ptr(), cand_idx.data_ptr(), n_shards, lanes, k,
+        upd.shape[2], rows, int(seq), slot, rnd,
+        1 if seq else chosen.shape[1], chosen.shape[-1],
+        None if seq else counts.data_ptr(),
+        valid.data_ptr() if seq else None,
+        None if seq else m.data_ptr(), upd.data_ptr(), chosen.data_ptr(),
+        scores.data_ptr(), kernels.stream_handle(cand_vals.device))
+    kernels.check(lib, "merge_select", code)
+    merge_select.launches += 1
+
+
+merge_select.launches = 0
+
+
+def shard_apply(usage, job_counts, upd, asks, *, slot: int, group_idx=None):
+    """K7c (the owner's row update of ``nomad_tpu/parallel/mesh.py``'s
+    sharded scans): the plain version for CPU tensors, the
+    ``shard_apply_kernel`` launch (one block a lane) for CUDA tensors;
+    updates usage f32[B, R, D] and job_counts i32[B, R] in place from
+    the shard's ``upd`` i32[B, kout] (:func:`shard_apply_plain`)."""
+    args = dict(usage=usage, job_counts=job_counts, upd=upd, asks=asks)
+    if group_idx is not None:
+        args["group_idx"] = group_idx
+    device = kernels.route(args)
+    if device.type == "cpu":
+        return shard_apply_plain(usage, job_counts, upd, asks, slot=slot,
+                                 group_idx=group_idx)
+    lanes, rows = job_counts.shape
+    g = asks.shape[1]
+    specs = dict(usage=(torch.float32, (lanes, rows, NDIMS)),
+                 job_counts=(torch.int32, (lanes, rows)),
+                 upd=(torch.int32, (lanes, upd.shape[-1])),
+                 asks=(torch.float32, (lanes, g, NDIMS)))
+    if group_idx is not None:
+        specs["group_idx"] = (torch.int32, (lanes, group_idx.shape[-1]))
+    kernels.check_args(args, specs)
+    launch_shard_apply(usage, job_counts, upd, asks, slot, group_idx)
+
+
+def launch_shard_apply(usage, job_counts, upd, asks, slot, group_idx):
+    """K7c's launch alone, on arguments :func:`shard_apply` checked."""
+    lanes, rows = job_counts.shape
+    lib = kernels.library("binpack")
+    code = lib.nomad_shard_apply(
+        usage.data_ptr(), job_counts.data_ptr(), upd.data_ptr(),
+        asks.data_ptr(), None if group_idx is None else group_idx.data_ptr(),
+        lanes, rows, asks.shape[1],
+        1 if group_idx is None else group_idx.shape[-1], upd.shape[-1],
+        slot, kernels.stream_handle(usage.device))
+    kernels.check(lib, "shard_apply", code)
+    shard_apply.launches += 1
+
+
+shard_apply.launches = 0

@@ -51,6 +51,10 @@ PROTOTYPES = {
         "nomad_place_sequence_batch_plan": (_I, _I, _I, _P),
         "nomad_place_sequence_batch": (_P,) * 10 + (_I,) * 7 + (_P,) * 6,
         "nomad_place_rounds_batch": (_P,) * 9 + (_I,) * 6 + (_P,) * 6,
+        # K7a-K7c, the sharded walks' kernels (parallel/mesh.py)
+        "nomad_shard_select": (_P,) * 9 + (_I,) * 8 + (_P,) * 4,
+        "nomad_merge_select": (_P,) * 2 + (_I,) * 10 + (_P,) * 7,
+        "nomad_shard_apply": (_P,) * 5 + (_I,) * 6 + (_P,),
     },
     "scatter_rows": {
         "nomad_scatter_rows": (_P, _P, _P, _P, _I, _I, _I, _P),
@@ -58,6 +62,10 @@ PROTOTYPES = {
     "window_verify": {
         "nomad_window_verify_setup": (),
         "nomad_window_verify": (_P, _P, _P, _I, _P) + (_I,) * 4 + (_P, _P),
+        # K6 on K7d's gathered rows, and K7d (parallel/mesh.py)
+        "nomad_window_verify_gathered_setup": (),
+        "nomad_window_verify_gathered": (_P, _I, _P) + (_I,) * 4 + (_P, _P),
+        "nomad_shard_gather": (_P,) * 3 + (_I,) * 3 + (_P, _I, _P, _P),
     },
 }
 

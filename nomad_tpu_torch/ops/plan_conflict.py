@@ -60,11 +60,14 @@ against the usage copy and capacity/reserved resident on the caller's
 of the optimistic overlay fold, which a component walk takes wherever it
 can prove the fold's all-accepted prefix held.  Verdicts, accepted
 alloc sets and store fingerprints are byte-identical under either
-engine.  The JAX package reaches its device engine only on a mesh of
-two or more devices; the port treats the caller's one device as that
-mesh (the ``device`` policy), and ``auto`` stays on the host.  A K6
-build, launch or fetch failure on the CUDA path raises; it does not
-fall back to the host engine.  ``executor`` is any object with
+engine.  Under the ``device`` policy a window first asks for a mesh
+(parallel/mesh.dispatch_mesh, two or more devices) and verifies on the
+mesh's resident sharded twins (``window_verify_sharded``: K7d on each
+shard, then K6), as the JAX package does; without a mesh the port
+launches K6 on the caller's one device (the JAX package stays on the
+host there), and ``auto`` stays on the host.  A K6 or K7d build, launch
+or fetch failure on the CUDA path raises; it does not fall back to the
+host engine.  ``executor`` is any object with
 ``run_components(tasks, descs)`` returning each task's result in order
 (the leader applier's component executor, which comes with the server
 slice); without one every component walks inline.
@@ -403,9 +406,10 @@ def evaluate_window(snap, plans: list, executor=None,
     baseline and exercised by the parity rigs.
 
     ``device`` is where the ``device`` verify policy launches K6 (a
-    CUDA device: the kernel; ``cpu``: its plain version); with None
-    that policy reports the ``no-mesh`` fallback and the host engine
-    runs.  ``info["device"]`` records what happened.
+    CUDA device: the kernel; ``cpu``: its plain version) when no mesh
+    resolves; with None and no mesh that policy reports the ``no-mesh``
+    fallback and the host engine runs.  ``info["device"]`` records what
+    happened, with the JAX package's keys.
     """
     from nomad_tpu_torch.server.plan_apply import (
         OptimisticSnapshot,
@@ -562,18 +566,26 @@ def _window_device_args(plans, plan_nodes, verdicts, pairs, mirror,
 
 
 def _dispatch_window_fit(capres, lease, dargs, vec_pair, vec_rows,
-                         n_pairs):
+                         n_pairs, mesh=None):
     """ONE K6 launch for the whole window's base fit + overlay fold,
     against the resident tensors (``capres`` from the statics,
-    ``lease`` from UsageMirror.window_lease).  Runs OUTSIDE the mirror
-    lock — the descriptors are tiny host arrays, padded to one shared
-    power-of-two bucket.  Returns (used_rows, caps_rows, _DeviceFit,
-    devinfo); used/caps come back through the counted fetch seam and
-    drop into ``prep.base_used``/``prep.caps`` exactly where the host
-    gather's ``.tolist()`` sat.  Any failure raises."""
+    ``lease`` from UsageMirror.window_lease); on a ``mesh``, the
+    resident sharded twins through ``window_verify_sharded`` (K7d on
+    each shard, then K6).  Runs OUTSIDE the mirror lock — the
+    descriptors are tiny host arrays, padded to one shared power-of-two
+    bucket.  Returns (used_rows, caps_rows, _DeviceFit, devinfo);
+    used/caps come back through the counted fetch seam and drop into
+    ``prep.base_used``/``prep.caps`` exactly where the host gather's
+    ``.tolist()`` sat.  Any failure raises."""
+    from functools import partial
+
     from nomad_tpu_torch.models.fleet import _pad_to
     from nomad_tpu_torch.parallel.devices import fetch_host, transfer_counts
-    from nomad_tpu_torch.parallel.mesh import unpack_results, window_verify
+    from nomad_tpu_torch.parallel.mesh import (
+        unpack_results,
+        window_verify,
+        window_verify_sharded,
+    )
 
     bucket = _pad_to(max(n_pairs, len(vec_rows), len(dargs["seq_ni"])))
 
@@ -591,7 +603,9 @@ def _dispatch_window_fit(capres, lease, dargs, vec_pair, vec_rows,
 
     t0 = time.perf_counter()
     before = transfer_counts()
-    out = window_verify(
+    verify = window_verify if mesh is None \
+        else partial(window_verify_sharded, mesh)
+    out = verify(
         capres[0], capres[1], lease, packed=True,
         counts=(n_pairs, len(vec_rows), len(dargs["seq_ni"])),
         pair_ni=pad_i(dargs["pair_ni"], 0), row_pair=pad_i(vec_pair, 0),
@@ -672,29 +686,39 @@ def _evaluate_window_vec(overlay, plans: list, executor, partition: bool,
         for i in comp:
             plan_comp[i] = ci
 
-    # Verify policy (ops/verify_policy.py): device resolution and the
-    # warm-up of the resident copies happen OUTSIDE the mirror lock;
-    # under the lock the device path only LOOKS UP residency (the
-    # window-lease rule).  ``auto`` stays on the host on one device.
+    # Verify policy (ops/verify_policy.py): mesh and device resolution
+    # and the warm-up of the resident copies happen OUTSIDE the mirror
+    # lock; under the lock the device path only LOOKS UP residency (the
+    # window-lease rule).  ``auto`` stays on the host.  Under ``device``
+    # a window first asks for a mesh (parallel/mesh.dispatch_mesh) and
+    # verifies on its sharded twins; without one K6 runs on the
+    # caller's device.
     from nomad_tpu_torch.ops.verify_policy import VERIFY_DEVICE, \
         verify_policy
 
     dev = None
+    dev_mesh = None
     devinfo = None
     if verify_policy() == VERIFY_DEVICE:
-        if device is None:
+        from nomad_tpu_torch.parallel.mesh import dispatch_mesh
+        dev_mesh = dispatch_mesh(1, statics.n_pad, device=device)
+        if dev_mesh is None and device is None:
             devinfo = {"dispatched": False, "fallback": "no-mesh"}
         else:
-            from nomad_tpu_torch.parallel.devices import resolve_device
-            dev = resolve_device(device)
             # Forced intent: warm the copies now (no-op when resident)
             # so this window holds the lease.  The mirror syncs to the
             # window's snapshot first: a fresh fleet generation's first
             # sync is a rebuild, which drops any copy warmed before it.
             if not mirror.sync_net(base):
                 return None  # snapshot older than the mirror
-            statics.device_capacity_reserved(dev)
-            mirror.device_usage(dev)
+            if dev_mesh is not None:
+                statics.device_capacity_reserved_sharded(dev_mesh)
+                mirror.device_usage_sharded(dev_mesh, mirror.usage)
+            else:
+                from nomad_tpu_torch.parallel.devices import resolve_device
+                dev = resolve_device(device)
+                statics.device_capacity_reserved(dev)
+                mirror.device_usage(dev)
 
     prep = _Prep()
     prep.plans = plans
@@ -771,7 +795,13 @@ def _evaluate_window_vec(overlay, plans: list, executor, partition: bool,
         dev_capres = None
         dev_lease = None
         if pairs:
-            if dev is not None:
+            if dev_mesh is not None:
+                # Residency lease on the mesh: the sharded twins of
+                # THIS generation, or None — never an upload under the
+                # lock.
+                dev_lease = mirror.window_lease(dev_mesh)
+                dev_capres = statics.sharded.lookup(("capres", dev_mesh))
+            elif dev is not None:
                 # Residency lease: references to the resident copies
                 # of THIS generation, or None — never an upload under
                 # the lock.
@@ -785,7 +815,7 @@ def _evaluate_window_vec(overlay, plans: list, executor, partition: bool,
                     plans, prep.plan_nodes, verdicts, pairs, mirror,
                     index_of, frame_ids, plan_comp, alloc_vec)
             else:
-                if dev is not None:
+                if dev is not None or dev_mesh is not None:
                     devinfo = {"dispatched": False,
                                "fallback": "lease-miss"
                                if dev_lease is None else "capres-miss"}
@@ -816,7 +846,7 @@ def _evaluate_window_vec(overlay, plans: list, executor, partition: bool,
     if dev_args is not None:
         base_used, caps, prep.devfit, devinfo = _dispatch_window_fit(
             dev_capres, dev_lease, dev_args, vec_pair, vec_rows,
-            len(pairs))
+            len(pairs), mesh=dev_mesh)
 
     prep.verdicts = verdicts
     prep.pairs = pairs

@@ -11,19 +11,26 @@ the cross-plan base-fit pass:
   device  one launch of the window-verify kernel (K6,
           parallel/mesh.window_verify) per window against the usage
           copy and capacity/reserved already resident on the caller's
-          device — the fleet tensors never cross to the host.
+          device, or on a mesh the sharded form
+          (parallel/mesh.window_verify_sharded: K7d on every shard,
+          then K6) against the mesh-resident twins — the fleet tensors
+          never cross to the host.
 
-One card is the one-device case of the JAX package's mesh, and the
-JAX package takes its device engine only on a mesh of two or more
+The JAX package takes its device engine only on a mesh of two or more
 devices.  So in the port:
 
   ``host``    pins the reference engine;
-  ``device``  warms the resident copies OUTSIDE the mirror lock, takes
-              the residency lease under it (models/fleet.py
-              UsageMirror.window_lease) and launches K6 on the caller's
-              device: the CUDA kernel for a CUDA device, its plain
-              version for ``cpu``.  A caller that names no device gets
-              the ``no-mesh`` fallback, and a cold lease the
+  ``device``  first asks for a mesh (parallel/mesh.dispatch_mesh); with
+              one, it warms the sharded twins OUTSIDE the mirror lock,
+              takes the lease on them under it (models/fleet.py
+              UsageMirror.window_lease(mesh)) and verifies through
+              ``window_verify_sharded``, as the JAX package does.
+              Without one (a single card) it warms the resident copies
+              on the caller's device and launches K6 there: the CUDA
+              kernel for a CUDA device, its plain version for ``cpu``
+              (a difference on purpose: the JAX package stays on the
+              host).  A caller that names no device and has no mesh
+              gets the ``no-mesh`` fallback, and a cold lease the
               ``lease-miss`` one, as in the JAX package;
   ``auto``    (the default) stays on the host engine, as the JAX
               package does on one device.

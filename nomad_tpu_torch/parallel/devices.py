@@ -66,6 +66,18 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def default_platform_devices(device=None) -> list:
+    """The devices a mesh may span (parallel/mesh.dispatch_mesh): every
+    CUDA device, each once, when the caller computes on ``cuda``
+    (``device`` None means the process default), or ``[cpu]`` when it
+    asked for the CPU.  Never touches a card: the list is built from
+    ``torch.cuda.device_count()``, which is 0 without CUDA."""
+    device = torch.device(_DEFAULT[0] if device is None else device)
+    if device.type == "cpu":
+        return [torch.device("cpu")]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 def default_device() -> torch.device:
     """The device an entry point given no device computes on."""
     return resolve_device(None)
@@ -104,16 +116,21 @@ def put_counted(x, device=None):
     if isinstance(x, torch.Tensor):
         if x.device == device:
             return x
-        note_transfer(_classify(x.device, device))
+        note_transfer(classify_move(x.device.type, device.type))
         return x.to(device, copy=True)
     note_transfer("h2d")
     return torch.tensor(np.asarray(x), device=device)
 
 
-def _classify(src: torch.device, dst: torch.device) -> str:
-    if src.type == "cpu" and dst.type != "cpu":
+def classify_move(src_type: str, dst_type: str) -> str:
+    """The ONE h2d/d2h/d2d rule for an explicit move of a tensor between
+    device types (shared by put_counted and mesh._put, so the odometer
+    cannot drift between seams): a move whose source or destination is
+    the CPU crosses the host boundary; a copy between two cards, or
+    between two shards of one card, is d2d."""
+    if src_type == "cpu" and dst_type != "cpu":
         return "h2d"
-    if dst.type == "cpu" and src.type != "cpu":
+    if dst_type == "cpu" and src_type != "cpu":
         return "d2h"
     return "d2d"
 

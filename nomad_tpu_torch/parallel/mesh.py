@@ -1,25 +1,596 @@
-"""Device kernels of the window verify: K6, the group-commit applier's
-base fit and overlay fold for one window.
+"""Device meshes for the scheduler: the node axis sharded over devices.
 
-Counterpart of the window-verify section of ``nomad_tpu/parallel/mesh.py``
-(``_window_verify_jit`` and its wrapper ``window_verify_sharded``).  The
-JAX package runs it with the node axis sharded over a mesh of two or
-more devices; one card is the one-device case of that mesh, and the
-function does not depend on the mesh.  The sharded K2-K4 wrappers (K7)
-and ``dispatch_mesh`` come with the multi-card work.
+Counterpart of ``nomad_tpu/parallel/mesh.py``.  The problem dimension
+that grows is the fleet (nodes x task groups), so the node axis of every
+fleet tensor can be split over a mesh of devices: each shard holds
+``n_pad / fleet_ways`` rows (both powers of two) as tensors of its own on
+its own device, and a storm's lanes can be split over a second axis
+(:func:`storm_mesh`).  A :class:`Mesh` is a grid of ``torch.device``
+entries with the JAX package's axis names; a sharded operand
+(:class:`Sharded`) is the list of its per-shard tensors in the mesh's
+device order.
 
-The window's descriptors are tiny (one row per (plan, node) claim,
-placement row and fold entry), all padded to ONE shared power-of-two
-bucket B; the fleet tensors they index are the ones already resident on
-the caller's device, so the cost of a window does not grow with the
-fleet.
+:func:`dispatch_mesh` is the one authority on whether a dispatch
+shards, with the JAX package's rule and its ``NOMAD_TPU_MESH`` lever.
+It counts distinct CUDA devices, so on one card it returns None and the
+unsharded kernels run.  :func:`mesh_override` also takes a device list,
+which may name one device several times (a test's eight ``cpu``
+entries, four ``cuda:0`` shards on one card): the port's counterpart of
+the JAX tests' forced host device count.
+
+The sharded forms (K7) compute exactly what the unsharded kernels do.
+XLA turned the JAX forms' argmax and top_k over the sharded axis into
+per-shard work and a cross-shard merge; here every step of a walk is
+K7a on each shard, K7b on the mesh row's lead device and K7c on each
+shard (``ops/binpack.py``, ``csrc/binpack.cu``), and the window verify
+gathers each shard's rows with K7d before K6's body runs
+(``csrc/window_verify.cu``).  One process drives every shard: small
+candidate and update buffers travel between devices with
+``copy_(non_blocking=True)``, which PyTorch orders against the current
+streams of both devices.  On the CPU every kernel's plain version runs.
+
+The window verify (K6): the descriptors of one window are tiny (one row
+per (plan, node) claim, placement row and fold entry), all padded to ONE
+shared power-of-two bucket B; the fleet tensors they index are the ones
+already resident on the caller's device (or on the mesh's shards), so
+the cost of a window does not grow with the fleet.
 """
 from __future__ import annotations
+
+import contextlib
+import os
 
 import numpy as np
 import torch
 
-from nomad_tpu_torch.parallel.devices import PinnedStaging
+from nomad_tpu_torch.parallel.devices import (
+    PinnedStaging,
+    classify_move,
+    default_platform_devices,
+    note_transfer,
+)
+
+FLEET_AXIS = "fleet"
+LANE_AXIS = "lanes"
+
+# -- mesh resolution: the ONE authority ------------------------------------
+# Every dispatch that could shard the node axis asks dispatch_mesh(); the
+# answer is a property of the platform (the distinct devices) and the
+# dispatch shape, overridable by NOMAD_TPU_MESH ("off"/"0" forces the
+# unsharded kernels, an integer caps the device count), as in the JAX
+# package.
+
+ENV_VAR = "NOMAD_TPU_MESH"
+
+_MESH_CACHE: dict = {}
+# Process override installed by mesh_override(); a one-element holder so
+# readers never see a torn update.
+_OVERRIDE: list = [None]
+
+
+def _mesh_policy():
+    """Resolved policy: "off", "auto", an int device cap, or the list
+    of devices a mesh_override named."""
+    value = _OVERRIDE[0]
+    if isinstance(value, list):
+        return value
+    if value is None:
+        value = os.environ.get(ENV_VAR, "auto")
+    value = str(value).strip().lower() or "auto"
+    if value in ("off", "none", "0"):
+        return "off"
+    if value.isdigit():
+        return int(value)
+    return "auto"
+
+
+@contextlib.contextmanager
+def mesh_override(value):
+    """Temporarily force the mesh policy: "off", "auto", a device count,
+    or a list of devices that stands in for the platform's (it may
+    repeat a device: eight ``cpu`` entries in the tests, four
+    ``cuda:0`` shards on one card in ``chip_smoke.py``)."""
+    prior = _OVERRIDE[0]
+    if isinstance(value, (list, tuple)):
+        value = [torch.device(d) for d in value]
+    _OVERRIDE[0] = value
+    try:
+        yield
+    finally:
+        _OVERRIDE[0] = prior
+
+
+def dispatch_mesh(n_lanes: int, n_pad: int, device=None):
+    """Mesh for a dispatch of ``n_lanes`` evals over an ``n_pad``-wide
+    (power-of-two) node axis, or None when one device (or the "off"
+    policy, or a shape that cannot split) makes the unsharded kernels
+    the right call.  ``device`` is the caller's (None: the process
+    default): a caller on the CPU gets no mesh unless an override names
+    its devices, and a caller that names a card (``cuda:1``) gets a mesh
+    led by that card, so results and resident twins land where its
+    server computes.
+
+    The JAX package's rule: a power-of-two subset of the devices; lane
+    ways the largest power of two dividing ``n_lanes``, capped at half
+    the devices so the fleet axis keeps width; the rest shard the node
+    axis, capped so that they divide it.  ``n_lanes == 1`` resolves a
+    1-D fleet mesh; a storm gets the 2-D ``(lanes, fleet)`` layout when
+    its shape splits.  Meshes are cached, so equal requests get the same
+    object and residency keys that hold it hit across calls."""
+    policy = _mesh_policy()
+    if policy == "off":
+        return None
+    if isinstance(policy, list):
+        all_devices = policy
+    else:
+        all_devices = default_platform_devices(device)
+        lead = None if device is None else torch.device(device).index
+        if lead is not None and lead < len(all_devices):
+            all_devices = all_devices[lead:] + all_devices[:lead]
+    n_dev = len(all_devices)
+    if isinstance(policy, int):
+        n_dev = min(n_dev, policy)
+    if n_dev < 2:
+        return None
+    n = 1 << (n_dev.bit_length() - 1)  # power-of-two subset
+    lane_ways = 1
+    while lane_ways * 2 <= min(n // 2, n_lanes) and \
+            n_lanes % (lane_ways * 2) == 0:
+        lane_ways *= 2
+    # Fleet ways must divide the padded node axis (both powers of two,
+    # so <= suffices); tiny fleets on big hosts use fewer devices.
+    n = min(n, lane_ways * max(1, n_pad))
+    if n < 2:
+        return None
+    devices = tuple(all_devices[:n])
+    key = (devices, lane_ways)
+    mesh = _MESH_CACHE.get(key)
+    if mesh is None:
+        mesh = storm_mesh(lane_ways, devices) if lane_ways > 1 \
+            else fleet_mesh(devices)
+        _MESH_CACHE[key] = mesh
+    return mesh
+
+
+class Mesh:
+    """A grid of devices with named axes, the counterpart of
+    ``jax.sharding.Mesh``: ``(fleet,)`` (one row) or ``(lanes, fleet)``.
+    Hashable and compared by its devices and axis names, so it can key
+    the residency caches (models/fleet.py ShardedResidency)."""
+
+    __slots__ = ("grid", "axis_names", "_key")
+
+    def __init__(self, grid, axis_names: tuple) -> None:
+        self.grid = tuple(tuple(torch.device(d) for d in row)
+                          for row in grid)
+        self.axis_names = tuple(axis_names)
+        widths = {len(row) for row in self.grid}
+        if not self.grid or len(widths) != 1 or 0 in widths:
+            raise ValueError("a mesh is a non-empty rectangular grid")
+        if len({d.type for d in self.devices}) != 1:
+            raise ValueError("a mesh's devices are all cpu or all cuda")
+        self._key = (self.grid, self.axis_names)
+
+    @property
+    def lane_ways(self) -> int:
+        return len(self.grid)
+
+    @property
+    def fleet_ways(self) -> int:
+        return len(self.grid[0])
+
+    @property
+    def shape(self) -> dict:
+        if self.axis_names == (FLEET_AXIS,):
+            return {FLEET_AXIS: self.fleet_ways}
+        return {LANE_AXIS: self.lane_ways, FLEET_AXIS: self.fleet_ways}
+
+    @property
+    def devices(self) -> tuple:
+        """Every position's device, row by row (a device may repeat)."""
+        return tuple(d for row in self.grid for d in row)
+
+    @property
+    def lead(self) -> torch.device:
+        """Where merges run and results land: the first position's."""
+        return self.grid[0][0]
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, Mesh) and self._key == other._key
+
+    def __hash__(self) -> int:
+        return hash(self._key)
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, {[str(d) for d in self.devices]})"
+
+
+def fleet_mesh(devices=None) -> Mesh:
+    """1-D mesh over the given devices (the platform's by default);
+    axis name 'fleet'."""
+    if devices is None:
+        devices = default_platform_devices()
+    return Mesh([list(devices)], (FLEET_AXIS,))
+
+
+def storm_mesh(lane_ways: int, devices=None) -> Mesh:
+    """2-D mesh ``(lanes, fleet)``: storm lanes data-parallel across one
+    axis, the node axis sharded across the other.  Each lane row holds a
+    fleet replica serving B / lane_ways evals."""
+    if devices is None:
+        devices = default_platform_devices()
+    devices = list(devices)
+    n = len(devices)
+    if lane_ways <= 0 or n % lane_ways:
+        raise ValueError(
+            f"lane_ways {lane_ways} must divide device count {n}")
+    width = n // lane_ways
+    return Mesh([devices[r * width:(r + 1) * width]
+                 for r in range(lane_ways)], (LANE_AXIS, FLEET_AXIS))
+
+
+# -- sharded operands ------------------------------------------------------
+# A spec names, per leading dimension, the mesh axis that splits it (None:
+# whole), as a PartitionSpec does.  A lane spec on a 1-D fleet mesh leaves
+# the lanes whole (every shard serves every lane).
+
+NODE = (FLEET_AXIS,)                          # [N, ...] row-sharded
+GROUP_NODE = (None, FLEET_AXIS)               # [G, N]
+REPL = ()                                     # replicated
+LANE = (LANE_AXIS,)                           # [B, ...] per lane row
+LANE_N = (LANE_AXIS, FLEET_AXIS)              # [B, N]
+LANE_NODE = (LANE_AXIS, None, FLEET_AXIS)     # [B, G, N]
+
+
+class Sharded(list):
+    """A sharded operand: its per-shard tensors in the mesh's position
+    order (row by row), each on its position's device, with the mesh,
+    the spec that cut it and its global shape.  Positions that hold the
+    same slice on the same device share one tensor.  Never written in
+    place: an update makes new shard tensors."""
+
+    def __init__(self, shards, mesh: Mesh, spec: tuple, shape: tuple):
+        super().__init__(shards)
+        self.mesh = mesh
+        self.spec = tuple(spec)
+        self.shape = tuple(shape)
+
+    @property
+    def dtype(self):
+        return self[0].dtype
+
+
+def _slices(spec: tuple, shape: tuple, mesh: Mesh, r: int, c: int) -> tuple:
+    """Position (r, c)'s slice of a global array of ``shape``."""
+    out = []
+    for dim, size in enumerate(shape):
+        axis = spec[dim] if dim < len(spec) else None
+        ways, at = 1, 0
+        if axis == FLEET_AXIS:
+            ways, at = mesh.fleet_ways, c
+        elif axis == LANE_AXIS and LANE_AXIS in mesh.axis_names:
+            ways, at = mesh.lane_ways, r
+        if size % ways:
+            raise ValueError(f"dimension {dim} of {size} does not split "
+                             f"{ways} ways over the {axis} axis")
+        width = size // ways
+        out.append(slice(at * width, (at + 1) * width))
+    return tuple(out)
+
+
+def _bounds(sl: tuple) -> tuple:
+    return tuple((s.start, s.stop) for s in sl)
+
+
+def _shard(x, mesh: Mesh, spec: tuple) -> Sharded:
+    """``x`` (a numpy array or scalar, a tensor or a Sharded) cut by
+    ``spec`` onto ``mesh``, every shard a copy of its own (uncounted:
+    the seams that call it count)."""
+    spec = tuple(spec)
+    if isinstance(x, Sharded):
+        if x.mesh == mesh and x.spec == spec:
+            return x
+        x = gather(x)
+    if isinstance(x, torch.Tensor):
+        src = x
+    else:
+        a = np.asarray(x)
+        src = torch.from_numpy(a if a.flags.c_contiguous else a.copy())
+    shape = tuple(src.shape)
+    made: dict = {}
+    shards = []
+    for r, row in enumerate(mesh.grid):
+        for c, dev in enumerate(row):
+            sl = _slices(spec, shape, mesh, r, c)
+            key = (dev, _bounds(sl))
+            t = made.get(key)
+            if t is None:
+                t = made[key] = src[sl].to(dev, copy=True).contiguous()
+            shards.append(t)
+    return Sharded(shards, mesh, spec, shape)
+
+
+def _put(x, mesh: Mesh, spec: tuple):
+    """EXPLICIT placement of ``x`` on ``mesh`` cut by ``spec`` (one
+    counted transfer per array, as the JAX package's ``_put`` counts),
+    skipped for an operand already resident with that layout: the seam
+    that lets the mesh-resident fleet tensors (the sharded usage mirror,
+    capacity/reserved) flow into the sharded kernels without a
+    per-dispatch upload."""
+    if isinstance(x, Sharded):
+        if x.mesh == mesh and x.spec == tuple(spec):
+            return x
+        kind = "d2d"
+    elif isinstance(x, torch.Tensor):
+        kind = classify_move(x.device.type, mesh.lead.type)
+    else:
+        kind = "h2d"
+    note_transfer(kind)
+    return _shard(x, mesh, spec)
+
+
+def gather(x: Sharded, device=None) -> torch.Tensor:
+    """The whole of a sharded operand as one tensor on ``device`` (the
+    mesh's lead by default)."""
+    device = x.mesh.lead if device is None else torch.device(device)
+    out = torch.empty(x.shape, dtype=x.dtype, device=device)
+    if any(t.device != device for t in x):
+        note_transfer(classify_move(x[0].device.type, device.type))
+    seen = set()
+    width = x.mesh.fleet_ways
+    for pos, t in enumerate(x):
+        sl = _slices(x.spec, x.shape, x.mesh, *divmod(pos, width))
+        if _bounds(sl) not in seen:
+            seen.add(_bounds(sl))
+            out[sl].copy_(t)
+    return out
+
+
+def shard_fleet_arrays(mesh: Mesh, capacity, reserved, usage, job_counts,
+                       feasible):
+    """Place fleet tensors on the mesh, node axis sharded."""
+    return (_put(capacity, mesh, NODE), _put(reserved, mesh, NODE),
+            _put(usage, mesh, NODE), _put(job_counts, mesh, NODE),
+            _put(feasible, mesh, GROUP_NODE))
+
+
+# -- the sharded walks (K7a-K7c) -------------------------------------------
+
+
+class _Row:
+    """One mesh row's share of a sharded walk: its lanes' state on every
+    shard (usage and job counts, evolved from copies of the base), the
+    candidate and update buffers on the row's lead device, and the
+    walk's results there.  ``ops`` maps each operand to its tensor at
+    each mesh position, in the batch layout (a leading lane axis)."""
+
+    def __init__(self, mesh: Mesh, r: int, ops: dict, seq: bool,
+                 k_cap: int, rounds: int) -> None:
+        from nomad_tpu_torch.ops.binpack import select_scratch
+
+        width = mesh.fleet_ways
+        self.devs = mesh.grid[r]
+        self.lead = lead = self.devs[0]
+
+        def row(name):
+            return [ops[name][r * width + c] for c in range(width)]
+
+        self.cap, self.res = row("capacity"), row("reserved")
+        self.feas, self.asks = row("feasible"), row("asks")
+        self.distinct, self.penalty = row("distinct"), row("penalty")
+        self.group_idx = row("group_idx") if seq else [None] * width
+        jc = row("job_counts")
+        self.lanes, self.rows = lanes, rows = jc[0].shape
+        # Each lane's own copy of the base, as the vmap's carry.
+        self.usage = [u.repeat(lanes, 1, 1) for u in row("usage0")]
+        self.jc = [j.clone() for j in jc]
+        self.k = k = 1 if seq else min(k_cap, rows)
+        kout = 1 if seq else k_cap
+        f32, i32 = torch.float32, torch.int32
+        self.cand_v = torch.empty((width, lanes, k), dtype=f32, device=lead)
+        self.cand_i = torch.empty((width, lanes, k), dtype=i32, device=lead)
+        self.upd = torch.empty((width, lanes, kout), dtype=i32, device=lead)
+        self.local = [None if d == lead else (
+            torch.empty((lanes, k), dtype=f32, device=d),
+            torch.empty((lanes, k), dtype=i32, device=d),
+            torch.empty((lanes, kout), dtype=i32, device=d))
+            for d in self.devs]
+        self.scratch = [select_scratch(rows, k, lanes, d)
+                        if d.type == "cuda" else None for d in self.devs]
+        self.m = self.counts = self.valid = None
+        if seq:
+            self.valid = ops["valid"][r * width]
+            shape = (lanes, self.group_idx[0].shape[1])
+        else:
+            self.counts = ops["counts"][r * width]
+            self.m = torch.zeros(lanes, dtype=i32, device=lead)
+            shape = (lanes, self.asks[0].shape[1], rounds * k_cap)
+        self.chosen = torch.empty(shape, dtype=i32, device=lead)
+        self.scores = torch.empty(shape, dtype=f32, device=lead)
+
+    def step(self, slot: int, rnd: int, first: bool) -> None:
+        """One step on every shard: K7a, K7b, K7c.  The first step goes
+        through the checking wrappers, the rest launch directly."""
+        from nomad_tpu_torch.ops import binpack
+
+        checked = first or self.lead.type == "cpu"
+        for c, local in enumerate(self.local):
+            out = (self.cand_v[c], self.cand_i[c]) if local is None \
+                else local[:2]
+            args = (self.cap[c], self.res[c], self.usage[c], self.jc[c],
+                    self.feas[c], self.asks[c], self.distinct[c],
+                    self.penalty[c], slot, self.k, c * self.rows,
+                    self.group_idx[c])
+            if checked:
+                binpack.shard_select(*args, out=out)
+            else:
+                binpack.launch_shard_select(*args, out, self.scratch[c])
+            if local is not None:
+                self.cand_v[c].copy_(local[0], non_blocking=True)
+                self.cand_i[c].copy_(local[1], non_blocking=True)
+        merge = (self.cand_v, self.cand_i, self.rows, self.upd, self.chosen,
+                 self.scores)
+        if checked:
+            binpack.merge_select(*merge, slot=slot, rnd=rnd, m=self.m,
+                                 counts=self.counts, valid=self.valid)
+        else:
+            binpack.launch_merge_select(*merge, slot, rnd, self.m,
+                                        self.counts, self.valid)
+        for c, local in enumerate(self.local):
+            upd = self.upd[c]
+            if local is not None:
+                local[2].copy_(upd, non_blocking=True)
+                upd = local[2]
+            if checked:
+                binpack.shard_apply(self.usage[c], self.jc[c], upd,
+                                    self.asks[c], slot=slot,
+                                    group_idx=self.group_idx[c])
+            else:
+                binpack.launch_shard_apply(self.usage[c], self.jc[c], upd,
+                                           self.asks[c], slot,
+                                           self.group_idx[c])
+
+
+def _walk(mesh: Mesh, lane_rows, ops: dict, *, seq: bool, k_cap: int = 1,
+          rounds: int = 1) -> tuple:
+    """Run a sharded walk on the mesh rows ``lane_rows`` (each serving
+    its own lanes, step by step side by side) and return (chosen,
+    scores, usage) on the mesh's lead device, lanes in row order, shaped
+    as K4a/K4b shape them (usage f32[B, N, D], gathered from the
+    shards)."""
+    rows = [_Row(mesh, r, ops, seq, k_cap, rounds) for r in lane_rows]
+    if seq:
+        steps = [(p, 0) for p in range(rows[0].chosen.shape[1])]
+    else:
+        steps = [(s, r) for s in range(rows[0].chosen.shape[1])
+                 for r in range(rounds)]
+    for i, (slot, rnd) in enumerate(steps):
+        for row in rows:
+            row.step(slot, rnd, i == 0)
+    lead = mesh.lead
+    chosen = torch.cat([row.chosen.to(lead) for row in rows])
+    scores = torch.cat([row.scores.to(lead) for row in rows])
+    usage = torch.empty((chosen.shape[0], mesh.fleet_ways * rows[0].rows,
+                         rows[0].usage[0].shape[2]), dtype=torch.float32,
+                        device=lead)
+    for i, row in enumerate(rows):
+        for c, u in enumerate(row.usage):
+            usage[i * row.lanes:(i + 1) * row.lanes,
+                  c * row.rows:(c + 1) * row.rows].copy_(u)
+    return chosen, scores, usage
+
+
+def _penalty(penalty):
+    """A penalty as the walks take it: f32 (a host number or array is
+    converted; a tensor or Sharded is taken as placed)."""
+    if isinstance(penalty, (Sharded, torch.Tensor)):
+        return penalty
+    return np.asarray(penalty, dtype=np.float32)
+
+
+def _one_lane(x: Sharded) -> list:
+    """A single eval's operand as one lane of the batch layout."""
+    return [t.reshape((1,) + tuple(t.shape)) for t in x]
+
+
+def _check_k_cap(capacity, k_cap: int, rounds: int) -> None:
+    n = capacity.shape[0]
+    if not 1 <= k_cap <= n or rounds < 1:
+        raise ValueError(f"k_cap {k_cap} must lie in [1, {n}] and rounds "
+                         f"{rounds} be >= 1")
+
+
+def _single_ops(mesh, capacity, reserved, usage0, job_counts0, feasible,
+                **replicated) -> dict:
+    """A single eval's operands on the mesh (node-sharded fleet tensors,
+    replicated descriptors), each as one lane."""
+    capacity, reserved, usage0, job_counts0, feasible = shard_fleet_arrays(
+        mesh, capacity, reserved, usage0, job_counts0, feasible)
+    ops = dict(capacity=capacity, reserved=reserved, usage0=usage0,
+               job_counts=_one_lane(job_counts0),
+               feasible=_one_lane(feasible))
+    replicated["penalty"] = _penalty(replicated["penalty"])
+    for name, x in replicated.items():
+        ops[name] = _one_lane(_put(x, mesh, REPL))
+    return ops
+
+
+def _batch_ops(mesh, capacity, reserved, usage0, jc0, feasible,
+               **lanes) -> dict:
+    """A storm's operands on the mesh: the shared fleet tensors
+    node-sharded, the per-lane ones on their lane row's shards."""
+    ops = dict(capacity=_put(capacity, mesh, NODE),
+               reserved=_put(reserved, mesh, NODE),
+               usage0=_put(usage0, mesh, NODE),
+               job_counts=_put(jc0, mesh, LANE_N),
+               feasible=_put(feasible, mesh, LANE_NODE))
+    lanes["penalty"] = _penalty(lanes["penalty"])
+    for name, x in lanes.items():
+        ops[name] = _put(x, mesh, LANE)
+    return ops
+
+
+def place_sequence_sharded(mesh: Mesh, capacity, reserved, usage0,
+                           job_counts0, feasible, asks, distinct, group_idx,
+                           valid, penalty):
+    """K2's placement scan with the node axis sharded over ``mesh`` (a
+    single eval: row 0 of a 2-D mesh).  Inputs may be host numpy arrays
+    or resident Sharded operands; each step is K7a on every shard (k =
+    1), K7b's merge of the shards' bests and K7c on the owner.  Returns
+    (chosen i32[P], scores f32[P], usage f32[N, D]) on the mesh's lead
+    device, equal to K2's."""
+    ops = _single_ops(mesh, capacity, reserved, usage0, job_counts0,
+                      feasible, asks=asks, distinct=distinct,
+                      group_idx=group_idx, valid=valid, penalty=penalty)
+    chosen, scores, usage = _walk(mesh, (0,), ops, seq=True)
+    return chosen[0], scores[0], usage[0]
+
+
+def place_rounds_sharded(mesh: Mesh, capacity, reserved, usage0, jc0,
+                         feasible, asks, distinct, counts, penalty, *,
+                         k_cap: int, rounds: int):
+    """K3's rounds placement with the node axis sharded over ``mesh``:
+    each round is a top min(k_cap, R) on every shard of R rows (K7a), a
+    merge to the global top k_cap (K7b) and the owners' updates (K7c).
+    Returns (chosen i32[G, rounds * k_cap], scores alike, usage
+    f32[N, D]) on the mesh's lead device, equal to K3's."""
+    _check_k_cap(capacity, k_cap, rounds)
+    ops = _single_ops(mesh, capacity, reserved, usage0, jc0, feasible,
+                      asks=asks, distinct=distinct, counts=counts,
+                      penalty=penalty)
+    chosen, scores, usage = _walk(mesh, (0,), ops, seq=False, k_cap=k_cap,
+                                  rounds=rounds)
+    return chosen[0], scores[0], usage[0]
+
+
+def place_rounds_batch_sharded(mesh: Mesh, capacity, reserved, usage0, jc0,
+                               feasible, asks, distinct, counts, penalty, *,
+                               k_cap: int, rounds: int):
+    """K4a, node axis sharded: on a 1-D fleet mesh every shard serves
+    every lane; on a 2-D ``storm_mesh`` each lane row serves its B /
+    lane_ways lanes over its own fleet replica.  Returns K4a's (chosen,
+    scores, usage f32[B, N, D]) on the mesh's lead device."""
+    _check_k_cap(capacity, k_cap, rounds)
+    ops = _batch_ops(mesh, capacity, reserved, usage0, jc0, feasible,
+                     asks=asks, distinct=distinct, counts=counts,
+                     penalty=penalty)
+    return _walk(mesh, range(mesh.lane_ways), ops, seq=False, k_cap=k_cap,
+                 rounds=rounds)
+
+
+def place_sequence_batch_sharded(mesh: Mesh, capacity, reserved, usage0,
+                                 jc0, feasible, asks, distinct, group_idx,
+                                 valid, penalty):
+    """K4b, node axis sharded (lanes too on a 2-D ``storm_mesh``, as in
+    :func:`place_rounds_batch_sharded`).  Returns K4b's (chosen, scores,
+    usage) on the mesh's lead device."""
+    ops = _batch_ops(mesh, capacity, reserved, usage0, jc0, feasible,
+                     asks=asks, distinct=distinct, group_idx=group_idx,
+                     valid=valid, penalty=penalty)
+    return _walk(mesh, range(mesh.lane_ways), ops, seq=True)
+
+
+# -- the window verify: K6, and its sharded form (K7d) ---------------------
 
 # Descriptor arrays of one window, in the order the kernel's packed
 # buffer holds them: (name, dtype, width; 0 = one value per entry).
@@ -47,13 +618,23 @@ def window_verify_plain(capacity, reserved, usage, pair_ni, row_pair,
     off for fp32 products unless a caller turns it on).  Every value is
     a small integer in fp32, so each sum is exact and independent of
     its order."""
-    npair = pair_ni.shape[0]
     ni = pair_ni.long()
+    return _verify_rows(usage[ni, :4], reserved[ni, :4], capacity[ni, :4],
+                        pair_ni, row_pair, row_vec, seq_ni, seq_vec,
+                        seq_order, seq_comp, pair_order, pair_comp,
+                        pair_removed)
+
+
+def _verify_rows(usage_rows, reserved_rows, capacity_rows, pair_ni,
+                 row_pair, row_vec, seq_ni, seq_vec, seq_order, seq_comp,
+                 pair_order, pair_comp, pair_removed):
+    """K6's plain body on the pairs' rows f32[B, 4], already gathered."""
+    npair = pair_ni.shape[0]
     delta = torch.zeros((npair, 4), dtype=torch.float32,
-                        device=usage.device)
+                        device=usage_rows.device)
     delta.index_add_(0, row_pair.long(), row_vec)
-    used = usage[ni, :4] + reserved[ni, :4] + delta
-    caps = capacity[ni, :4]
+    used = usage_rows + reserved_rows + delta
+    caps = capacity_rows
     fold = ((seq_ni[None, :] == pair_ni[:, None])
             & (seq_order[None, :] < pair_order[:, None])
             & (seq_comp[None, :] == pair_comp[:, None])).to(torch.float32)
@@ -247,3 +828,157 @@ def launch_window_verify(capacity, reserved, usage, packed, b: int,
     kernels.check(lib, "window_verify", code)
     window_verify.launches += 1
     return out
+
+
+# -- K7d: the sharded window verify ----------------------------------------
+# Each shard gathers the rows it owns of the window's pairs (zeros where
+# it owns none), the lead device sums the partials (one owner a row, small
+# integers: exact) and K6's body runs on them.
+
+
+def shard_gather_plain(capacity, reserved, usage, row_lo: int, pair_ni):
+    """Plain version of K7d: f32[B, 12], each pair's usage, reserved and
+    capacity columns 0-3 where the shard (rows [row_lo, row_lo + R))
+    owns its node, zeros elsewhere; a masked gather."""
+    local = pair_ni.long() - row_lo
+    own = (local >= 0) & (local < usage.shape[0])
+    at = torch.where(own, local, torch.zeros_like(local))
+    rows = torch.cat([usage[at, :4], reserved[at, :4], capacity[at, :4]],
+                     dim=1)
+    return torch.where(own[:, None], rows, torch.zeros_like(rows))
+
+
+def shard_gather(capacity, reserved, usage, row_lo: int, pair_ni, out=None):
+    """K7d: the plain version for CPU tensors, one ``shard_gather_kernel``
+    launch (``csrc/window_verify.cu``) for CUDA tensors.  capacity /
+    reserved / usage f32[R, D] (D >= 4) of one shard, pair_ni i32[B] (the
+    window's node ids) on the same device; returns (or writes into
+    ``out``) f32[B, 12]."""
+    args = dict(capacity=capacity, reserved=reserved, usage=usage,
+                pair_ni=pair_ni)
+    from nomad_tpu_torch.ops import kernels
+
+    device = kernels.route(args)
+    rows, d = usage.shape
+    b = pair_ni.shape[0]
+    if device.type == "cpu":
+        got = shard_gather_plain(capacity, reserved, usage, row_lo, pair_ni)
+        return got if out is None else out.copy_(got)
+    if d < 4:
+        raise ValueError(f"fleet rows of {d} values: want at least 4")
+    kernels.check_args(args, dict(
+        capacity=(torch.float32, (rows, d)),
+        reserved=(torch.float32, (rows, d)),
+        usage=(torch.float32, (rows, d)), pair_ni=(torch.int32, (b,))))
+    if out is None:
+        out = torch.empty((b, 12), dtype=torch.float32, device=device)
+    kernels.check_args(dict(out=out), dict(out=(torch.float32, (b, 12))))
+    lib = kernels.library("window_verify")
+    code = lib.nomad_shard_gather(
+        capacity.data_ptr(), reserved.data_ptr(), usage.data_ptr(), d,
+        row_lo, rows, pair_ni.data_ptr(), b, out.data_ptr(),
+        kernels.stream_handle(device))
+    kernels.check(lib, "shard_gather", code)
+    shard_gather.launches += 1
+    return out
+
+
+shard_gather.launches = 0
+
+
+def window_verify_gathered_plain(partials, **desc):
+    """Plain K6 on K7d's partials f32[S, B, 12]: their sum is each
+    pair's rows."""
+    rows = partials.sum(0)
+    return _verify_rows(rows[:, :4], rows[:, 4:8], rows[:, 8:12], **desc)
+
+
+# Device indices whose gathered K6 shared-memory limit is raised.
+_SET_UP_GATHERED: set = set()
+
+
+def launch_window_verify_gathered(partials, packed, b: int, counts: tuple):
+    """K6's launch on K7d's partials f32[S, B, 12] and a packed descriptor
+    buffer, both on one card; returns the output buffer, uint8[B, 36].
+    Counted as a launch of K6 (``window_verify.launches``)."""
+    from nomad_tpu_torch.ops import kernels
+
+    device = partials.device
+    if packed.dtype != torch.int32 or tuple(packed.shape) != (19 * b,) \
+            or packed.device != device or partials.dim() != 3 \
+            or tuple(partials.shape[1:]) != (b, 12) \
+            or partials.dtype != torch.float32 \
+            or not partials.is_contiguous():
+        raise ValueError("gathered window verify: want partials f32"
+                         f"[S, {b}, 12] and int32[19 * B] on {device}")
+    out = torch.empty((b, OUT_BYTES), dtype=torch.uint8, device=device)
+    lib = kernels.library("window_verify")
+    if device.index not in _SET_UP_GATHERED:
+        with torch.cuda.device(device):
+            kernels.check(lib, "window_verify_gathered setup",
+                          lib.nomad_window_verify_gathered_setup())
+        _SET_UP_GATHERED.add(device.index)
+    code = lib.nomad_window_verify_gathered(
+        partials.data_ptr(), partials.shape[0], packed.data_ptr(), b,
+        *counts, out.data_ptr(), kernels.stream_handle(device))
+    kernels.check(lib, "window_verify_gathered", code)
+    window_verify.launches += 1
+    return out
+
+
+def window_verify_sharded(mesh: Mesh, capacity, reserved, usage, pair_ni,
+                          row_pair, row_vec, seq_ni, seq_vec, seq_order,
+                          seq_comp, pair_order, pair_comp, pair_removed, *,
+                          packed: bool = False, counts=None):
+    """One window's base fit and optimistic overlay fold, node axis
+    sharded over ``mesh`` (its first row): K7d on every shard, then K6's
+    body on the gathered rows on the lead device.
+
+    capacity/reserved/usage normally arrive as the resident Sharded
+    twins (no transfer: ``_put`` skips them); the descriptors are the
+    host (numpy) arrays of :func:`window_verify`, validated against the
+    whole fleet, packed and uploaded to the lead in one counted
+    transfer (a shard on another device gets its copy of ``pair_ni``
+    from there).  Returns what :func:`window_verify` returns, equal to
+    it, on the lead device."""
+    capacity, reserved, usage = (_put(x, mesh, NODE)
+                                 for x in (capacity, reserved, usage))
+    desc = dict(pair_ni=pair_ni, row_pair=row_pair, row_vec=row_vec,
+                seq_ni=seq_ni, seq_vec=seq_vec, seq_order=seq_order,
+                seq_comp=seq_comp, pair_order=pair_order,
+                pair_comp=pair_comp, pair_removed=pair_removed)
+    n, d = usage.shape
+    if d < 4:
+        raise ValueError(f"fleet rows of {d} values: want at least 4")
+    b = check_descriptors(n, desc)
+    devs = mesh.grid[0]
+    lead = devs[0]
+    rows = n // len(devs)
+    if lead.type == "cpu":
+        dd = {k: torch.from_numpy(desc[k]) for k, _t, _w in DESCRIPTORS}
+        partials = torch.stack([
+            shard_gather(capacity[c], reserved[c], usage[c], c * rows,
+                         dd["pair_ni"]) for c in range(len(devs))])
+        out = window_verify_gathered_plain(partials, **dd)
+        return pack_results(*out) if packed else out
+    counts = kernel_counts(desc, counts)
+    pack_descriptors(desc, b, _UPLOAD.host_view(19 * b))
+    packed_d = _UPLOAD.upload(19 * b, lead)
+    partials = torch.empty((len(devs), b, 12), dtype=torch.float32,
+                           device=lead)
+    pair_ni_on = {lead: packed_d[:b]}
+    for c, dev in enumerate(devs):
+        ni = pair_ni_on.get(dev)
+        if ni is None:
+            ni = pair_ni_on[dev] = torch.empty(b, dtype=torch.int32,
+                                               device=dev)
+            note_transfer("d2d")
+            ni.copy_(packed_d[:b], non_blocking=True)
+        part = partials[c] if dev == lead else \
+            torch.empty((b, 12), dtype=torch.float32, device=dev)
+        shard_gather(capacity[c], reserved[c], usage[c], c * rows, ni,
+                     out=part)
+        if dev != lead:
+            partials[c].copy_(part, non_blocking=True)
+    buf = launch_window_verify_gathered(partials, packed_d, b, counts)
+    return buf if packed else unpack_results(buf)

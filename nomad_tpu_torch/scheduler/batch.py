@@ -26,7 +26,11 @@ a storm whose fused cost (lanes x steps x real nodes) is at most
 lane at a time (``_dispatch_fused_host``), or forces either side.  A
 window's lanes finish through ONE native call (``bulk_finish_many`` of
 the port's C extension, csrc/port_alloc.cpp), then each lane's Python
-tail.  Not ported yet: the multi-device mesh branches.
+tail.  Where a mesh resolves (parallel/mesh.dispatch_mesh: two or more
+devices, or a ``mesh_override`` device list) the fused launch runs
+node-axis-sharded (K7), on the 2-D ``(lanes, fleet)`` storm layout when
+the lanes split, against the resident sharded capacity, reserved and
+usage.
 """
 from __future__ import annotations
 
@@ -345,6 +349,17 @@ class BatchEvalRunner:
         penalty = np.zeros(B_pad, dtype=np.float32)
         penalty[:B] = [a.penalty for _, _, a in pending]
 
+        # Mesh resolution rides the ONE authority (parallel/mesh.py):
+        # several devices get the 2-D (lanes, fleet) storm layout when
+        # the shape splits; NOMAD_TPU_MESH overrides.
+        from nomad_tpu_torch.parallel.mesh import dispatch_mesh
+
+        mesh = dispatch_mesh(B_pad, statics.n_pad, device=device)
+        if mesh is not None:
+            return self._dispatch_fused_sharded(
+                pending, mesh, t_disp, rounds_ok, k_cap, rounds, feasible,
+                asks, distinct, group_idx, valid, job_counts, counts,
+                penalty)
         # All fused lanes share the same snapshot base usage (fast-path
         # contract above): the mirror's resident device copy when it has
         # one, so the fleet tensors are not re-uploaded per launch.  The
@@ -378,6 +393,53 @@ class BatchEvalRunner:
         chosen, scores = fetch_results(chosen, scores)
         _lane_spans("sched.dispatch", [s for s, _p, _a in pending],
                     t_disp, _tnow(), fused=B)
+        return [(sched, place, args, chosen[b], scores[b])
+                for b, (sched, place, args) in enumerate(pending)]
+
+    def _dispatch_fused_sharded(self, pending, mesh, t_disp, rounds_ok,
+                                k_cap, rounds, feasible, asks, distinct,
+                                group_idx, valid, job_counts, counts,
+                                penalty) -> list:
+        """The fused launch with the node axis (and on a storm mesh the
+        lanes) sharded over ``mesh`` (K7), against the mesh-resident
+        capacity/reserved and the mirror's sharded usage twin when the
+        lanes' view rides it; the lane stacks are placed by the sharded
+        wrappers (counted).  Results as :meth:`_dispatch_fused`."""
+        from nomad_tpu_torch.parallel.mesh import (
+            place_rounds_batch_sharded,
+            place_sequence_batch_sharded,
+        )
+
+        statics = pending[0][2].statics
+        view0 = pending[0][2].view
+        capacity_d, reserved_d = \
+            statics.device_capacity_reserved_sharded(mesh)
+        base_usage = None
+        if view0.usage_device is not None and statics.mirror is not None:
+            base_usage = statics.mirror.device_usage_sharded(
+                mesh, view0.usage)
+        if base_usage is None:
+            base_usage = view0.usage  # the mirror moved on: host upload
+        if rounds_ok:
+            chosen_s, score_s, _u = place_rounds_batch_sharded(
+                mesh, capacity_d, reserved_d, base_usage, job_counts,
+                feasible, asks, distinct, counts, penalty, k_cap=k_cap,
+                rounds=rounds)
+            chosen_s, score_s = fetch_results(chosen_s, score_s)
+            _lane_spans("sched.dispatch", [s for s, _p, _a in pending],
+                        t_disp, _tnow(), fused=len(pending))
+            done = []
+            for b, (sched, place, args) in enumerate(pending):
+                chosen, scores = rounds_to_placements(
+                    args, chosen_s[b], score_s[b])
+                done.append((sched, place, args, chosen, scores))
+            return done
+        chosen, scores, _u = place_sequence_batch_sharded(
+            mesh, capacity_d, reserved_d, base_usage, job_counts, feasible,
+            asks, distinct, group_idx, valid, penalty)
+        chosen, scores = fetch_results(chosen, scores)
+        _lane_spans("sched.dispatch", [s for s, _p, _a in pending],
+                    t_disp, _tnow(), fused=len(pending))
         return [(sched, place, args, chosen[b], scores[b])
                 for b, (sched, place, args) in enumerate(pending)]
 

@@ -168,7 +168,8 @@ class PipelinedEvalRunner(BatchEvalRunner):
     submitted).  ``stage_times`` accumulates per-stage wall seconds
     (begin/dispatch/collect/finish/submit) across the run.
     ``host_dispatches`` / ``device_dispatches`` count which executor
-    each dispatch used (scheduler/executor.py); ``windows`` lists the
+    each dispatch used (scheduler/executor.py), ``sharded_dispatches``
+    the device dispatches that ran on a mesh; ``windows`` lists the
     drained window sizes.
 
     ``device`` is where the schedulers compute: ``None`` means ``cuda``
@@ -195,6 +196,9 @@ class PipelinedEvalRunner(BatchEvalRunner):
                             "finish": 0.0, "submit": 0.0}
         self.host_dispatches = 0
         self.device_dispatches = 0
+        # Device dispatches that ran node-axis-sharded over a mesh
+        # (parallel/mesh.dispatch_mesh resolved one).
+        self.sharded_dispatches = 0
         self.windows: list[int] = []  # drained-window sizes
         # Device-executor circuit breaker (scheduler/breaker.py), shared
         # process-wide by default: device health is a machine property.
@@ -283,6 +287,8 @@ class PipelinedEvalRunner(BatchEvalRunner):
                         self.host_dispatches += 1
                     else:
                         self.device_dispatches += 1
+                        if sched.dispatched_sharded:
+                            self.sharded_dispatches += 1
                         self._note_rtt(time.perf_counter() - t_begin)
                     _lane_spans("sched.dispatch", [sched], t_disp,
                                 _tnow(), host=sched.dispatched_host)
@@ -393,6 +399,7 @@ class PipelinedEvalRunner(BatchEvalRunner):
         return {
             "host_dispatches": self.host_dispatches,
             "device_dispatches": self.device_dispatches,
+            "sharded_dispatches": self.sharded_dispatches,
             "depth": self.depth,
             "device_fraction": self.device_dispatches / dispatches
             if dispatches else 0.0,

@@ -280,7 +280,11 @@ class DeviceArgs:
                  # group_idx/valid), shared through the prep cache so
                  # re-dispatching the same job version uploads them
                  # once, not per eval.
-                 "dev_const")
+                 "dev_const",
+                 # feas_key: the statics.device_cache key of this eval's
+                 # feasibility entry, which also keys its mesh-resident
+                 # twin (FleetStatics.device_feasible_sharded).
+                 "feas_key")
 
     def __init__(self, **kw) -> None:
         for k, v in kw.items():
@@ -551,7 +555,8 @@ class TorchBinPackScheduler(GenericScheduler, FastPlacementMixin):
     # count host and device dispatches.
     dispatched_host: "bool | None" = None
     # Whether the last device dispatch ran node-axis-sharded over a
-    # mesh: always False until the sharded kernels (K7) are ported.
+    # mesh (parallel/mesh.dispatch_mesh resolved one): the pipelined
+    # runner's sharded_dispatches counts it.
     dispatched_sharded: "bool | None" = None
 
     def choose_host_executor(self, args: "DeviceArgs",
@@ -620,6 +625,11 @@ class TorchBinPackScheduler(GenericScheduler, FastPlacementMixin):
             self.dispatched_host = True
             return self.dispatch_host(args)
         self.dispatched_host = False
+        from nomad_tpu_torch.parallel.mesh import dispatch_mesh
+
+        mesh = dispatch_mesh(1, args.statics.n_pad, device=self.device)
+        if mesh is not None:
+            return self._dispatch_device_sharded(args, mesh)
         self.dispatched_sharded = False
         device = self.device
         capacity_d, reserved_d = \
@@ -647,6 +657,69 @@ class TorchBinPackScheduler(GenericScheduler, FastPlacementMixin):
             chosen_s, scores_s, _ = binpack.place_sequence(
                 capacity_d, reserved_d, usage_d, jc_d, feasible_d,
                 asks_d, distinct_d, group_idx_d, valid_d, args.penalty)
+        return copy_to_host_async(chosen_s), copy_to_host_async(scores_s)
+
+    def _dev_const_repl(self, args: "DeviceArgs", key: tuple, mesh,
+                        host_arrays: tuple) -> list:
+        """Mesh-replicated twins of the dispatch-constant arrays for the
+        sharded path, cached on the same prep-shared dev_const holder as
+        the single-device copies (one upload per job version per
+        mesh)."""
+        from nomad_tpu_torch.parallel.mesh import REPL, _put
+
+        holder = args.dev_const.setdefault(key, [None] * len(host_arrays))
+        for i, h in enumerate(host_arrays):
+            holder[i] = _put(h if holder[i] is None else holder[i], mesh,
+                             REPL)
+        return holder
+
+    def _dispatch_device_sharded(self, args: "DeviceArgs", mesh) -> tuple:
+        """Single-eval device dispatch with the node axis sharded over
+        ``mesh``: capacity/reserved, this eval's feasibility rows and
+        the usage mirror's copy are mesh-RESIDENT (uploaded once per
+        fleet generation / job version / sync under the residency
+        policy), and every step's cross-shard selection runs in K7
+        (parallel/mesh.py).  Placements equal the unsharded kernels'.
+        A failure raises: nothing runs the unsharded kernels or the host
+        in its place."""
+        from nomad_tpu_torch.parallel.mesh import (place_rounds_sharded,
+                                                   place_sequence_sharded)
+
+        self.dispatched_sharded = True
+        statics = args.statics
+        capacity_d, reserved_d = \
+            statics.device_capacity_reserved_sharded(mesh)
+        feasible_d = statics.device_feasible_sharded(
+            mesh, args.feas_key, args.feasible_h)
+        view = args.view
+        usage = None
+        if view.usage_device is not None and statics.mirror is not None:
+            # The mirror's sharded twin IS this view's usage (the view
+            # carried no plan deltas); None = the mirror moved past the
+            # view, so the view's own host array uploads instead.
+            usage = statics.mirror.device_usage_sharded(mesh, view.usage)
+        if usage is None:
+            usage = view.usage
+        (pen_d,) = self._dev_const_repl(
+            args, ("pen", mesh), mesh, (np.float32(args.penalty),))
+        if args.rounds_eligible:
+            asks_d, distinct_d, counts_d = self._dev_const_repl(
+                args, ("rounds", mesh), mesh,
+                (args.asks, args.distinct, args.counts))
+            chosen_s, scores_s, _u = place_rounds_sharded(
+                mesh, capacity_d, reserved_d, usage, view.job_counts,
+                feasible_d, asks_d, distinct_d, counts_d, pen_d,
+                k_cap=args.k_cap, rounds=args.rounds)
+        else:
+            asks_d, distinct_d, group_idx_d, valid_d = \
+                self._dev_const_repl(
+                    args, ("seq", mesh), mesh,
+                    (args.asks, args.distinct, args.group_idx,
+                     args.valid))
+            chosen_s, scores_s, _u = place_sequence_sharded(
+                mesh, capacity_d, reserved_d, usage, view.job_counts,
+                feasible_d, asks_d, distinct_d, group_idx_d, valid_d,
+                pen_d)
         return copy_to_host_async(chosen_s), copy_to_host_async(scores_s)
 
     def collect_device(self, args: "DeviceArgs", handles: tuple
@@ -872,7 +945,7 @@ class TorchBinPackScheduler(GenericScheduler, FastPlacementMixin):
             rounds_eligible=eligible,
             fast_all=all(np_[0] for np_ in net_plans),
             group_l=group_idx[:len(place)].tolist(), slots_c=[None],
-            col_meta=[None], dev_const={})
+            col_meta=[None], dev_const={}, feas_key=feas_key)
         # Keyed on the fleet GENERATION, not the statics object: a strong
         # statics ref here would pin evicted generations (device
         # feasibility buffers included) for as long as the job lives.

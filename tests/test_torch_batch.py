@@ -744,3 +744,59 @@ def test_sequence_walk_model_fails_with_a_stale_slot():
             np.asarray(y[b]).astype(x.dtype).view(np.int32))
             for x, y in zip(stale, j_out))
     assert differs > 0
+
+
+@pytest.mark.parametrize("kind", ["rounds", "sequence", "contended"])
+def test_sharded_storm_byte_identical_placements(kind, monkeypatch):
+    """Twin of tests/test_parallel.py's test of the name: the fused storm
+    with the node axis and the lanes sharded (the port: a mesh of eight
+    cpu entries; the JAX package: its 8-device mesh) commits byte for
+    byte what the other package's sharded storm and the port's unsharded
+    storm commit: rounds lanes (K4a's sharded form), lanes too large
+    for the rounds (K4b's) and a contended storm through each package's
+    VerifyingPlanner with state_refresh."""
+    from nomad_tpu_torch.parallel import mesh as tmesh
+
+    def jobs_of():
+        if kind == "rounds":
+            return [_service_job(4), _batch_job(3), _service_job(2, cpu=900),
+                    _batch_job(5)]
+        if kind == "sequence":
+            jobs = []
+            for count in (6, 5, 4):
+                j = mock.job()
+                tg = j.task_groups[0]
+                tg.count = count
+                tg.tasks[0].resources = Resources(
+                    cpu=1500, memory_mb=3000, networks=[NetworkResource(
+                        mbits=10, dynamic_ports=["http"])])
+                jobs.append(j)
+            return jobs
+        return _contended_jobs(800)
+
+    nodes = [mock.node(i) for i in range(8)] if kind == "contended" \
+        else _sized_nodes(16, 3)
+    jobs = jobs_of()
+    evals = [_make_eval(j) for j in jobs]
+    verifying = kind == "contended"
+    sharded = []
+    for name in ("place_rounds_batch_sharded",
+                 "place_sequence_batch_sharded"):
+        real = getattr(tmesh, name)
+        monkeypatch.setattr(tmesh, name, lambda mesh, *a, _r=real, **kw:
+                            sharded.append(mesh) or _r(mesh, *a, **kw))
+
+    jh, th = _worlds(nodes, jobs, verifying=verifying)
+    with mesh_override("auto"), executor_override("device"), _seeded():
+        JRunner(jh.state.snapshot(), jh, state_refresh=jh.snapshot
+                ).process(evals)
+    with tmesh.mesh_override(["cpu"] * 8):
+        _run_port(th, evals, refresh=True)
+    assert sharded and all(m.devices == (torch.device("cpu"),) * 8
+                           for m in sharded)
+    placed, _failed, status = _assert_same(jh, th)
+    assert placed and set(status.values()) == {"complete"}
+    _jh, tu = _worlds(nodes, jobs, verifying=verifying)
+    with tmesh.mesh_override("off"):
+        _run_port(tu, evals, refresh=True)
+    assert _committed(tu) == _committed(th)

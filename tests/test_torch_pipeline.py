@@ -364,3 +364,77 @@ def test_same_walk_ignores_scores_where_nothing_was_placed():
                          (chosen, np.asarray([1.0, 0.0, 2.0])))
     assert not same_walk((chosen, np.zeros(3)),
                          (chosen[::-1].copy(), np.zeros(3)))
+
+
+def test_sharded_stream_byte_identical_placements():
+    """Twin of tests/test_parallel.py's test of the name: one committed
+    eval stream (each plan committed before the next eval plans, so each
+    view rides the mirror's scatter-maintained sharded twin) through the
+    port's PipelinedEvalRunner on a mesh of eight cpu entries and the
+    JAX runner on its 8-device mesh: every device dispatch sharded on
+    both, the same plans (node and ports) eval by eval, and the same as
+    the port's unsharded stream.  The twin equals the host mirror after
+    the stream."""
+    import numpy as np
+
+    from nomad_tpu.parallel.mesh import mesh_override as j_mesh_override
+    from nomad_tpu.scheduler import Harness as JHarness
+    from nomad_tpu.scheduler.executor import \
+        executor_override as j_executor_override
+    from nomad_tpu.scheduler.pipeline import \
+        PipelinedEvalRunner as JRunner
+    from nomad_tpu.structs import Evaluation as JEvaluation
+    from nomad_tpu_torch.models.fleet import fleet_cache, mirror_for
+    from nomad_tpu_torch.parallel import mesh as tmesh
+
+    ref_nodes = [jmock.node(i) for i in range(24)]
+    ref_jobs = []
+    for k in range(6):
+        j = jmock.job()
+        j.id = f"stream-{k}"
+        j.task_groups[0].count = 8
+        ref_jobs.append(j)
+    evals = [make_eval(j) for j in ref_jobs]
+
+    jh = JHarness()
+    for n in ref_nodes:
+        jh.state.upsert_node(jh.next_index(), n)
+    for j in ref_jobs:
+        jh.state.upsert_job(jh.next_index(), j)
+    jrunner = JRunner(jh.state.snapshot(), jh, depth=3,
+                      state_refresh=jh.snapshot)
+    random.seed(34)
+    with j_mesh_override("auto"), j_executor_override("device"):
+        for ev in evals:
+            jrunner.state = jh.snapshot()
+            jrunner.process([JEvaluation.from_dict(ev.to_dict())])
+
+    def port(policy):
+        th, _nodes, _jobs = _cluster(0, 0, ref_jobs=ref_jobs)
+        for n in convert.nodes_from_reference(ref_nodes):
+            th.state.upsert_node(th.next_index(), n)
+        runner = PipelinedEvalRunner(th.state.snapshot(), th, depth=3,
+                                     state_refresh=th.snapshot,
+                                     device="cpu")
+        random.seed(34)
+        with tmesh.mesh_override(policy), executor_override("device"):
+            for ev in evals:
+                runner.state = th.snapshot()
+                runner.process([ev])
+        return th, runner
+
+    th, runner = port(["cpu"] * 8)
+    tu, runner_u = port("off")
+    assert jrunner.sharded_dispatches == jrunner.device_dispatches == 6
+    assert runner.sharded_dispatches == runner.device_dispatches == 6
+    assert runner.stats()["sharded_dispatches"] == 6
+    assert runner_u.sharded_dispatches == 0
+    assert _plans(th) == _plans(jh) == _plans(tu)
+    assert sum(len(p[0]) for p in _plans(th)) == 6 * 8
+    statics = fleet_cache.statics_for(th.state)
+    mirror = mirror_for(statics)
+    mirror.sync(th.state)
+    with tmesh.mesh_override(["cpu"] * 8):
+        mesh = tmesh.dispatch_mesh(1, statics.n_pad, device="cpu")
+    twin = mirror.device_usage_sharded(mesh, mirror.usage)
+    np.testing.assert_array_equal(tmesh.gather(twin).numpy(), mirror.usage)

@@ -400,3 +400,45 @@ def test_plans_round_trip_through_the_port():
     assert [p.to_dict() for p in tplans] == [p.to_dict() for p in plans]
     assert convert.plans_from_reference([plans[0].to_dict()])[0].to_dict() \
         == plans[0].to_dict()
+
+
+@pytest.mark.parametrize("cpu", [600, 800])
+def test_sharded_device_window_like_jax(cpu, monkeypatch):
+    """The applier's mesh path: the recorded stream as one window under
+    the ``device`` verify policy on a mesh of eight cpu entries (the
+    port) and on the JAX package's 8-device mesh.  Both verify on the
+    device through window_verify_sharded, warmed outside the lock, and
+    their verdicts and stores equal each other and the host engine's."""
+    from nomad_tpu.ops.verify_policy import verify_override as jv
+    from nomad_tpu_torch.ops.verify_policy import verify_override as tv
+    from nomad_tpu_torch.parallel import mesh as tmesh
+
+    nodes, plans = _record_storm(cpu)
+    seen = []
+    real = tmesh.window_verify_sharded
+    monkeypatch.setattr(tmesh, "window_verify_sharded",
+                        lambda mesh, *a, **kw: seen.append(mesh)
+                        or real(mesh, *a, **kw))
+    js, ts = _worlds(nodes)
+    tplans = convert.plans_from_reference(plans)
+    with jv("device"), mesh_override("auto"):
+        # The JAX engine's first window on a fresh fleet generation
+        # misses its lease (it warms before the mirror's first sync);
+        # a throwaway window warms it.  The port's first window holds it.
+        j_window(js, plans)
+        j_out = grouped_apply(j_window, js, plans, 2000)
+    with tv("device"), tmesh.mesh_override(["cpu"] * 8):
+        t_out = grouped_apply(t_window, ts, tplans, 2000)
+    assert j_out.info["device"]["dispatched"]
+    assert t_out.info["device"]["dispatched"]
+    assert t_out.info["device"]["fallback"] is None
+    assert len(seen) == 1 and seen[0].shape == {"fleet": 8}
+    assert [result_key(o.result) for o in t_out] == \
+        [result_key(o.result) for o in j_out]
+    assert store_image(ts) == store_image(js)
+    _js, th = _worlds(nodes)
+    with tv("host"):
+        h_out = grouped_apply(t_window, th, convert.plans_from_reference(
+            plans), 2000)
+    assert [result_key(o.result) for o in h_out] == \
+        [result_key(o.result) for o in t_out]
