@@ -252,13 +252,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
               device window must dispatch, make one upload and one
               fetch, and give the host's verdicts;
   15. mesh    K7, the node-axis-sharded forms, on a mesh of four shards
-              that all name cuda:0 (``mesh_override``): (1) K7a
-              (shard_select) at N=16,384 on 4 shards for k=1 and k_cap
-              1,024 and at B=64, K7b (merge_select) on those 4 lists of
-              B=64 lanes, K7c (shard_apply) on K7b's updates and K7d
-              (shard_gather) on the 5f window's 1,048,576 rows, each
-              against its plain version bit for bit and timed with CUDA
-              events beside ``torch.topk`` / ``index_add_``; (2) each
+              that all name cuda:0 (``mesh_override``): (1) K7a+c
+              (shard_step, all 4 shards in one launch) at N=16,384 for
+              k=1 (a sequence step) and k_cap 1,024 and at B=64, in its
+              three modes (a walk's first step, a middle step on a real
+              K7b merge's updates, the tail), K7b (merge_select) on the
+              4 lists of B=64 lanes and K7d (shard_gather) on the 5f
+              window's 1,048,576 rows, each against its plain version
+              bit for bit and timed with CUDA events beside
+              ``index_add_`` + ``torch.topk`` / ``torch.topk``, and
+              csrc/binpack.cu without the earlier per-shard
+              shard_select_kernel and shard_apply_kernel; (2) each
               sharded wrapper against its unsharded kernel, bit for bit,
               both timed on the host clock: place_rounds_sharded against
               K3 at config 4, place_sequence_sharded against K2 at
@@ -275,8 +279,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
               2x2 storm mesh (placements equal lane for lane), config 5b
               under the ``device`` verify policy (every window of more
               than one plan verified through window_verify_sharded, the
-              commits equal the host engine's); K7a-K7d launched there
-              and K2-K4 not; (4) steps 2 and 3 again on distinct cards
+              commits equal the host engine's); shard_step, K7b and
+              K7d launched there and K2-K4 not, and every walk's
+              launches by the formula (a step: one shard_step a card
+              and mesh row and one K7b a row; one tail shard_step a
+              card and row a walk; on one card two launches a step);
+              (4) steps 2 and 3 again on distinct cards
               where there are two or more, else a line saying the
               cross-card exchange went untested;
   16. report  one ``{"kernels": [...]}`` line, then the card's name and
@@ -3409,9 +3417,10 @@ def run_wire(torch, n_agents=10_000, n_jobs=64, n_groups=None,
             not_ready = [n.id for n in state.nodes() if n.status != "ready"]
             require(not not_ready and hb["expiries"] == 0
                     and swarm_stats["beat_errors"] == 0,
-                    f"wire: {len(not_ready)} nodes left ready, "
+                    f"wire: {len(not_ready)} nodes not ready, "
                     f"{hb['expiries']} TTL expiries, "
-                    f"{swarm_stats['beat_errors']} beat errors")
+                    f"{swarm_stats['beat_errors']} beat errors (the "
+                    f"swarm: {json.dumps(swarm_stats)})")
             step("spans")
             checked = check_node_allocs(addr, state,
                                         [n.id for n in swarm._nodes])
@@ -4498,6 +4507,12 @@ FAILOVER_REJOINS = ("replay", "snapshot", "replay")
 # (PERF.md §6): those servers held no leader for a minute.
 FAILOVER_ELECTION = (1.0, 2.0)
 FAILOVER_HEARTBEAT = 0.1
+# After the last round the probe writes on until it has written once
+# since the last kill, for at most this long (s): a round can end
+# before the cluster takes a write again (the probe's first ack after
+# a kill has come 50.6 s after it in a passing run), and every earlier
+# kill has the later rounds to show its recovery in.
+FAILOVER_PROBE_WAIT = 120.0
 
 
 def free_port() -> int:
@@ -4683,15 +4698,11 @@ def register_until(swarm, deadline_s) -> int:
     return retried
 
 
-def store_digest(state) -> str:
-    """The store's fingerprint (``StateStore.fingerprint``: every
-    table's objects sorted by id, and the per-table raft indexes; the
-    alloc changelog left out, as a restored store's starts empty) with
-    each alloc's embedded job replaced by the digest of that job's
-    dict, computed once a job object.  The fingerprint itself
-    serializes the whole job again for each alloc: 56 s for one
-    1,000-group job's allocs on a CPU, minutes for the failover phase's
-    stores."""
+def store_payload(state) -> tuple:
+    """The store as ``store_digest`` serializes it: (the per-table raft
+    indexes, and per table its objects by key as plain dicts), each
+    alloc's embedded job replaced by the digest of that job's dict,
+    computed once a job object."""
     import dataclasses
     import hashlib
 
@@ -4717,14 +4728,92 @@ def store_digest(state) -> str:
         return {f.name: job_digest(obj.job) if f.name == "job"
                 else _to_plain(getattr(obj, f.name))
                 for f in dataclasses.fields(obj)}
+    indexes = {name: t.indexes.get(name, 0) for name in TABLES}
+    tables = {name: {key: plain(o, name) for key, o in t.tables[name].items()}
+              for name in TABLES}
+    return indexes, tables
+
+
+def store_digest(state) -> str:
+    """The store's fingerprint (``StateStore.fingerprint``: every
+    table's objects sorted by id, and the per-table raft indexes; the
+    alloc changelog left out, as a restored store's starts empty) with
+    each alloc's embedded job replaced by the digest of that job's
+    dict (``store_payload``).  The fingerprint itself serializes the
+    whole job again for each alloc: 56 s for one 1,000-group job's
+    allocs on a CPU, minutes for the failover phase's stores."""
+    import hashlib
+
+    import msgpack
+
+    indexes, tables = store_payload(state)
     payload = {
-        "indexes": {name: t.indexes.get(name, 0) for name in TABLES},
-        "tables": {name: sorted((plain(o, name)
-                                 for o in t.tables[name].values()),
-                                key=lambda d: d.get("id", ""))
-                   for name in TABLES}}
+        "indexes": indexes,
+        "tables": {name: sorted(objs.values(), key=lambda d: d.get("id", ""))
+                   for name, objs in tables.items()}}
     return hashlib.sha256(msgpack.packb(payload,
                                         use_bin_type=True)).hexdigest()
+
+
+def store_differences(stores, first_ids: int = 5) -> str:
+    """Where the stores ``{server: state}`` differ, for a failure
+    message: per server, each table's digest (its raft index and its
+    objects by key, as ``store_digest`` serializes them); then the first
+    table whose digests differ, its indexes, and the first
+    ``first_ids`` keys whose objects differ or that only some stores
+    hold."""
+    import hashlib
+
+    import msgpack
+
+    def digest(x) -> str:
+        return hashlib.sha256(msgpack.packb(
+            x, use_bin_type=True)).hexdigest()[:16]
+
+    per = {}
+    for i, st in stores.items():
+        indexes, tables = store_payload(st)
+        per[i] = {name: (indexes[name],
+                         {key: digest(obj) for key, obj in objs.items()})
+                  for name, objs in tables.items()}
+    tables = {i: {name: digest([index, sorted(objs.items())])
+                  for name, (index, objs) in t.items()}
+              for i, t in per.items()}
+    lines = [f"server {i}: " + json.dumps(d) for i, d in tables.items()]
+    for name in next(iter(tables.values())):
+        if len({d[name] for d in tables.values()}) == 1:
+            continue
+        keys = sorted(set().union(*(per[i][name][1] for i in per)), key=str)
+        differ = [k for k in keys
+                  if len({per[i][name][1].get(k) for i in per}) > 1]
+        lines.append(
+            f"first table that differs: {name}, indexes "
+            + json.dumps({str(i): per[i][name][0] for i in per})
+            + f", {len(differ)} keys differ, the first {first_ids}: "
+            + json.dumps([str(k) for k in differ[:first_ids]])
+            + ", held by servers " + json.dumps(
+                {str(k): [str(i) for i in per if k in per[i][name][1]]
+                 for k in differ[:first_ids]}))
+        break
+    return "\n".join(lines)
+
+
+def settle_applied(servers, quiet_s=1.0, timeout=120.0) -> dict:
+    """Wait until every server of ``servers`` ({key: server}) has
+    applied the same raft index and no applied index has moved for
+    ``quiet_s``; returns those indexes.  Fails after ``timeout``."""
+    deadline = time.monotonic() + timeout
+    last, since = None, time.monotonic()
+    while True:
+        now = {i: s.raft.applied_index() for i, s in servers.items()}
+        if now != last or len(set(now.values())) != 1:
+            last, since = now, time.monotonic()
+        elif time.monotonic() - since >= quiet_s:
+            return now
+        require(time.monotonic() < deadline,
+                f"failover: the servers' applied indexes did not settle "
+                f"in {timeout:.0f} s: {now}")
+        time.sleep(0.05)
 
 
 def server_threads(srv) -> set:
@@ -4883,7 +4972,7 @@ def run_failover(torch, n_nodes=FAILOVER_NODES, n_groups=FAILOVER_GROUPS,
     alive: dict = {}
     swarm = None
     threads: list = []
-    probe_log: list = []     # (t_start, t_end, ok)
+    probe_log: list = []     # (t_start, t_end, error or None)
     acked: dict = {}
     errors: list = []
     husk_allocs: set = set()
@@ -4916,9 +5005,10 @@ def run_failover(torch, n_nodes=FAILOVER_NODES, n_groups=FAILOVER_GROUPS,
                 probe_pool.call(addr_fn(), "Eval.Update",
                                 {"evals": [probe_ev.to_dict()]},
                                 timeout=0.25)
-                probe_log.append((t, time.perf_counter(), True))
-            except Exception:
-                probe_log.append((t, time.perf_counter(), False))
+                probe_log.append((t, time.perf_counter(), None))
+            except Exception as e:
+                probe_log.append((t, time.perf_counter(),
+                                  f"{type(e).__name__}: {e}"[:120]))
             time.sleep(0.004)
 
     def submit(job):
@@ -5109,6 +5199,14 @@ def run_failover(torch, n_nodes=FAILOVER_NODES, n_groups=FAILOVER_GROUPS,
                 kill_rows.append((t_kill, kr))
 
             row["rounds_s"] = time.perf_counter() - t_rounds
+            t_last = kill_rows[-1][0] if kill_rows else t_rounds
+            deadline = time.monotonic() + FAILOVER_PROBE_WAIT
+            while time.monotonic() < deadline and not any(
+                    err is None and t1 > t_last
+                    for _t0, t1, err in list(probe_log)):
+                time.sleep(0.05)
+            row["probe_wait_s"] = time.perf_counter() - t_rounds \
+                - row["rounds_s"]
             t_checks = time.perf_counter()
             stop.set()
             for t in threads:
@@ -5155,9 +5253,23 @@ def run_failover(torch, n_nodes=FAILOVER_NODES, n_groups=FAILOVER_GROUPS,
             # raft's heartbeats.
             swarm.stop()
             swarm = None
+            # A follower applies what the leader committed a heartbeat
+            # later, and an entry can commit after the wait above: the
+            # stores are read once every live server has applied one
+            # index and none has moved for a second, and with raft
+            # stopped on every server, the leader first (servers shut
+            # down one by one would let the last two elect a leader
+            # whose broker restore writes evals the first no longer
+            # applies).
+            settle_applied(alive)
+            for srv in sorted(alive.values(),
+                              key=lambda s: not s.raft.is_leader()):
+                srv.raft.shutdown()
+            applied = {i: s.raft.applied_index() for i, s in alive.items()}
             stores = {i: s.fsm.state for i, s in alive.items()}
             t_reap = time.perf_counter()
             harness.reap(also=list(alive.values()))
+            reaped = {i: s.raft.applied_index() for i, s in alive.items()}
             alive.clear()
             row["reap_s"] = time.perf_counter() - t_reap
             bad = sorted({e.status for j in jobs
@@ -5186,9 +5298,14 @@ def run_failover(torch, n_nodes=FAILOVER_NODES, n_groups=FAILOVER_GROUPS,
             t_digest = time.perf_counter()
             digests = {i: store_digest(st) for i, st in stores.items()}
             row["digest_s"] = time.perf_counter() - t_digest
-            require(len(set(digests.values())) == 1,
-                    f"failover: the stores differ: {digests}")
+            if len(set(digests.values())) != 1:
+                raise SmokeError(
+                    f"failover: the stores differ: {digests}; applied "
+                    f"indexes {applied} with raft stopped, {reaped} after "
+                    "the reap\n"
+                    + store_differences(stores))
             row["digest"] = next(iter(digests.values()))
+            row["applied_index"] = next(iter(applied.values()))
             if DEV != "cpu":
                 require(sum(by_elected.values()) > 0,
                         "failover: no elected leader launched K3 or K4a")
@@ -5198,12 +5315,26 @@ def run_failover(torch, n_nodes=FAILOVER_NODES, n_groups=FAILOVER_GROUPS,
             kinds = {kr["rejoin"] for _t, kr in kill_rows}
             require(kinds == {"InstallSnapshot", "log replay"},
                     f"failover: rejoins rode {sorted(kinds)}")
-            ok_acks = [t1 for _t0, t1, ok in probe_log if ok]
+            ok_acks = [t1 for _t0, t1, err in probe_log if err is None]
             for t_kill, kr in kill_rows:
                 after = [t1 for t1 in ok_acks if t1 > t_kill]
                 before_k = [t1 for t1 in ok_acks if t1 <= t_kill]
-                require(after, f"failover kill {kr['kill']}: the probe "
-                        "never wrote again")
+                if not after:
+                    tried = [err for t0, _t1, err in probe_log
+                             if t0 > t_kill]
+                    seen: dict = {}
+                    for err in tried:
+                        seen[err] = seen.get(err, 0) + 1
+                    span = max((t1 for _t0, t1, _e in probe_log),
+                               default=t_kill) - t_kill
+                    raise SmokeError(
+                        f"failover kill {kr['kill']}: the probe never "
+                        f"wrote again in {len(tried)} attempts over "
+                        f"{span:.1f} s from the kill (the probe ran "
+                        f"{row['probe_wait_s']:.1f} s past the last "
+                        f"round); their commonest errors: "
+                        + json.dumps(dict(sorted(
+                            seen.items(), key=lambda kv: -kv[1])[:5])))
                 kr["recovery_ms"] = (after[0] - t_kill) * 1e3
                 kr["unavailability_ms"] = (after[0] - (
                     before_k[-1] if before_k else t_kill)) * 1e3
@@ -5211,6 +5342,12 @@ def run_failover(torch, n_nodes=FAILOVER_NODES, n_groups=FAILOVER_GROUPS,
             row["kills_detail"] = [kr for _t, kr in kill_rows]
             row["probe_writes_ok"] = len(ok_acks)
             row["probe_writes_failed"] = len(probe_log) - len(ok_acks)
+            errs: dict = {}
+            for _t0, _t1, err in probe_log:
+                if err is not None:
+                    kind = err.split(":", 1)[0]
+                    errs[kind] = errs.get(kind, 0) + 1
+            row["probe_errors"] = errs
         finally:
             stop.set()
             binpack.place_rounds, binpack.place_rounds_batch = saved_k
@@ -6127,8 +6264,7 @@ def run_executor(torch, n1=100, n2=1000, n4=10_000, n5b=160, evals1=64,
 # -- phase 15: the mesh (K7) -------------------------------------------------
 
 MESH_SHARDS = 4
-MESH_LAUNCH_NAMES = ("shard_select", "merge_select", "shard_apply",
-                     "shard_gather")
+MESH_LAUNCH_NAMES = ("shard_step", "merge_select", "shard_gather")
 
 
 def mesh_counters():
@@ -6138,9 +6274,8 @@ def mesh_counters():
     from nomad_tpu_torch.ops import binpack
     from nomad_tpu_torch.parallel import mesh
 
-    return {"shard_select": binpack.shard_select,
+    return {"shard_step": binpack.shard_step,
             "merge_select": binpack.merge_select,
-            "shard_apply": binpack.shard_apply,
             "shard_gather": mesh.shard_gather,
             "scatter_rows": fleet.scatter_rows,
             "window_verify": mesh.window_verify,
@@ -6150,17 +6285,80 @@ def mesh_counters():
             "place_sequence_batch": binpack.place_sequence_batch}
 
 
-def launches_of(fn, total=None) -> tuple:
+@contextlib.contextmanager
+def walk_records():
+    """Each sharded walk run inside, as it ends: its mesh rows, the
+    shard_step launch groups of each row (its cards, cut at the
+    kernel's shards a launch), and the K7b and shard_step launches it
+    made, counted around the call."""
+    from nomad_tpu_torch.ops import binpack
+    from nomad_tpu_torch.parallel import mesh
+
+    walks = []
+    orig = mesh._walk
+
+    def recorded(m, lane_rows, ops, **kw):
+        lane_rows = list(lane_rows)
+        merge0 = binpack.merge_select.launches
+        step0 = binpack.shard_step.launches
+        out = orig(m, lane_rows, ops, **kw)
+        walks.append(dict(
+            rows=len(lane_rows),
+            groups=[len(mesh.device_groups(m.grid[r])) for r in lane_rows],
+            merge=binpack.merge_select.launches - merge0,
+            step=binpack.shard_step.launches - step0))
+        return out
+    mesh._walk = recorded
+    try:
+        yield walks
+    finally:
+        mesh._walk = orig
+
+
+def walk_launch_check(walks, total, one_card: bool) -> dict:
+    """shard_step's launches on the mesh's system path against the
+    formula: each step of a walk is one K7b a mesh row and one
+    shard_step a launch group of that row, and each walk ends with one
+    tail shard_step a group; so shard_step = sum over walks and rows of
+    groups x (steps + 1), and on one card (one group a row) a step is
+    two launches.  Returns the split."""
+    steps = tails = 0
+    for w in walks:
+        n, rest = divmod(w["merge"], w["rows"])
+        require(rest == 0, f"mesh: a walk of {w['rows']} rows made "
+                f"{w['merge']} K7b launches")
+        want = sum(g * (n + 1) for g in w["groups"]) if n else 0
+        require(w["step"] == want,
+                f"mesh: a walk of {n} steps on {w['rows']} rows of "
+                f"{w['groups']} launch groups made {w['step']} shard_step "
+                f"launches, the formula {want}")
+        require(not one_card or w["groups"] == [1] * w["rows"],
+                f"mesh: on one card a walk's rows took {w['groups']} "
+                "launch groups, not one")
+        steps += sum(g * n for g in w["groups"])
+        tails += sum(w["groups"]) if n else 0
+    require(steps + tails == total["shard_step"]
+            and sum(w["merge"] for w in walks) == total["merge_select"],
+            f"mesh: shard_step {total['shard_step']} and K7b "
+            f"{total['merge_select']} launches, the walks' {steps + tails} "
+            "and " + str(sum(w["merge"] for w in walks)))
+    return dict(walks=len(walks), shard_step_steps=steps,
+                shard_step_tails=tails, merge_select=total["merge_select"])
+
+
+def launches_of(fn, total=None, walks=None) -> tuple:
     """Launch counts of every wrapper in ``mesh_counters`` moved by
     ``fn()``, each set to 0 just before it and read just after; returns
     (what fn returned, counts), and adds the counts into ``total`` when
-    given."""
+    given, and the records of its sharded walks (``walk_records``) to
+    ``walks``."""
     counters = mesh_counters()
     saved = {k: c.launches for k, c in counters.items()}
     for c in counters.values():
         c.launches = 0
     try:
-        out = fn()
+        with walk_records() as ran:
+            out = fn()
     finally:
         counts = {k: c.launches for k, c in counters.items()}
         for k, c in counters.items():
@@ -6168,12 +6366,15 @@ def launches_of(fn, total=None) -> tuple:
     if total is not None:
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
+    if walks is not None:
+        walks.extend(ran)
     return out, counts
 
 
 def shard_case(c, s, rows, lanes=None):
     """Shard ``s`` (``rows`` rows) of a fleet_case / lanes_case, in the
-    batch layout K7a takes (a lane axis; ``lanes`` None: one lane)."""
+    batch layout shard_step takes (a lane axis; ``lanes`` None: one
+    lane)."""
     lo, hi = s * rows, (s + 1) * rows
 
     def one(x):
@@ -6189,49 +6390,165 @@ def shard_case(c, s, rows, lanes=None):
         distinct=one(c["distinct"]).contiguous())
 
 
-def check_shard_select(torch, binpack, n, k, rng, reps, lanes=None):
-    """K7a on each of MESH_SHARDS shards of an N-row fleet against its
-    plain version, bit for bit (values and global indices), for slot 0;
-    the first shard's launch timed beside ``torch.topk`` on its masked
-    scores.  Returns the row and the shards' candidates."""
-    rows = n // MESH_SHARDS
-    c = fleet_case(torch, n, rng) if lanes is None else \
-        lanes_case(torch, n, lanes, rng, uniform=False)
+def step_shards(torch, c, rows, lanes, k, kout, group_idx):
+    """MESH_SHARDS shards of a fleet_case / lanes_case as shard_step
+    takes them, on the card, with the lead's candidate buffers
+    [S, B, k] and update buffer [S, B, kout] (all -1) they write and
+    read."""
     b = 1 if lanes is None else lanes
     pen = torch.full((b,), 10.0, dtype=torch.float32, device=DEV)
-    cands = []
-    for s in range(MESH_SHARDS):
-        sc = shard_case(c, s, rows, lanes)
-        args = (sc["capacity"], sc["reserved"], sc["usage"],
-                sc["job_counts"], sc["feasible"], sc["asks"],
-                sc["distinct"], pen, 0, k, s * rows)
-        got = binpack.shard_select(*args)
+    cand_v = torch.zeros((MESH_SHARDS, b, k), dtype=torch.float32,
+                         device=DEV)
+    cand_i = torch.zeros((MESH_SHARDS, b, k), dtype=torch.int32, device=DEV)
+    upd = torch.full((MESH_SHARDS, b, kout), -1, dtype=torch.int32,
+                     device=DEV)
+    shards = [dict(shard_case(c, s, rows, lanes), penalty=pen,
+                   group_idx=group_idx, out=(cand_v[s], cand_i[s]),
+                   upd=upd[s], row_lo=s * rows) for s in range(MESH_SHARDS)]
+    return shards, (cand_v, cand_i, upd)
+
+
+def step_twin(torch, shards, bufs):
+    """A copy of ``step_shards``' state (usage, job counts and the
+    buffers), for the plain version to run on beside the kernel."""
+    cand_v, cand_i, upd = (x.clone() for x in bufs)
+    twin = [dict(sh, usage=sh["usage"].clone(),
+                 job_counts=sh["job_counts"].clone(),
+                 out=(cand_v[s], cand_i[s]), upd=upd[s])
+            for s, sh in enumerate(shards)]
+    return twin, (cand_v, cand_i, upd)
+
+
+def step_equal(torch, what, got, want) -> None:
+    """Bit for bit: each shard's usage and job counts, the candidates
+    and the updates."""
+    for s, (g, w) in enumerate(zip(got[0], want[0])):
+        require(torch.equal(g["usage"].view(torch.int32),
+                            w["usage"].view(torch.int32))
+                and torch.equal(g["job_counts"], w["job_counts"]),
+                f"{what}: shard {s}'s usage or job counts differ from the "
+                "plain version")
+    for name, x, y in zip(("candidate values", "candidate indices",
+                           "updates"), got[1], want[1]):
+        require(torch.equal(x.view(torch.int32), y.view(torch.int32)),
+                f"{what}: {name} differ from the plain version")
+
+
+def check_shard_step(torch, binpack, n, k, rng, reps, lanes=None):
+    """K7a+c on MESH_SHARDS shards of an N-row fleet, one launch, against
+    its plain version on the same inputs, bit for bit, in each mode: the
+    walk's first step (select step 0), a middle step (apply step 0's
+    updates from a real K7b merge of those candidates, then select step
+    1) and the tail (apply step 1's updates from K7b, select nothing).
+    k = 1 is a sequence walk (B = 1; step 1 invalid, so its winner gets
+    ask * 0.0), k > 1 a rounds walk (slot 0 keeps 1,000 copies a lane,
+    slot 1 500).  The middle step is timed (CUDA events, and its device
+    time from torch.profiler) beside the library's same step on each
+    shard: ``index_add_`` of the winners' rows, then ``torch.topk`` of the
+    shard's masked scores.  Returns the row and the first step's
+    candidates."""
+    rows = n // MESH_SHARDS
+    b = 1 if lanes is None else lanes
+    c = fleet_case(torch, n, rng) if lanes is None else \
+        lanes_case(torch, n, lanes, rng, uniform=False)
+    seq = k == 1
+    p = 8
+    gi = valid = counts = None
+    if seq:
+        gi = torch.from_numpy(sequence_groups(rng, p, 8, "random")).to(
+            DEV).reshape(1, p)
+        valid = torch.ones((1, p), dtype=torch.bool, device=DEV)
+        valid[0, 1] = False
+    else:
+        counts = torch.zeros((b, 8), dtype=torch.int32, device=DEV)
+        counts[:, 0], counts[:, 1] = 1000, 500
+    kout = 1 if seq else k
+    got = step_shards(torch, c, rows, lanes, k, kout, gi)
+    want = step_twin(torch, *got)
+    what = f"shard_step N={n} k={k} B={b}"
+
+    def merge(step):
+        """K7b (the kernel) on the candidates of ``step``; its updates
+        go to both sides."""
+        cand_v, cand_i, upd = got[1]
+        shape = (b, p) if seq else (b, 8, k)
+        chosen = torch.full(shape, -1, dtype=torch.int32, device=DEV)
+        scores = torch.zeros(shape, dtype=torch.float32, device=DEV)
+        binpack.merge_select(
+            cand_v, cand_i, rows, upd, chosen, scores, slot=step,
+            valid=valid, counts=counts,
+            m=None if seq else torch.zeros(b, dtype=torch.int32,
+                                           device=DEV))
+        want[1][2].copy_(upd)
+        return int((chosen >= 0).sum())
+
+    modes = {}
+    for mode, apply_step, select_step in (("first", -1, 0),
+                                          ("middle", 0, 1), ("tail", 1, -1)):
+        if apply_step >= 0:
+            modes[f"placed_step{apply_step}"] = merge(apply_step)
+        plan = binpack.shard_step(got[0], apply_step=apply_step,
+                                  select_step=select_step, k=k)
         torch.cuda.synchronize()
-        want = binpack.shard_select_plain(*args)
-        what = f"shard_select N={n} k={k} B={b} shard {s}"
-        require(torch.equal(got[1], want[1]), f"{what}: indices differ")
-        require(torch.equal(got[0], want[0]), f"{what}: values differ")
-        cands.append(got)
-        if s == 0:
-            out = (torch.empty_like(got[0]), torch.empty_like(got[1]))
-            scratch = binpack.select_scratch(rows, k, b, DEV)
-            ms = time_ms(torch, lambda: binpack.launch_shard_select(
-                *args, None, out, scratch), reps)
-            plain_ms = time_ms(torch, lambda: binpack.shard_select_plain(
-                *args), 1)
-            masked = torch.stack([binpack.score_all_nodes(
-                sc["capacity"], sc["reserved"], sc["usage"][i],
-                sc["job_counts"][i], sc["asks"][i, 0], sc["feasible"][i, 0],
-                sc["distinct"][i, 0], 10.0) for i in range(b)])
-            library_ms = time_ms(torch, lambda: torch.topk(masked, k), reps)
-    # Bytes: the shard's capacity and reserved rows once (every lane
-    # reads the same ones), each lane's usage, job counts and slot 0's
-    # feasibility on those rows once, the candidates written once.
-    nbytes = 2 * rows * 24 + b * rows * (24 + 4 + 1) + b * k * 8
-    b_ms, b_by = bound(nbytes, b * rows * OPS_PER_NODE)
-    return dict(err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=b_ms, bound_by=b_by, lanes=b, rows=rows,
-                k=k), cands
+        binpack.shard_step_plain(want[0], apply_step=apply_step,
+                                 select_step=select_step, k=k)
+        step_equal(torch, f"{what} {mode}", got, want)
+        if mode == "first":
+            cands = [(got[1][0][s].clone(), got[1][1][s].clone())
+                     for s in range(MESH_SHARDS)]
+    # The middle step timed on the state the tail left: each call
+    # applies the tail's updates (step 1's winners) with step 0's ask and
+    # selects step 1, the work of a step.
+    owned = got[1][2] >= 0
+    ms = time_ms(torch, lambda: binpack.launch_shard_step(plan, 0, 1), reps)
+    device_ms = kernel_device_ms(
+        torch, lambda: binpack.launch_shard_step(plan, 0, 1), reps,
+        "shard_step_kernel")
+    plain_ms = time_ms(torch, lambda: binpack.shard_step_plain(
+        want[0], apply_step=0, select_step=1, k=k), 1)
+    # The library's step: per shard, index_add_ of each owned winner's
+    # ask into the flattened usage, then torch.topk of the masked scores
+    # at step 1's group.
+    lib = []
+    for s, sh in enumerate(got[0]):
+        e = got[1][2][s]
+        lane = torch.arange(b, device=DEV)[:, None].expand_as(e)
+        mine = e >= 0
+        g0 = gi[:, 0] if seq else torch.zeros(b, dtype=torch.long,
+                                              device=DEV)
+        g1 = int(gi[0, 1]) if seq else 1
+        add = sh["asks"][torch.arange(b, device=DEV), g0.long()]
+        lib.append(dict(
+            flat=sh["usage"].clone().view(-1, 6),
+            rows_=(lane * rows + (e >> 1))[mine].long(),
+            vals=add[lane[mine]],
+            masked=torch.stack([binpack.score_all_nodes(
+                sh["capacity"], sh["reserved"], sh["usage"][i],
+                sh["job_counts"][i], sh["asks"][i, g1],
+                sh["feasible"][i, g1], sh["distinct"][i, g1], 10.0)
+                for i in range(b)])))
+
+    def library():
+        for x in lib:
+            x["flat"].index_add_(0, x["rows_"], x["vals"])
+            torch.topk(x["masked"], k)
+    library_ms = time_ms(torch, library, reps)
+    n_owned = int(owned.sum())
+    # Bytes: each shard's capacity and reserved rows once (every lane
+    # reads the same ones), each lane's usage and job counts on the
+    # shard's rows and its step's feasibility row once, its updates and
+    # asks read once; the winners' usage and job-count rows written
+    # once, the candidates written once.  Operations: every row scored
+    # and taken into the selection, 7 adds a winner.
+    nbytes = (MESH_SHARDS * (2 * rows * 24 + b * rows * (24 + 4 + 1)
+                             + b * (kout * 4 + 2 * 24))
+              + n_owned * (24 + 4) + MESH_SHARDS * b * k * 8)
+    b_ms, b_by = bound(nbytes, MESH_SHARDS * b * rows * OPS_PER_NODE
+                       + n_owned * 7)
+    return dict(err=0.0, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                lanes=b, rows=rows, shards=MESH_SHARDS, k=k,
+                rows_updated=n_owned, **modes), cands
 
 
 def check_merge_select(torch, binpack, cands, rows, k_cap, reps):
@@ -6261,8 +6578,10 @@ def check_merge_select(torch, binpack, cands, rows, k_cap, reps):
         require(torch.equal(x, y),
                 f"merge_select S={s} B={b}: {name} differs from the plain "
                 "version")
-    ms = time_ms(torch, lambda: binpack.launch_merge_select(
-        cand_v, cand_i, rows, *got[:3], 0, 0, got[3], counts, None), reps)
+    # Launched as a walk launches it: bound to its buffers once.
+    launch = binpack.merge_launch(cand_v, cand_i, rows, *got[:3], got[3],
+                                  counts, None)
+    ms = time_ms(torch, lambda: launch(0, 0), reps)
     plain_ms = time_ms(torch, lambda: binpack.merge_select_plain(
         cand_v, cand_i, rows, *want[:3], slot=0, m=want[3], counts=counts),
         1)
@@ -6277,45 +6596,6 @@ def check_merge_select(torch, binpack, cands, rows, k_cap, reps):
     return dict(err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=b_ms, bound_by=b_by, shards=s, lanes=b,
                 placed=int((got[1] >= 0).sum())), got[0]
-
-
-def check_shard_apply(torch, binpack, n, lanes, upd, rng, reps):
-    """K7c on shard 0 of a fleet with K7b's updates for it: usage and
-    job counts against the plain version, bit for bit, timed beside one
-    ``index_add_`` of the same rows."""
-    rows = n // MESH_SHARDS
-    c = lanes_case(torch, n, lanes, rng, uniform=False)
-    sc = shard_case(c, 0, rows, lanes)
-    mine = upd[0].contiguous()
-    got_u, got_j = sc["usage"].clone(), sc["job_counts"].clone()
-    binpack.shard_apply(got_u, got_j, mine, sc["asks"], slot=0)
-    torch.cuda.synchronize()
-    want_u, want_j = sc["usage"].clone(), sc["job_counts"].clone()
-    binpack.shard_apply_plain(want_u, want_j, mine, sc["asks"], slot=0)
-    require(torch.equal(got_u.view(torch.int32), want_u.view(torch.int32))
-            and torch.equal(got_j, want_j),
-            "shard_apply: usage or job counts differ from the plain version")
-    u, j = sc["usage"].clone(), sc["job_counts"].clone()
-    ms = time_ms(torch, lambda: binpack.launch_shard_apply(
-        u, j, mine, sc["asks"], 0, None), reps)
-    plain_ms = time_ms(torch, lambda: binpack.shard_apply_plain(
-        u, j, mine, sc["asks"], slot=0), 1)
-    owned = mine >= 0
-    lane = torch.arange(lanes, device=DEV)[:, None].expand_as(mine)
-    flat_rows = (lane * rows + (mine >> 1))[owned].long()
-    take = (mine & 1).bool()[owned]
-    vals = torch.where(take[:, None], sc["asks"][:, 0][lane[owned]],
-                       torch.zeros(1, 6, device=DEV))
-    flat = u.view(-1, 6)
-    library_ms = time_ms(torch, lambda: flat.index_add_(0, flat_rows, vals),
-                         reps)
-    n_owned = int(owned.sum())
-    # Bytes: the updates and each lane's slot-0 ask read once, each
-    # owned row's usage and job count read and written once.
-    nbytes = lanes * (mine.shape[1] * 4 + 24) + n_owned * (2 * 24 + 2 * 4)
-    b_ms, b_by = bound(nbytes, n_owned * 7)
-    return dict(err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=b_ms, bound_by=b_by, rows_updated=n_owned)
 
 
 def check_shard_gather(torch, mesh_mod, rng, reps):
@@ -6350,23 +6630,31 @@ def check_shard_gather(torch, mesh_mod, rng, reps):
 def mesh_kernel_checks(torch, rng, reps=20) -> dict:
     """Step 1 of the mesh phase: each K7 kernel against its plain
     version on the card, bit for bit, timed with CUDA events."""
-    from nomad_tpu_torch.ops import binpack
+    from nomad_tpu_torch.ops import binpack, kernels
     from nomad_tpu_torch.parallel import mesh as mesh_mod
 
     n = 16384
     rows = n // MESH_SHARDS
-    sel1, _ = check_shard_select(torch, binpack, n, 1, rng, reps)
-    selk, _ = check_shard_select(torch, binpack, n, 1024, rng, reps)
-    # The storm's width (B = 64): K7a's candidates feed K7b, whose
-    # updates feed K7c.
-    sel64, cands = check_shard_select(torch, binpack, n, 1024, rng, 5,
-                                      lanes=64)
-    merge, upd = check_merge_select(torch, binpack, cands, rows, 1024, reps)
-    apply_ = check_shard_apply(torch, binpack, n, 64, upd, rng, reps)
+    # The first port's K7a (shard_select_kernel) and K7c
+    # (shard_apply_kernel) are gone: shard_step took both.
+    lib = kernels.library("binpack")
+    source = (kernels.CSRC / "binpack.cu").read_text()
+    for gone in ("shard_select", "shard_apply"):
+        require(not hasattr(lib, f"nomad_{gone}")
+                and f"{gone}_kernel" not in source,
+                f"mesh: {gone}_kernel is still in csrc/binpack.cu")
+    step1, _ = check_shard_step(torch, binpack, n, 1, rng, reps)
+    stepk, _ = check_shard_step(torch, binpack, n, 1024, rng, reps)
+    # The storm's width (B = 64): shard_step's first candidates feed
+    # K7b's check.
+    step64, cands = check_shard_step(torch, binpack, n, 1024, rng, 5,
+                                     lanes=64)
+    merge, _upd = check_merge_select(torch, binpack, cands, rows, 1024,
+                                     reps)
     gather = check_shard_gather(torch, mesh_mod, rng, reps)
-    return {"shard_select k=1": sel1, "shard_select k=1024": selk,
-            "shard_select B=64 k=1024": sel64,
-            "merge_select S=4 B=64": merge, "shard_apply B=64": apply_,
+    return {"shard_step k=1": step1, "shard_step k=1024": stepk,
+            "shard_step B=64 k=1024": step64,
+            "merge_select S=4 B=64": merge,
             "shard_gather 5f window": gather}
 
 
@@ -6479,7 +6767,8 @@ def mesh_plans(plans, names) -> list:
             for p in plans]
 
 
-def mesh_config4(torch, mock, structs, Harness, devices, mesh_mod, total):
+def mesh_config4(torch, mock, structs, Harness, devices, mesh_mod, total,
+                 walks):
     """Config 4 through Harness.process, unsharded and on ``devices``:
     the sharded eval dispatched on the mesh, equal plans (nodes and
     ports, the port draws seeded alike)."""
@@ -6517,7 +6806,8 @@ def mesh_config4(torch, mock, structs, Harness, devices, mesh_mod, total):
     TorchBinPackScheduler.dispatch_device = recorded
     try:
         single, single_s = run("off")
-        (sharded, sharded_s), _ = launches_of(lambda: run(devices), total)
+        (sharded, sharded_s), _ = launches_of(lambda: run(devices), total,
+                                              walks)
         sharded2, sharded2_s = run(devices)
         single2, single2_s = run("off")
     finally:
@@ -6533,7 +6823,7 @@ def mesh_config4(torch, mock, structs, Harness, devices, mesh_mod, total):
 
 
 def mesh_config2_stream(torch, mock, structs, Harness, devices, mesh_mod,
-                        total):
+                        total, walks):
     """Config 2's batch jobs as a PipelinedEvalRunner stream on 1,000
     nodes, each eval's plan committed before the next (the mirror's
     sharded twin scatters between evals), unsharded and on ``devices``:
@@ -6560,7 +6850,8 @@ def mesh_config2_stream(torch, mock, structs, Harness, devices, mesh_mod,
         return mesh_plans(h.plans, names), runner, h
 
     single, r_single, _h = run("off")
-    (sharded, r_mesh, h), _ = launches_of(lambda: run(devices), total)
+    (sharded, r_mesh, h), _ = launches_of(lambda: run(devices), total,
+                                          walks)
     require(r_single.sharded_dispatches == 0,
             "config 2 unsharded: a dispatch ran on a mesh")
     require(r_mesh.device_dispatches > 0 and r_mesh.sharded_dispatches
@@ -6586,7 +6877,7 @@ def mesh_config2_stream(torch, mock, structs, Harness, devices, mesh_mod,
 
 
 def mesh_config5(torch, mock, structs, Harness, BatchEvalRunner, devices,
-                 mesh_mod, total):
+                 mesh_mod, total, walks):
     """Config 5's storm (64 jobs x 1,000 groups on 10,000 nodes) through
     BatchEvalRunner with the record-only planner, unsharded and on
     ``devices``' 2x2 storm mesh: placements equal lane for lane."""
@@ -6615,7 +6906,8 @@ def mesh_config5(torch, mock, structs, Harness, BatchEvalRunner, devices,
     require(storm is not None and storm.lane_ways == 2
             and storm.fleet_ways == 2,
             f"config 5: the storm resolved {storm}, not a 2x2 mesh")
-    (sharded, sharded_s), _ = launches_of(lambda: run(devices), total)
+    (sharded, sharded_s), _ = launches_of(lambda: run(devices), total,
+                                          walks)
     require(len(sharded) == 64 and all(len(p) == 1000 for p in sharded),
             "config 5 on the mesh: not every lane placed 1,000")
     require(sharded == single,
@@ -6625,7 +6917,7 @@ def mesh_config5(torch, mock, structs, Harness, BatchEvalRunner, devices,
 
 
 def mesh_verify(torch, mock, structs, Harness, VerifyingPlanner,
-                BatchEvalRunner, devices, mesh_mod, total):
+                BatchEvalRunner, devices, mesh_mod, total, walks):
     """Config 5b through the verifying applier: under the ``host``
     verify policy unsharded, and under ``device`` on ``devices``, where
     every window of more than one plan must verify through
@@ -6642,7 +6934,7 @@ def mesh_verify(torch, mock, structs, Harness, VerifyingPlanner,
             (got, got_counts), counts = launches_of(
                 lambda: storm_config5b(mock, structs, Harness,
                                        VerifyingPlanner, BatchEvalRunner),
-                total)
+                total, walks)
     finally:
         restore()
     windows = [r for r in records if r is not None]
@@ -6677,17 +6969,19 @@ def mesh_system(torch, devices) -> tuple:
     from nomad_tpu_torch.scheduler import Harness, VerifyingPlanner
     from nomad_tpu_torch.scheduler.batch import BatchEvalRunner
 
-    out, total = {}, {}
+    out, total, walks = {}, {}, []
     out["config4"] = mesh_config4(torch, mock, structs, Harness, devices,
-                                  mesh_mod, total)
+                                  mesh_mod, total, walks)
     out["config2_stream"] = mesh_config2_stream(
-        torch, mock, structs, Harness, devices, mesh_mod, total)
+        torch, mock, structs, Harness, devices, mesh_mod, total, walks)
     out["config5_storm"] = mesh_config5(torch, mock, structs, Harness,
                                         BatchEvalRunner, devices, mesh_mod,
-                                        total)
+                                        total, walks)
     out["config5b_device_verify"] = mesh_verify(
         torch, mock, structs, Harness, VerifyingPlanner, BatchEvalRunner,
-        devices, mesh_mod, total)
+        devices, mesh_mod, total, walks)
+    out["walks"] = walk_launch_check(
+        walks, total, len({torch.device(d) for d in devices}) == 1)
     for name in MESH_LAUNCH_NAMES:
         require(total[name] > 0,
                 f"mesh: {name} was not launched on the system path")
@@ -7098,12 +7392,15 @@ def main(argv=()) -> int:
     timed = {"place_sequence": seq, "place_rounds": rnd,
              "scatter_rows": sct, "place_rounds_batch": rb,
              "place_sequence_batch": sb, "window_verify": wv5f,
-             # K7a at k_cap (its k = 1 time beside it as k1_*)
-             "shard_select": dict(mk["shard_select k=1024"], **{
-                 f"k1_{key}": mk["shard_select k=1"][key]
-                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}),
+             # K7a+c at k_cap, B=1 (its k = 1 and B = 64 times beside
+             # it as k1_* and b64_*)
+             "shard_step": dict(mk["shard_step k=1024"], **{
+                 f"{tag}_{key}": mk[case][key]
+                 for tag, case in (("k1", "shard_step k=1"),
+                                   ("b64", "shard_step B=64 k=1024"))
+                 for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                             "bound_ms")}),
              "merge_select": mk["merge_select S=4 B=64"],
-             "shard_apply": mk["shard_apply B=64"],
              "shard_gather": mk["shard_gather 5f window"]}
     sources = {"scatter_rows": "scatter_rows.cu",
                "window_verify": "window_verify.cu",
@@ -7117,9 +7414,8 @@ def main(argv=()) -> int:
                 # K7: the per-shard selection, the cross-shard merge and
                 # the owner's update of the sharded jits at :210, :252,
                 # :279 and :314; the row gather of :408.
-                "shard_select": "nomad_tpu/parallel/mesh.py:210",
+                "shard_step": "nomad_tpu/parallel/mesh.py:210",
                 "merge_select": "nomad_tpu/parallel/mesh.py:252",
-                "shard_apply": "nomad_tpu/parallel/mesh.py:279",
                 "shard_gather": "nomad_tpu/parallel/mesh.py:408"}
     k.update({name: mk for name in MESH_LAUNCH_NAMES})
     kernels_line = {"kernels": []}
@@ -7137,7 +7433,8 @@ def main(argv=()) -> int:
             bound_by=r["bound_by"], library_ms=r.get("library_ms"))
         if "device_ms" in r:
             row["device_ms"] = r["device_ms"]
-        row.update({key: v for key, v in r.items() if key.startswith("k1_")})
+        row.update({key: v for key, v in r.items()
+                    if key.startswith(("k1_", "b64_"))})
         if "library_device_ms" in r:
             row["library_device_ms"] = r["library_device_ms"]
         kernels_line["kernels"].append(row)

@@ -11,8 +11,8 @@
 // and the three kernels of the node-axis-sharded walks that replace
 // nomad_tpu/parallel/mesh.py _place_sharded, _place_rounds_sharded_jit,
 // _place_rounds_batch_sharded_jit and _place_sequence_batch_sharded_jit
-// (K7; see the section "K7" below): shard_select_kernel (K7a),
-// merge_select_kernel (K7b) and shard_apply_kernel (K7c).
+// (K7; see the section "K7" below): shard_step_kernel (K7a+c, the
+// per-shard half of a step) and merge_select_kernel (K7b).
 //
 // One body for the sequence walk: K2 runs place_sequence_cluster_lane
 // (below) on one thread-block cluster, K4b on one cluster per lane (its
@@ -1287,14 +1287,23 @@ static int sequence_csize(Kernel kernel, int n, int slots) {
 // turns the JAX walks' argmax and top_k over a sharded axis into
 // per-shard work, a cross-shard merge and a row update on the owner;
 // here each step of a walk (one placement of K2/K4b, one round of a slot
-// of K3/K4a) is three launches, driven by the host without waiting:
+// of K3/K4a) is two launches on one card, driven by the host without
+// waiting:
 //
-//   K7a shard_select_kernel, on every shard, one block a lane: the lane's
-//       step ask scored on the shard's R rows (score_node, K1), and the
-//       shard's best k (score, global index) pairs in the order of K3's
-//       top-k (score descending, -0.0 tied with 0.0, then index
+//   K7a+c shard_step_kernel, once per card and mesh row, one block per
+//       (lane, shard) of the row's shards on that card: first the
+//       shard's slice of the previous step's updates (K7c): + ask (and
+//       + 1 to the job count) on a taken row, + 0.0 on a round's winner
+//       not taken (K3 adds 0.0f), + ask * 0.0 on a sequence step's
+//       winner not taken (K2 adds ask * 0.0); then, on the rows it has
+//       just updated, the step's ask scored (score_node, K1) and the
+//       shard's best k (score, global index) pairs in the order of
+//       K3's top-k (score descending, -0.0 tied with 0.0, then index
 //       ascending): a block argmax for k = 1 (the sequence walks), K3's
-//       select_topk or full sort for k = min(k_cap, R) (the rounds);
+//       select_topk or full sort for k = min(k_cap, R) (the rounds)
+//       (K7a).  The walk's first step selects only; its tail, after the
+//       last step, applies only, so the returned usage holds the last
+//       winners;
 //   K7b merge_select_kernel, on the lead device, one block a lane: the
 //       global top kout of the S sorted lists, each candidate placed at
 //       its rank (its position in its own list plus, per other list, a
@@ -1303,42 +1312,66 @@ static int sequence_csize(Kernel kernel, int n, int slots) {
 //       valid & best > -1e30/2; the rounds: pos < m & vals > -1e30/2,
 //       m -= placed, m carried on the device from round to round); the
 //       step's chosen and scores where K2-K4 put them; and for every
-//       shard the rows it owns to update, (local row << 1 | taken) or -1;
-//   K7c shard_apply_kernel, on every shard, one block a lane: + ask (and
-//       + 1 to the job count) on a taken row, + 0.0 on a round's winner
-//       not taken (K3 adds 0.0f), + ask * 0.0 on a sequence step's
-//       winner not taken (K2 adds ask * 0.0), so every row gets the same
-//       adds as in the unsharded kernels and the walks equal them bit
-//       for bit.
+//       shard the rows it owns to update, (local row << 1 | taken) or -1.
 //
-// Each lane evolves its own usage and job counts on every shard, from a
-// copy of the shared base (the vmap's carry in K4a/K4b).  The global top
-// k_cap of the rounds is the merge of each shard's top min(k_cap, R) in
-// the same total order, whatever ties straddle a shard edge, and a shard
-// of fewer rows than k_cap hands in all of them (S * R = N >= k_cap).
+// A lane's winners are distinct rows, so every row gets the same adds in
+// the same order as in the unsharded kernels, and the walks equal them
+// bit for bit.  Each lane evolves its own usage and job counts on every
+// shard, from a copy of the shared base (the vmap's carry in K4a/K4b).
+// The global top k_cap of the rounds is the merge of each shard's top
+// min(k_cap, R) in the same total order, whatever ties straddle a shard
+// edge, and a shard of fewer rows than k_cap hands in all of them (S * R
+// = N >= k_cap).
 //
 // Bound on an H100: a step reads each shard's R rows of fleet state once
-// (and a round writes k_cap rows): at config 4 (N = 16,384 over 4 shards,
+// and writes the winners' rows: at config 4 (N = 16,384 over 4 shards,
 // one round of k_cap = 1,024) a few hundred kilobytes, well under a
-// microsecond.  What bounds a walk is its chain: 2 S + 1 launches a step,
-// enqueued by the host, each waiting on the one before it.  The kernels
-// are simple on purpose (a first port); the chain is the cost.
+// microsecond.  What bounds a walk is its chain of launches, each
+// enqueued by the host and waiting on the one before it.  The first
+// port took 2 S + 1 launches a step (K7a and K7c on every shard, K7b);
+// shard_step_kernel takes every shard of a card in one launch and folds
+// K7c into the next step's select, so a step on one card is two
+// launches (S + 1 on S cards), plus one tail a walk.  Its per-shard
+// pointers travel by value (StepTable, up to MAX_STEP_SHARDS shards a
+// launch), set up once per walk by the host.
 
-// K7a: the shard's best k (score, global index) pairs of each lane for
-// the step's ask (`step` is the slot of a rounds walk; a sequence walk
-// passes group_idx [lanes][p_len] and the step's position).  usage
-// [lanes][rows][NDIMS], jc [lanes][rows], feas [lanes][g_len][rows],
-// asks [lanes][g_len][NDIMS], distinct [lanes][g_len], penalty [lanes].
-// Writes out_v / out_i [lanes][k], sorted; a value is the score as K1
-// computed it (k = 1) or as K3's keys hold it (k > 1: -0.0 as 0.0).
-__global__ void __launch_bounds__(THREADS) shard_select_kernel(
-    const float* __restrict__ cap, const float* __restrict__ res,
-    const float* usage, const int* jc, const uint8_t* __restrict__ feas,
-    const float* __restrict__ asks, const uint8_t* __restrict__ distinct,
-    const int* __restrict__ group_idx, const float* __restrict__ penalty,
-    int rows, int g_len, int p_len, int step, int k, int path, int row_lo,
-    int key_words, float* __restrict__ out_v, int* __restrict__ out_i,
-    uint32_t* scratch) {
+// Shards of one mesh row that one shard_step launch takes.
+#define MAX_STEP_SHARDS 16
+
+// One shard's operands of shard_step_kernel (R = rows, B = lanes).
+// The host passes them as STEP_WORDS 64-bit words a shard, in this
+// order (nomad_tpu_torch/ops/binpack.py STEP_FIELDS).
+struct StepShard {
+  const float* cap;         // [R][NDIMS]
+  const float* res;         // [R][NDIMS]
+  float* usage;             // [B][R][NDIMS], updated in place
+  int* jc;                  // [B][R], updated in place
+  const uint8_t* feas;      // [B][g_len][R]
+  const float* asks;        // [B][g_len][NDIMS]
+  const uint8_t* distinct;  // [B][g_len]
+  const float* penalty;     // [B]
+  const int* group_idx;     // [B][p_len]; null in a rounds walk
+  float* out_v;             // [B][k], the shard's sorted candidates
+  int* out_i;               // [B][k], their global indices
+  const int* upd;           // [B][kout], K7b's updates for this shard
+  uint32_t* scratch;        // [B][key_words] key regions, or null
+  long long row_lo;         // the shard's first row in the fleet
+};
+#define STEP_WORDS 14
+
+struct StepTable {
+  StepShard s[MAX_STEP_SHARDS];
+};
+
+// K7a+c on one (lane, shard) block: apply_step >= 0 applies the shard's
+// updates of that step (its ask: slot apply_step of a rounds walk, or
+// group group_idx[b][apply_step] of a sequence walk); select_step >= 0
+// then writes the shard's best k for that step's ask into out_v /
+// out_i [b][k], sorted; a value is the score as K1 computed it (k = 1)
+// or as K3's keys hold it (k > 1: -0.0 as 0.0).
+__global__ void __launch_bounds__(THREADS) shard_step_kernel(
+    const StepTable table, int rows, int g_len, int p_len, int apply_step,
+    int select_step, int k, int kout, int path, int key_words) {
   extern __shared__ unsigned long long s_keys[];
   __shared__ float s_ask[NDIMS];
   __shared__ float s_v[WARPS];
@@ -1346,24 +1379,52 @@ __global__ void __launch_bounds__(THREADS) shard_select_kernel(
   __shared__ int s_hist[RADIX_BINS];
   __shared__ int s_cnt[2][WARPS];
   __shared__ TopkSel s_sel;
+  const StepShard sh = table.s[blockIdx.y];
   const size_t b = blockIdx.x;
   const size_t rr = (size_t)rows;
-  const int g = group_idx != nullptr ? group_idx[b * p_len + step] : step;
+  const bool seq = sh.group_idx != nullptr;
+  float* u = sh.usage + b * rr * NDIMS;
+  int* j = sh.jc + b * rr;
+  if (apply_step >= 0) {
+    // K7c: a lane's winners are distinct rows, so no two threads write
+    // one row.
+    const int g = seq ? sh.group_idx[b * p_len + apply_step] : apply_step;
+    const float* ask = sh.asks + (b * g_len + g) * NDIMS;
+    const int* e_row = sh.upd + b * kout;
+    for (int t = threadIdx.x; t < kout; t += THREADS) {
+      const int e = e_row[t];
+      if (e < 0) continue;
+      const size_t row = (size_t)(e >> 1);
+      const bool take = (e & 1) != 0;
+      float* ur = u + row * NDIMS;
+#pragma unroll
+      for (int d = 0; d < NDIMS; ++d)
+        ur[d] = __fadd_rn(ur[d], take ? ask[d]
+                                      : (seq ? __fmul_rn(ask[d], 0.0f)
+                                             : 0.0f));
+      if (take) j[row] += 1;
+    }
+    if (select_step < 0) return;  // the walk's tail
+    __syncthreads();  // the select reads the rows just written
+  }
+  // K7a.
+  const int g = seq ? sh.group_idx[b * p_len + select_step] : select_step;
   const size_t lg = b * g_len + g;
-  if (threadIdx.x < NDIMS) s_ask[threadIdx.x] = asks[lg * NDIMS + threadIdx.x];
+  if (threadIdx.x < NDIMS)
+    s_ask[threadIdx.x] = sh.asks[lg * NDIMS + threadIdx.x];
   __syncthreads();
-  const float* u = usage + b * rr * NDIMS;
-  const int* j = jc + b * rr;
-  const uint8_t* f = feas + lg * rr;
-  const bool dist = distinct[lg] != 0;
-  const float pen = penalty[b];
+  const uint8_t* f = sh.feas + lg * rr;
+  const bool dist = sh.distinct[lg] != 0;
+  const float pen = sh.penalty[b];
+  const int row_lo = (int)sh.row_lo;
   if (k == 1) {
     // Threads past the last row hold -inf at index INT_MAX: below every
     // row's score (-1e30 at the least).
     float v = __int_as_float(0xff800000);
     int i = 0x7fffffff;
     for (int r = threadIdx.x; r < rows; r += THREADS) {
-      const float sc = score_node(cap, res, u, j, s_ask, f, dist, pen, r);
+      const float sc = score_node(sh.cap, sh.res, u, j, s_ask, f, dist, pen,
+                                  r);
       if (better(sc, r, v, i)) {
         v = sc;
         i = r;
@@ -1371,29 +1432,30 @@ __global__ void __launch_bounds__(THREADS) shard_select_kernel(
     }
     block_argmax(v, i, s_v, s_i);
     if (threadIdx.x == 0) {
-      out_v[b] = v;
-      out_i[b] = row_lo + i;
+      sh.out_v[b] = v;
+      sh.out_i[b] = row_lo + i;
     }
     return;
   }
-  void* keys = scratch != nullptr ? (void*)(scratch + b * (size_t)key_words)
-                                  : (void*)s_keys;
+  void* keys = sh.scratch != nullptr
+                   ? (void*)(sh.scratch + b * (size_t)key_words)
+                   : (void*)s_keys;
   unsigned long long* keys64 = reinterpret_cast<unsigned long long*>(keys);
   if (path == TOPK_SELECT) {
-    select_topk(cap, res, u, j, s_ask, f, dist, pen, rows, k, keys, s_hist,
-                &s_sel, s_cnt);
+    select_topk(sh.cap, sh.res, u, j, s_ask, f, dist, pen, rows, k, keys,
+                s_hist, &s_sel, s_cnt);
   } else {
     for (int r = threadIdx.x; r < rows; r += THREADS)
-      keys64[r] = sort_key(
-          ordered_bits(score_node(cap, res, u, j, s_ask, f, dist, pen, r)),
-          r);
+      keys64[r] = sort_key(ordered_bits(score_node(sh.cap, sh.res, u, j,
+                                                   s_ask, f, dist, pen, r)),
+                           r);
     __syncthreads();
     bitonic_sort_desc(keys64, rows);
   }
   for (int t = threadIdx.x; t < k; t += THREADS) {
     const unsigned long long key = keys64[t];
-    out_v[b * k + t] = from_ordered((uint32_t)(key >> 32));
-    out_i[b * k + t] = row_lo + (int)(~(uint32_t)(key & 0xffffffffull));
+    sh.out_v[b * k + t] = from_ordered((uint32_t)(key >> 32));
+    sh.out_i[b * k + t] = row_lo + (int)(~(uint32_t)(key & 0xffffffffull));
   }
 }
 
@@ -1470,33 +1532,6 @@ __global__ void __launch_bounds__(THREADS) merge_select_kernel(
     placed += __syncthreads_count(take);
   }
   if (!seq && threadIdx.x == 0) m[b] = left - placed;
-}
-
-// K7c: a shard's updates of each lane's usage [lanes][rows][NDIMS] and
-// job counts [lanes][rows] from its slice of K7b's upd [lanes][kout].
-// The ask is that of slot `slot` (rounds) or of sequence step `slot`'s
-// group (group_idx [lanes][p_len]).  A lane's winners are distinct rows:
-// no two threads write one row.
-__global__ void __launch_bounds__(THREADS) shard_apply_kernel(
-    float* usage, int* jc, const int* __restrict__ upd,
-    const float* __restrict__ asks, const int* __restrict__ group_idx,
-    int rows, int g_len, int p_len, int kout, int slot) {
-  const size_t b = blockIdx.x;
-  const bool seq = group_idx != nullptr;
-  const int g = seq ? group_idx[b * p_len + slot] : slot;
-  const float* ask = asks + (b * g_len + g) * NDIMS;
-  for (int t = threadIdx.x; t < kout; t += THREADS) {
-    const int e = upd[b * kout + t];
-    if (e < 0) continue;
-    const size_t row = (size_t)(e >> 1);
-    const bool take = (e & 1) != 0;
-    float* u = usage + (b * rows + row) * NDIMS;
-#pragma unroll
-    for (int d = 0; d < NDIMS; ++d)
-      u[d] = __fadd_rn(u[d], take ? ask[d]
-                                  : (seq ? __fmul_rn(ask[d], 0.0f) : 0.0f));
-    if (take) jc[b * rows + row] += 1;
-  }
 }
 
 extern "C" {
@@ -1675,33 +1710,66 @@ int nomad_place_rounds_batch(
   return (int)cudaGetLastError();
 }
 
-// K7a on `lanes` lanes of a shard of `rows` rows (a power of two) whose
-// first row is row_lo of the fleet, for k candidates: k = 1, the block
-// argmax; else the top-k path `path` of nomad_place_rounds_plan(rows,
-// k), its key region in shared memory or in `scratch` (key_words
-// 32-bit words a lane).  group_idx null: a rounds walk, `step` its slot.
-int nomad_shard_select(const float* cap, const float* res, const float* usage,
-                       const int* jc, const uint8_t* feas, const float* asks,
-                       const uint8_t* distinct, const int* group_idx,
-                       const float* penalty, int lanes, int rows, int g_len,
-                       int p_len, int step, int k, int path, int row_lo,
-                       float* out_v, int* out_i, uint32_t* scratch,
-                       void* stream) {
-  if (lanes < 1 || k < 1 || k > rows || (k > 1 && !rounds_args_ok(
-          rows, k, 1, path)) || step < 0 ||
-      step >= (group_idx != nullptr ? p_len : g_len))
+// K7a+c on `shards` shards of one mesh row on the current card, `lanes`
+// lanes each, every shard of `rows` rows (a power of two where k > 1);
+// `table` holds STEP_WORDS host words a shard (StepShard's fields in
+// order).  apply_step / select_step as in the kernel, -1 for none (not
+// both).  k = 1: the block argmax; else the top-k path `path` of
+// nomad_place_rounds_plan(rows, k), every shard's key regions in shared
+// memory or all in their `scratch` (key words a lane as that plan's).
+int nomad_shard_step(const unsigned long long* table, int shards, int lanes,
+                     int rows, int g_len, int p_len, int apply_step,
+                     int select_step, int k, int kout, int path,
+                     void* stream) {
+  if (table == nullptr || shards < 1 || shards > MAX_STEP_SHARDS ||
+      lanes < 1 || rows < 1 || g_len < 1 || kout < 1 || k < 1 || k > rows ||
+      apply_step < -1 || select_step < -1 ||
+      (apply_step < 0 && select_step < 0) ||
+      (select_step >= 0 && k > 1 && !rounds_args_ok(rows, k, 1, path)))
     return (int)cudaErrorInvalidValue;
+  StepTable t;
+  const bool seq = table[8] != 0ull;
+  const bool scratch = table[12] != 0ull;
+  const int steps = seq ? p_len : g_len;
+  if (apply_step >= steps || select_step >= steps)
+    return (int)cudaErrorInvalidValue;
+  for (int s = 0; s < shards; ++s) {
+    const unsigned long long* w = table + (size_t)s * STEP_WORDS;
+    for (int f = 0; f < 8; ++f)
+      if (w[f] == 0ull) return (int)cudaErrorInvalidValue;
+    if ((w[8] != 0ull) != seq || (w[12] != 0ull) != scratch ||
+        (select_step >= 0 && (w[9] == 0ull || w[10] == 0ull)) ||
+        (apply_step >= 0 && w[11] == 0ull))
+      return (int)cudaErrorInvalidValue;
+    StepShard& x = t.s[s];
+    x.cap = (const float*)w[0];
+    x.res = (const float*)w[1];
+    x.usage = (float*)w[2];
+    x.jc = (int*)w[3];
+    x.feas = (const uint8_t*)w[4];
+    x.asks = (const float*)w[5];
+    x.distinct = (const uint8_t*)w[6];
+    x.penalty = (const float*)w[7];
+    x.group_idx = (const int*)w[8];
+    x.out_v = (float*)w[9];
+    x.out_i = (int*)w[10];
+    x.upd = (const int*)w[11];
+    x.scratch = (uint32_t*)w[12];
+    x.row_lo = (long long)w[13];
+  }
   size_t smem = 0;
   size_t bytes = 0;
-  if (k > 1) {
+  if (select_step >= 0 && k > 1) {
     bytes = topk_key_bytes(rows, k, path);
-    const int e = keys_smem(shard_select_kernel, bytes, scratch, &smem);
+    const int e = keys_smem(shard_step_kernel, bytes,
+                            scratch ? (const void*)table[12] : nullptr,
+                            &smem);
     if (e != 0) return e;
   }
-  shard_select_kernel<<<lanes, THREADS, smem, (cudaStream_t)stream>>>(
-      cap, res, usage, jc, feas, asks, distinct, group_idx, penalty, rows,
-      g_len, p_len, step, k, path, row_lo, (int)(bytes / 4), out_v, out_i,
-      scratch);
+  shard_step_kernel<<<dim3(lanes, shards), THREADS, smem,
+                      (cudaStream_t)stream>>>(
+      t, rows, g_len, p_len, apply_step, select_step, k, kout, path,
+      (int)(bytes / 4));
   return (int)cudaGetLastError();
 }
 
@@ -1720,18 +1788,6 @@ int nomad_merge_select(const float* cand_v, const int* cand_i, int shards,
   merge_select_kernel<<<lanes, THREADS, 0, (cudaStream_t)stream>>>(
       cand_v, cand_i, shards, lanes, k, kout, rows, seq, slot, rnd, g_len,
       out_len, counts, valid, m, upd, chosen, scores);
-  return (int)cudaGetLastError();
-}
-
-// K7c on a shard's lanes; group_idx null for a rounds walk.
-int nomad_shard_apply(float* usage, int* jc, const int* upd, const float* asks,
-                      const int* group_idx, int lanes, int rows, int g_len,
-                      int p_len, int kout, int slot, void* stream) {
-  if (lanes < 1 || rows < 1 || kout < 1 || slot < 0 ||
-      slot >= (group_idx != nullptr ? p_len : g_len))
-    return (int)cudaErrorInvalidValue;
-  shard_apply_kernel<<<lanes, THREADS, 0, (cudaStream_t)stream>>>(
-      usage, jc, upd, asks, group_idx, rows, g_len, p_len, kout, slot);
   return (int)cudaGetLastError();
 }
 

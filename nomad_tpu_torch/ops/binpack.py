@@ -551,11 +551,16 @@ place_sequence_batch.launches = 0
 #
 # A sharded walk splits the node axis into S shards of R = N / S rows,
 # each its own tensors on its own device.  Each step of a walk (one
-# placement of K2/K4b, one round of a slot of K3/K4a) is K7a on every
-# shard, K7b on the lead device and K7c on every shard
-# (``csrc/binpack.cu``, the section "K7").  Per-lane operands keep K4's
-# leading lane axis B (a single eval is one lane); every shard's tensors
-# cover only its R rows.
+# placement of K2/K4b, one round of a slot of K3/K4a) is one shard_step
+# launch (K7a+c) per card and mesh row, over that card's shards, and K7b
+# on the lead device; after the last step one more shard_step a card
+# applies the last winners (``csrc/binpack.cu``, the section "K7").
+# Per-lane operands keep K4's leading lane axis B (a single eval is one
+# lane); every shard's tensors cover only its R rows.
+#
+# shard_select_plain (K7a's half) and shard_apply_plain (K7c's half) are
+# the specification: shard_step_plain is one then the other, shard by
+# shard.
 
 
 def shard_select_plain(capacity, reserved, usage, job_counts, feasible,
@@ -646,91 +651,179 @@ def shard_apply_plain(usage, job_counts, upd, asks, *, slot: int,
         job_counts[b].index_add_(0, rows, take.to(job_counts.dtype))
 
 
-def shard_select(capacity, reserved, usage, job_counts, feasible, asks,
-                 distinct, penalty, step: int, k: int, row_lo: int,
-                 group_idx=None, out=None):
-    """K7a (the per-shard half of ``nomad_tpu/parallel/mesh.py``'s
-    sharded argmax and top_k): the plain version for CPU tensors, the
-    ``shard_select_kernel`` launch (one block a lane) for CUDA tensors.
-    capacity/reserved f32[R, D] (R a power of two), usage f32[B, R, D],
-    job_counts i32[B, R], feasible bool[B, G, R], asks f32[B, G, D],
-    distinct bool[B, G], penalty f32[B], group_idx i32[B, P] or None.
-    Returns (values f32[B, k], global indices i32[B, k]), written into
-    ``out`` (a pair of such tensors, e.g. views of the lead device's
-    candidate buffers) when given."""
-    args = dict(capacity=capacity, reserved=reserved, usage=usage,
-                job_counts=job_counts, feasible=feasible, asks=asks,
-                distinct=distinct, penalty=penalty)
-    if group_idx is not None:
-        args["group_idx"] = group_idx
-    device = kernels.route(args)
-    rows = _node_axis(capacity)
-    if not 1 <= k <= rows:
-        raise ValueError(f"k {k} must lie in [1, {rows}]")
-    if device.type == "cpu":
-        got = shard_select_plain(capacity, reserved, usage, job_counts,
-                                 feasible, asks, distinct, penalty, step, k,
-                                 row_lo, group_idx)
-        if out is None:
-            return got
-        out[0].copy_(got[0])
-        out[1].copy_(got[1])
-        return out
-    lanes, g = feasible.shape[0], feasible.shape[1]
-    specs = _batch_specs(rows, lanes, g, dict(
-        usage=(torch.float32, (lanes, rows, NDIMS))))
-    del specs["usage0"]
-    if group_idx is not None:
-        specs["group_idx"] = (torch.int32, (lanes, group_idx.shape[-1]))
-    kernels.check_args(args, specs)
-    if out is None:
-        out = (torch.empty((lanes, k), dtype=torch.float32, device=device),
-               torch.empty((lanes, k), dtype=torch.int32, device=device))
-    kernels.check_args(dict(vals=out[0], idx=out[1]), dict(
-        vals=(torch.float32, (lanes, k)), idx=(torch.int32, (lanes, k))))
-    launch_shard_select(capacity, reserved, usage, job_counts, feasible,
-                        asks, distinct, penalty, step, k, row_lo, group_idx,
-                        out)
+# One shard's operands of shard_step (a mapping with these keys, and
+# ``row_lo``, its first row in the fleet).  The kernel's table holds
+# their pointers in this order (``out`` as its two tensors), then the
+# shard's key regions and row_lo (``csrc/binpack.cu`` StepShard).
+# ``out`` is the pair (values f32[B, k], global indices i32[B, k]) the
+# select writes, ``group_idx`` is None in a rounds walk, and ``out`` /
+# ``upd`` may be None where no step selects / applies.
+STEP_FIELDS = ("capacity", "reserved", "usage", "job_counts", "feasible",
+               "asks", "distinct", "penalty", "group_idx", "out", "upd")
+# Shards one shard_step launch takes (csrc/binpack.cu MAX_STEP_SHARDS).
+STEP_SHARDS = 16
+
+
+def shard_step_plain(shards, *, apply_step: int, select_step: int, k: int):
+    """Plain version of K7a+c, in place, shard by shard: where
+    ``apply_step`` >= 0, :func:`shard_apply_plain` of the shard's
+    ``upd`` i32[B, kout] with that step's ask; then, where
+    ``select_step`` >= 0, :func:`shard_select_plain` of that step's ask
+    on the rows just updated, written into the shard's ``out``."""
+    for sh in shards:
+        gi = sh.get("group_idx")
+        if apply_step >= 0:
+            shard_apply_plain(sh["usage"], sh["job_counts"], sh["upd"],
+                              sh["asks"], slot=apply_step, group_idx=gi)
+        if select_step >= 0:
+            vals, idx = shard_select_plain(
+                sh["capacity"], sh["reserved"], sh["usage"],
+                sh["job_counts"], sh["feasible"], sh["asks"],
+                sh["distinct"], sh["penalty"], select_step, k,
+                sh["row_lo"], gi)
+            sh["out"][0].copy_(vals)
+            sh["out"][1].copy_(idx)
+
+
+def _step_tensors(shards) -> dict:
+    """Every tensor of ``shards`` by a name with its shard's position
+    (``usage2``, ``out_v0``), for the route and the checks."""
+    out = {}
+    for s, sh in enumerate(shards):
+        for name in STEP_FIELDS:
+            t = sh.get(name)
+            if name == "out" and t is not None:
+                out[f"out_v{s}"], out[f"out_i{s}"] = t
+            elif t is not None:
+                out[f"{name}{s}"] = t
     return out
 
 
-def launch_shard_select(capacity, reserved, usage, job_counts, feasible,
-                        asks, distinct, penalty, step, k, row_lo, group_idx,
-                        out, scratch=None):
-    """K7a's launch alone, on arguments :func:`shard_select` checked (a
-    walk checks them once for all its steps).  ``scratch`` is the key
-    region of each lane where :func:`select_scratch` puts it in device
-    memory."""
-    device = usage.device
-    lanes, rows = job_counts.shape
-    g = feasible.shape[1]
-    path = 0
-    if k > 1:
-        path = rounds_plan(rows, k)[0]
-        if scratch is None:
-            scratch = select_scratch(rows, k, lanes, device)
-    lib = kernels.library("binpack")
-    code = lib.nomad_shard_select(
-        capacity.data_ptr(), reserved.data_ptr(), usage.data_ptr(),
-        job_counts.data_ptr(), feasible.data_ptr(), asks.data_ptr(),
-        distinct.data_ptr(),
-        None if group_idx is None else group_idx.data_ptr(),
-        penalty.data_ptr(), lanes, rows, g,
-        1 if group_idx is None else group_idx.shape[-1], step, k, path,
-        row_lo, out[0].data_ptr(), out[1].data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
-        kernels.stream_handle(device))
-    kernels.check(lib, "shard_select", code)
-    shard_select.launches += 1
+def shard_step(shards, *, apply_step: int, select_step: int, k: int):
+    """K7a+c (the per-shard half of a step of ``nomad_tpu/parallel/
+    mesh.py``'s sharded argmax and top_k scans, and the owner's row
+    update of the step before): the plain version for CPU tensors
+    (:func:`shard_step_plain`; returns None), for CUDA tensors the
+    ``shard_step_kernel`` launch, one block per (lane, shard), every
+    shard in one launch.  ``shards`` are mappings of
+    :data:`STEP_FIELDS` and ``row_lo``, all on one device, each shard's
+    tensors covering its R rows: capacity/reserved f32[R, D] (R a power
+    of two), usage f32[B, R, D] and job_counts i32[B, R] (updated in
+    place), feasible bool[B, G, R], asks f32[B, G, D], distinct
+    bool[B, G], penalty f32[B], group_idx i32[B, P] or None.  Selects
+    the best ``k`` of step ``select_step`` (-1: none, the walk's tail)
+    after applying the shard's ``upd`` of step ``apply_step`` (-1:
+    none, the walk's first step).  On the card returns the checked
+    :class:`StepPlan`, with which a walk launches its later steps
+    (:func:`launch_shard_step`) without checking again."""
+    if not shards:
+        raise ValueError("shard_step takes one shard or more")
+    if apply_step < -1 or select_step < -1 or \
+            (apply_step < 0 and select_step < 0):
+        raise ValueError(f"shard_step: apply_step {apply_step} and "
+                         f"select_step {select_step}: one of them >= 0, "
+                         "neither below -1")
+    device = kernels.route(_step_tensors(shards))
+    rows = _node_axis(shards[0]["capacity"])
+    if not 1 <= k <= rows:
+        raise ValueError(f"k {k} must lie in [1, {rows}]")
+    for sh in shards:
+        if (apply_step >= 0 and sh.get("upd") is None) or \
+                (select_step >= 0 and sh.get("out") is None):
+            raise ValueError("shard_step: a shard lacks the upd it applies "
+                             "or the out it selects into")
+    if device.type == "cpu":
+        shard_step_plain(shards, apply_step=apply_step,
+                         select_step=select_step, k=k)
+        return None
+    plan = step_plan(shards, k)
+    launch_shard_step(plan, apply_step, select_step)
+    return plan
 
 
-shard_select.launches = 0
+class StepPlan:
+    """A checked shard_step over one group of shards on one card: the
+    kernel's table of their pointers (host words, made once and reused
+    every step while the tensors live), the launch's scalars, and the
+    key regions of a select that shared memory cannot hold."""
+
+    __slots__ = ("table", "scratch", "head", "tail", "shards")
+
+    def __init__(self, table, scratch, head, tail, shards) -> None:
+        self.table, self.scratch = table, scratch
+        self.head, self.tail, self.shards = head, tail, shards
+
+
+def step_plan(shards, k: int) -> StepPlan:
+    """Check ``shards`` (CUDA tensors, as :func:`shard_step` takes them,
+    at most :data:`STEP_SHARDS`) for a shard_step of ``k`` candidates and
+    build its :class:`StepPlan`; raises on anything the kernel does not
+    take."""
+    if not 1 <= len(shards) <= STEP_SHARDS:
+        raise ValueError(f"shard_step takes 1 to {STEP_SHARDS} shards a "
+                         f"launch, not {len(shards)}")
+    tensors = _step_tensors(shards)
+    device = kernels.route(tensors)
+    rows = _node_axis(shards[0]["capacity"])
+    first = shards[0]
+    lanes, g = first["feasible"].shape[0], first["feasible"].shape[1]
+    seq = first.get("group_idx") is not None
+    p = first["group_idx"].shape[-1] if seq else 1
+    kout = first["upd"].shape[-1] if first.get("upd") is not None else 1
+    specs = _batch_specs(rows, lanes, g, dict(
+        usage=(torch.float32, (lanes, rows, NDIMS))))
+    del specs["usage0"]
+    specs.update(group_idx=(torch.int32, (lanes, p)),
+                 out_v=(torch.float32, (lanes, k)),
+                 out_i=(torch.int32, (lanes, k)),
+                 upd=(torch.int32, (lanes, kout)))
+    kernels.check_args(tensors, {f"{name}{s}": spec
+                                 for s, sh in enumerate(shards)
+                                 for name, spec in specs.items()
+                                 if f"{name}{s}" in tensors})
+    for sh in shards:
+        if (sh.get("group_idx") is not None) != seq:
+            raise ValueError("shard_step: every shard of a launch has a "
+                             "group_idx (a sequence walk) or none does")
+        if (sh.get("upd") is None) != (first.get("upd") is None) or \
+                (sh.get("out") is None) != (first.get("out") is None):
+            raise ValueError("shard_step: every shard of a launch has an "
+                             "upd and an out, or none does")
+    path = rounds_plan(rows, k)[0] if k > 1 else 0
+    scratch = [select_scratch(rows, k, lanes, device) for _ in shards]
+    words = []
+    for sh, sc in zip(shards, scratch):
+        for name in STEP_FIELDS:
+            t = sh.get(name)
+            parts = (t or (None, None)) if name == "out" else (t,)
+            words += [0 if x is None else x.data_ptr() for x in parts]
+        words += [0 if sc is None else sc.data_ptr(), int(sh["row_lo"])]
+    table = (ctypes.c_uint64 * len(words))(*words)
+    fn = kernels.library("binpack").nomad_shard_step
+    head = (fn, table, len(shards), lanes, rows, g, p)
+    tail = (k, kout, path, kernels.stream_handle(device))
+    return StepPlan(table, scratch, head, tail, shards)
+
+
+def launch_shard_step(plan: StepPlan, apply_step: int,
+                      select_step: int) -> None:
+    """shard_step's launch alone, on a :class:`StepPlan` that
+    :func:`step_plan` checked (a walk checks once for all its steps);
+    the launch goes to the stream current when the plan was made."""
+    fn, *head = plan.head
+    code = fn(*head, apply_step, select_step, *plan.tail)
+    if code:
+        kernels.check(kernels.library("binpack"), "shard_step", code)
+    shard_step.launches += 1
+
+
+shard_step.launches = 0
 
 
 def select_scratch(rows: int, k: int, lanes: int, device):
-    """The key regions of K7a's lanes in device memory where its plan
-    does not keep them in shared memory, else None; a walk allocates
-    them once for all its steps."""
+    """The key regions of a shard's lanes in device memory where the
+    plan of its top-k (:func:`rounds_plan`) does not keep them in shared
+    memory, else None; a walk allocates them once for all its steps."""
     if k == 1:
         return None
     _path, words, in_smem = rounds_plan(rows, k)
@@ -770,68 +863,33 @@ def merge_select(cand_vals, cand_idx, rows: int, upd, chosen, scores, *,
         specs["counts"] = (torch.int32, tuple(chosen.shape[:2]))
         specs["m"] = (torch.int32, (lanes,))
     kernels.check_args(args, specs)
-    launch_merge_select(cand_vals, cand_idx, rows, upd, chosen, scores,
-                        slot, rnd, m, counts, valid)
+    merge_launch(cand_vals, cand_idx, rows, upd, chosen, scores, m, counts,
+                 valid)(slot, rnd)
 
 
-def launch_merge_select(cand_vals, cand_idx, rows, upd, chosen, scores, slot,
-                        rnd, m, counts, valid):
-    """K7b's launch alone, on arguments :func:`merge_select` checked."""
+def merge_launch(cand_vals, cand_idx, rows, upd, chosen, scores, m, counts,
+                 valid):
+    """K7b's launch alone, bound to arguments :func:`merge_select`
+    checked: a function of (slot, rnd) that launches it, so a walk reads
+    its pointers and stream once, not once a step."""
     n_shards, lanes, k = cand_vals.shape
     seq = valid is not None
     lib = kernels.library("binpack")
-    code = lib.nomad_merge_select(
-        cand_vals.data_ptr(), cand_idx.data_ptr(), n_shards, lanes, k,
-        upd.shape[2], rows, int(seq), slot, rnd,
-        1 if seq else chosen.shape[1], chosen.shape[-1],
-        None if seq else counts.data_ptr(),
-        valid.data_ptr() if seq else None,
-        None if seq else m.data_ptr(), upd.data_ptr(), chosen.data_ptr(),
-        scores.data_ptr(), kernels.stream_handle(cand_vals.device))
-    kernels.check(lib, "merge_select", code)
-    merge_select.launches += 1
+    fn = lib.nomad_merge_select
+    head = (cand_vals.data_ptr(), cand_idx.data_ptr(), n_shards, lanes, k,
+            upd.shape[2], rows, int(seq))
+    tail = (1 if seq else chosen.shape[1], chosen.shape[-1],
+            None if seq else counts.data_ptr(),
+            valid.data_ptr() if seq else None,
+            None if seq else m.data_ptr(), upd.data_ptr(), chosen.data_ptr(),
+            scores.data_ptr(), kernels.stream_handle(cand_vals.device))
+
+    def launch(slot: int, rnd: int) -> None:
+        code = fn(*head, slot, rnd, *tail)
+        if code:
+            kernels.check(lib, "merge_select", code)
+        merge_select.launches += 1
+    return launch
 
 
 merge_select.launches = 0
-
-
-def shard_apply(usage, job_counts, upd, asks, *, slot: int, group_idx=None):
-    """K7c (the owner's row update of ``nomad_tpu/parallel/mesh.py``'s
-    sharded scans): the plain version for CPU tensors, the
-    ``shard_apply_kernel`` launch (one block a lane) for CUDA tensors;
-    updates usage f32[B, R, D] and job_counts i32[B, R] in place from
-    the shard's ``upd`` i32[B, kout] (:func:`shard_apply_plain`)."""
-    args = dict(usage=usage, job_counts=job_counts, upd=upd, asks=asks)
-    if group_idx is not None:
-        args["group_idx"] = group_idx
-    device = kernels.route(args)
-    if device.type == "cpu":
-        return shard_apply_plain(usage, job_counts, upd, asks, slot=slot,
-                                 group_idx=group_idx)
-    lanes, rows = job_counts.shape
-    g = asks.shape[1]
-    specs = dict(usage=(torch.float32, (lanes, rows, NDIMS)),
-                 job_counts=(torch.int32, (lanes, rows)),
-                 upd=(torch.int32, (lanes, upd.shape[-1])),
-                 asks=(torch.float32, (lanes, g, NDIMS)))
-    if group_idx is not None:
-        specs["group_idx"] = (torch.int32, (lanes, group_idx.shape[-1]))
-    kernels.check_args(args, specs)
-    launch_shard_apply(usage, job_counts, upd, asks, slot, group_idx)
-
-
-def launch_shard_apply(usage, job_counts, upd, asks, slot, group_idx):
-    """K7c's launch alone, on arguments :func:`shard_apply` checked."""
-    lanes, rows = job_counts.shape
-    lib = kernels.library("binpack")
-    code = lib.nomad_shard_apply(
-        usage.data_ptr(), job_counts.data_ptr(), upd.data_ptr(),
-        asks.data_ptr(), None if group_idx is None else group_idx.data_ptr(),
-        lanes, rows, asks.shape[1],
-        1 if group_idx is None else group_idx.shape[-1], upd.shape[-1],
-        slot, kernels.stream_handle(usage.device))
-    kernels.check(lib, "shard_apply", code)
-    shard_apply.launches += 1
-
-
-shard_apply.launches = 0

@@ -21,9 +21,12 @@ the JAX tests' forced host device count.
 The sharded forms (K7) compute exactly what the unsharded kernels do.
 XLA turned the JAX forms' argmax and top_k over the sharded axis into
 per-shard work and a cross-shard merge; here every step of a walk is
-K7a on each shard, K7b on the mesh row's lead device and K7c on each
-shard (``ops/binpack.py``, ``csrc/binpack.cu``), and the window verify
-gathers each shard's rows with K7d before K6's body runs
+one shard_step launch (K7a+c) per card of a mesh row, over that card's
+shards (the previous step's winners applied, then the shard's best
+candidates selected), and K7b on the row's lead device, with one tail
+shard_step a card after the last step (``ops/binpack.py``,
+``csrc/binpack.cu``); on one card a step is two launches.  The window
+verify gathers each shard's rows with K7d before K6's body runs
 (``csrc/window_verify.cu``).  One process drives every shard: small
 candidate and update buffers travel between devices with
 ``copy_(non_blocking=True)``, which PyTorch orders against the current
@@ -43,6 +46,7 @@ import os
 import numpy as np
 import torch
 
+from nomad_tpu_torch.ops.binpack import STEP_SHARDS
 from nomad_tpu_torch.parallel.devices import (
     PinnedStaging,
     classify_move,
@@ -354,20 +358,54 @@ def shard_fleet_arrays(mesh: Mesh, capacity, reserved, usage, job_counts,
             _put(feasible, mesh, GROUP_NODE))
 
 
-# -- the sharded walks (K7a-K7c) -------------------------------------------
+# -- the sharded walks (K7a+c, K7b) ----------------------------------------
+
+
+def device_groups(devices, cap: int = STEP_SHARDS) -> list:
+    """One mesh row's shard positions grouped for shard_step, one launch
+    a group: ``(device, [positions])`` in the order each device first
+    appears, each device's positions in order, cut into runs of at most
+    ``cap`` (the kernel's shards a launch)."""
+    by_device: dict = {}
+    for c, d in enumerate(devices):
+        by_device.setdefault(torch.device(d), []).append(c)
+    return [(d, cs[i:i + cap]) for d, cs in by_device.items()
+            for i in range(0, len(cs), cap)]
+
+
+def _runs(cs: list) -> list:
+    """(lead index, local index) pairs that copy a group's per-shard
+    buffers to and from the lead's: one slice pair where its positions
+    are contiguous, else one pair a position."""
+    if cs == list(range(cs[0], cs[0] + len(cs))):
+        return [(slice(cs[0], cs[0] + len(cs)), slice(None))]
+    return list(zip(cs, range(len(cs))))
+
+
+class _Group:
+    """One shard_step launch of a mesh row: the operands of its shards,
+    its checked plan once the first step has made it, and, on a card
+    other than the row's lead, the copies that carry its candidates to
+    the lead and the lead's updates back (views made once a walk)."""
+
+    __slots__ = ("shards", "plan", "to_lead", "to_local")
+
+    def __init__(self, shards, to_lead=(), to_local=()) -> None:
+        self.shards, self.plan = shards, None
+        self.to_lead, self.to_local = to_lead, to_local
 
 
 class _Row:
     """One mesh row's share of a sharded walk: its lanes' state on every
     shard (usage and job counts, evolved from copies of the base), the
-    candidate and update buffers on the row's lead device, and the
-    walk's results there.  ``ops`` maps each operand to its tensor at
-    each mesh position, in the batch layout (a leading lane axis)."""
+    candidate and update buffers on the row's lead device, its shards
+    grouped by device (one shard_step launch a group and step), and the
+    walk's results on the lead.  ``ops`` maps each operand to its
+    tensor at each mesh position, in the batch layout (a leading lane
+    axis)."""
 
     def __init__(self, mesh: Mesh, r: int, ops: dict, seq: bool,
                  k_cap: int, rounds: int) -> None:
-        from nomad_tpu_torch.ops.binpack import select_scratch
-
         width = mesh.fleet_ways
         self.devs = mesh.grid[r]
         self.lead = lead = self.devs[0]
@@ -375,10 +413,10 @@ class _Row:
         def row(name):
             return [ops[name][r * width + c] for c in range(width)]
 
-        self.cap, self.res = row("capacity"), row("reserved")
-        self.feas, self.asks = row("feasible"), row("asks")
-        self.distinct, self.penalty = row("distinct"), row("penalty")
-        self.group_idx = row("group_idx") if seq else [None] * width
+        cap, res = row("capacity"), row("reserved")
+        feas, asks = row("feasible"), row("asks")
+        distinct, penalty = row("distinct"), row("penalty")
+        group_idx = row("group_idx") if seq else [None] * width
         jc = row("job_counts")
         self.lanes, self.rows = lanes, rows = jc[0].shape
         # Each lane's own copy of the base, as the vmap's carry.
@@ -390,65 +428,81 @@ class _Row:
         self.cand_v = torch.empty((width, lanes, k), dtype=f32, device=lead)
         self.cand_i = torch.empty((width, lanes, k), dtype=i32, device=lead)
         self.upd = torch.empty((width, lanes, kout), dtype=i32, device=lead)
-        self.local = [None if d == lead else (
-            torch.empty((lanes, k), dtype=f32, device=d),
-            torch.empty((lanes, k), dtype=i32, device=d),
-            torch.empty((lanes, kout), dtype=i32, device=d))
-            for d in self.devs]
-        self.scratch = [select_scratch(rows, k, lanes, d)
-                        if d.type == "cuda" else None for d in self.devs]
+        self.groups = []
+        for dev, cs in device_groups(self.devs):
+            if dev == lead:
+                cand_v, cand_i, upd, at = self.cand_v, self.cand_i, \
+                    self.upd, cs
+            else:
+                m = len(cs)
+                cand_v = torch.empty((m, lanes, k), dtype=f32, device=dev)
+                cand_i = torch.empty((m, lanes, k), dtype=i32, device=dev)
+                upd = torch.empty((m, lanes, kout), dtype=i32, device=dev)
+                at = range(m)
+            shards = [dict(capacity=cap[c], reserved=res[c],
+                           usage=self.usage[c], job_counts=self.jc[c],
+                           feasible=feas[c], asks=asks[c],
+                           distinct=distinct[c], penalty=penalty[c],
+                           group_idx=group_idx[c],
+                           out=(cand_v[j], cand_i[j]), upd=upd[j],
+                           row_lo=c * rows) for c, j in zip(cs, at)]
+            if dev == lead:
+                self.groups.append(_Group(shards))
+                continue
+            runs = _runs(cs)
+            self.groups.append(_Group(
+                shards,
+                to_lead=[(dst[a], src[b]) for a, b in runs
+                         for dst, src in ((self.cand_v, cand_v),
+                                          (self.cand_i, cand_i))],
+                to_local=[(upd[b], self.upd[a]) for a, b in runs]))
         self.m = self.counts = self.valid = None
         if seq:
             self.valid = ops["valid"][r * width]
-            shape = (lanes, self.group_idx[0].shape[1])
+            shape = (lanes, group_idx[0].shape[1])
         else:
             self.counts = ops["counts"][r * width]
             self.m = torch.zeros(lanes, dtype=i32, device=lead)
-            shape = (lanes, self.asks[0].shape[1], rounds * k_cap)
+            shape = (lanes, asks[0].shape[1], rounds * k_cap)
         self.chosen = torch.empty(shape, dtype=i32, device=lead)
         self.scores = torch.empty(shape, dtype=f32, device=lead)
+        self.merge = (self.cand_v, self.cand_i, self.rows, self.upd,
+                      self.chosen, self.scores)
+        self.launch_merge = None  # K7b bound to its buffers, once checked
 
-    def step(self, slot: int, rnd: int, first: bool) -> None:
-        """One step on every shard: K7a, K7b, K7c.  The first step goes
-        through the checking wrappers, the rest launch directly."""
+    def step(self, apply_step: int, slot: int, rnd: int,
+             checked: bool) -> None:
+        """One step: shard_step on every group (the updates of the step
+        at ``apply_step`` applied, -1 for none, then the select of
+        ``slot``), the candidates to the lead, K7b there, its updates
+        back to the other cards.  ``slot`` -1 is the walk's tail: the
+        last updates applied, nothing selected.  A checked step goes
+        through the checking wrappers (and makes the groups' plans);
+        the others launch on those plans."""
         from nomad_tpu_torch.ops import binpack
 
-        checked = first or self.lead.type == "cpu"
-        for c, local in enumerate(self.local):
-            out = (self.cand_v[c], self.cand_i[c]) if local is None \
-                else local[:2]
-            args = (self.cap[c], self.res[c], self.usage[c], self.jc[c],
-                    self.feas[c], self.asks[c], self.distinct[c],
-                    self.penalty[c], slot, self.k, c * self.rows,
-                    self.group_idx[c])
+        for g in self.groups:
             if checked:
-                binpack.shard_select(*args, out=out)
+                g.plan = binpack.shard_step(g.shards, apply_step=apply_step,
+                                            select_step=slot, k=self.k)
             else:
-                binpack.launch_shard_select(*args, out, self.scratch[c])
-            if local is not None:
-                self.cand_v[c].copy_(local[0], non_blocking=True)
-                self.cand_i[c].copy_(local[1], non_blocking=True)
-        merge = (self.cand_v, self.cand_i, self.rows, self.upd, self.chosen,
-                 self.scores)
+                binpack.launch_shard_step(g.plan, apply_step, slot)
+            if slot >= 0:
+                for dst, src in g.to_lead:
+                    dst.copy_(src, non_blocking=True)
+        if slot < 0:
+            return
         if checked:
-            binpack.merge_select(*merge, slot=slot, rnd=rnd, m=self.m,
+            binpack.merge_select(*self.merge, slot=slot, rnd=rnd, m=self.m,
                                  counts=self.counts, valid=self.valid)
+            if self.lead.type == "cuda":
+                self.launch_merge = binpack.merge_launch(
+                    *self.merge, self.m, self.counts, self.valid)
         else:
-            binpack.launch_merge_select(*merge, slot, rnd, self.m,
-                                        self.counts, self.valid)
-        for c, local in enumerate(self.local):
-            upd = self.upd[c]
-            if local is not None:
-                local[2].copy_(upd, non_blocking=True)
-                upd = local[2]
-            if checked:
-                binpack.shard_apply(self.usage[c], self.jc[c], upd,
-                                    self.asks[c], slot=slot,
-                                    group_idx=self.group_idx[c])
-            else:
-                binpack.launch_shard_apply(self.usage[c], self.jc[c], upd,
-                                           self.asks[c], slot,
-                                           self.group_idx[c])
+            self.launch_merge(slot, rnd)
+        for g in self.groups:
+            for dst, src in g.to_local:
+                dst.copy_(src, non_blocking=True)
 
 
 def _walk(mesh: Mesh, lane_rows, ops: dict, *, seq: bool, k_cap: int = 1,
@@ -457,16 +511,24 @@ def _walk(mesh: Mesh, lane_rows, ops: dict, *, seq: bool, k_cap: int = 1,
     its own lanes, step by step side by side) and return (chosen,
     scores, usage) on the mesh's lead device, lanes in row order, shaped
     as K4a/K4b shape them (usage f32[B, N, D], gathered from the
-    shards)."""
+    shards).  A step of a sequence walk selects for its placement p
+    (slot p), a step of the rounds for round ``rnd`` of its slot; each
+    step applies the updates of the step before, and a tail after the
+    last applies its own.  The first step checks the arguments; on the
+    CPU every step runs the plain versions through the wrappers."""
     rows = [_Row(mesh, r, ops, seq, k_cap, rounds) for r in lane_rows]
-    if seq:
-        steps = [(p, 0) for p in range(rows[0].chosen.shape[1])]
-    else:
-        steps = [(s, r) for s in range(rows[0].chosen.shape[1])
-                 for r in range(rounds)]
+    width = rows[0].chosen.shape[1]
+    steps = [(p, 0) for p in range(width)] if seq else \
+        [(s, r) for s in range(width) for r in range(rounds)]
+    cpu = mesh.lead.type == "cpu"
+    prev = -1
     for i, (slot, rnd) in enumerate(steps):
         for row in rows:
-            row.step(slot, rnd, i == 0)
+            row.step(prev, slot, rnd, cpu or i == 0)
+        prev = slot
+    if steps:
+        for row in rows:
+            row.step(prev, -1, 0, cpu)
     lead = mesh.lead
     chosen = torch.cat([row.chosen.to(lead) for row in rows])
     scores = torch.cat([row.scores.to(lead) for row in rows])
@@ -535,8 +597,9 @@ def place_sequence_sharded(mesh: Mesh, capacity, reserved, usage0,
                            valid, penalty):
     """K2's placement scan with the node axis sharded over ``mesh`` (a
     single eval: row 0 of a 2-D mesh).  Inputs may be host numpy arrays
-    or resident Sharded operands; each step is K7a on every shard (k =
-    1), K7b's merge of the shards' bests and K7c on the owner.  Returns
+    or resident Sharded operands; each step is shard_step on every
+    card's shards (the owner's update of the step before, then each
+    shard's best, k = 1) and K7b's merge of the shards' bests.  Returns
     (chosen i32[P], scores f32[P], usage f32[N, D]) on the mesh's lead
     device, equal to K2's."""
     ops = _single_ops(mesh, capacity, reserved, usage0, job_counts0,
@@ -550,8 +613,9 @@ def place_rounds_sharded(mesh: Mesh, capacity, reserved, usage0, jc0,
                          feasible, asks, distinct, counts, penalty, *,
                          k_cap: int, rounds: int):
     """K3's rounds placement with the node axis sharded over ``mesh``:
-    each round is a top min(k_cap, R) on every shard of R rows (K7a), a
-    merge to the global top k_cap (K7b) and the owners' updates (K7c).
+    each round is a top min(k_cap, R) on every shard of R rows and the
+    owners' updates of the round before (shard_step) and a merge to the
+    global top k_cap (K7b).
     Returns (chosen i32[G, rounds * k_cap], scores alike, usage
     f32[N, D]) on the mesh's lead device, equal to K3's."""
     _check_k_cap(capacity, k_cap, rounds)

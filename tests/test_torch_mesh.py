@@ -554,8 +554,7 @@ def test_a_k7_launch_that_fails_on_a_mesh_raises(monkeypatch, site):
     _jh, th, jobs = _twin_rig(16, 2, 3)
     with tmesh.mesh_override(CPU8), executor_override("device"):
         if site == "scheduler":
-            monkeypatch.setattr(tbp, "shard_select",
-                                _raising("shard_select"))
+            monkeypatch.setattr(tbp, "shard_step", _raising("shard_step"))
             with pytest.raises(RuntimeError, match="CUDA error"):
                 th.process("torch-binpack", _port_eval(jobs[0]))
         elif site == "storm":
@@ -639,3 +638,335 @@ def test_puts_count_one_transfer_per_array():
     assert transfer_counts()["h2d"] == before + 1
     assert len(a) == 8 and all(s.shape == (2, 2) for s in a)
     assert torch.equal(tmesh.gather(a), torch.from_numpy(x))
+
+
+# -- shard_step (K7a+c): the per-shard half of a step, in one launch --------
+
+
+def _step_case(walk: str, k: int, lanes: int = 2, n: int = 64,
+               shards: int = 4, seed: int = 5):
+    """``shards`` shards of an ``n``-row fleet as shard_step takes them
+    (CPU tensors, ``lanes`` lanes), with the lead's candidate and update
+    buffers: every node alike, so each step's scores tie across shard
+    edges, and -0.0 in every usage entry, so an add of +0.0 (a winner
+    not taken) shows in the bits."""
+    rng = np.random.default_rng(seed)
+    rows, g, p = n // shards, 3, 6
+    cap = np.zeros((n, 6), dtype=np.float32)
+    cap[:, :5] = (4000, 8192, 102400, 150, 1000)
+    cap[:, 5] = 40000.0
+    asks = np.zeros((lanes, g, 6), dtype=np.float32)
+    asks[..., 0] = rng.integers(50, 700, (lanes, g))
+    asks[..., 1] = rng.integers(40, 900, (lanes, g))
+    feas = rng.random((lanes, g, n)) > 0.2
+    base = dict(usage=np.full((lanes, n, 6), -0.0, dtype=np.float32),
+                job_counts=np.zeros((lanes, n), dtype=np.int32))
+    gi = rng.integers(0, g, (lanes, p)).astype(np.int32)
+    kout = 1 if walk == "sequence" else k
+    cand_v = torch.empty((shards, lanes, k), dtype=torch.float32)
+    cand_i = torch.empty((shards, lanes, k), dtype=torch.int32)
+    upd = torch.full((shards, lanes, kout), -1, dtype=torch.int32)
+    out = []
+    for s in range(shards):
+        lo, hi = s * rows, (s + 1) * rows
+        out.append(dict(
+            capacity=_t(cap[lo:hi]), reserved=torch.zeros(rows, 6),
+            usage=_t(base["usage"][:, lo:hi]),
+            job_counts=_t(base["job_counts"][:, lo:hi]),
+            feasible=_t(feas[..., lo:hi]), asks=_t(asks),
+            distinct=torch.zeros((lanes, g), dtype=torch.bool),
+            penalty=torch.full((lanes,), 10.0),
+            group_idx=_t(gi) if walk == "sequence" else None,
+            out=(cand_v[s], cand_i[s]), upd=upd[s], row_lo=lo))
+    return out, (cand_v, cand_i, rows, upd)
+
+
+def _merge(walk, merge, step, lanes, k):
+    """K7b's plain version on the shards' candidates of ``step``: the
+    sequence step's one copy is not taken in lane 0 (its valid flag is
+    off), a round takes 2 of its ``k`` winners a lane (the rest get
+    +0.0)."""
+    cand_v, cand_i, rows, upd = merge
+    if walk == "sequence":
+        valid = torch.ones((lanes, 6), dtype=torch.bool)
+        valid[0, step] = False
+        chosen = torch.full((lanes, 6), -7, dtype=torch.int32)
+        tbp.merge_select_plain(cand_v, cand_i, rows, upd, chosen,
+                               torch.zeros((lanes, 6)), slot=step,
+                               valid=valid)
+    else:
+        counts = torch.full((lanes, 3), 2, dtype=torch.int32)
+        tbp.merge_select_plain(cand_v, cand_i, rows, upd,
+                               torch.full((lanes, 3, k), -7,
+                                          dtype=torch.int32),
+                               torch.zeros((lanes, 3, k)), slot=step,
+                               m=torch.zeros(lanes, dtype=torch.int32),
+                               counts=counts)
+
+
+def _state(shards) -> list:
+    return [(sh["usage"].clone(), sh["job_counts"].clone(),
+             sh["out"][0].clone(), sh["out"][1].clone()) for sh in shards]
+
+
+def _same_state(got, want) -> None:
+    for (u, j, v, i), (wu, wj, wv, wi) in zip(got, want):
+        assert torch.equal(u.view(torch.int32), wu.view(torch.int32))
+        assert torch.equal(j, wj)
+        assert torch.equal(v.view(torch.int32), wv.view(torch.int32))
+        assert torch.equal(i, wi)
+
+
+@pytest.mark.parametrize("mode", ["first", "middle", "tail"])
+@pytest.mark.parametrize("walk,k", [("sequence", 1), ("rounds", 1),
+                                    ("rounds", 4)])
+def test_shard_step_plain_is_apply_then_select(walk, k, mode):
+    """shard_step on CPU tensors (its plain version) equals
+    shard_apply_plain then shard_select_plain, shard by shard, in each
+    of its three modes: a walk's first step (select only), a middle step
+    (apply the step before's K7b updates, then select on the rows just
+    written) and the tail (apply only), bit for bit.  The updates come
+    from K7b's plain merge of the first step's candidates; every score
+    ties, so the winners straddle shard edges (the lowest global indices
+    win), and lane 0's sequence winner is not taken, so its row gets
+    ask * 0.0 (-0.0 usage turns +0.0), as a round's untaken winners get
+    0.0."""
+    lanes = 2
+    shards, merge = _step_case(walk, k, lanes)
+    tbp.shard_step(shards, apply_step=-1, select_step=0, k=k)
+    if mode == "first":
+        got = _state(shards)
+        want_shards, _m = _step_case(walk, k, lanes)
+        for sh in want_shards:
+            v, i = tbp.shard_select_plain(
+                sh["capacity"], sh["reserved"], sh["usage"],
+                sh["job_counts"], sh["feasible"], sh["asks"],
+                sh["distinct"], sh["penalty"], 0, k, sh["row_lo"],
+                sh["group_idx"])
+            sh["out"][0].copy_(v)
+            sh["out"][1].copy_(i)
+        _same_state(got, _state(want_shards))
+        rows = merge[2]
+        if walk == "sequence" or k == 1:
+            # The fleet's first feasible row of each lane's step-0 group.
+            assert all(int(sh["out"][1][b, 0]) >= sh["row_lo"]
+                       for sh in shards for b in range(lanes))
+        else:
+            assert merge[1][0, 0].tolist() == [
+                r for r in range(rows)
+                if shards[0]["feasible"][0, 0, r]][:k]
+        return
+    _merge(walk, merge, 0, lanes, k)
+    upd = merge[3]
+    assert (upd >= 0).any()
+    if walk == "sequence":
+        owner = [s for s in range(4) if upd[s, 0, 0] >= 0]
+        assert len(owner) == 1 and int(upd[owner[0], 0, 0]) & 1 == 0
+    want = [dict(sh, usage=sh["usage"].clone(),
+                 job_counts=sh["job_counts"].clone(),
+                 out=(sh["out"][0].clone(), sh["out"][1].clone()))
+            for sh in shards]
+    select = 1 if mode == "middle" else -1
+    tbp.shard_step(shards, apply_step=0, select_step=select, k=k)
+    for sh in want:
+        tbp.shard_apply_plain(sh["usage"], sh["job_counts"], sh["upd"],
+                              sh["asks"], slot=0,
+                              group_idx=sh["group_idx"])
+        if select >= 0:
+            v, i = tbp.shard_select_plain(
+                sh["capacity"], sh["reserved"], sh["usage"],
+                sh["job_counts"], sh["feasible"], sh["asks"],
+                sh["distinct"], sh["penalty"], select, k, sh["row_lo"],
+                sh["group_idx"])
+            sh["out"][0].copy_(v)
+            sh["out"][1].copy_(i)
+    _same_state(_state(shards), _state(want))
+    # Every winner's row changed bits (+ask, or -0.0 to +0.0).
+    for s, sh in enumerate(shards):
+        for b in range(lanes):
+            for e in upd[s, b][upd[s, b] >= 0].tolist():
+                assert not torch.equal(
+                    sh["usage"][b, e >> 1].view(torch.int32),
+                    torch.full((6,), -0.0).view(torch.int32))
+
+
+@pytest.mark.parametrize("devices,want", [
+    (["cuda:0"] * 4, [("cuda:0", [0, 1, 2, 3])]),
+    (["cuda:0", "cuda:1"] * 2, [("cuda:0", [0, 2]), ("cuda:1", [1, 3])]),
+    (["cuda:0", "cuda:1", "cuda:2", "cuda:3"],
+     [("cuda:0", [0]), ("cuda:1", [1]), ("cuda:2", [2]), ("cuda:3", [3])]),
+])
+def test_device_groups(devices, want):
+    """One shard_step launch a card of a mesh row: positions grouped by
+    device, in the order each device first appears (no card is
+    touched: the devices are objects only)."""
+    got = tmesh.device_groups([torch.device(d) for d in devices])
+    assert got == [(torch.device(d), cs) for d, cs in want]
+    assert got[0][0] == torch.device(devices[0])
+
+
+def test_device_groups_cut_at_the_launch_cap():
+    """A card holding more of a row's shards than one launch takes gets
+    a launch per run of at most the cap; contiguous positions copy to
+    the lead as one slice."""
+    assert tmesh.device_groups(["cpu"] * 8, cap=3) == [
+        (torch.device("cpu"), [0, 1, 2]), (torch.device("cpu"), [3, 4, 5]),
+        (torch.device("cpu"), [6, 7])]
+    assert len(tmesh.device_groups(["cpu"] * 40)) == \
+        -(-40 // tbp.STEP_SHARDS)
+    assert tmesh._runs([2, 3]) == [(slice(2, 4), slice(None))]
+    assert tmesh._runs([1, 3]) == [(1, 0), (3, 1)]
+
+
+@pytest.mark.parametrize("cap", [1, 3])
+def test_a_row_in_several_launches_equals_the_unsharded_kernels(
+        monkeypatch, cap):
+    """A mesh row whose shards take several shard_step launches (the
+    cap forced down) walks as one launch does: each sharded walk equals
+    the port's unsharded kernel exactly."""
+    monkeypatch.setattr(tmesh, "device_groups",
+                        lambda devs, _g=tmesh.device_groups: _g(devs, cap))
+    mesh = tmesh.fleet_mesh(CPU8)
+    fleet, view, feasible, asks, distinct, group_idx, valid = _problem()
+    args = (fleet.capacity, fleet.reserved, view.usage, view.job_counts,
+            feasible, asks, distinct, group_idx, valid)
+    got = tmesh.place_sequence_sharded(mesh, *args, 10.0)
+    want = tbp.place_sequence(*(_t(a) for a in args), 10.0)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    args = _batch_rounds_args(3)
+    got = tmesh.place_rounds_batch_sharded(mesh, *args, k_cap=32, rounds=1)
+    want = tbp.place_rounds_batch(*(_t(a) for a in args), k_cap=32,
+                                  rounds=1)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("walk", ["sequence", "rounds", "sequence_batch",
+                                  "rounds_batch"])
+def test_walks_on_the_overridden_mesh_equal_jax(walk):
+    """Each sharded walk on the mesh ``mesh_override(["cpu"] * 8)``
+    resolves (shard_step per step, one launch for the row's eight
+    shards, and a tail) equals the JAX package's sharded form on its
+    eight CPU devices and the port's unsharded kernel, with -0.0 usage
+    entries and the last four sequence steps invalid (their winners
+    get ask * 0.0, not ask)."""
+    fleet, view, feasible, asks, distinct, group_idx, valid = _problem()
+    usage = view.usage.copy()
+    usage[:fleet.n_real, 2] = -0.0
+    valid = valid.copy()
+    valid[-4:] = False
+    jax_mesh = jmesh.fleet_mesh(jax.devices("cpu"))
+    with tmesh.mesh_override(CPU8):
+        mesh = tmesh.dispatch_mesh(1, fleet.n_pad)
+    assert mesh.shape == {"fleet": 8}
+    if walk == "sequence":
+        args = (fleet.capacity, fleet.reserved, usage, view.job_counts,
+                feasible, asks, distinct, group_idx, valid)
+        _held(tmesh.place_sequence_sharded(mesh, *args, 10.0),
+              jmesh.place_sequence_sharded(jax_mesh, *args, 10.0),
+              tbp.place_sequence(*(_t(a) for a in args), 10.0))
+    elif walk == "rounds":
+        counts = np.asarray([24], dtype=np.int32)
+        args = (fleet.capacity, fleet.reserved, usage, view.job_counts,
+                feasible, asks, distinct, counts)
+        kw = dict(k_cap=32, rounds=1)
+        _held(tmesh.place_rounds_sharded(mesh, *args, 10.0, **kw),
+              jmesh.place_rounds_sharded(jax_mesh, *args, 10.0, **kw),
+              tbp.place_rounds(*(_t(a) for a in args), 10.0, **kw))
+    elif walk == "sequence_batch":
+        lanes = _lanes(3, view.job_counts, feasible, asks, distinct,
+                       group_idx, valid)
+        args = (fleet.capacity, fleet.reserved, usage, *lanes,
+                np.full(3, 10.0, dtype=np.float32))
+        _held(tmesh.place_sequence_batch_sharded(mesh, *args),
+              jmesh.place_sequence_batch_sharded(jax_mesh, *args),
+              tbp.place_sequence_batch(*(_t(a) for a in args)))
+    else:
+        args = list(_batch_rounds_args(3))
+        args[2] = usage
+        kw = dict(k_cap=32, rounds=1)
+        _held(tmesh.place_rounds_batch_sharded(mesh, *args, **kw),
+              jmesh.place_rounds_batch_sharded(jax_mesh, *args, **kw),
+              tbp.place_rounds_batch(*(_t(a) for a in args), **kw))
+
+
+@pytest.mark.parametrize("site", ["scheduler", "storm", "pipeline"])
+def test_a_failed_shard_step_raises_from_every_walk_entry(monkeypatch,
+                                                          site):
+    """No fallback for shard_step: where a mesh resolves, a failed
+    launch surfaces from torch_binpack's eval, the fused storm and the
+    pipelined runner (held to the card's rule: no host re-run), and
+    neither the unsharded kernels nor the host twins run in its place."""
+    from nomad_tpu_torch.ops import binpack_host
+    from nomad_tpu_torch.scheduler.batch import BatchEvalRunner
+    from nomad_tpu_torch.scheduler.executor import executor_override
+    from nomad_tpu_torch.scheduler.pipeline import PipelinedEvalRunner
+
+    called = []
+    for mod, name in ((tbp, "place_rounds"), (tbp, "place_sequence"),
+                      (tbp, "place_rounds_batch"),
+                      (tbp, "place_sequence_batch"),
+                      (binpack_host, "place_rounds_host"),
+                      (binpack_host, "place_sequence_host")):
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, **kw:
+                            called.append(_n))
+    monkeypatch.setattr(tbp, "shard_step", _raising("shard_step"))
+    _jh, th, jobs = _twin_rig(16, 2, 3)
+    with tmesh.mesh_override(CPU8), executor_override("device"), \
+            pytest.raises(RuntimeError, match="CUDA error"):
+        if site == "scheduler":
+            th.process("torch-binpack", _port_eval(jobs[0]))
+        elif site == "storm":
+            BatchEvalRunner(th.state.snapshot(), th, device="cpu").process(
+                [_port_eval(j) for j in jobs])
+        else:
+            runner = PipelinedEvalRunner(th.state.snapshot(), th, depth=2,
+                                         device="cpu")
+            runner.host_reruns = False
+            runner.process([_port_eval(j) for j in jobs])
+    assert called == []
+    assert th.plans == []
+
+
+def test_step_plan_table_matches_the_kernels_layout(monkeypatch):
+    """The host table a shard_step launch passes: per shard the words of
+    csrc/binpack.cu's StepShard in its order (capacity, reserved, usage,
+    job counts, feasibility, asks, distinct, penalty, group_idx, the
+    candidates' values and indices, the updates, the key regions,
+    row_lo), STEP_WORDS of them, and the launch cap the kernel's
+    MAX_STEP_SHARDS.  No card is touched: the library is a stand-in."""
+    import re
+
+    from nomad_tpu_torch.ops import kernels
+
+    source = (kernels.CSRC / "binpack.cu").read_text()
+    words = int(re.search(r"#define STEP_WORDS (\d+)", source).group(1))
+    cap = int(re.search(r"#define MAX_STEP_SHARDS (\d+)", source).group(1))
+    assert cap == tbp.STEP_SHARDS
+    struct = re.search(r"struct StepShard \{(.*?)\};", source, re.S).group(1)
+    fields = re.findall(r"(\w+);", struct)
+    assert fields == ["cap", "res", "usage", "jc", "feas", "asks",
+                      "distinct", "penalty", "group_idx", "out_v", "out_i",
+                      "upd", "scratch", "row_lo"]
+    assert len(fields) == words
+
+    class Lib:
+        nomad_shard_step = object()
+
+    monkeypatch.setattr(kernels, "library", lambda name: Lib())
+    monkeypatch.setattr(kernels, "stream_handle", lambda device: 7)
+    shards, _merge = _step_case("sequence", 1, lanes=2)
+    plan = tbp.step_plan(shards, 1)
+    want = []
+    for sh in shards:
+        want += [sh[name].data_ptr() for name in (
+            "capacity", "reserved", "usage", "job_counts", "feasible",
+            "asks", "distinct", "penalty", "group_idx")]
+        want += [sh["out"][0].data_ptr(), sh["out"][1].data_ptr(),
+                 sh["upd"].data_ptr(), 0, sh["row_lo"]]
+    assert list(plan.table) == want
+    assert plan.head[2:] == (4, 2, 16, 3, 6)  # shards, lanes, rows, G, P
+    assert plan.tail == (1, 1, 0, 7)          # k, kout, path, stream
+    with pytest.raises(ValueError, match="1 to 16 shards"):
+        tbp.step_plan(shards * 5, 1)
