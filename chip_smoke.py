@@ -6264,7 +6264,15 @@ def run_executor(torch, n1=100, n2=1000, n4=10_000, n5b=160, evals1=64,
 # -- phase 15: the mesh (K7) -------------------------------------------------
 
 MESH_SHARDS = 4
-MESH_LAUNCH_NAMES = ("shard_step", "merge_select", "shard_gather")
+# A row of more shards than one launch takes (binpack.STEP_SHARDS, 16):
+# on one card it steps with shard_step + K7b and gathers the shards past
+# the sharded K6's 16 with K7d, the routes of shards that span cards.
+MESH_WIDE = 32
+MESH_LAUNCH_NAMES = ("shard_walk", "window_verify_sharded", "shard_step",
+                     "merge_select", "shard_gather")
+# The kernels of rows whose shards span cards (or outnumber a launch):
+# none of them runs where every row is at most 16 shards of one card.
+MESH_ACROSS_NAMES = ("shard_step", "merge_select", "shard_gather")
 
 
 def mesh_counters():
@@ -6274,7 +6282,9 @@ def mesh_counters():
     from nomad_tpu_torch.ops import binpack
     from nomad_tpu_torch.parallel import mesh
 
-    return {"shard_step": binpack.shard_step,
+    return {"shard_walk": binpack.shard_walk,
+            "window_verify_sharded": mesh.launch_window_verify_shards,
+            "shard_step": binpack.shard_step,
             "merge_select": binpack.merge_select,
             "shard_gather": mesh.shard_gather,
             "scatter_rows": fleet.scatter_rows,
@@ -6287,26 +6297,30 @@ def mesh_counters():
 
 @contextlib.contextmanager
 def walk_records():
-    """Each sharded walk run inside, as it ends: its mesh rows, the
-    shard_step launch groups of each row (its cards, cut at the
-    kernel's shards a launch), and the K7b and shard_step launches it
-    made, counted around the call."""
+    """Each sharded walk run inside, as it ends: its steps, the route of
+    each of its mesh rows (``mesh.walk_route``) and their shard_step
+    launch groups (cards, cut at the kernel's shards a launch), and the
+    shard_walk, K7b and shard_step launches it made, counted around the
+    call."""
     from nomad_tpu_torch.ops import binpack
     from nomad_tpu_torch.parallel import mesh
 
     walks = []
     orig = mesh._walk
+    wrappers = {"walk": binpack.shard_walk, "merge": binpack.merge_select,
+                "step": binpack.shard_step}
 
     def recorded(m, lane_rows, ops, **kw):
         lane_rows = list(lane_rows)
-        merge0 = binpack.merge_select.launches
-        step0 = binpack.shard_step.launches
+        before = {k: f.launches for k, f in wrappers.items()}
         out = orig(m, lane_rows, ops, **kw)
+        steps = ops["group_idx"][0].shape[-1] if kw["seq"] else \
+            ops["asks"][0].shape[-2] * kw.get("rounds", 1)
         walks.append(dict(
-            rows=len(lane_rows),
+            rows=len(lane_rows), steps=steps,
+            routes=[mesh.walk_route(m.grid[r]) for r in lane_rows],
             groups=[len(mesh.device_groups(m.grid[r])) for r in lane_rows],
-            merge=binpack.merge_select.launches - merge0,
-            step=binpack.shard_step.launches - step0))
+            **{k: f.launches - before[k] for k, f in wrappers.items()}))
         return out
     mesh._walk = recorded
     try:
@@ -6315,35 +6329,41 @@ def walk_records():
         mesh._walk = orig
 
 
-def walk_launch_check(walks, total, one_card: bool) -> dict:
-    """shard_step's launches on the mesh's system path against the
-    formula: each step of a walk is one K7b a mesh row and one
-    shard_step a launch group of that row, and each walk ends with one
-    tail shard_step a group; so shard_step = sum over walks and rows of
-    groups x (steps + 1), and on one card (one group a row) a step is
-    two launches.  Returns the split."""
-    steps = tails = 0
+def walk_launch_check(walks, total, route=None) -> dict:
+    """The walks' launches against the formula of each row's route: a
+    row on the shard_walk route (every shard on one card, at most 16) is
+    ONE shard_walk launch a walk; a row on the shard_step route is one
+    K7b a step and one shard_step a launch group and step, plus one tail
+    shard_step a group.  ``route``: the route every row must take (None:
+    either).  Returns the split."""
+    n_walk = n_step = n_merge = stepped_rows = 0
     for w in walks:
-        n, rest = divmod(w["merge"], w["rows"])
-        require(rest == 0, f"mesh: a walk of {w['rows']} rows made "
-                f"{w['merge']} K7b launches")
-        want = sum(g * (n + 1) for g in w["groups"]) if n else 0
-        require(w["step"] == want,
-                f"mesh: a walk of {n} steps on {w['rows']} rows of "
-                f"{w['groups']} launch groups made {w['step']} shard_step "
+        s = w["steps"]
+        require(route is None or set(w["routes"]) == {route},
+                f"mesh: a walk's rows took the routes {w['routes']}, not "
+                f"{route}")
+        stepped = [g for r, g in zip(w["routes"], w["groups"])
+                   if r == "shard_step"]
+        want = dict(walk=(len(w["routes"]) - len(stepped)) if s else 0,
+                    step=sum(g * (s + 1) for g in stepped) if s else 0,
+                    merge=len(stepped) * s)
+        require(all(w[k] == v for k, v in want.items()),
+                f"mesh: a walk of {s} steps on rows {w['routes']} "
+                f"({w['groups']} launch groups) made {w['walk']} "
+                f"shard_walk, {w['step']} shard_step and {w['merge']} K7b "
                 f"launches, the formula {want}")
-        require(not one_card or w["groups"] == [1] * w["rows"],
-                f"mesh: on one card a walk's rows took {w['groups']} "
-                "launch groups, not one")
-        steps += sum(g * n for g in w["groups"])
-        tails += sum(w["groups"]) if n else 0
-    require(steps + tails == total["shard_step"]
-            and sum(w["merge"] for w in walks) == total["merge_select"],
-            f"mesh: shard_step {total['shard_step']} and K7b "
-            f"{total['merge_select']} launches, the walks' {steps + tails} "
-            "and " + str(sum(w["merge"] for w in walks)))
-    return dict(walks=len(walks), shard_step_steps=steps,
-                shard_step_tails=tails, merge_select=total["merge_select"])
+        n_walk += want["walk"]
+        n_step += want["step"]
+        n_merge += want["merge"]
+        stepped_rows += len(stepped)
+    require((n_walk, n_step, n_merge) == (
+        total.get("shard_walk", 0), total.get("shard_step", 0),
+        total.get("merge_select", 0)),
+            f"mesh: shard_walk {total.get('shard_walk')}, shard_step "
+            f"{total.get('shard_step')} and K7b {total.get('merge_select')} "
+            f"launches, the walks' {n_walk}, {n_step} and {n_merge}")
+    return dict(walks=len(walks), shard_walk=n_walk, shard_step=n_step,
+                merge_select=n_merge, stepped_rows=stepped_rows)
 
 
 def launches_of(fn, total=None, walks=None) -> tuple:
@@ -6627,6 +6647,180 @@ def check_shard_gather(torch, mesh_mod, rng, reps):
                 bound_ms=b_ms, bound_by=b_by, pairs=b, owned=owned)
 
 
+def check_shard_walk(torch, binpack, c, shards, lanes, reps, *, gi=None,
+                     valid=None, counts=None, k_cap=1, rounds=1):
+    """shard_walk (one launch: a cluster a lane, a CTA a shard) on
+    ``shards`` shards of a fleet_case / lanes_case against its plain
+    version (the loop of shard_step's and K7b's) on the same inputs, bit
+    for bit: chosen, every score, each shard's usage and job counts.
+    Timed with CUDA events (each call walks again from the state the
+    last left) and its device time from torch.profiler; the plain
+    version's time is its one reference run.  No single PyTorch call
+    computes a walk: library_ms is None."""
+    n = c["capacity"].shape[0]
+    rows = n // shards
+    b = 1 if lanes is None else lanes
+    pen = torch.full((b,), 10.0, dtype=torch.float32, device=DEV)
+    got = [dict(shard_case(c, s, rows, lanes), penalty=pen, group_idx=gi,
+                row_lo=s * rows) for s in range(shards)]
+    want = [dict(sh, usage=sh["usage"].clone(),
+                 job_counts=sh["job_counts"].clone()) for sh in got]
+    seq = gi is not None
+    shape = (b, gi.shape[1]) if seq else (b, counts.shape[1],
+                                          rounds * k_cap)
+    outs = [(torch.full(shape, -7, dtype=torch.int32, device=DEV),
+             torch.zeros(shape, dtype=torch.float32, device=DEV))
+            for _ in range(2)]
+    kw = dict(k_cap=k_cap, rounds=rounds, valid=valid, counts=counts)
+    before = binpack.shard_walk.launches
+    binpack.shard_walk(got, *outs[0], **kw)
+    torch.cuda.synchronize()
+    require(binpack.shard_walk.launches == before + 1,
+            "shard_walk: not one launch")
+    t = time.perf_counter()
+    binpack.shard_walk_plain(want, *outs[1], **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    what = f"shard_walk S={shards} N={n} B={b} k_cap={k_cap}"
+    for s, (g, w) in enumerate(zip(got, want)):
+        require(torch.equal(g["usage"].view(torch.int32),
+                            w["usage"].view(torch.int32))
+                and torch.equal(g["job_counts"], w["job_counts"]),
+                f"{what}: shard {s}'s usage or job counts differ from the "
+                "plain version")
+    require(torch.equal(outs[0][0], outs[1][0])
+            and torch.equal(outs[0][1].view(torch.int32),
+                            outs[1][1].view(torch.int32)),
+            f"{what}: chosen or scores differ from the plain version")
+    chosen = outs[0][0].cpu().numpy()
+    ms = time_ms(torch, lambda: binpack.shard_walk(got, *outs[0], **kw),
+                 reps)
+    device_ms = kernel_device_ms(
+        torch, lambda: binpack.shard_walk(got, *outs[0], **kw), reps,
+        "shard_walk_kernel")
+    # The function is the unsharded walk's: its bytes and operations
+    # (each lane's scorings and rescorings, or its rounds' scorings).
+    if seq:
+        gi_h, valid_h = gi.cpu().numpy(), valid.cpu().numpy()
+        g = c["asks"].shape[-2]
+        nbytes = shared_fleet_bytes(n) + sum(
+            sequence_lane_bytes(n, gi_h[i], valid_h[i]) for i in range(b))
+        ops = sum(sequence_ops(n, g, gi_h[i], chosen[i]) for i in range(b))
+    else:
+        counts_h = counts.cpu().numpy()
+        nbytes = shared_fleet_bytes(n) + sum(
+            rounds_lane_bytes(n, counts_h[i], shape[1] * shape[2])
+            for i in range(b))
+        ops = n * OPS_PER_NODE * sum(
+            rounds_run(counts_h[i], chosen[i], rounds, k_cap)
+            for i in range(b))
+    b_ms, b_by = bound(nbytes, ops)
+    return dict(err=0.0, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                shards=shards, lanes=b, rows=rows,
+                k=1 if seq else min(k_cap, rows),
+                placed=int((chosen >= 0).sum()))
+
+
+def shard_walk_checks(torch, binpack, rng, reps) -> dict:
+    """shard_walk at the four walk shapes ``mesh_wrapper_checks`` times:
+    config 4's rounds walk, the sequence walk of N = 16,384 and P =
+    1,024, a row of config 5's 2x2 storm (32 lanes, two shards) and the
+    K4b-shaped storm (B = 8, P = 256)."""
+    out = {}
+    c = fleet_case(torch, 16384, rng, uniform=True)
+    for k in ("capacity", "feasible"):
+        c[k][10_000:] = 0 if k == "capacity" else False
+    pad_slots(c, 1, 0)
+    counts = torch.zeros((1, 8), dtype=torch.int32, device=DEV)
+    counts[0, 0] = 1000
+    out["config 4"] = check_shard_walk(
+        torch, binpack, c, MESH_SHARDS, None, reps, counts=counts,
+        k_cap=1024)
+    c = fleet_case(torch, 16384, rng)
+    gi = torch.from_numpy(sequence_groups(rng, 1024, 3, "random")).to(
+        DEV).reshape(1, 1024)
+    valid = torch.ones((1, 1024), dtype=torch.bool, device=DEV)
+    valid[0, -8:] = False
+    out["sequence N=16384 P=1024"] = check_shard_walk(
+        torch, binpack, c, MESH_SHARDS, None, reps, gi=gi, valid=valid)
+    c = lanes_case(torch, 16384, 32, rng, uniform=True)
+    pad_slots(c, 1, 1)
+    counts = torch.zeros((32, 8), dtype=torch.int32, device=DEV)
+    counts[:, 0] = 1000
+    out["config 5 row"] = check_shard_walk(
+        torch, binpack, c, 2, 32, reps, counts=counts, k_cap=1024)
+    c = lanes_case(torch, 16384, 8, rng, uniform=False)
+    gi = torch.from_numpy(np.stack([sequence_groups(rng, 256, 3, "random")
+                                    for _ in range(8)])).to(DEV)
+    valid = torch.ones((8, 256), dtype=torch.bool, device=DEV)
+    valid[:, -8:] = False
+    out["sequence B=8 P=256"] = check_shard_walk(
+        torch, binpack, c, MESH_SHARDS, 8, reps, gi=gi, valid=valid)
+    return out
+
+
+def check_window_verify_sharded(torch, mesh_mod, rng, reps, n_real, n_pad,
+                                n_plans, per_plan, n_comps, removals):
+    """K6's sharded form on MESH_SHARDS shards of one card (each read in
+    place, one launch, no K7d) against K6 on the whole fleet and its
+    plain version, used and caps bit for bit, fits equal.  ``ms`` times
+    the launch alone on descriptors already on the card (CUDA events),
+    ``host_ms`` window_verify_sharded as the engine calls it."""
+    from nomad_tpu_torch.parallel.devices import put_counted
+
+    t = window_fleet(torch, rng, n_real, n_pad)
+    desc, counts = window_case(rng, n_real, n_plans, per_plan, n_comps,
+                               removals)
+    b = desc["pair_ni"].shape[0]
+    fm = mesh_mod.fleet_mesh([f"{DEV}:0"] * MESH_SHARDS)
+    twins = [mesh_mod._put(x, fm, mesh_mod.NODE) for x in t]
+    rows = n_pad // MESH_SHARDS
+    counters = {k: f for k, f in mesh_counters().items() if k in (
+        "window_verify", "window_verify_sharded", "shard_gather")}
+    before = {k: f.launches for k, f in counters.items()}
+    got = mesh_mod.window_verify_sharded(fm, *twins, **desc)
+    torch.cuda.synchronize()
+    moved = {k: f.launches - before[k] for k, f in counters.items()}
+    require(moved == {"window_verify": 0, "window_verify_sharded": 1,
+                      "shard_gather": 0},
+            f"window_verify_sharded on one card: launches {moved}, want "
+            "one of K6's sharded form and no K7d")
+    want = mesh_mod.window_verify(*t, **desc)
+    shards = [dict(capacity=twins[0][c], reserved=twins[1][c],
+                   usage=twins[2][c], row_lo=c * rows)
+              for c in range(MESH_SHARDS)]
+    dd = {k: torch.from_numpy(v).to(DEV) for k, v in desc.items()}
+    plain = mesh_mod.window_verify_shards_plain(shards, rows, None, **dd)
+    torch.cuda.synchronize()
+    what = f"window_verify_sharded N={n_pad} B={b}"
+    for name, g, w, p in zip(("used", "caps", "fits"), got, want, plain):
+        same = (lambda x, y: torch.equal(x.view(torch.int32),
+                                         y.view(torch.int32))) \
+            if name != "fits" else torch.equal
+        require(same(g, w) and same(g, p),
+                f"{what}: {name} differs from K6 or the plain version")
+    packed = put_counted(mesh_mod.pack_descriptors(desc, b), DEV)
+    walk = mesh_mod.kernel_counts(desc)
+
+    def launch():
+        return mesh_mod.launch_window_verify_shards(
+            shards, rows, MESH_SHARDS, None, packed, b, walk)
+    ms = time_ms(torch, launch, reps)
+    device_ms = kernel_device_ms(torch, launch, reps, "window_verify_kernel")
+    host_ms = host_call_ms(torch, lambda: mesh_mod.window_verify_sharded(
+        fm, *twins, packed=True, **desc), reps)
+    unsharded_host_ms = host_call_ms(torch, lambda: mesh_mod.window_verify(
+        *t, packed=True, **desc), reps)
+    plain_ms = time_ms(torch, lambda: mesh_mod.window_verify_shards_plain(
+        shards, rows, None, **dd), max(1, reps // 10))
+    b_ms, b_by = window_bound(desc, counts)
+    return dict(err=0.0, ms=ms, device_ms=device_ms, host_ms=host_ms,
+                unsharded_host_ms=unsharded_host_ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by, bucket=b,
+                shards=MESH_SHARDS, **counts)
+
+
 def mesh_kernel_checks(torch, rng, reps=20) -> dict:
     """Step 1 of the mesh phase: each K7 kernel against its plain
     version on the card, bit for bit, timed with CUDA events."""
@@ -6652,10 +6846,18 @@ def mesh_kernel_checks(torch, rng, reps=20) -> dict:
     merge, _upd = check_merge_select(torch, binpack, cands, rows, 1024,
                                      reps)
     gather = check_shard_gather(torch, mesh_mod, rng, reps)
-    return {"shard_step k=1": step1, "shard_step k=1024": stepk,
-            "shard_step B=64 k=1024": step64,
-            "merge_select S=4 B=64": merge,
-            "shard_gather 5f window": gather}
+    out = {"shard_step k=1": step1, "shard_step k=1024": stepk,
+           "shard_step B=64 k=1024": step64,
+           "merge_select S=4 B=64": merge,
+           "shard_gather 5f window": gather}
+    for name, r in shard_walk_checks(torch, binpack, rng, 3).items():
+        out[f"shard_walk {name}"] = r
+    out["window_verify_sharded 5f window"] = check_window_verify_sharded(
+        torch, mesh_mod, rng, 200, 1_000_000, 1_048_576, 64, 1, 64, 0.0)
+    out["window_verify_sharded config-5b scale"] = \
+        check_window_verify_sharded(torch, mesh_mod, rng, 50, 160, 256, 64,
+                                    100, 4, 0.1)
+    return out
 
 
 def wall_ms(torch, fn, reps) -> float:
@@ -6668,6 +6870,54 @@ def wall_ms(torch, fn, reps) -> float:
         fn()
         torch.cuda.synchronize()
     return (time.perf_counter() - t) / reps * 1e3
+
+
+def walk_split(torch, mesh_mod, fn, reps) -> dict:
+    """Where a sharded walk's host-clock time goes, over ``reps`` calls of
+    ``fn`` with the card synchronized around each piece: ``setup_ms``
+    the mesh rows' set-up (each lane's copies of the base usage and job
+    counts, the result buffers; ``_WalkRow`` or ``_Row``),
+    ``launch_wait_ms`` the walk's launches and the wait for them, and
+    ``other_ms`` the rest (the operands' placement on the mesh, the
+    results gathered on the lead); per call."""
+    spent = {"setup": 0.0, "walk": 0.0}
+    saved = []
+    depth = [0]  # a _Row's set-up calls _WalkRow's: time the outer one
+
+    def timed(cls, name, key):
+        orig = getattr(cls, name)
+
+        def wrapped(self, *a, **kw):
+            depth[0] += 1
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return orig(self, *a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                depth[0] -= 1
+                if depth[0] == 0:
+                    spent[key] += time.perf_counter() - t
+        saved.append((cls, name, orig))
+        setattr(cls, name, wrapped)
+    timed(mesh_mod._WalkRow, "__init__", "setup")
+    timed(mesh_mod._Row, "__init__", "setup")
+    timed(mesh_mod._WalkRow, "walk", "walk")
+    timed(mesh_mod._Row, "step", "walk")
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+        total = time.perf_counter() - t
+    finally:
+        for cls, name, orig in saved:
+            setattr(cls, name, orig)
+    return dict(setup_ms=spent["setup"] / reps * 1e3,
+                launch_wait_ms=spent["walk"] / reps * 1e3,
+                other_ms=(total - spent["setup"] - spent["walk"]) / reps
+                * 1e3)
 
 
 def mesh_wrapper_checks(torch, devices, rng, reps=3) -> dict:
@@ -6690,7 +6940,8 @@ def mesh_wrapper_checks(torch, devices, rng, reps=3) -> dict:
                 [x.to(DEV) for x in got], want)
         out[name] = dict(ms=wall_ms(torch, sharded, reps),
                          unsharded_ms=wall_ms(torch, single, reps),
-                         placed=int((want[0] >= 0).sum()))
+                         placed=int((want[0] >= 0).sum()),
+                         **walk_split(torch, mesh_mod, sharded, reps))
 
     # Config 4's K3 launch: 10,000 nodes on N = 16,384, one slot of
     # 1,000 copies, the job's other slots padding, k_cap 1,024.
@@ -6942,11 +7193,19 @@ def mesh_verify(torch, mock, structs, Harness, VerifyingPlanner,
                             for r in windows),
             f"config 5b on the mesh: windows {windows[:3]} did not all "
             "verify on the device")
-    require(counts["shard_gather"] == MESH_SHARDS * len(windows)
-            and counts["window_verify"] == len(windows),
-            f"config 5b on the mesh: {counts['shard_gather']} K7d and "
+    # One launch of K6's sharded form a window; K7d only for the shards
+    # it does not read in place (none where the row is at most 16
+    # shards of one card).
+    with mesh_mod.mesh_override(devices):
+        vmesh = mesh_mod.dispatch_mesh(1, 256, device=DEV)
+    others = len(mesh_mod.verify_layout(vmesh.grid[0])[1])
+    launches = {"window_verify_sharded": len(windows), "window_verify": 0,
+                "shard_gather": others * len(windows)}
+    require(all(counts[k] == v for k, v in launches.items()),
+            f"config 5b on the mesh: {counts['shard_gather']} K7d, "
+            f"{counts['window_verify_sharded']} sharded K6 and "
             f"{counts['window_verify']} K6 launches for {len(windows)} "
-            "windows")
+            f"windows, want {launches}")
     require(got == want, "config 5b: the commits under the sharded device "
             "verify differ from the host engine's")
     for k in ("placed", "conflicts", "commits", "conflict_fallbacks"):
@@ -6954,13 +7213,16 @@ def mesh_verify(torch, mock, structs, Harness, VerifyingPlanner,
                 f"config 5b: {k} {got_counts[k]} on the mesh, "
                 f"{want_counts[k]} on the host engine")
     return dict(windows=len(windows), placed=got_counts["placed"],
-                wall_s=got_counts["wall_s"],
+                k7d_shards=others, wall_s=got_counts["wall_s"],
                 host_wall_s=want_counts["wall_s"])
 
 
-def mesh_system(torch, devices) -> tuple:
+def mesh_system(torch, devices, wide=False) -> tuple:
     """Step 3 of the mesh phase: the system path on ``devices``, each
-    configuration also run unsharded to compare with.  Returns the
+    configuration also run unsharded to compare with; ``wide`` (a row of
+    more shards than one launch takes) runs config 4 (its single evals
+    step on shard_step + K7b) and config 5b's verifying storm (its
+    windows gather the shards past 16 with K7d) alone.  Returns the
     results and the launches of the sharded runs alone, each run's
     counted from 0."""
     import nomad_tpu_torch.mock as mock
@@ -6972,31 +7234,44 @@ def mesh_system(torch, devices) -> tuple:
     out, total, walks = {}, {}, []
     out["config4"] = mesh_config4(torch, mock, structs, Harness, devices,
                                   mesh_mod, total, walks)
-    out["config2_stream"] = mesh_config2_stream(
-        torch, mock, structs, Harness, devices, mesh_mod, total, walks)
-    out["config5_storm"] = mesh_config5(torch, mock, structs, Harness,
-                                        BatchEvalRunner, devices, mesh_mod,
-                                        total, walks)
+    if not wide:
+        out["config2_stream"] = mesh_config2_stream(
+            torch, mock, structs, Harness, devices, mesh_mod, total, walks)
+        out["config5_storm"] = mesh_config5(torch, mock, structs, Harness,
+                                            BatchEvalRunner, devices,
+                                            mesh_mod, total, walks)
     out["config5b_device_verify"] = mesh_verify(
         torch, mock, structs, Harness, VerifyingPlanner, BatchEvalRunner,
         devices, mesh_mod, total, walks)
+    from nomad_tpu_torch.ops.binpack import STEP_SHARDS
+
+    one_card = len({torch.device(d) for d in devices}) == 1
+    one_launch = one_card and len(devices) <= STEP_SHARDS
     out["walks"] = walk_launch_check(
-        walks, total, len({torch.device(d) for d in devices}) == 1)
-    for name in MESH_LAUNCH_NAMES:
+        walks, total, "shard_walk" if one_launch else None)
+    need = ("shard_walk", "window_verify_sharded") + (
+        () if one_launch else MESH_ACROSS_NAMES)
+    for name in need:
         require(total[name] > 0,
                 f"mesh: {name} was not launched on the system path")
-    for name in ("place_sequence", "place_rounds", "place_rounds_batch",
-                 "place_sequence_batch"):
+    absent = ("window_verify", "place_sequence", "place_rounds",
+              "place_rounds_batch", "place_sequence_batch") + (
+        MESH_ACROSS_NAMES if one_launch else ())
+    for name in absent:
         require(total[name] == 0,
-                f"mesh: {name} launched on the mesh's system path")
+                f"mesh: {name} launched {total[name]} times on the mesh's "
+                "system path")
     return out, total
 
 
 def run_mesh(torch) -> dict:
     """The mesh phase: K7's kernels against their plain versions, the
     sharded wrappers against the unsharded kernels and the system path,
-    on a mesh of MESH_SHARDS entries naming cuda:0; again on distinct
-    cards where the machine has two or more.  The system path's
+    on a mesh of MESH_SHARDS entries naming cuda:0 (every row one launch
+    group: shard_walk and K6's sharded form alone), then on MESH_WIDE
+    entries (rows of more shards than a launch takes: shard_step, K7b
+    and K7d, the routes of shards that span cards); again on distinct
+    cards where the machine has two or more.  The system paths'
     launches are counted from 0."""
     rng = np.random.default_rng([1234, 15])
     t = time.perf_counter()
@@ -7009,6 +7284,11 @@ def run_mesh(torch) -> dict:
     system, launches = mesh_system(torch, one_card)
     print("mesh system: " + json.dumps(system), flush=True)
     print("mesh launches: " + json.dumps(launches), flush=True)
+    wide, wide_launches = mesh_system(torch, [f"{DEV}:0"] * MESH_WIDE,
+                                      wide=True)
+    print(f"mesh system {MESH_WIDE} shards: " + json.dumps(wide), flush=True)
+    print(f"mesh launches {MESH_WIDE} shards: " + json.dumps(wide_launches),
+          flush=True)
     n_cards = torch.cuda.device_count()
     cross = None
     if n_cards >= 2:
@@ -7023,8 +7303,10 @@ def run_mesh(torch) -> dict:
     else:
         print(f"mesh: cross-card exchange untested ({n_cards} card)",
               flush=True)
+    total = {k: launches.get(k, 0) + wide_launches.get(k, 0)
+             for k in set(launches) | set(wide_launches)}
     return dict(kernels=kernels_, wrappers=wrappers, system=system,
-                launches=launches, cross_card=cross,
+                wide=wide, launches=total, cross_card=cross,
                 seconds=time.perf_counter() - t)
 
 
@@ -7401,10 +7683,27 @@ def main(argv=()) -> int:
                  for key in ("ms", "device_ms", "plain_ms", "library_ms",
                              "bound_ms")}),
              "merge_select": mk["merge_select S=4 B=64"],
-             "shard_gather": mk["shard_gather 5f window"]}
+             "shard_gather": mk["shard_gather 5f window"],
+             # the sequence walk of N = 16,384, P = 1,024 (config 4's,
+             # config 5's row and the K4b-shaped storm's walks beside it
+             # as c4_*, c5_* and b8_*)
+             "shard_walk": dict(mk["shard_walk sequence N=16384 P=1024"], **{
+                 f"{tag}_{key}": mk[case][key]
+                 for tag, case in (("c4", "shard_walk config 4"),
+                                   ("c5", "shard_walk config 5 row"),
+                                   ("b8", "shard_walk sequence B=8 P=256"))
+                 for key in ("ms", "device_ms", "plain_ms", "bound_ms")}),
+             # the 5f window (config-5b scale beside it as c5b_*)
+             "window_verify_sharded": dict(
+                 mk["window_verify_sharded 5f window"], **{
+                     f"c5b_{key}": mk[
+                         "window_verify_sharded config-5b scale"][key]
+                     for key in ("ms", "device_ms", "host_ms", "plain_ms",
+                                 "bound_ms")})}
     sources = {"scatter_rows": "scatter_rows.cu",
                "window_verify": "window_verify.cu",
-               "shard_gather": "window_verify.cu"}
+               "shard_gather": "window_verify.cu",
+               "window_verify_sharded": "window_verify.cu"}
     replaces = {"place_sequence": "nomad_tpu/ops/binpack.py:78",
                 "place_rounds": "nomad_tpu/ops/binpack.py:123",
                 "scatter_rows": "nomad_tpu/models/fleet.py:1108",
@@ -7416,7 +7715,12 @@ def main(argv=()) -> int:
                 # :279 and :314; the row gather of :408.
                 "shard_step": "nomad_tpu/parallel/mesh.py:210",
                 "merge_select": "nomad_tpu/parallel/mesh.py:252",
-                "shard_gather": "nomad_tpu/parallel/mesh.py:408"}
+                "shard_gather": "nomad_tpu/parallel/mesh.py:408",
+                # the whole walk of a one-card row (select, merge and
+                # update of :210, :252, :279, :314), and the sharded
+                # window verify of :408
+                "shard_walk": "nomad_tpu/parallel/mesh.py:210",
+                "window_verify_sharded": "nomad_tpu/parallel/mesh.py:408"}
     k.update({name: mk for name in MESH_LAUNCH_NAMES})
     kernels_line = {"kernels": []}
     for name, r in timed.items():
@@ -7434,7 +7738,8 @@ def main(argv=()) -> int:
         if "device_ms" in r:
             row["device_ms"] = r["device_ms"]
         row.update({key: v for key, v in r.items()
-                    if key.startswith(("k1_", "b64_"))})
+                    if key.startswith(("k1_", "b64_", "c4_", "c5_", "b8_",
+                                       "c5b_"))})
         if "library_device_ms" in r:
             row["library_device_ms"] = r["library_device_ms"]
         kernels_line["kernels"].append(row)

@@ -11,8 +11,10 @@
 // and the three kernels of the node-axis-sharded walks that replace
 // nomad_tpu/parallel/mesh.py _place_sharded, _place_rounds_sharded_jit,
 // _place_rounds_batch_sharded_jit and _place_sequence_batch_sharded_jit
-// (K7; see the section "K7" below): shard_step_kernel (K7a+c, the
-// per-shard half of a step) and merge_select_kernel (K7b).
+// (K7; see the section "K7" below): shard_walk_kernel (a whole sharded
+// walk on one card, one launch), and for rows whose shards span cards
+// shard_step_kernel (K7a+c, the per-shard half of a step) and
+// merge_select_kernel (K7b).
 //
 // One body for the sequence walk: K2 runs place_sequence_cluster_lane
 // (below) on one thread-block cluster, K4b on one cluster per lane (its
@@ -1333,7 +1335,10 @@ static int sequence_csize(Kernel kernel, int n, int slots) {
 // K7c into the next step's select, so a step on one card is two
 // launches (S + 1 on S cards), plus one tail a walk.  Its per-shard
 // pointers travel by value (StepTable, up to MAX_STEP_SHARDS shards a
-// launch), set up once per walk by the host.
+// launch), set up once per walk by the host.  Where every shard of a row
+// sits on one card, shard_walk_kernel (below) runs the whole walk in one
+// launch instead; shard_step_kernel and K7b stay for rows whose shards
+// span cards.
 
 // Shards of one mesh row that one shard_step launch takes.
 #define MAX_STEP_SHARDS 16
@@ -1532,6 +1537,261 @@ __global__ void __launch_bounds__(THREADS) merge_select_kernel(
     placed += __syncthreads_count(take);
   }
   if (!seq && threadIdx.x == 0) m[b] = left - placed;
+}
+
+// K7a+b+c on one card: shard_walk_kernel.
+//
+// Where every shard of a mesh row sits on one card, a whole sharded walk
+// is ONE launch: a thread-block cluster a lane, whose CTAs are the row's
+// shards (CTA s owns rows [s R, (s + 1) R), R = rows, and its StepShard
+// fields come by value, as WalkShard), and a loop over the walk's steps
+// inside it.  A step:
+//
+//   1. select: the step's ask scored on the CTA's rows and its best k, as
+//      shard_step_kernel selects them (the block argmax for k = 1, K3's
+//      select_topk or full sort for k > 1; the keys then rewritten from
+//      local to global indices in place, which keeps their order);
+//   2. a cluster barrier;
+//   3. merge, in distributed shared memory, to the specification of K7b:
+//      k = 1: warp 0 of every CTA reduces the cluster's S bests, one
+//      DSMEM load a lane, in the order of K7b's 64-bit key (ordered score
+//      bits, then the inverted global index); k > 1: each CTA ranks its
+//      own candidates against every other CTA's sorted list (a binary
+//      search of each, probing the other CTA's keys in place: its shared
+//      memory, or its device scratch where select_topk keeps the keys
+//      there).  A winner's chosen and score go where K2-K4 put them, and
+//      the CTA that owns its row applies it at once (K7c's adds,
+//      unchanged: + ask and + 1 job on a taken row, + 0.0 on a round's
+//      winner not taken, + ask * 0.0 on a sequence step's), so the
+//      winners never leave the CTA and no update buffer exists;
+//   4. k > 1: a second cluster barrier (every list has been read before
+//      the next select overwrites it), then the round's takes summed
+//      over the cluster from each CTA's shared memory: the copies left,
+//      m.  k = 1 keeps each step's best in one of two slots by step
+//      parity, so its one barrier a step suffices: a CTA writes a slot
+//      again two steps later, after every CTA has passed the barrier of
+//      the step between, and so has read it.
+//
+// A winner is applied before the CTA's next select reads its rows, and a
+// lane's winners are distinct rows, so every row gets the adds of
+// shard_step + K7b in the same order: the walk equals K2/K3/K4a/K4b bit
+// for bit.  A last cluster barrier keeps every CTA's shared memory alive
+// until the others have read it.
+//
+// Bound on an H100: the function is K2's, K3's, K4a's or K4b's (a few
+// microseconds of bytes and operations at the main path's shapes).  What
+// bounded the two launches a step of shard_step + K7b was the host's
+// launch interval; here a step is the CTAs' select and one or two
+// cluster barriers.  The select scores the shard's R rows at every step
+// (where K2 rescored one node), which bounds a sequence step at large R.
+#define WALK_WORDS 11
+
+struct WalkShard {
+  const float* cap;         // [R][NDIMS]
+  const float* res;         // [R][NDIMS]
+  float* usage;             // [B][R][NDIMS], updated in place
+  int* jc;                  // [B][R], updated in place
+  const uint8_t* feas;      // [B][g_len][R]
+  const float* asks;        // [B][g_len][NDIMS]
+  const uint8_t* distinct;  // [B][g_len]
+  const float* penalty;     // [B]
+  const int* group_idx;     // [B][p_len]; null in a rounds walk
+  uint32_t* scratch;        // [B][key_words] key regions, or null
+  long long row_lo;         // the shard's first row: rank * R
+};
+
+struct WalkTable {
+  WalkShard s[MAX_STEP_SHARDS];
+};
+
+// One cluster of `shards` CTAs a lane (grid lanes * shards); chosen /
+// scores / valid / counts on the card, shaped as merge_select_kernel
+// reads and writes them (seq: [B][p_len]; rounds: [B][g_len][rounds *
+// kout], counts [B][g_len]).  k = 1: the argmax (a sequence walk, or
+// rounds of k_cap = 1); else k = min(k_cap, R) and the top-k `path`.
+__global__ void __launch_bounds__(THREADS, 1) shard_walk_kernel(
+    const WalkTable table, int rows, int g_len, int p_len, int k, int kout,
+    int rounds, int path, int key_words, int* __restrict__ chosen,
+    float* __restrict__ scores, const uint8_t* __restrict__ valid,
+    const int* __restrict__ counts) {
+  extern __shared__ unsigned long long s_keys[];
+  __shared__ float s_ask[NDIMS];
+  __shared__ float s_v[WARPS];
+  __shared__ int s_i[WARPS];
+  __shared__ int s_hist[RADIX_BINS];
+  __shared__ int s_cnt[2][WARPS];
+  __shared__ TopkSel s_sel;
+  __shared__ uint2 s_best[2];  // k = 1: (score bits, global index)
+  __shared__ int s_taken;      // k > 1: the CTA's takes in the round
+  __shared__ int s_left;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int shards = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const WalkShard sh = table.s[rank];
+  const size_t b = blockIdx.x / shards;
+  const size_t rr = (size_t)rows;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const bool seq = sh.group_idx != nullptr;
+  float* u = sh.usage + b * rr * NDIMS;
+  int* j = sh.jc + b * rr;
+  const int row_lo = (int)sh.row_lo;
+  const float pen = sh.penalty[b];
+  const int steps = seq ? p_len : g_len * rounds;
+  const size_t out_len = seq ? (size_t)p_len : (size_t)rounds * kout;
+  unsigned long long* keys64 =
+      sh.scratch != nullptr
+          ? reinterpret_cast<unsigned long long*>(sh.scratch +
+                                                  b * (size_t)key_words)
+          : s_keys;
+  int left = 0;  // a rounds walk's copies left in the slot
+  for (int t = 0; t < steps; ++t) {
+    const int slot = seq ? t : t / rounds;
+    const int rnd = seq ? 0 : t % rounds;
+    const int g = seq ? sh.group_idx[b * p_len + t] : slot;
+    const size_t lg = b * g_len + g;
+    if (!seq && rnd == 0) left = counts[b * g_len + slot];
+    // The step before has applied its winner(s) and met a barrier.
+    if (tid < NDIMS) s_ask[tid] = sh.asks[lg * NDIMS + tid];
+    __syncthreads();
+    const uint8_t* f = sh.feas + lg * rr;
+    const bool dist = sh.distinct[lg] != 0;
+    const size_t base = seq ? b * out_len + t
+                            : (b * g_len + slot) * out_len +
+                                  (size_t)rnd * kout;
+    if (k == 1) {
+      // 1. The shard's best; threads past the last row hold -inf at
+      // index INT_MAX.
+      float v = __int_as_float(0xff800000);
+      int i = 0x7fffffff;
+      for (int r = tid; r < rows; r += THREADS) {
+        const float sc =
+            score_node(sh.cap, sh.res, u, j, s_ask, f, dist, pen, r);
+        if (better(sc, r, v, i)) {
+          v = sc;
+          i = r;
+        }
+      }
+      block_argmax(v, i, s_v, s_i);
+      const int par = t & 1;
+      if (tid == 0)
+        s_best[par] = make_uint2(__float_as_uint(v), (uint32_t)(row_lo + i));
+      // 2.
+      cluster_arrive_release();
+      cluster_wait_acquire();
+      // 3. The cluster's best, by warp 0 of every CTA.
+      if (warp == 0) {
+        float wv = __int_as_float(0xff800000);
+        int wi = 0x7fffffff;
+        if (lane < shards) {
+          const uint2 x = *cluster.map_shared_rank(&s_best[par], lane);
+          wv = __uint_as_float(x.x);
+          wi = (int)x.y;
+        }
+        warp_argmax(wv, wi);
+        const float val = seq ? wv : from_ordered(ordered_bits(wv));
+        const bool take = (seq ? valid[b * out_len + t] != 0 : left > 0) &&
+                          val > NEG_INF / 2;
+        if (rank == 0 && lane == 0) {
+          chosen[base] = take ? wi : -1;
+          scores[base] = val;
+        }
+        const int li = wi - row_lo;
+        if (lane == 0 && li >= 0 && li < rows) {
+          float* ur = u + (size_t)li * NDIMS;
+#pragma unroll
+          for (int d = 0; d < NDIMS; ++d)
+            ur[d] = __fadd_rn(ur[d], take ? s_ask[d]
+                                          : (seq ? __fmul_rn(s_ask[d], 0.0f)
+                                                 : 0.0f));
+          if (take) j[li] += 1;
+        }
+        left -= take ? 1 : 0;  // warp 0's copy is the one read (k = 1)
+      }
+      __syncthreads();  // the next select reads the row just written
+      continue;
+    }
+    // 1. The shard's best k, sorted, as 64-bit keys with global indices.
+    if (path == TOPK_SELECT) {
+      select_topk(sh.cap, sh.res, u, j, s_ask, f, dist, pen, rows, k,
+                  keys64, s_hist, &s_sel, s_cnt);
+    } else {
+      for (int r = tid; r < rows; r += THREADS)
+        keys64[r] = sort_key(ordered_bits(score_node(sh.cap, sh.res, u, j,
+                                                     s_ask, f, dist, pen, r)),
+                             r);
+      __syncthreads();
+      bitonic_sort_desc(keys64, rows);
+    }
+    for (int x = tid; x < k; x += THREADS) {
+      const unsigned long long key = keys64[x];
+      const int local = (int)(~(uint32_t)(key & 0xffffffffull));
+      keys64[x] = (key & 0xffffffff00000000ull) |
+                  (unsigned long long)(~(uint32_t)(row_lo + local));
+    }
+    // 2.
+    cluster_arrive_release();
+    cluster_wait_acquire();
+    // 3. Each own candidate's rank among the cluster's: its position in
+    // its list plus, for every other list, the keys above it (keys are
+    // distinct: their global indices are).
+    int taken = 0;
+    for (int x0 = 0; x0 < k; x0 += THREADS) {
+      const int x = x0 + tid;
+      bool take = false;
+      if (x < k) {
+        const unsigned long long key = keys64[x];
+        int at = x;
+        for (int o = 0; o < shards && at < kout; ++o) {
+          if (o == rank) continue;
+          const unsigned long long* other =
+              sh.scratch != nullptr
+                  ? reinterpret_cast<const unsigned long long*>(
+                        table.s[o].scratch + b * (size_t)key_words)
+                  : cluster.map_shared_rank(s_keys, o);
+          int lo = 0, hi = k;
+          while (lo < hi) {
+            const int mid = (lo + hi) >> 1;
+            if (other[mid] > key)
+              lo = mid + 1;
+            else
+              hi = mid;
+          }
+          at += lo;
+        }
+        if (at < kout) {
+          const int idx = (int)(~(uint32_t)(key & 0xffffffffull));
+          const float val = from_ordered((uint32_t)(key >> 32));
+          take = at < left && val > NEG_INF / 2;
+          chosen[base + at] = take ? idx : -1;
+          scores[base + at] = val;
+          // This CTA owns the winner's row; no two threads share one.
+          const size_t li = (size_t)(idx - row_lo);
+          float* ur = u + li * NDIMS;
+#pragma unroll
+          for (int d = 0; d < NDIMS; ++d)
+            ur[d] = __fadd_rn(ur[d], take ? s_ask[d] : 0.0f);
+          if (take) j[li] += 1;
+        }
+      }
+      taken += __syncthreads_count(take);
+    }
+    if (tid == 0) s_taken = taken;
+    // 4. Every list read, every CTA's takes counted.
+    cluster_arrive_release();
+    cluster_wait_acquire();
+    if (warp == 0) {
+      int sum = lane < shards ? *cluster.map_shared_rank(&s_taken, lane) : 0;
+      sum = __reduce_add_sync(FULL_MASK, sum);
+      if (lane == 0) s_left = left - sum;
+    }
+    __syncthreads();
+    left = s_left;
+  }
+  // No CTA leaves while another may still read its shared memory.
+  cluster_arrive_release();
+  cluster_wait_acquire();
 }
 
 extern "C" {
@@ -1788,6 +2048,124 @@ int nomad_merge_select(const float* cand_v, const int* cand_i, int shards,
   merge_select_kernel<<<lanes, THREADS, 0, (cudaStream_t)stream>>>(
       cand_v, cand_i, shards, lanes, k, kout, rows, seq, slot, rnd, g_len,
       out_len, counts, valid, m, upd, chosen, scores);
+  return (int)cudaGetLastError();
+}
+
+// The launch configuration of shard_walk_kernel: `lanes` clusters of
+// `shards` CTAs, with `smem` bytes of keys a CTA in shared memory.
+static cudaLaunchConfig_t walk_config(int shards, int lanes, size_t smem,
+                                      void* stream,
+                                      cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(shards * lanes, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = shards;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Shared-memory bytes of one shard_walk CTA's keys (0 where k = 1 or the
+// keys lie in the caller's scratch).
+static size_t walk_smem(int rows, int k, int path) {
+  if (k == 1) return 0;
+  const size_t bytes = topk_key_bytes(rows, k, path);
+  return bytes <= KEYS_SMEM_MAX ? bytes : 0;
+}
+
+// shard_walk's plan for `shards` shards of `rows` rows and k candidates
+// a shard (path as nomad_place_rounds_plan's for k > 1): raises the
+// kernel's attributes on the current device (clusters above 8 CTAs,
+// shared memory past 48 KB) and writes out[0], the clusters of `shards`
+// CTAs the card runs at once (cudaOccupancyMaxActiveClusters).  Returns a
+// CUDA error code; cudaErrorInvalidConfiguration where not one cluster
+// fits.
+int nomad_shard_walk_plan(int shards, int rows, int k, int path, int* out) {
+  if (shards < 1 || shards > MAX_STEP_SHARDS || rows < 1 || k < 1 ||
+      k > rows || (k > 1 && !rounds_args_ok(rows, k, 1, path)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      shard_walk_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(shard_walk_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             KEYS_SMEM_MAX);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      walk_config(shards, 1, walk_smem(rows, k, path), nullptr, &attr);
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, shard_walk_kernel, &cfg);
+  if (e != cudaSuccess) {
+    (void)cudaGetLastError();
+    return (int)e;
+  }
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  out[0] = clusters;
+  return 0;
+}
+
+// A whole sharded walk of one mesh row whose `shards` shards all sit on
+// the current card, after nomad_shard_walk_plan for (shards, rows, k,
+// path): `table` holds WALK_WORDS host words a shard (WalkShard's fields
+// in order; shard s's row_lo s * rows), `lanes` lanes each; kout winners
+// a step; chosen / scores / valid (a sequence walk) or counts (rounds) as
+// the kernel takes them.  Where k > 1 and the keys do not fit shared
+// memory, every shard passes its scratch of key words a lane (those of
+// nomad_place_rounds_plan(rows, k)); otherwise none does.
+int nomad_shard_walk(const unsigned long long* table, int shards, int lanes,
+                     int rows, int g_len, int p_len, int k, int kout,
+                     int rounds, int path, int* chosen, float* scores,
+                     const uint8_t* valid, const int* counts, void* stream) {
+  if (table == nullptr || shards < 1 || shards > MAX_STEP_SHARDS ||
+      lanes < 1 || rows < 1 || g_len < 1 || k < 1 || k > rows || kout < 1 ||
+      (size_t)kout > (size_t)shards * k || rounds < 1 ||
+      chosen == nullptr || scores == nullptr ||
+      (k > 1 && !rounds_args_ok(rows, k, 1, path)))
+    return (int)cudaErrorInvalidValue;
+  const bool seq = table[8] != 0ull;
+  const bool scratch = table[9] != 0ull;
+  const size_t bytes = k > 1 ? topk_key_bytes(rows, k, path) : 0;
+  if ((seq ? (k != 1 || kout != 1 || p_len < 1 || valid == nullptr)
+           : counts == nullptr) ||
+      scratch != (bytes > KEYS_SMEM_MAX))
+    return (int)cudaErrorInvalidValue;
+  WalkTable t;
+  for (int s = 0; s < shards; ++s) {
+    const unsigned long long* w = table + (size_t)s * WALK_WORDS;
+    for (int f = 0; f < 8; ++f)
+      if (w[f] == 0ull) return (int)cudaErrorInvalidValue;
+    if ((w[8] != 0ull) != seq || (w[9] != 0ull) != scratch ||
+        w[10] != (unsigned long long)s * (unsigned long long)rows)
+      return (int)cudaErrorInvalidValue;
+    WalkShard& x = t.s[s];
+    x.cap = (const float*)w[0];
+    x.res = (const float*)w[1];
+    x.usage = (float*)w[2];
+    x.jc = (int*)w[3];
+    x.feas = (const uint8_t*)w[4];
+    x.asks = (const float*)w[5];
+    x.distinct = (const uint8_t*)w[6];
+    x.penalty = (const float*)w[7];
+    x.group_idx = (const int*)w[8];
+    x.scratch = (uint32_t*)w[9];
+    x.row_lo = (long long)w[10];
+  }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = walk_config(
+      shards, lanes, walk_smem(rows, k, path), stream, &attr);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, shard_walk_kernel, t, rows, g_len, p_len, k, kout, rounds, path,
+      (int)(bytes / 4), chosen, scores, valid, counts);
+  if (e != cudaSuccess) {
+    (void)cudaGetLastError();
+    return (int)e;
+  }
   return (int)cudaGetLastError();
 }
 

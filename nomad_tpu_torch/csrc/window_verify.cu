@@ -4,10 +4,14 @@
 // (plan, node) claim ("pair") of one verify window, the claim-scatter of
 // its placement rows, the base fit against the resident fleet tensors,
 // and the component-local overlay fold of the earlier plans' entries.
-// Launched once per window by parallel/mesh.window_verify; on a mesh
-// (parallel/mesh.window_verify_sharded) the same body runs on rows that
-// each shard's K7d (shard_gather_kernel, below) gathered, through
-// nomad_window_verify_gathered.
+// Launched once per window by parallel/mesh.window_verify.  On a mesh
+// (parallel/mesh.window_verify_sharded) the same body runs once a window
+// as its sharded form (nomad_window_verify_sharded): each pair's thread
+// reads its node's columns 0-3 in place from the shard that owns it, for
+// the shards on this card (a by-value VerifyTable of at most
+// MAX_VERIFY_SHARDS), or from the owner's partial where a shard sits
+// elsewhere (K7d, shard_gather_kernel below, run on that shard's card and
+// copied here).  Either way the owner's bits, as K6 reads them.
 //
 // Inputs: capacity/reserved/usage f32[N, D] row-major, resident on the
 // card (only the D=6 rows the pairs claim are read, columns 0-3); one
@@ -103,6 +107,29 @@ constexpr int kUnroll = 4;                   // entries a thread loads at once
 constexpr int kOutBytes = 36;                // one pair's output record
 constexpr unsigned long long kEmpty = ~0ull;  // a node of -1: no pair's key
 constexpr unsigned kFull = 0xffffffffu;
+
+}  // namespace
+
+// One shard of a sharded window verify on this card, read in place: its
+// rows [row_lo, row_lo + shard_rows) of the fleet tensors f32[shard_rows]
+// [d].  The host passes VERIFY_WORDS 64-bit words a shard, in this order
+// (nomad_tpu_torch/parallel/mesh.py VERIFY_FIELDS).
+struct VerifyShard {
+  const float* capacity;
+  const float* reserved;
+  const float* usage;
+  long long row_lo;
+};
+#define VERIFY_WORDS 4
+// A card's shards one sharded window verify reads in place.
+#define MAX_VERIFY_SHARDS 16
+
+template <int kCount>
+struct VerifyTable {
+  VerifyShard s[kCount];
+};
+
+namespace {
 
 // Dynamic shared memory of a block of `threads`: every warp's bins,
 // float4[warps][kTargets].
@@ -223,13 +250,14 @@ __device__ __forceinline__ void load_entries(
   }
 }
 
-// kGathered: the pairs' rows come pre-gathered, `gathered` holding
-// `shards` partials [shards][b][12] (usage, reserved, capacity columns
-// 0-3 of pair p's node on the shard that owns it, zeros on the others),
-// summed here; capacity/reserved/usage are not read (K7d, the sharded
-// window verify).  pair_ni still names each pair's node: the fold
-// compares it with the entries' nodes.
-template <int kThreads, bool kGathered = false>
+// kSharded: the fleet is cut into shards of `shard_rows` rows (shard o
+// owns rows [o * shard_rows, (o + 1) * shard_rows)); `table` names the
+// `shards` of them on this card, read in place, and `partials`
+// [owners][b][12] holds, at each other owner's slot, its K7d gather of the
+// pairs' rows (usage, reserved, capacity columns 0-3).  A pair's thread
+// reads its node's row from its owner only, so the bits are K6's (a -0.0
+// stays -0.0).  capacity/reserved/usage are not read.
+template <int kThreads, bool kSharded = false>
 __global__ void __launch_bounds__(kThreads)
     window_verify_kernel(const float* __restrict__ capacity,
                          const float* __restrict__ reserved,
@@ -237,7 +265,10 @@ __global__ void __launch_bounds__(kThreads)
                          const int* __restrict__ desc, int b, int pairs,
                          int rows, int entries,
                          unsigned char* __restrict__ out,
-                         const float* __restrict__ gathered, int shards) {
+                         const VerifyTable<kSharded ? MAX_VERIFY_SHARDS : 1>
+                             table,
+                         int shards, int shard_rows,
+                         const float* __restrict__ partials) {
   const int* pair_ni = desc;
   const int* row_pair = desc + b;
   const int* seq_ni = desc + 2 * b;
@@ -316,22 +347,34 @@ __global__ void __launch_bounds__(kThreads)
   float node_u[4], rs[4], cap[4];  // a wide block: usage + reserved
   float4 removed;
   if (mine) {
-    const size_t row = (size_t)ni * d;
-    for (int j = 0; j < 4; ++j) {
-      float uj, rj, cj;
-      if constexpr (kGathered) {
-        uj = rj = cj = 0.0f;
-        for (int s = 0; s < shards; ++s) {
-          const float* g = gathered + ((size_t)s * b + p) * 12;
-          uj = __fadd_rn(uj, g[j]);
-          rj = __fadd_rn(rj, g[4 + j]);
-          cj = __fadd_rn(cj, g[8 + j]);
+    const float* u_src = usage;
+    const float* r_src = reserved;
+    const float* c_src = capacity;
+    size_t row = (size_t)ni * d;
+    if constexpr (kSharded) {
+      // The owner: one of this card's shards, else its partial.
+      u_src = nullptr;
+      for (int s = 0; s < shards; ++s) {
+        const long long lo = table.s[s].row_lo;
+        if (ni >= lo && ni < lo + shard_rows) {
+          u_src = table.s[s].usage;
+          r_src = table.s[s].reserved;
+          c_src = table.s[s].capacity;
+          row = (size_t)(ni - lo) * d;
         }
-      } else {
-        uj = usage[row + j];
-        rj = reserved[row + j];
-        cj = capacity[row + j];
       }
+      if (u_src == nullptr) {
+        const float* g = partials + ((size_t)(ni / shard_rows) * b + p) * 12;
+        u_src = g;
+        r_src = g + 4;
+        c_src = g + 8;
+        row = 0;
+      }
+    }
+    for (int j = 0; j < 4; ++j) {
+      const float uj = u_src[row + j];
+      const float rj = r_src[row + j];
+      const float cj = c_src[row + j];
       if constexpr (kNarrowBlock) {
         node_u[j] = uj;
         rs[j] = rj;
@@ -569,58 +612,79 @@ int nomad_window_verify(const float* capacity, const float* reserved,
   if (!window_args_ok(b, pairs, rows, entries))
     return (int)cudaErrorInvalidValue;
   const int blocks = (b + kPairs - 1) / kPairs;
+  const VerifyTable<1> none = {};
   if (small_window(rows, entries))
     window_verify_kernel<kNarrow>
         <<<blocks, kNarrow, smem_bytes(kNarrow), (cudaStream_t)stream>>>(
             capacity, reserved, usage, d, desc, b, pairs, rows, entries, out,
-            nullptr, 0);
+            none, 0, 0, nullptr);
   else
     window_verify_kernel<kWide>
         <<<blocks, kWide, smem_bytes(kWide), (cudaStream_t)stream>>>(
             capacity, reserved, usage, d, desc, b, pairs, rows, entries, out,
-            nullptr, 0);
+            none, 0, 0, nullptr);
   return (int)cudaGetLastError();
 }
 
-// Raises the shared memory of the gathered K6's wide blocks on the
+// Raises the shared memory of the sharded K6's wide blocks on the
 // current device; once per device, before its first launch there.
-int nomad_window_verify_gathered_setup() {
+int nomad_window_verify_sharded_setup() {
   return (int)cudaFuncSetAttribute(window_verify_kernel<kWide, true>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)smem_bytes(kWide));
 }
 
-// K6 on rows gathered by K7d: `gathered` [shards][b][12] on this device
-// (see window_verify_kernel); otherwise as nomad_window_verify.
-int nomad_window_verify_gathered(const float* gathered, int shards,
-                                 const int* desc, int b, int pairs, int rows,
-                                 int entries, unsigned char* out,
-                                 void* stream) {
-  if (!window_args_ok(b, pairs, rows, entries) || shards < 1)
+// K6 on a fleet cut into `owners` shards of `shard_rows` rows each, f32
+// [shard_rows][d]: `table` holds VERIFY_WORDS host words for each of the
+// `shards` on this card (VerifyShard's fields in order; row_lo a
+// multiple of shard_rows), read in place; `partials` [owners][b][12] on
+// this card holds the K7d gather of every other owner (null where this
+// card holds them all).  Otherwise as nomad_window_verify: one launch a
+// window.
+int nomad_window_verify_sharded(const unsigned long long* table, int shards,
+                                int owners, int shard_rows, int d,
+                                const float* partials, const int* desc, int b,
+                                int pairs, int rows, int entries,
+                                unsigned char* out, void* stream) {
+  if (!window_args_ok(b, pairs, rows, entries) || table == nullptr ||
+      shards < 1 || shards > MAX_VERIFY_SHARDS || owners < shards ||
+      shard_rows < 1 || d < 4 || ((owners > shards) != (partials != nullptr)))
     return (int)cudaErrorInvalidValue;
+  VerifyTable<MAX_VERIFY_SHARDS> t = {};
+  for (int s = 0; s < shards; ++s) {
+    const unsigned long long* w = table + (size_t)s * VERIFY_WORDS;
+    const long long lo = (long long)w[3];
+    if (w[0] == 0ull || w[1] == 0ull || w[2] == 0ull || lo < 0 ||
+        lo % shard_rows != 0 || lo / shard_rows >= owners)
+      return (int)cudaErrorInvalidValue;
+    t.s[s].capacity = (const float*)w[0];
+    t.s[s].reserved = (const float*)w[1];
+    t.s[s].usage = (const float*)w[2];
+    t.s[s].row_lo = lo;
+  }
   const int blocks = (b + kPairs - 1) / kPairs;
   if (small_window(rows, entries))
     window_verify_kernel<kNarrow, true>
         <<<blocks, kNarrow, smem_bytes(kNarrow), (cudaStream_t)stream>>>(
-            nullptr, nullptr, nullptr, 0, desc, b, pairs, rows, entries, out,
-            gathered, shards);
+            nullptr, nullptr, nullptr, d, desc, b, pairs, rows, entries, out,
+            t, shards, shard_rows, partials);
   else
     window_verify_kernel<kWide, true>
         <<<blocks, kWide, smem_bytes(kWide), (cudaStream_t)stream>>>(
-            nullptr, nullptr, nullptr, 0, desc, b, pairs, rows, entries, out,
-            gathered, shards);
+            nullptr, nullptr, nullptr, d, desc, b, pairs, rows, entries, out,
+            t, shards, shard_rows, partials);
   return (int)cudaGetLastError();
 }
 
-// K7d: one shard's part of a sharded window's rows.  The shard holds
-// fleet rows [row_lo, row_lo + rows) of capacity/reserved/usage f32
-// [rows][d]; for each of the b pairs (pair_ni, global node ids) it
-// writes to out [b][12] the usage, reserved and capacity columns 0-3 of
-// the pair's node where the shard owns it, and zeros where it does not.
-// Each node has one owner, so the partials of all shards sum to the
-// rows exactly (the gathered K6 sums them).  Bound: 48 bytes a pair
-// written, the owned rows read: bytes, far under a microsecond at
-// b = 64; the launch is the cost.
+// K7d: one shard's part of a sharded window's rows, for a shard on a card
+// other than the window's (the sharded K6 reads its own card's shards in
+// place).  The shard holds fleet rows [row_lo, row_lo + rows) of
+// capacity/reserved/usage f32[rows][d]; for each of the b pairs (pair_ni,
+// global node ids) it writes to out [b][12] the usage, reserved and
+// capacity columns 0-3 of the pair's node where the shard owns it, and
+// zeros where it does not; the sharded K6 reads the owner's partial
+// only.  Bound: 48 bytes a pair written, the owned rows read: bytes,
+// far under a microsecond at b = 64; the launch is the cost.
 __global__ void shard_gather_kernel(const float* __restrict__ capacity,
                                     const float* __restrict__ reserved,
                                     const float* __restrict__ usage, int d,

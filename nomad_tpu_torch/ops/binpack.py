@@ -550,17 +550,21 @@ place_sequence_batch.launches = 0
 # -- K7: the kernels of the node-axis-sharded walks (parallel/mesh.py) ----
 #
 # A sharded walk splits the node axis into S shards of R = N / S rows,
-# each its own tensors on its own device.  Each step of a walk (one
-# placement of K2/K4b, one round of a slot of K3/K4a) is one shard_step
-# launch (K7a+c) per card and mesh row, over that card's shards, and K7b
-# on the lead device; after the last step one more shard_step a card
-# applies the last winners (``csrc/binpack.cu``, the section "K7").
-# Per-lane operands keep K4's leading lane axis B (a single eval is one
-# lane); every shard's tensors cover only its R rows.
+# each its own tensors on its own device.  Where every shard of a mesh
+# row sits on one card, the whole walk is one shard_walk launch (a
+# thread-block cluster a lane, the merge in distributed shared memory).
+# Where a row's shards span cards, each step of a walk (one placement of
+# K2/K4b, one round of a slot of K3/K4a) is one shard_step launch
+# (K7a+c) per card and mesh row, over that card's shards, and K7b on the
+# lead device; after the last step one more shard_step a card applies
+# the last winners (``csrc/binpack.cu``, the section "K7").  Per-lane
+# operands keep K4's leading lane axis B (a single eval is one lane);
+# every shard's tensors cover only its R rows.
 #
-# shard_select_plain (K7a's half) and shard_apply_plain (K7c's half) are
-# the specification: shard_step_plain is one then the other, shard by
-# shard.
+# shard_select_plain (K7a's half), shard_apply_plain (K7c's half) and
+# merge_select_plain (K7b) are the specification: shard_step_plain is
+# the first two, shard by shard, and shard_walk_plain the loop of
+# shard_step_plain and merge_select_plain.
 
 
 def shard_select_plain(capacity, reserved, usage, job_counts, feasible,
@@ -893,3 +897,166 @@ def merge_launch(cand_vals, cand_idx, rows, upd, chosen, scores, m, counts,
 
 
 merge_select.launches = 0
+
+
+# One shard's operands of shard_walk: STEP_FIELDS without the step's
+# candidate and update buffers (``csrc/binpack.cu`` WalkShard: these
+# pointers in this order, then the shard's key regions and row_lo).
+WALK_FIELDS = STEP_FIELDS[:9]
+
+
+def _walk_shape(shards, k_cap: int, rounds: int) -> tuple:
+    """(rows, lanes, G, P, k, kout, steps) of a walk over ``shards``: a
+    sequence walk (group_idx given) has k = kout = 1 and a step a
+    placement, a rounds walk k = min(k_cap, R), kout = k_cap and a step
+    a round of a slot."""
+    first = shards[0]
+    rows = _node_axis(first["capacity"])
+    lanes, g = first["feasible"].shape[0], first["feasible"].shape[1]
+    if first.get("group_idx") is not None:
+        p = first["group_idx"].shape[-1]
+        return rows, lanes, g, p, 1, 1, p
+    return rows, lanes, g, 1, min(k_cap, rows), k_cap, g * rounds
+
+
+def shard_walk_plain(shards, chosen, scores, *, k_cap: int = 1,
+                     rounds: int = 1, valid=None, counts=None):
+    """Plain version of shard_walk, in place: the walk that shard_step
+    and K7b take a step at a time, as the loop of their plain versions.
+    Step by step (a placement p of a sequence walk, a round ``rnd`` of a
+    slot of the rounds), :func:`shard_step_plain` on every shard (the
+    updates of the step before applied, then the shard's best k
+    selected) and :func:`merge_select_plain` of the shards' candidates
+    into ``chosen``/``scores`` and the next updates; after the last
+    step, the apply alone."""
+    rows, lanes, g, p, k, kout, steps = _walk_shape(shards, k_cap, rounds)
+    seq = valid is not None
+    dev = shards[0]["usage"].device
+    n = len(shards)
+    cand_v = torch.empty((n, lanes, k), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((n, lanes, k), dtype=torch.int32, device=dev)
+    upd = torch.empty((n, lanes, kout), dtype=torch.int32, device=dev)
+    m = None if seq else torch.zeros(lanes, dtype=torch.int32, device=dev)
+    step = [dict(sh, out=(cand_v[s], cand_i[s]), upd=upd[s])
+            for s, sh in enumerate(shards)]
+    prev = -1
+    for t in range(steps):
+        slot, rnd = (t, 0) if seq else divmod(t, rounds)
+        shard_step_plain(step, apply_step=prev, select_step=slot, k=k)
+        merge_select_plain(cand_v, cand_i, rows, upd, chosen, scores,
+                           slot=slot, rnd=rnd, m=m, counts=counts,
+                           valid=valid)
+        prev = slot
+    if steps:
+        shard_step_plain(step, apply_step=prev, select_step=-1, k=k)
+
+
+def shard_walk(shards, chosen, scores, *, k_cap: int = 1, rounds: int = 1,
+               valid=None, counts=None):
+    """A whole sharded walk of one mesh row whose shards all lie on one
+    device (the sharded forms of ``nomad_tpu/parallel/mesh.py``'s argmax
+    and top_k scans: K7a, K7b and K7c of every step): the plain version
+    for CPU tensors (:func:`shard_walk_plain`), for CUDA tensors ONE
+    ``shard_walk_kernel`` launch, a thread-block cluster a lane whose
+    CTAs are the shards.  ``shards`` are mappings of :data:`WALK_FIELDS`
+    and ``row_lo`` (shard s's first row, s * R), each covering its R
+    rows as :func:`shard_step` takes them (usage and job_counts updated
+    in place); at most :data:`STEP_SHARDS` of them.  A sequence walk
+    (group_idx given) passes ``valid`` bool[B, P] and fills chosen /
+    scores [B, P]; a rounds walk passes ``counts`` i32[B, G] and fills
+    chosen / scores [B, G, rounds * k_cap], as K4a/K4b shape them."""
+    if not 1 <= len(shards) <= STEP_SHARDS:
+        raise ValueError(f"shard_walk takes 1 to {STEP_SHARDS} shards, "
+                         f"not {len(shards)}")
+    seq = shards[0].get("group_idx") is not None
+    if seq != (valid is not None) or seq == (counts is not None):
+        raise ValueError("shard_walk takes valid (a sequence walk, shards "
+                         "with a group_idx) or counts (rounds), not both")
+    tensors = {f"{name}{s}": sh[name] for s, sh in enumerate(shards)
+               for name in WALK_FIELDS if sh.get(name) is not None}
+    tensors.update(chosen=chosen, scores=scores)
+    tensors.update({"valid": valid} if seq else {"counts": counts})
+    device = kernels.route(tensors)
+    rows, lanes, g, p, k, kout, steps = _walk_shape(shards, k_cap, rounds)
+    if not 1 <= k_cap <= rows * len(shards) or rounds < 1:
+        raise ValueError(f"k_cap {k_cap} must lie in [1, "
+                         f"{rows * len(shards)}] and rounds {rounds} >= 1")
+    for s, sh in enumerate(shards):
+        if int(sh["row_lo"]) != s * rows:
+            raise ValueError(f"shard_walk: shard {s} starts at row "
+                             f"{sh['row_lo']}, not {s * rows}")
+        if (sh.get("group_idx") is not None) != seq:
+            raise ValueError("shard_walk: every shard has a group_idx (a "
+                             "sequence walk) or none does")
+    if device.type == "cpu":
+        shard_walk_plain(shards, chosen, scores, k_cap=k_cap, rounds=rounds,
+                         valid=valid, counts=counts)
+        return
+    out_shape = (lanes, p) if seq else (lanes, g, rounds * kout)
+    specs = _batch_specs(rows, lanes, g, dict(
+        usage=(torch.float32, (lanes, rows, NDIMS))))
+    del specs["usage0"]
+    specs["group_idx"] = (torch.int32, (lanes, p))
+    kernels.check_args(tensors, {f"{name}{s}": spec
+                                 for s in range(len(shards))
+                                 for name, spec in specs.items()
+                                 if f"{name}{s}" in tensors})
+    kernels.check_args(tensors, dict(
+        chosen=(torch.int32, out_shape), scores=(torch.float32, out_shape),
+        **({"valid": (torch.bool, (lanes, p))} if seq
+           else {"counts": (torch.int32, (lanes, g))})))
+    if not steps:
+        return
+    path = rounds_plan(rows, k)[0] if k > 1 else 0
+    walk_plan(len(shards), rows, k, path, device)
+    scratch = [select_scratch(rows, k, lanes, device) for _ in shards]
+    table = walk_table(shards, scratch)
+    lib = kernels.library("binpack")
+    code = lib.nomad_shard_walk(
+        table, len(shards), lanes, rows, g, p, k, kout, rounds, path,
+        chosen.data_ptr(), scores.data_ptr(),
+        valid.data_ptr() if seq else None,
+        None if seq else counts.data_ptr(), kernels.stream_handle(device))
+    kernels.check(lib, "shard_walk", code)
+    shard_walk.launches += 1
+
+
+shard_walk.launches = 0
+
+
+def walk_table(shards, scratch):
+    """shard_walk's by-value table, as host words: per shard the
+    pointers of :data:`WALK_FIELDS` (0 for a None group_idx), its key
+    regions' (0: none) and row_lo, in the order of ``csrc/binpack.cu``
+    WalkShard."""
+    words = []
+    for sh, sc in zip(shards, scratch):
+        words += [0 if sh.get(name) is None else sh[name].data_ptr()
+                  for name in WALK_FIELDS]
+        words += [0 if sc is None else sc.data_ptr(), int(sh["row_lo"])]
+    return (ctypes.c_uint64 * len(words))(*words)
+
+# nomad_shard_walk_plan's answers: (device index, shards, rows, k, path)
+# -> clusters the card runs at once.
+_WALK_PLANS: dict = {}
+
+
+def walk_plan(shards: int, rows: int, k: int, path: int, device) -> int:
+    """shard_walk's plan on the CUDA ``device``: the clusters of
+    ``shards`` CTAs the card runs at once (at least one, or this
+    raises), from ``nomad_shard_walk_plan``, which also raises the
+    kernel's attributes there; asked once per (device, shards, R, k,
+    path)."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    key = (index, shards, rows, k, path)
+    plan = _WALK_PLANS.get(key)
+    if plan is None:
+        lib = kernels.library("binpack")
+        out = (ctypes.c_int * 1)()
+        with torch.cuda.device(index):
+            code = lib.nomad_shard_walk_plan(shards, rows, k, path, out)
+        kernels.check(lib, "shard_walk plan", code)
+        plan = _WALK_PLANS[key] = out[0]
+    return plan

@@ -51,7 +51,10 @@ PROTOTYPES = {
         "nomad_place_sequence_batch_plan": (_I, _I, _I, _P),
         "nomad_place_sequence_batch": (_P,) * 10 + (_I,) * 7 + (_P,) * 6,
         "nomad_place_rounds_batch": (_P,) * 9 + (_I,) * 6 + (_P,) * 6,
-        # K7a+c and K7b, the sharded walks' kernels (parallel/mesh.py)
+        # the sharded walks' kernels (parallel/mesh.py): a walk on one
+        # card, and K7a+c and K7b for rows whose shards span cards
+        "nomad_shard_walk_plan": (_I, _I, _I, _I, _P),
+        "nomad_shard_walk": (_P,) + (_I,) * 9 + (_P,) * 5,
         "nomad_shard_step": (_P,) + (_I,) * 10 + (_P,),
         "nomad_merge_select": (_P,) * 2 + (_I,) * 10 + (_P,) * 7,
     },
@@ -61,9 +64,11 @@ PROTOTYPES = {
     "window_verify": {
         "nomad_window_verify_setup": (),
         "nomad_window_verify": (_P, _P, _P, _I, _P) + (_I,) * 4 + (_P, _P),
-        # K6 on K7d's gathered rows, and K7d (parallel/mesh.py)
-        "nomad_window_verify_gathered_setup": (),
-        "nomad_window_verify_gathered": (_P, _I, _P) + (_I,) * 4 + (_P, _P),
+        # K6 on a mesh's shards, and K7d for shards on another card
+        # (parallel/mesh.py)
+        "nomad_window_verify_sharded_setup": (),
+        "nomad_window_verify_sharded": (_P,) + (_I,) * 4 + (_P, _P)
+        + (_I,) * 4 + (_P, _P),
         "nomad_shard_gather": (_P,) * 3 + (_I,) * 3 + (_P, _I, _P, _P),
     },
 }

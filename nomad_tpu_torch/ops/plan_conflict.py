@@ -62,8 +62,9 @@ can prove the fold's all-accepted prefix held.  Verdicts, accepted
 alloc sets and store fingerprints are byte-identical under either
 engine.  Under the ``device`` policy a window first asks for a mesh
 (parallel/mesh.dispatch_mesh, two or more devices) and verifies on the
-mesh's resident sharded twins (``window_verify_sharded``: K7d on each
-shard, then K6), as the JAX package does; without a mesh the port
+mesh's resident sharded twins (``window_verify_sharded``: one launch
+of K6's sharded form, K7d first on shards of other cards), as the JAX
+package does; without a mesh the port
 launches K6 on the caller's one device (the JAX package stays on the
 host there), and ``auto`` stays on the host.  A K6 or K7d build, launch
 or fetch failure on the CUDA path raises; it does not fall back to the
@@ -570,8 +571,8 @@ def _dispatch_window_fit(capres, lease, dargs, vec_pair, vec_rows,
     """ONE K6 launch for the whole window's base fit + overlay fold,
     against the resident tensors (``capres`` from the statics,
     ``lease`` from UsageMirror.window_lease); on a ``mesh``, the
-    resident sharded twins through ``window_verify_sharded`` (K7d on
-    each shard, then K6).  Runs OUTSIDE the mirror lock — the
+    resident sharded twins through ``window_verify_sharded`` (one
+    launch of K6's sharded form).  Runs OUTSIDE the mirror lock — the
     descriptors are tiny host arrays, padded to one shared power-of-two
     bucket.  Returns (used_rows, caps_rows, _DeviceFit, devinfo);
     used/caps come back through the counted fetch seam and drop into

@@ -12,8 +12,8 @@ the cross-plan base-fit pass:
           parallel/mesh.window_verify) per window against the usage
           copy and capacity/reserved already resident on the caller's
           device, or on a mesh the sharded form
-          (parallel/mesh.window_verify_sharded: K7d on every shard,
-          then K6) against the mesh-resident twins — the fleet tensors
+          (parallel/mesh.window_verify_sharded: K6's sharded form,
+          one launch) against the mesh-resident twins — the fleet tensors
           never cross to the host.
 
 The JAX package takes its device engine only on a mesh of two or more

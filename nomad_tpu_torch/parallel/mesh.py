@@ -20,17 +20,22 @@ the JAX tests' forced host device count.
 
 The sharded forms (K7) compute exactly what the unsharded kernels do.
 XLA turned the JAX forms' argmax and top_k over the sharded axis into
-per-shard work and a cross-shard merge; here every step of a walk is
-one shard_step launch (K7a+c) per card of a mesh row, over that card's
-shards (the previous step's winners applied, then the shard's best
-candidates selected), and K7b on the row's lead device, with one tail
-shard_step a card after the last step (``ops/binpack.py``,
-``csrc/binpack.cu``); on one card a step is two launches.  The window
-verify gathers each shard's rows with K7d before K6's body runs
-(``csrc/window_verify.cu``).  One process drives every shard: small
-candidate and update buffers travel between devices with
-``copy_(non_blocking=True)``, which PyTorch orders against the current
-streams of both devices.  On the CPU every kernel's plain version runs.
+per-shard work and a cross-shard merge.  Here the layout decides the
+route (:func:`walk_route`), before any launch: a mesh row whose shards
+all sit on one card (at most ``STEP_SHARDS`` of them) runs a whole walk
+as ONE shard_walk launch (a thread-block cluster a lane, the merge in
+distributed shared memory); a row whose shards span cards takes every
+step as one shard_step launch (K7a+c) per card, over that card's shards
+(the previous step's winners applied, then the shard's best candidates
+selected), and K7b on the row's lead device, with one tail shard_step a
+card after the last step (``ops/binpack.py``, ``csrc/binpack.cu``).  The
+window verify is one launch of K6's sharded form, which reads the lead
+card's shards in place; a shard on another card sends its rows' partial
+gathered by K7d (``csrc/window_verify.cu``).  One process drives every
+shard: small candidate, update and partial buffers travel between
+devices with ``copy_(non_blocking=True)``, which PyTorch orders against
+the current streams of both devices.  On the CPU every kernel's plain
+version runs, on the same routes.
 
 The window verify (K6): the descriptors of one window are tiny (one row
 per (plan, node) claim, placement row and fold entry), all padded to ONE
@@ -41,6 +46,7 @@ the cost of a window does not grow with the fleet.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import os
 
 import numpy as np
@@ -358,7 +364,21 @@ def shard_fleet_arrays(mesh: Mesh, capacity, reserved, usage, job_counts,
             _put(feasible, mesh, GROUP_NODE))
 
 
-# -- the sharded walks (K7a+c, K7b) ----------------------------------------
+# -- the sharded walks (shard_walk on one card; K7a+c and K7b across) -----
+
+# The route of each mesh row of every sharded walk, counted as the walks
+# take them: "shard_walk" (one launch a row and walk) or "shard_step"
+# (shard_step a card and step, K7b a step).
+WALK_ROUTES = {"shard_walk": 0, "shard_step": 0}
+
+
+def walk_route(devices) -> str:
+    """The route of a mesh row over ``devices`` (its positions' devices),
+    from the layout alone: "shard_walk" where they form one launch group
+    (every shard on one card, at most ``STEP_SHARDS`` of them), else
+    "shard_step"."""
+    return "shard_walk" if len(device_groups(devices)) == 1 else \
+        "shard_step"
 
 
 def device_groups(devices, cap: int = STEP_SHARDS) -> list:
@@ -395,39 +415,76 @@ class _Group:
         self.to_lead, self.to_local = to_lead, to_local
 
 
-class _Row:
+class _WalkRow:
     """One mesh row's share of a sharded walk: its lanes' state on every
-    shard (usage and job counts, evolved from copies of the base), the
-    candidate and update buffers on the row's lead device, its shards
-    grouped by device (one shard_step launch a group and step), and the
-    walk's results on the lead.  ``ops`` maps each operand to its
-    tensor at each mesh position, in the batch layout (a leading lane
-    axis)."""
+    shard (usage and job counts, evolved from copies of the base) and
+    the walk's results on the lead; on the shard_walk route one launch
+    runs the whole walk.  ``ops`` maps each operand to its tensor at
+    each mesh position, in the batch layout (a leading lane axis)."""
 
     def __init__(self, mesh: Mesh, r: int, ops: dict, seq: bool,
                  k_cap: int, rounds: int) -> None:
         width = mesh.fleet_ways
         self.devs = mesh.grid[r]
         self.lead = lead = self.devs[0]
+        self.k_cap, self.rounds = k_cap, rounds
 
         def row(name):
             return [ops[name][r * width + c] for c in range(width)]
 
-        cap, res = row("capacity"), row("reserved")
-        feas, asks = row("feasible"), row("asks")
-        distinct, penalty = row("distinct"), row("penalty")
-        group_idx = row("group_idx") if seq else [None] * width
+        self.cols = {name: row(name) for name in (
+            "capacity", "reserved", "feasible", "asks", "distinct",
+            "penalty")}
+        self.cols["group_idx"] = row("group_idx") if seq else [None] * width
         jc = row("job_counts")
-        self.lanes, self.rows = lanes, rows = jc[0].shape
+        self.lanes, self.rows = jc[0].shape
+        lanes = self.lanes
         # Each lane's own copy of the base, as the vmap's carry.
         self.usage = [u.repeat(lanes, 1, 1) for u in row("usage0")]
         self.jc = [j.clone() for j in jc]
-        self.k = k = 1 if seq else min(k_cap, rows)
+        f32, i32 = torch.float32, torch.int32
+        self.counts = self.valid = None
+        if seq:
+            self.valid = ops["valid"][r * width]
+            shape = (lanes, self.cols["group_idx"][0].shape[1])
+        else:
+            self.counts = ops["counts"][r * width]
+            shape = (lanes, self.cols["asks"][0].shape[1], rounds * k_cap)
+        self.chosen = torch.empty(shape, dtype=i32, device=lead)
+        self.scores = torch.empty(shape, dtype=f32, device=lead)
+
+    def shards(self) -> list:
+        """The row's shards as shard_walk takes them."""
+        return [dict({name: col[c] for name, col in self.cols.items()},
+                     usage=self.usage[c], job_counts=self.jc[c],
+                     row_lo=c * self.rows) for c in range(len(self.devs))]
+
+    def walk(self) -> None:
+        from nomad_tpu_torch.ops import binpack
+
+        binpack.shard_walk(self.shards(), self.chosen, self.scores,
+                           k_cap=self.k_cap, rounds=self.rounds,
+                           valid=self.valid, counts=self.counts)
+
+
+class _Row(_WalkRow):
+    """One mesh row's share of a sharded walk on the shard_step route
+    (its shards span cards, or outnumber a launch): beside
+    :class:`_WalkRow`'s state, the candidate and update buffers on the
+    row's lead device and its shards grouped by device, one shard_step
+    launch a group and step."""
+
+    def __init__(self, mesh: Mesh, r: int, ops: dict, seq: bool,
+                 k_cap: int, rounds: int) -> None:
+        super().__init__(mesh, r, ops, seq, k_cap, rounds)
+        lanes, lead, width = self.lanes, self.lead, len(self.devs)
+        self.k = k = 1 if seq else min(k_cap, self.rows)
         kout = 1 if seq else k_cap
         f32, i32 = torch.float32, torch.int32
         self.cand_v = torch.empty((width, lanes, k), dtype=f32, device=lead)
         self.cand_i = torch.empty((width, lanes, k), dtype=i32, device=lead)
         self.upd = torch.empty((width, lanes, kout), dtype=i32, device=lead)
+        row_shards = self.shards()
         self.groups = []
         for dev, cs in device_groups(self.devs):
             if dev == lead:
@@ -439,13 +496,8 @@ class _Row:
                 cand_i = torch.empty((m, lanes, k), dtype=i32, device=dev)
                 upd = torch.empty((m, lanes, kout), dtype=i32, device=dev)
                 at = range(m)
-            shards = [dict(capacity=cap[c], reserved=res[c],
-                           usage=self.usage[c], job_counts=self.jc[c],
-                           feasible=feas[c], asks=asks[c],
-                           distinct=distinct[c], penalty=penalty[c],
-                           group_idx=group_idx[c],
-                           out=(cand_v[j], cand_i[j]), upd=upd[j],
-                           row_lo=c * rows) for c, j in zip(cs, at)]
+            shards = [dict(row_shards[c], out=(cand_v[j], cand_i[j]),
+                           upd=upd[j]) for c, j in zip(cs, at)]
             if dev == lead:
                 self.groups.append(_Group(shards))
                 continue
@@ -456,16 +508,7 @@ class _Row:
                          for dst, src in ((self.cand_v, cand_v),
                                           (self.cand_i, cand_i))],
                 to_local=[(upd[b], self.upd[a]) for a, b in runs]))
-        self.m = self.counts = self.valid = None
-        if seq:
-            self.valid = ops["valid"][r * width]
-            shape = (lanes, group_idx[0].shape[1])
-        else:
-            self.counts = ops["counts"][r * width]
-            self.m = torch.zeros(lanes, dtype=i32, device=lead)
-            shape = (lanes, asks[0].shape[1], rounds * k_cap)
-        self.chosen = torch.empty(shape, dtype=i32, device=lead)
-        self.scores = torch.empty(shape, dtype=f32, device=lead)
+        self.m = None if seq else torch.zeros(lanes, dtype=i32, device=lead)
         self.merge = (self.cand_v, self.cand_i, self.rows, self.upd,
                       self.chosen, self.scores)
         self.launch_merge = None  # K7b bound to its buffers, once checked
@@ -511,23 +554,35 @@ def _walk(mesh: Mesh, lane_rows, ops: dict, *, seq: bool, k_cap: int = 1,
     its own lanes, step by step side by side) and return (chosen,
     scores, usage) on the mesh's lead device, lanes in row order, shaped
     as K4a/K4b shape them (usage f32[B, N, D], gathered from the
-    shards).  A step of a sequence walk selects for its placement p
-    (slot p), a step of the rounds for round ``rnd`` of its slot; each
-    step applies the updates of the step before, and a tail after the
-    last applies its own.  The first step checks the arguments; on the
-    CPU every step runs the plain versions through the wrappers."""
-    rows = [_Row(mesh, r, ops, seq, k_cap, rounds) for r in lane_rows]
+    shards).  Each row takes the route of its layout (:func:`walk_route`,
+    counted in ``WALK_ROUTES``): on one card, one shard_walk; across
+    cards, step by step: a step of a sequence walk selects for its
+    placement p (slot p), a step of the rounds for round ``rnd`` of its
+    slot; each step applies the updates of the step before, and a tail
+    after the last applies its own.  The first step checks the
+    arguments; on the CPU every step runs the plain versions through
+    the wrappers."""
+    rows = []
+    for r in lane_rows:
+        route = walk_route(mesh.grid[r])
+        WALK_ROUTES[route] += 1
+        rows.append((_WalkRow if route == "shard_walk" else _Row)(
+            mesh, r, ops, seq, k_cap, rounds))
+    stepped = [row for row in rows if isinstance(row, _Row)]
+    for row in rows:
+        if not isinstance(row, _Row):
+            row.walk()
     width = rows[0].chosen.shape[1]
     steps = [(p, 0) for p in range(width)] if seq else \
         [(s, r) for s in range(width) for r in range(rounds)]
     cpu = mesh.lead.type == "cpu"
     prev = -1
-    for i, (slot, rnd) in enumerate(steps):
-        for row in rows:
+    for i, (slot, rnd) in enumerate(steps if stepped else ()):
+        for row in stepped:
             row.step(prev, slot, rnd, cpu or i == 0)
         prev = slot
-    if steps:
-        for row in rows:
+    if steps and stepped:
+        for row in stepped:
             row.step(prev, -1, 0, cpu)
     lead = mesh.lead
     chosen = torch.cat([row.chosen.to(lead) for row in rows])
@@ -597,7 +652,8 @@ def place_sequence_sharded(mesh: Mesh, capacity, reserved, usage0,
                            valid, penalty):
     """K2's placement scan with the node axis sharded over ``mesh`` (a
     single eval: row 0 of a 2-D mesh).  Inputs may be host numpy arrays
-    or resident Sharded operands; each step is shard_step on every
+    or resident Sharded operands; one shard_walk launch where the
+    row's shards share a card, else each step shard_step on every
     card's shards (the owner's update of the step before, then each
     shard's best, k = 1) and K7b's merge of the shards' bests.  Returns
     (chosen i32[P], scores f32[P], usage f32[N, D]) on the mesh's lead
@@ -614,8 +670,9 @@ def place_rounds_sharded(mesh: Mesh, capacity, reserved, usage0, jc0,
                          k_cap: int, rounds: int):
     """K3's rounds placement with the node axis sharded over ``mesh``:
     each round is a top min(k_cap, R) on every shard of R rows and the
-    owners' updates of the round before (shard_step) and a merge to the
-    global top k_cap (K7b).
+    owners' updates of the round before and a merge to the global top
+    k_cap, in one shard_walk launch where the shards share a card, else
+    shard_step and K7b a round.
     Returns (chosen i32[G, rounds * k_cap], scores alike, usage
     f32[N, D]) on the mesh's lead device, equal to K3's."""
     _check_k_cap(capacity, k_cap, rounds)
@@ -654,7 +711,7 @@ def place_sequence_batch_sharded(mesh: Mesh, capacity, reserved, usage0,
     return _walk(mesh, range(mesh.lane_ways), ops, seq=True)
 
 
-# -- the window verify: K6, and its sharded form (K7d) ---------------------
+# -- the window verify: K6 ---------------------------------------------------
 
 # Descriptor arrays of one window, in the order the kernel's packed
 # buffer holds them: (name, dtype, width; 0 = one value per entry).
@@ -894,10 +951,30 @@ def launch_window_verify(capacity, reserved, usage, packed, b: int,
     return out
 
 
-# -- K7d: the sharded window verify ----------------------------------------
-# Each shard gathers the rows it owns of the window's pairs (zeros where
-# it owns none), the lead device sums the partials (one owner a row, small
-# integers: exact) and K6's body runs on them.
+# -- the sharded window verify: K6 on the shards, K7d across cards --------
+# One launch of K6's sharded form a window: each pair reads its node's
+# rows from the shard that owns it, in place where the shard sits on the
+# window's card (at most VERIFY_SHARDS of them), else from that shard's
+# K7d partial (a masked gather on its own card, copied over).
+
+
+# One in-place shard of the sharded K6 (``csrc/window_verify.cu``
+# VerifyShard: the three pointers, then row_lo); at most VERIFY_SHARDS a
+# launch (MAX_VERIFY_SHARDS).
+VERIFY_FIELDS = ("capacity", "reserved", "usage")
+VERIFY_SHARDS = 16
+
+
+def verify_layout(devices) -> tuple:
+    """(positions read in place, positions gathered by K7d) of a mesh
+    row over ``devices``: the lead's own positions, up to
+    :data:`VERIFY_SHARDS`, in place; every other position (on another
+    card, or past the cap) sends a partial.  Decided from the layout
+    alone, before any launch."""
+    lead = torch.device(devices[0])
+    own = [c for c, d in enumerate(devices) if torch.device(d) == lead]
+    own = own[:VERIFY_SHARDS]
+    return own, [c for c in range(len(devices)) if c not in own]
 
 
 def shard_gather_plain(capacity, reserved, usage, row_lo: int, pair_ni):
@@ -950,44 +1027,99 @@ def shard_gather(capacity, reserved, usage, row_lo: int, pair_ni, out=None):
 shard_gather.launches = 0
 
 
-def window_verify_gathered_plain(partials, **desc):
-    """Plain K6 on K7d's partials f32[S, B, 12]: their sum is each
-    pair's rows."""
-    rows = partials.sum(0)
+def window_verify_shards_plain(shards, shard_rows: int, partials, **desc):
+    """Plain version of K6's sharded form: each pair's node rows read
+    from its owner (shard o owns rows [o R, (o + 1) R), R =
+    ``shard_rows``), in place from ``shards`` (mappings of
+    :data:`VERIFY_FIELDS` and ``row_lo``) or, for an owner not among
+    them, from its K7d partial ``partials`` f32[S, B, 12]; then K6's
+    body (:func:`_verify_rows`).  The owner's bits, as K6 reads them."""
+    ni = desc["pair_ni"].long()
+    b = ni.shape[0]
+    covered = torch.zeros(b, dtype=torch.bool, device=ni.device)
+    rows = torch.zeros((b, 12), dtype=torch.float32, device=ni.device)
+    if partials is not None:
+        rows = partials[ni // shard_rows,
+                        torch.arange(b, device=ni.device)].clone()
+        covered[:] = True
+    for sh in shards:
+        local = ni - int(sh["row_lo"])
+        own = (local >= 0) & (local < shard_rows)
+        at = local[own]
+        rows[own] = torch.cat([sh["usage"][at, :4], sh["reserved"][at, :4],
+                               sh["capacity"][at, :4]], dim=1)
+        covered |= own
+    if not bool(covered.all()):
+        raise ValueError("a pair's node lies on no shard given and no "
+                         "partial was")
     return _verify_rows(rows[:, :4], rows[:, 4:8], rows[:, 8:12], **desc)
 
 
-# Device indices whose gathered K6 shared-memory limit is raised.
-_SET_UP_GATHERED: set = set()
+def verify_table(shards):
+    """The sharded K6's by-value table, as host words: per shard the
+    pointers of :data:`VERIFY_FIELDS`, then row_lo, in the order of
+    ``csrc/window_verify.cu`` VerifyShard."""
+    words = []
+    for sh in shards:
+        words += [sh[name].data_ptr() for name in VERIFY_FIELDS]
+        words.append(int(sh["row_lo"]))
+    return (ctypes.c_uint64 * len(words))(*words)
 
 
-def launch_window_verify_gathered(partials, packed, b: int, counts: tuple):
-    """K6's launch on K7d's partials f32[S, B, 12] and a packed descriptor
-    buffer, both on one card; returns the output buffer, uint8[B, 36].
-    Counted as a launch of K6 (``window_verify.launches``)."""
+# Device indices whose sharded K6 shared-memory limit is raised.
+_SET_UP_SHARDED: set = set()
+
+
+def launch_window_verify_shards(shards, shard_rows: int, owners: int,
+                                partials, packed, b: int, counts: tuple):
+    """K6's sharded form, one launch on the window's card: ``shards``
+    (mappings of :data:`VERIFY_FIELDS` and ``row_lo``, CUDA tensors
+    f32[shard_rows, D] on that card, at most :data:`VERIFY_SHARDS`) read
+    in place, ``partials`` f32[owners, B, 12] (the K7d gathers of the
+    other owners) or None where ``shards`` are all ``owners``, and a
+    packed descriptor buffer there.  Returns the output buffer,
+    uint8[B, 36]; counted in its own ``launches``."""
     from nomad_tpu_torch.ops import kernels
 
-    device = partials.device
+    device = packed.device
     if packed.dtype != torch.int32 or tuple(packed.shape) != (19 * b,) \
-            or packed.device != device or partials.dim() != 3 \
-            or tuple(partials.shape[1:]) != (b, 12) \
-            or partials.dtype != torch.float32 \
-            or not partials.is_contiguous():
-        raise ValueError("gathered window verify: want partials f32"
-                         f"[S, {b}, 12] and int32[19 * B] on {device}")
+            or not packed.is_contiguous():
+        raise ValueError(f"packed descriptors: want int32[19 * B] on "
+                         f"{device}")
+    if not 1 <= len(shards) <= VERIFY_SHARDS:
+        raise ValueError(f"the sharded K6 reads 1 to {VERIFY_SHARDS} "
+                         f"shards in place, not {len(shards)}")
+    d = shards[0]["usage"].shape[1]
+    tensors = {f"{name}{s}": sh[name] for s, sh in enumerate(shards)
+               for name in VERIFY_FIELDS}
+    tensors["packed"] = packed
+    specs = {f"{name}{s}": (torch.float32, (shard_rows, d))
+             for s in range(len(shards)) for name in VERIFY_FIELDS}
+    if partials is not None:
+        tensors["partials"] = partials
+        specs["partials"] = (torch.float32, (owners, b, 12))
+    if kernels.route(tensors) != device:
+        raise ValueError("the sharded K6's operands lie on several devices")
+    kernels.check_args(tensors, specs)
+    table = verify_table(shards)
     out = torch.empty((b, OUT_BYTES), dtype=torch.uint8, device=device)
     lib = kernels.library("window_verify")
-    if device.index not in _SET_UP_GATHERED:
+    if device.index not in _SET_UP_SHARDED:
         with torch.cuda.device(device):
-            kernels.check(lib, "window_verify_gathered setup",
-                          lib.nomad_window_verify_gathered_setup())
-        _SET_UP_GATHERED.add(device.index)
-    code = lib.nomad_window_verify_gathered(
-        partials.data_ptr(), partials.shape[0], packed.data_ptr(), b,
-        *counts, out.data_ptr(), kernels.stream_handle(device))
-    kernels.check(lib, "window_verify_gathered", code)
-    window_verify.launches += 1
+            kernels.check(lib, "window_verify_sharded setup",
+                          lib.nomad_window_verify_sharded_setup())
+        _SET_UP_SHARDED.add(device.index)
+    code = lib.nomad_window_verify_sharded(
+        table, len(shards), owners, shard_rows, d,
+        None if partials is None else partials.data_ptr(),
+        packed.data_ptr(), b, *counts, out.data_ptr(),
+        kernels.stream_handle(device))
+    kernels.check(lib, "window_verify_sharded", code)
+    launch_window_verify_shards.launches += 1
     return out
+
+
+launch_window_verify_shards.launches = 0
 
 
 def window_verify_sharded(mesh: Mesh, capacity, reserved, usage, pair_ni,
@@ -995,8 +1127,10 @@ def window_verify_sharded(mesh: Mesh, capacity, reserved, usage, pair_ni,
                           seq_comp, pair_order, pair_comp, pair_removed, *,
                           packed: bool = False, counts=None):
     """One window's base fit and optimistic overlay fold, node axis
-    sharded over ``mesh`` (its first row): K7d on every shard, then K6's
-    body on the gathered rows on the lead device.
+    sharded over ``mesh`` (its first row): one launch of K6's sharded
+    form on the lead device, reading the lead's shards in place
+    (:func:`verify_layout`); each shard elsewhere first gathers its
+    rows' partial with K7d on its own card.
 
     capacity/reserved/usage normally arrive as the resident Sharded
     twins (no transfer: ``_put`` skips them); the descriptors are the
@@ -1004,7 +1138,7 @@ def window_verify_sharded(mesh: Mesh, capacity, reserved, usage, pair_ni,
     whole fleet, packed and uploaded to the lead in one counted
     transfer (a shard on another device gets its copy of ``pair_ni``
     from there).  Returns what :func:`window_verify` returns, equal to
-    it, on the lead device."""
+    it bit for bit, on the lead device."""
     capacity, reserved, usage = (_put(x, mesh, NODE)
                                  for x in (capacity, reserved, usage))
     desc = dict(pair_ni=pair_ni, row_pair=row_pair, row_vec=row_vec,
@@ -1018,31 +1152,64 @@ def window_verify_sharded(mesh: Mesh, capacity, reserved, usage, pair_ni,
     devs = mesh.grid[0]
     lead = devs[0]
     rows = n // len(devs)
-    if lead.type == "cpu":
-        dd = {k: torch.from_numpy(desc[k]) for k, _t, _w in DESCRIPTORS}
-        partials = torch.stack([
-            shard_gather(capacity[c], reserved[c], usage[c], c * rows,
-                         dd["pair_ni"]) for c in range(len(devs))])
-        out = window_verify_gathered_plain(partials, **dd)
-        return pack_results(*out) if packed else out
-    counts = kernel_counts(desc, counts)
-    pack_descriptors(desc, b, _UPLOAD.host_view(19 * b))
-    packed_d = _UPLOAD.upload(19 * b, lead)
-    partials = torch.empty((len(devs), b, 12), dtype=torch.float32,
-                           device=lead)
-    pair_ni_on = {lead: packed_d[:b]}
-    for c, dev in enumerate(devs):
-        ni = pair_ni_on.get(dev)
-        if ni is None:
-            ni = pair_ni_on[dev] = torch.empty(b, dtype=torch.int32,
-                                               device=dev)
-            note_transfer("d2d")
-            ni.copy_(packed_d[:b], non_blocking=True)
-        part = partials[c] if dev == lead else \
-            torch.empty((b, 12), dtype=torch.float32, device=dev)
-        shard_gather(capacity[c], reserved[c], usage[c], c * rows, ni,
-                     out=part)
-        if dev != lead:
-            partials[c].copy_(part, non_blocking=True)
-    buf = launch_window_verify_gathered(partials, packed_d, b, counts)
+    own, others = verify_layout(devs)
+    shards = [dict(capacity=capacity[c], reserved=reserved[c],
+                   usage=usage[c], row_lo=c * rows) for c in own]
+    upload = None
+    partials = None
+    if others:
+        # Each other shard's K7d partial, gathered on its own card.
+        partials = torch.zeros((len(devs), b, 12), dtype=torch.float32,
+                               device=lead)
+        if lead.type == "cpu":
+            pair_ni_on = {lead: torch.from_numpy(desc["pair_ni"])}
+        else:
+            counts = kernel_counts(desc, counts)
+            pack_descriptors(desc, b, _UPLOAD.host_view(19 * b))
+            upload = _UPLOAD.upload(19 * b, lead)
+            pair_ni_on = {lead: upload[:b]}
+        for c in others:
+            dev = devs[c]
+            ni = pair_ni_on.get(dev)
+            if ni is None:
+                ni = pair_ni_on[dev] = torch.empty(b, dtype=torch.int32,
+                                                   device=dev)
+                note_transfer("d2d")
+                ni.copy_(pair_ni_on[lead], non_blocking=True)
+            part = partials[c] if dev == lead else \
+                torch.empty((b, 12), dtype=torch.float32, device=dev)
+            shard_gather(capacity[c], reserved[c], usage[c], c * rows, ni,
+                         out=part)
+            if dev != lead:
+                partials[c].copy_(part, non_blocking=True)
+    buf = window_verify_shards(shards, rows, len(devs), partials, desc,
+                               counts=counts, upload=upload)
     return buf if packed else unpack_results(buf)
+
+
+def window_verify_shards(shards, shard_rows: int, owners: int, partials,
+                         desc: dict, counts=None, upload=None):
+    """K6's sharded form on the window's device: the plain version
+    (:func:`window_verify_shards_plain`) for CPU tensors, for CUDA
+    tensors one launch (:func:`launch_window_verify_shards`) behind the
+    window's packed descriptors (``upload``, already on the card, or
+    packed from ``desc`` and uploaded here in one counted transfer).
+    ``shards`` are read in place, ``partials`` f32[owners, B, 12] (or
+    None) hold the other owners' K7d gathers.  Returns K6's output
+    buffer, uint8[B, 36] (:func:`unpack_results`)."""
+    from nomad_tpu_torch.ops import kernels
+
+    device = kernels.route({f"{name}{s}": sh[name]
+                            for s, sh in enumerate(shards)
+                            for name in VERIFY_FIELDS})
+    b = np.asarray(desc["pair_ni"]).shape[0]
+    if device.type == "cpu":
+        return pack_results(*window_verify_shards_plain(
+            shards, shard_rows, partials,
+            **{k: torch.from_numpy(desc[k]) for k, _t, _w in DESCRIPTORS}))
+    counts = kernel_counts(desc, counts)
+    if upload is None:
+        pack_descriptors(desc, b, _UPLOAD.host_view(19 * b))
+        upload = _UPLOAD.upload(19 * b, device)
+    return launch_window_verify_shards(shards, shard_rows, owners, partials,
+                                       upload, b, counts)

@@ -261,8 +261,16 @@ def test_parked_path_actually_parks_while_inproc_blocks_a_thread():
         from tests.conftest import wait_until
         wait_until(lambda: p.srv.fsm.state.watch.live_waiters() == 1,
                    msg="wire query parked in the fan-out")
-        assert p.srv.rpc_server._pool.stats()["busy"] == 0, \
-            "a parked blocking query must not pin a dispatch worker"
+        # The worker that parked the waiter lowers ``busy`` only once its
+        # handler has returned, a moment after the park: wait for that
+        # while the waiter is still parked (its max_query_time is 10 s).
+        # A query that pins its worker until it is answered never gets
+        # there.
+        wait_until(lambda: p.srv.rpc_server._pool.stats()["busy"] == 0
+                   and p.srv.fsm.state.watch.live_waiters() == 1,
+                   timeout=5.0,
+                   msg="a parked blocking query must not pin a dispatch "
+                       "worker")
         p.srv.node_register(p.node(1))
         t.join(10)
         assert got and got[0]["index"] > cur

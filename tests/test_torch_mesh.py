@@ -530,12 +530,27 @@ def _raising(name):
     return broken
 
 
-@pytest.mark.parametrize("site", ["scheduler", "storm", "verify"])
+def _across_cards(monkeypatch, cap=3):
+    """Make the eight cpu entries take the routes of shards that span
+    cards: three shards a shard_step launch (so a row is several launch
+    groups: shard_step + K7b), and three read in place by the sharded
+    K6 (the other five send K7d partials)."""
+    monkeypatch.setattr(tmesh, "device_groups",
+                        lambda devs, _g=tmesh.device_groups: _g(devs, cap))
+    monkeypatch.setattr(tmesh, "VERIFY_SHARDS", cap)
+
+
+@pytest.mark.parametrize("site", ["scheduler", "storm", "verify",
+                                  "walk-scheduler", "walk-storm",
+                                  "walk-verify"])
 def test_a_k7_launch_that_fails_on_a_mesh_raises(monkeypatch, site):
     """No fallback: where a mesh resolves, a failed K7 launch surfaces
     from the entry point, and neither the unsharded kernels nor the host
     twins run in its place (every one of them is patched to fail the
-    test if called)."""
+    test if called).  The first three sites take the routes of shards
+    that span cards (shard_step, K7b, K7d fail); the ``walk-`` sites the
+    one-card routes of the eight entries (shard_walk, K6's sharded
+    form fail)."""
     from nomad_tpu_torch.ops import binpack_host
     from nomad_tpu_torch.ops.plan_conflict import evaluate_window
     from nomad_tpu_torch.ops.verify_policy import verify_override
@@ -551,15 +566,20 @@ def test_a_k7_launch_that_fails_on_a_mesh_raises(monkeypatch, site):
                       (binpack_host, "place_sequence_host")):
         monkeypatch.setattr(mod, name, lambda *a, _n=name, **kw:
                             called.append(_n))
+    walk = site.startswith("walk-")
+    site = site.removeprefix("walk-")
+    if not walk:
+        _across_cards(monkeypatch)
     _jh, th, jobs = _twin_rig(16, 2, 3)
     with tmesh.mesh_override(CPU8), executor_override("device"):
         if site == "scheduler":
-            monkeypatch.setattr(tbp, "shard_step", _raising("shard_step"))
+            name = "shard_walk" if walk else "shard_step"
+            monkeypatch.setattr(tbp, name, _raising(name))
             with pytest.raises(RuntimeError, match="CUDA error"):
                 th.process("torch-binpack", _port_eval(jobs[0]))
         elif site == "storm":
-            monkeypatch.setattr(tbp, "merge_select",
-                                _raising("merge_select"))
+            name = "shard_walk" if walk else "merge_select"
+            monkeypatch.setattr(tbp, name, _raising(name))
             with pytest.raises(RuntimeError, match="CUDA error"):
                 BatchEvalRunner(th.state.snapshot(), th,
                                 device="cpu").process(
@@ -572,8 +592,8 @@ def test_a_k7_launch_that_fails_on_a_mesh_raises(monkeypatch, site):
             _js, ts = _worlds(nodes)
             plans = convert.plans_from_reference(
                 [place_plan(make_alloc(n, cpu=100)) for n in nodes])
-            monkeypatch.setattr(tmesh, "shard_gather",
-                                _raising("shard_gather"))
+            name = "window_verify_shards" if walk else "shard_gather"
+            monkeypatch.setattr(tmesh, name, _raising(name))
             with verify_override("device"), \
                     pytest.raises(RuntimeError, match="CUDA error"):
                 evaluate_window(ts, plans)
@@ -846,9 +866,9 @@ def test_a_row_in_several_launches_equals_the_unsharded_kernels(
                                   "rounds_batch"])
 def test_walks_on_the_overridden_mesh_equal_jax(walk):
     """Each sharded walk on the mesh ``mesh_override(["cpu"] * 8)``
-    resolves (shard_step per step, one launch for the row's eight
-    shards, and a tail) equals the JAX package's sharded form on its
-    eight CPU devices and the port's unsharded kernel, with -0.0 usage
+    resolves (one shard_walk for the row's eight shards) equals the JAX
+    package's sharded form on its eight CPU devices and the port's
+    unsharded kernel, with -0.0 usage
     entries and the last four sequence steps invalid (their winners
     get ask * 0.0, not ask)."""
     fleet, view, feasible, asks, distinct, group_idx, valid = _problem()
@@ -894,10 +914,11 @@ def test_walks_on_the_overridden_mesh_equal_jax(walk):
 @pytest.mark.parametrize("site", ["scheduler", "storm", "pipeline"])
 def test_a_failed_shard_step_raises_from_every_walk_entry(monkeypatch,
                                                           site):
-    """No fallback for shard_step: where a mesh resolves, a failed
-    launch surfaces from torch_binpack's eval, the fused storm and the
-    pipelined runner (held to the card's rule: no host re-run), and
-    neither the unsharded kernels nor the host twins run in its place."""
+    """No fallback for shard_step: where a mesh resolves on the route of
+    shards that span cards, a failed launch surfaces from torch_binpack's
+    eval, the fused storm and the pipelined runner (held to the card's
+    rule: no host re-run), and neither the unsharded kernels nor the
+    host twins run in its place."""
     from nomad_tpu_torch.ops import binpack_host
     from nomad_tpu_torch.scheduler.batch import BatchEvalRunner
     from nomad_tpu_torch.scheduler.executor import executor_override
@@ -912,6 +933,7 @@ def test_a_failed_shard_step_raises_from_every_walk_entry(monkeypatch,
         monkeypatch.setattr(mod, name, lambda *a, _n=name, **kw:
                             called.append(_n))
     monkeypatch.setattr(tbp, "shard_step", _raising("shard_step"))
+    _across_cards(monkeypatch)
     _jh, th, jobs = _twin_rig(16, 2, 3)
     with tmesh.mesh_override(CPU8), executor_override("device"), \
             pytest.raises(RuntimeError, match="CUDA error"):
@@ -970,3 +992,244 @@ def test_step_plan_table_matches_the_kernels_layout(monkeypatch):
     assert plan.tail == (1, 1, 0, 7)          # k, kout, path, stream
     with pytest.raises(ValueError, match="1 to 16 shards"):
         tbp.step_plan(shards * 5, 1)
+
+
+# -- shard_walk: a sharded walk on one card in one launch -------------------
+
+
+def _walk_case(walk: str):
+    """The four walks' inputs as the sharded wrappers take them: the
+    equal mock nodes (every score ties, so the winners run over shard
+    edges, lowest global index first), -0.0 in a usage column (an
+    untaken winner's +0.0 shows in the bits), the last four sequence
+    steps invalid, and k_cap = 32, more than a shard's rows at four and
+    eight shards."""
+    fleet, view, feasible, asks, distinct, group_idx, valid = _problem()
+    usage = view.usage.copy()
+    usage[:fleet.n_real, 2] = -0.0
+    valid = valid.copy()
+    valid[-4:] = False
+    counts = np.asarray([24], dtype=np.int32)
+    base = (fleet.capacity, fleet.reserved, usage)
+    if walk == "sequence":
+        return base + (view.job_counts, feasible, asks, distinct,
+                       group_idx, valid, 10.0), {}
+    if walk == "rounds":
+        return base + (view.job_counts, feasible, asks, distinct, counts,
+                       10.0), dict(k_cap=32, rounds=1)
+    pen = np.full(3, 10.0, dtype=np.float32)
+    if walk == "sequence_batch":
+        return base + tuple(_lanes(3, view.job_counts, feasible, asks,
+                                   distinct, group_idx, valid)) + (pen,), {}
+    return base + tuple(_lanes(3, view.job_counts, feasible, asks, distinct,
+                               counts)) + (pen,), dict(k_cap=32, rounds=1)
+
+
+@pytest.mark.parametrize("ways", [4, 8])
+@pytest.mark.parametrize("walk", ["sequence", "rounds", "sequence_batch",
+                                  "rounds_batch"])
+def test_shard_walk_plain_equals_jax(monkeypatch, walk, ways):
+    """Each walk on ``mesh_override(["cpu"] * ways)`` takes the one-card
+    route (one shard_walk a walk, its plain version here) and equals
+    the JAX package's sharded form on as many CPU devices, its unsharded
+    kernel and the port's unsharded kernel."""
+    args, kw = _walk_case(walk)
+    with tmesh.mesh_override(["cpu"] * ways):
+        mesh = tmesh.dispatch_mesh(1, args[0].shape[0])
+    assert mesh.shape == {"fleet": ways}
+    jax_mesh = jmesh.fleet_mesh(jax.devices("cpu")[:ways])
+    port = getattr(tmesh, f"place_{walk}_sharded")
+    calls = []
+    real = tbp.shard_walk
+    routes = dict(tmesh.WALK_ROUTES)
+    monkeypatch.setattr(tbp, "shard_walk", lambda *a, **k: calls.append(1)
+                        or real(*a, **k))
+    got = port(mesh, *args, **kw)
+    assert calls == [1]
+    assert tmesh.WALK_ROUTES == dict(
+        routes, shard_walk=routes["shard_walk"] + 1)
+    want = getattr(tbp, f"place_{walk}")(
+        *(a if isinstance(a, float) else _t(a) for a in args), **kw)
+    _held(got, getattr(jmesh, f"place_{walk}_sharded")(jax_mesh, *args,
+                                                       **kw), want)
+    _held(got, getattr(jbp, f"place_{walk}")(*args, **kw))
+    if walk == "sequence":
+        assert got[0].tolist()[:12] == list(range(12))  # across the edges
+        assert (got[0][-4:] == -1).all()
+
+
+@pytest.mark.parametrize("devices,route,verify", [
+    (["cuda:0"] * 4, "shard_walk", ([0, 1, 2, 3], [])),
+    (["cuda:0"] * 16, "shard_walk", (list(range(16)), [])),
+    (["cpu"] * 8, "shard_walk", (list(range(8)), [])),
+    (["cuda:0", "cuda:1"] * 2, "shard_step", ([0, 2], [1, 3])),
+    (["cuda:0"] * 2 + ["cuda:1"] * 2, "shard_step", ([0, 1], [2, 3])),
+    (["cuda:0"] * 32, "shard_step", (list(range(16)), list(range(16, 32)))),
+])
+def test_the_route_follows_the_layout(devices, route, verify):
+    """One launch group (every shard on one card, at most 16) walks in
+    one shard_walk; a row spanning cards, or more than 16 shards, steps
+    with shard_step + K7b.  The window verify reads the lead card's
+    shards in place (at most 16) and gathers every other with K7d.  No
+    card is touched: the devices are objects only."""
+    devs = [torch.device(d) for d in devices]
+    assert tmesh.walk_route(devs) == route
+    assert tmesh.verify_layout(devs) == verify
+
+
+@pytest.mark.parametrize("cap,route", [(16, "shard_walk"),
+                                       (3, "shard_step")])
+def test_a_walk_counts_its_route(monkeypatch, cap, route):
+    """Each mesh row of a walk is counted on the route its layout gives,
+    and the rows of a 2x4 storm mesh run alike: two rows, two shard_walk
+    launches (or two stepped rows), equal to the unsharded kernel."""
+    monkeypatch.setattr(tmesh, "device_groups",
+                        lambda devs, _g=tmesh.device_groups: _g(devs, cap))
+    before = dict(tmesh.WALK_ROUTES)
+    args = _batch_rounds_args(4)
+    got = tmesh.place_rounds_batch_sharded(tmesh.storm_mesh(2, CPU8), *args,
+                                           k_cap=32, rounds=1)
+    assert tmesh.WALK_ROUTES[route] == before[route] + 2
+    assert sum(tmesh.WALK_ROUTES.values()) == sum(before.values()) + 2
+    want = tbp.place_rounds_batch(*(_t(a) for a in args), k_cap=32,
+                                  rounds=1)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_shard_walk_checks_its_shards():
+    """shard_walk raises on what its kernel does not take: more shards
+    than a launch, a shard that does not start at s * R, valid and
+    counts together."""
+    shards, _merge = _step_case("sequence", 1, lanes=2)
+    walk = [{k: sh[k] for k in tbp.WALK_FIELDS + ("row_lo",)}
+            for sh in shards]
+    chosen = torch.empty((2, 6), dtype=torch.int32)
+    scores = torch.empty((2, 6))
+    valid = torch.ones((2, 6), dtype=torch.bool)
+    with pytest.raises(ValueError, match="1 to 16 shards"):
+        tbp.shard_walk(walk * 5, chosen, scores, valid=valid)
+    with pytest.raises(ValueError, match="starts at row"):
+        tbp.shard_walk(walk[1:] + walk[:1], chosen, scores, valid=valid)
+    with pytest.raises(ValueError, match="not both"):
+        tbp.shard_walk(walk, chosen, scores, valid=valid,
+                       counts=torch.ones((2, 3), dtype=torch.int32))
+    tbp.shard_walk(walk, chosen, scores, valid=valid)
+    assert (chosen[:, 0] >= 0).all()
+
+
+def test_walk_table_matches_the_kernels_layout():
+    """The host table a shard_walk launch passes: per shard the words of
+    csrc/binpack.cu's WalkShard in its order (capacity, reserved, usage,
+    job counts, feasibility, asks, distinct, penalty, group_idx, the key
+    regions, row_lo), WALK_WORDS of them; and the sharded K6's: per
+    shard VerifyShard's (capacity, reserved, usage, row_lo), VERIFY_WORDS
+    of them, at most MAX_VERIFY_SHARDS.  No card is touched."""
+    import re
+
+    from nomad_tpu_torch.ops import kernels
+
+    source = (kernels.CSRC / "binpack.cu").read_text()
+    words = int(re.search(r"#define WALK_WORDS (\d+)", source).group(1))
+    struct = re.search(r"struct WalkShard \{(.*?)\};", source, re.S).group(1)
+    fields = re.findall(r"(\w+);", struct)
+    assert fields == ["cap", "res", "usage", "jc", "feas", "asks",
+                      "distinct", "penalty", "group_idx", "scratch",
+                      "row_lo"]
+    assert len(fields) == words == len(tbp.WALK_FIELDS) + 2
+    shards, _merge = _step_case("rounds", 4, lanes=2)
+    scratch = [None, torch.zeros(8, dtype=torch.int32), None, None]
+    table = tbp.walk_table(shards, scratch)
+    want = []
+    for sh, sc in zip(shards, scratch):
+        want += [sh[name].data_ptr() for name in (
+            "capacity", "reserved", "usage", "job_counts", "feasible",
+            "asks", "distinct", "penalty")]
+        want += [0, 0 if sc is None else sc.data_ptr(), sh["row_lo"]]
+    assert list(table) == want
+
+    source = (kernels.CSRC / "window_verify.cu").read_text()
+    words = int(re.search(r"#define VERIFY_WORDS (\d+)", source).group(1))
+    cap = int(re.search(r"#define MAX_VERIFY_SHARDS (\d+)",
+                        source).group(1))
+    assert cap == tmesh.VERIFY_SHARDS
+    struct = re.search(r"struct VerifyShard \{(.*?)\};", source,
+                       re.S).group(1)
+    fields = re.findall(r"(\w+);", struct)
+    assert fields == ["capacity", "reserved", "usage", "row_lo"]
+    assert len(fields) == words == len(tmesh.VERIFY_FIELDS) + 1
+    vs = [dict(capacity=torch.zeros(8, 6), reserved=torch.zeros(8, 6),
+               usage=torch.zeros(8, 6), row_lo=8 * c) for c in range(3)]
+    assert list(tmesh.verify_table(vs)) == [
+        w for sh in vs for w in (sh["capacity"].data_ptr(),
+                                 sh["reserved"].data_ptr(),
+                                 sh["usage"].data_ptr(), sh["row_lo"])]
+
+
+def _signed_zero_window(rng, n=64, b=16):
+    """A window on a 64-row fleet whose claimed nodes hold -0.0 in the
+    usage, reserved and capacity columns 2-3 (K6 reads -0.0 capacity
+    into ``caps`` as is)."""
+    cap = np.zeros((n, 6), dtype=np.float32)
+    cap[:50, :2] = (4000, 8192)
+    cap[:, 2:4] = -0.0
+    res = np.full((n, 6), -0.0, dtype=np.float32)
+    res[:50, :2] = (100, 256)
+    usage = np.full((n, 6), -0.0, dtype=np.float32)
+    usage[:50, 0] = rng.integers(0, 3000, 50)
+    desc = dict(
+        pair_ni=np.sort(rng.integers(0, 50, b)).astype(np.int32),
+        row_pair=np.arange(b, dtype=np.int32),
+        row_vec=np.tile(np.float32([500, 256, 0, 0]), (b, 1)),
+        seq_ni=np.where(np.arange(b) < 10, rng.integers(0, 50, b),
+                        -1).astype(np.int32),
+        seq_vec=np.tile(np.float32([300, 100, 0, 0]), (b, 1)),
+        seq_order=np.arange(b, dtype=np.int32),
+        seq_comp=np.zeros(b, dtype=np.int32),
+        pair_order=np.arange(b, dtype=np.int32),
+        pair_comp=np.zeros(b, dtype=np.int32),
+        pair_removed=np.zeros((b, 4), dtype=np.float32))
+    return cap, res, usage, desc
+
+
+def _bits(x):
+    return np.ascontiguousarray(np.asarray(x, dtype=np.float32)).view(
+        np.int32)
+
+
+@pytest.mark.parametrize("layout", ["one card", "across cards"])
+def test_sharded_window_verify_reads_the_owners_bits(monkeypatch, layout):
+    """K6's sharded form (its plain version: each pair's rows read from
+    the shard that owns it, in place or, across cards, from that
+    shard's K7d partial) equals K6 and the JAX package's
+    _window_verify_jit bit for bit, with -0.0 in the claimed nodes'
+    usage, reserved and capacity columns; a sum of every shard's
+    partial from +0.0 would turn the -0.0 capacity into +0.0."""
+    if layout == "across cards":
+        monkeypatch.setattr(tmesh, "VERIFY_SHARDS", 3)
+    gathered = []
+    real = tmesh.shard_gather
+    monkeypatch.setattr(tmesh, "shard_gather", lambda *a, **kw:
+                        gathered.append(1) or real(*a, **kw))
+    cap, res, usage, desc = _signed_zero_window(np.random.default_rng(3))
+    got = tmesh.window_verify_sharded(tmesh.fleet_mesh(CPU8), cap, res,
+                                      usage, **desc)
+    assert len(gathered) == (0 if layout == "one card" else 5)
+    want = tmesh.window_verify(_t(cap), _t(res), _t(usage), **desc)
+    names = ("pair_ni", "row_pair", "row_vec", "seq_ni", "seq_vec",
+             "seq_order", "seq_comp", "pair_order", "pair_comp",
+             "pair_removed")
+    jax_out = jmesh._window_verify_jit(cap, res, usage,
+                                       *(desc[k] for k in names))
+    for x, y, z in zip(got[:2], want[:2], jax_out[:2]):
+        np.testing.assert_array_equal(_bits(x), _bits(y))
+        np.testing.assert_array_equal(_bits(x), _bits(z))
+    assert torch.equal(got[2], want[2])
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(jax_out[2]))
+    assert (_bits(got[1])[:, 2:] == _bits(np.float32(-0.0))).all()
+    partials = torch.stack([tmesh.shard_gather_plain(
+        _t(cap[c * 8:(c + 1) * 8]), _t(res[c * 8:(c + 1) * 8]),
+        _t(usage[c * 8:(c + 1) * 8]), c * 8, _t(desc["pair_ni"]))
+        for c in range(8)])
+    summed = torch.zeros(16, 12) + partials.sum(0)
+    assert not np.array_equal(_bits(summed[:, 8:12]), _bits(got[1]))

@@ -442,3 +442,44 @@ def test_sharded_device_window_like_jax(cpu, monkeypatch):
             plans), 2000)
     assert [result_key(o.result) for o in h_out] == \
         [result_key(o.result) for o in t_out]
+
+
+@pytest.mark.parametrize("in_place", [16, 3])
+def test_sharded_device_window_in_one_launch_like_jax(in_place,
+                                                      monkeypatch):
+    """The applier's mesh path as one launch of K6's sharded form: on
+    eight cpu entries every shard is read in place (16) or, with three
+    in place, the other five send K7d partials as shards on other cards
+    do.  The verdicts and stores equal the JAX package's device engine
+    and the host engine's on the recorded stream."""
+    from nomad_tpu.ops.verify_policy import verify_override as jv
+    from nomad_tpu_torch.ops.verify_policy import verify_override as tv
+    from nomad_tpu_torch.parallel import mesh as tmesh
+
+    monkeypatch.setattr(tmesh, "VERIFY_SHARDS", in_place)
+    calls = {"shards": 0, "gather": 0}
+    real_shards, real_gather = tmesh.window_verify_shards, tmesh.shard_gather
+
+    def shards(*a, **kw):
+        calls["shards"] += 1
+        return real_shards(*a, **kw)
+
+    def gather(*a, **kw):
+        calls["gather"] += 1
+        return real_gather(*a, **kw)
+    monkeypatch.setattr(tmesh, "window_verify_shards", shards)
+    monkeypatch.setattr(tmesh, "shard_gather", gather)
+    nodes, plans = _record_storm(800)
+    js, ts = _worlds(nodes)
+    tplans = convert.plans_from_reference(plans)
+    with jv("device"), mesh_override("auto"):
+        j_window(js, plans)
+        j_out = grouped_apply(j_window, js, plans, 2000)
+    with tv("device"), tmesh.mesh_override(["cpu"] * 8):
+        t_out = grouped_apply(t_window, ts, tplans, 2000)
+    assert t_out.info["device"]["dispatched"]
+    assert calls["shards"] >= 1
+    assert calls["gather"] == (0 if in_place == 16 else 5 * calls["shards"])
+    assert [result_key(o.result) for o in t_out] == \
+        [result_key(o.result) for o in j_out]
+    assert store_image(ts) == store_image(js)
