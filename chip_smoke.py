@@ -13,6 +13,7 @@ one NVIDIA GPU.
     python3 chip_smoke.py --failover            # the failover phase alone
     python3 chip_smoke.py --control             # the control phase alone
     python3 chip_smoke.py --mesh                # the mesh phase alone
+    python3 chip_smoke.py --sanitizers          # the sanitizers phase alone
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -287,7 +288,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
               (4) steps 2 and 3 again on distinct cards
               where there are two or more, else a line saying the
               cross-card exchange went untested;
-  16. report  one ``{"kernels": [...]}`` line, then the card's name and
+  16. sanitizers  config 4 through Harness.process (K3, K5) and config
+              5b through the port's server under the device verify
+              policy (K4a, K6, K5, with RPC reads on its serving plane),
+              once as they are and once under the port's four runtime
+              sanitizers (nomad_tpu_torch/analysis/sanitizers.py: the
+              lock-order witness, the transfer guard, the replica
+              divergence twin and the budget witness) installed at
+              once, the launch counts set to 0 just before and read
+              after: no lock-order cycle, no implicit upload, no
+              divergence, no unbounded wait, the same plans; an
+              implicit upload planted in a guarded seam must be refused
+              by the guard; prints the locks and edges witnessed, the
+              FSM pairs compared and the counted uploads per eval;
+  17. report  one ``{"kernels": [...]}`` line, then the card's name and
               power limit exactly as nvidia-smi prints them, then the
               result line ``{"ok": true, "device": {...}}`` last.
 
@@ -1015,7 +1029,10 @@ def check_scatter(torch, fleet, n, r, rng, reps):
     device_ms, kernels_per_call = device_per_call(torch, kernel, reps)
     library_device_ms, library_kernels = device_per_call(torch, library,
                                                          reps)
-    require(kernels_per_call in (None, 1.0),
+    # torch.profiler on the chip machine drops device events at random
+    # (PERF.md §7): it can count fewer kernels than ran, never more, so
+    # more than one a call (a copy beside the scatter) is the fault.
+    require(kernels_per_call is None or kernels_per_call <= 1.0,
             f"scatter_rows ran {kernels_per_call} kernels a call, not one")
     nbytes = 2 * n * 6 * 4 + 4 * r + r * 6 * 4
     b_ms, b_by = bound(nbytes, 0)
@@ -2534,7 +2551,7 @@ def check_server_state(structs, srv, name, eval_ids, probe, system_ids=()):
 
 
 def server_shape(torch, name, nodes, jobs, *, counters, verify=None,
-                 later=()):
+                 later=(), rpc=False, inspect_server=None):
     """One shape through the port's server on the card: a fresh
     ``Server(ServerConfig(device=DEV, num_schedulers=0))``; ``nodes``
     through ``node_register``; ``jobs`` through ``job_register`` before
@@ -2546,7 +2563,9 @@ def server_shape(torch, name, nodes, jobs, *, counters, verify=None,
     ``tune_gc`` (as a user's does): the process's GC thresholds are
     saved before it and restored, and the heap unfrozen and collected,
     after it, so the later phases run under the GC settings they ran
-    under before.
+    under before.  ``rpc`` starts the server's RPC listener;
+    ``inspect_server(srv, eval_ids)`` runs on the live server after the
+    checks, its result kept as the row's ``inspect`` (not printed).
     The launch counts are set to 0 just before the first
     ``job_register`` and read after the last eval completes.  Under the
     ``device`` verify policy every window of more than one plan must
@@ -2559,7 +2578,8 @@ def server_shape(torch, name, nodes, jobs, *, counters, verify=None,
     from nomad_tpu_torch.server import Server, ServerConfig
 
     thresholds = gc.get_threshold()
-    srv = Server(ServerConfig(device=DEV, num_schedulers=0))
+    srv = Server(ServerConfig(device=DEV, num_schedulers=0,
+                              enable_rpc=rpc))
     probe = None
     try:
         for node in nodes:
@@ -2631,6 +2651,8 @@ def server_shape(torch, name, nodes, jobs, *, counters, verify=None,
             verify=verify or "auto")
         print(f"server {name}: " + json.dumps(row), flush=True)
         check_verify_windows(f"server {name}", row)
+        if inspect_server is not None:
+            row["inspect"] = inspect_server(srv, ids)
         return row
     finally:
         if probe is not None:
@@ -7310,6 +7332,258 @@ def run_mesh(torch) -> dict:
                 seconds=time.perf_counter() - t)
 
 
+# -- phase 16: the runtime sanitizers on the main path -----------------------
+
+# Config 4 (one eval of 1,000 groups on 10,000 nodes) and config 5b (a
+# 64-job x 100-group storm on 160 nodes, through the server).
+SANITIZER_SIZES4 = (10_000, 1000)
+SANITIZER_SIZES5B = (160, 64, 100)
+# The serving plane's reads the budget witness watches on config 5b's
+# live server: so many jobs' and evals' RPC reads.
+SANITIZER_READS = 16
+# The kernels those two paths launch: K3 (config 4), K4a and K6 (config
+# 5b), K5 (the usage mirror's syncs).
+SANITIZER_KERNELS = ("place_rounds", "place_rounds_batch", "window_verify",
+                     "scatter_rows")
+
+
+def sanitizer_config4(mock, structs, Harness, n_nodes, n_groups) -> list:
+    """Config 4 through ``Harness.process`` on DEV (K3, K5): the plan's
+    placements by node name, with ports (seeded draws)."""
+    h = Harness(device=DEV)
+    for i in range(n_nodes):
+        h.state.upsert_node(h.next_index(), mock.node(i))
+    job = mock.job()
+    job.id = "sanitizers-config4"
+    job.task_groups = [bench_task_group(structs, f"tg-{g}")
+                       for g in range(n_groups)]
+    random.seed(43)
+    placed, failed = run_eval(structs, h, job, [])
+    require(len(placed) == n_groups and not failed,
+            f"sanitizers config 4: {len(placed)} placed, {len(failed)} "
+            "failed")
+    names = {n.id: n.name for n in h.state.nodes()}
+    return mesh_plans(h.plans, names)
+
+
+def serve_reads(srv, eval_ids, n=SANITIZER_READS) -> int:
+    """Read back through the live server's RPC plane (the admitted
+    bodies the budget witness watches): jobs, their allocations and
+    evals, and the lists.  Returns the calls made."""
+    from nomad_tpu_torch.server.rpc import ConnPool
+
+    state = srv.fsm.state
+    evals = [state.eval_by_id(e) for e in eval_ids[:n]]
+    pool = ConnPool()
+    addr = srv.rpc_address()
+    calls = 0
+    try:
+        for ev in evals:
+            for method, args in (("Eval.GetEval", {"eval_id": ev.id}),
+                                 ("Job.GetJob", {"job_id": ev.job_id}),
+                                 ("Job.Allocations", {"job_id": ev.job_id})):
+                pool.call(addr, method, args, timeout=30)
+                calls += 1
+        for method in ("Job.List", "Node.List", "Eval.List"):
+            pool.call(addr, method, {}, timeout=30)
+            calls += 1
+    finally:
+        pool.shutdown()
+    return calls
+
+
+def server_placements(srv) -> list:
+    """Every live alloc of the server's store as (job, name, node name,
+    ports), sorted."""
+    state = srv.fsm.state
+    names = {n.id: n.name for n in state.nodes()}
+    return sorted((a.job_id, a.name, names[a.node_id], alloc_ports(a))
+                  for a in state.allocs() if not a.terminal_status())
+
+
+def sanitizer_config5b(torch, mock, structs, sizes, counters, name):
+    """Config 5b through the port's server under the device verify
+    policy (K4a, K6, K5), its RPC listener up for ``serve_reads``.
+    Returns the shape's row, its placements and the reads made."""
+    n, j, g = sizes
+    random.seed(5)
+    row = server_shape(torch, name, [mock.node(i) for i in range(n)],
+                       storm_jobs(mock, structs, "config5b", j, g),
+                       verify="device", counters=counters, rpc=True,
+                       inspect_server=lambda srv, ids: (
+                           server_placements(srv), serve_reads(srv, ids)))
+    placements, reads = row.pop("inspect")
+    return row, placements, reads
+
+
+def planted_upload(torch, mock, structs, Harness, guard) -> str:
+    """Plant an implicit upload inside a guarded seam (K3's wrapper,
+    called from ``TorchBinPackScheduler.dispatch_device``, first moves a
+    host tensor to the card with ``.to``) and require the guard's own
+    refusal; the refusal is then taken off the guard's record."""
+    from nomad_tpu_torch.analysis.sanitizers import ImplicitTransferError
+    from nomad_tpu_torch.ops import binpack
+
+    real = binpack.place_rounds
+
+    def planted(*args, **kw):
+        torch.ones(4).to("cuda")
+        return real(*args, **kw)
+
+    h = Harness(device=DEV)
+    for i in range(64):
+        h.state.upsert_node(h.next_index(), mock.node(i))
+    job = mock.job()
+    job.id = "sanitizers-planted"
+    job.task_groups = [bench_task_group(structs, "tg-0")]
+    before = len(guard.refused)
+    binpack.place_rounds = planted
+    raised = None
+    try:
+        run_eval(structs, h, job, [])
+    except ImplicitTransferError as e:
+        raised = e
+    except SmokeError:
+        pass  # the eval failed: the refusal is on the guard's record
+    finally:
+        binpack.place_rounds = real
+    refused = guard.refused[before:]
+    require(len(refused) == 1 and "Tensor.to" in refused[0],
+            f"sanitizers: the planted upload was not refused by the "
+            f"guard ({refused}, raised {raised!r})")
+    del guard.refused[before:]
+    return refused[0]
+
+
+def replica_digest(state) -> str:
+    """What the divergence twin compares on the card: ``store_digest``
+    (the store's fingerprint with each alloc's embedded job digested
+    once a job) and the alloc changelog the fingerprint also holds.
+    The fingerprint itself serializes config 5b's job again for each
+    of its 6,240 allocs: about 30 s a store on a CPU."""
+    import hashlib
+
+    t = state.snapshot()._t
+    upto = t.indexes.get("allocs", 0)
+    log = [(index, sorted(ids)) for index, ids in t.alloc_log
+           if index <= upto]
+    return hashlib.sha256((store_digest(state) + repr(log)).encode()
+                          ).hexdigest()
+
+
+def run_sanitizers(torch, sizes4=SANITIZER_SIZES4,
+                   sizes5b=SANITIZER_SIZES5B) -> dict:
+    """The sanitizers phase: config 4 through ``Harness.process`` (K3,
+    K5) and config 5b through the port's server under the device verify
+    policy (K4a, K6, K5), first as they are, then under the port's four
+    runtime sanitizers installed at once (lock-order witness, transfer
+    guard, replica divergence, budget witness; a failure to install
+    one fails the phase), with the launch counts set to 0 just before
+    and read after.  Requires: no lock-order cycle, no implicit upload,
+    no divergence, no unbounded wait on a serving thread, plans equal
+    to the runs without sanitizers, and a planted implicit upload
+    refused by the guard.  Prints the locks and edges witnessed, the
+    FSM pairs compared and the counted uploads per eval; the recorded
+    launches are replayed against the plain versions."""
+    import nomad_tpu_torch.mock as mock
+    import nomad_tpu_torch.structs as structs
+    from nomad_tpu_torch.analysis.sanitizers import (
+        BudgetWitnessSanitizer, LockOrderWitness,
+        ReplicaDivergenceSanitizer, TransferGuardSanitizer)
+    from nomad_tpu_torch.parallel import devices
+    from nomad_tpu_torch.scheduler import Harness
+
+    t0 = time.perf_counter()
+    split = {}
+    # The runs without sanitizers: the plans to hold the others against.
+    with recorded_kernels() as ref:
+        want4 = sanitizer_config4(mock, structs, Harness, *sizes4)
+        _row, want5b, _reads = sanitizer_config5b(
+            torch, mock, structs, sizes5b, ref.counters,
+            "sanitizers reference 5b")
+    split["reference_s"] = time.perf_counter() - t0
+    with recorded_kernels() as rec:
+        witness = LockOrderWitness()
+        guard = TransferGuardSanitizer()
+        divergence = ReplicaDivergenceSanitizer(digest=replica_digest)
+        budget = BudgetWitnessSanitizer()
+        installed = []
+        try:
+            for san in (witness, guard, divergence, budget):
+                installed.append(san.install())
+            for fn in rec.counters.values():
+                fn.launches = 0
+            h2d0 = devices.transfer_counts()["h2d"]
+            t = time.perf_counter()
+            got4 = sanitizer_config4(mock, structs, Harness, *sizes4)
+            launches = {k: fn.launches for k, fn in rec.counters.items()}
+            h2d4 = devices.transfer_counts()["h2d"]
+            split["config4_s"] = time.perf_counter() - t
+            row5b, got5b, reads = sanitizer_config5b(
+                torch, mock, structs, sizes5b, rec.counters,
+                "sanitizers 5b")
+            wall = time.perf_counter() - t
+            h2d5b = devices.transfer_counts()["h2d"]
+            # server_shape set the counts to 0 before config 5b
+            for k, n in row5b["launches"].items():
+                launches[k] += n
+            t = time.perf_counter()
+            divergence.compare_all()
+            split["compare_all_s"] = time.perf_counter() - t
+        finally:
+            for san in reversed(installed):
+                san.uninstall()
+        t = time.perf_counter()
+        replay = rec.replay(torch, launches, "sanitizers")
+        split["replay_s"] = time.perf_counter() - t
+    # The planted upload, after the counted run: its eval's K3 launch
+    # (if the guard let it through) is not the main path's.
+    t = time.perf_counter()
+    guard.install()
+    try:
+        planted = planted_upload(torch, mock, structs, Harness, guard)
+    finally:
+        guard.uninstall()
+    split["planted_s"] = time.perf_counter() - t
+    require(got4 == want4, "sanitizers: config 4's plan differs from the "
+            "run without sanitizers")
+    require(got5b == want5b, "sanitizers: config 5b's placements differ "
+            "from the run without sanitizers")
+    for name in SANITIZER_KERNELS:
+        require(launches[name] > 0,
+                f"sanitizers: {name} was not launched on the main path")
+    require(guard.entries > 0, "sanitizers: no guarded seam was entered")
+    require(divergence.compared > 0,
+            "sanitizers: no FSM pair was compared")
+    require(len(witness.sites) > 0 and len(witness.edges) > 0,
+            "sanitizers: the witness saw no locks or no lock order")
+    errors = []
+    for check in (witness.check, guard.check, divergence.check,
+                  budget.check):
+        try:
+            check()
+        except AssertionError as e:
+            errors.append(str(e))
+    require(not errors, "sanitizers: " + "\n".join(errors))
+    evals5b = sizes5b[1]
+    row = dict(
+        lock_sites=len(witness.sites), lock_edges=len(witness.edges),
+        lock_self_edges=len(witness.self_edges), cycles=0,
+        guard_entries=guard.entries, implicit_uploads=0,
+        planted_refused=planted,
+        fsm_pairs_compared=divergence.compared,
+        fsm_pairs_desynced=divergence.desynced,
+        serving_reads=reads, unbounded_waits=0,
+        uploads_per_eval=dict(config4=h2d4 - h2d0,
+                              config5b=(h2d5b - h2d4) / evals5b),
+        sanitized_wall_s=wall, config5b_wall_s=row5b["wall_s"],
+        split_s=split,
+        launches=launches, seconds=time.perf_counter() - t0)
+    print("sanitizers: " + json.dumps(row), flush=True)
+    row["main_path_replay"] = replay
+    return row
+
+
 KERNEL_NAMES = ("place_sequence", "place_rounds", "scatter_rows",
                 "window_verify", "place_rounds_batch", "place_sequence_batch")
 
@@ -7506,6 +7780,12 @@ def main(argv=()) -> int:
             profiler_events(torch, seconds)), flush=True)
         return 0
 
+    def phase(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        print(f"phase {name}: {time.perf_counter() - t:.1f} s", flush=True)
+        return out
+
     t0 = time.perf_counter()
     built = kernels.build()
     print(f"build: {time.perf_counter() - t0:.2f} s "
@@ -7547,6 +7827,14 @@ def main(argv=()) -> int:
         print(f"phase mesh: {ms['seconds']:.1f} s", flush=True)
         print("chip_smoke: --mesh run, no result line", flush=True)
         return 0
+    if argv[:1] == ["--sanitizers"]:
+        # The sanitizers phase alone: no kernel checks, no result line.
+        with executor_override("device"):
+            sz = phase("sanitizers", lambda: run_sanitizers(torch))
+        print("sanitizers launches: " + json.dumps(sz["launches"]),
+              flush=True)
+        print("chip_smoke: --sanitizers run, no result line", flush=True)
+        return 0
     if argv[:1] == ["--control"]:
         # The control phase alone: no kernel checks, no result line.
         with executor_override("device"):
@@ -7572,6 +7860,7 @@ def main(argv=()) -> int:
             print(f"usage: chip_smoke.py [--only {','.join(checks)}] "
                   f"[--executor] [--wire] [--wire-groups N] [--client] "
                   f"[--agent] [--failover] [--control] [--mesh] "
+                  f"[--sanitizers] "
                   f"[--profiler-events SECONDS]",
                   file=sys.stderr)
             return 2
@@ -7591,12 +7880,6 @@ def main(argv=()) -> int:
     wv5f = k["window_verify"]["N=1048576 B=64 (5f window)"]
     rb = k["place_rounds_batch"]["N=16384 B=64 count=1000 k=1024"]
     sb = k["place_sequence_batch"]["N=16384 B=8 P=256"]
-
-    def phase(name, fn):
-        t = time.perf_counter()
-        out = fn()
-        print(f"phase {name}: {time.perf_counter() - t:.1f} s", flush=True)
-        return out
     # The phases that hold the kernels on their main paths run under
     # the device executor, as bench.py's device rows do: under auto the
     # cost policy could keep a config-2 eval or the config-5b storm on
@@ -7629,16 +7912,18 @@ def main(argv=()) -> int:
         {k: v for k, v in vf.items() if k != "table"}), flush=True)
     with executor_override("device"):
         ms = phase("mesh", lambda: run_mesh(torch))
+    with executor_override("device"):
+        sz = phase("sanitizers", lambda: run_sanitizers(torch))
     # Launches on the main paths, each path counted from 0: the slice,
     # the storm (K6 in config 5b under the device policy), the server
     # phase's shapes, the wire, client, agent, failover and control
-    # phases, the executor phase's timed pipelined streams and the
-    # verify-fleet phase.
+    # phases, the executor phase's timed pipelined streams, the
+    # verify-fleet phase and the sanitizers phase.
     launches = {k: sl["launches"].get(k, 0) + st["launches"][k]
                 + sv["launches"][k] + wr["launches"][k]
                 + cl["launches"][k] + ag["launches"][k]
                 + fo["launches"][k] + co["launches"][k]
-                + ex["launches"].get(k, 0)
+                + ex["launches"].get(k, 0) + sz["launches"][k]
                 for k in st["launches"]}
     launches["window_verify"] += vf["launches"]
     for name in ("scatter_rows", "window_verify") + MESH_LAUNCH_NAMES:
@@ -7653,6 +7938,7 @@ def main(argv=()) -> int:
                              + ag["main_path_replay"]
                              + fo["main_path_replay"]
                              + co["main_path_replay"]
+                             + sz["main_path_replay"]
                              if r["kernel"] == name], default=0.0)
                   for name in ("place_rounds", "place_rounds_batch",
                                "scatter_rows", "window_verify")}
@@ -7661,7 +7947,7 @@ def main(argv=()) -> int:
         + [r["err"] for r in ex["main_path_replay"] + sv["main_path_replay"]
            + wr["main_path_replay"] + cl["main_path_replay"]
            + ag["main_path_replay"] + fo["main_path_replay"]
-           + co["main_path_replay"]
+           + co["main_path_replay"] + sz["main_path_replay"]
            if r["kernel"] == "place_sequence"])
     replay_err["place_sequence_batch"] = max(
         [st[storm]["main_path_sequence_batch"]["err"]
@@ -7669,6 +7955,7 @@ def main(argv=()) -> int:
         + [r["err"] for r in sv["main_path_replay"] + wr["main_path_replay"]
            + cl["main_path_replay"] + ag["main_path_replay"]
            + fo["main_path_replay"] + co["main_path_replay"]
+           + sz["main_path_replay"]
            if r["kernel"] == "place_sequence_batch"])
     mk = ms["kernels"]
     timed = {"place_sequence": seq, "place_rounds": rnd,

@@ -1094,7 +1094,10 @@ def _scatter_rows(usage_d, idx: np.ndarray, rows: np.ndarray):
         rows = np.concatenate([rows, np.repeat(rows[:1], pad, axis=0)])
     from nomad_tpu_torch.parallel.devices import put_counted
     device = usage_d.device
+    # devlint-ok(transfer-under-lock): bounded async update batch; must
+    # stay atomic with the host swap (see docstring).
     idx_d = put_counted(idx.astype(np.int32), device)
+    # devlint-ok(transfer-under-lock): as above, the batch's rows.
     rows_d = put_counted(rows.astype(np.float32), device)
     return scatter_rows(usage_d, idx_d, rows_d)
 

@@ -231,7 +231,7 @@ def sequence_plan(n: int, g: int, device) -> tuple:
 
 
 def place_sequence(capacity, reserved, usage0, job_counts0, feasible, asks,
-                   distinct, group_idx, valid, penalty,
+                   distinct, group_idx, valid, penalty: float,
                    with_job_counts: bool = False):
     """K2 (``nomad_tpu/ops/binpack.py`` place_sequence): the plain
     version for CPU tensors, the ``place_sequence_kernel`` launch (one
@@ -328,7 +328,7 @@ def _rounds_scratch(n, k_cap, lanes, device):
 
 
 def place_rounds(capacity, reserved, usage0, jc0, feasible, asks, distinct,
-                 counts, penalty, k_cap: int, rounds: int):
+                 counts, penalty: float, k_cap: int, rounds: int):
     """K3 (``nomad_tpu/ops/binpack.py`` place_rounds): the plain version
     for CPU tensors, the ``place_rounds_kernel`` launch (one block, the
     top-k path of :func:`rounds_plan`) for CUDA tensors.  Same arguments
@@ -720,6 +720,8 @@ def shard_step(shards, *, apply_step: int, select_step: int, k: int):
     none, the walk's first step).  On the card returns the checked
     :class:`StepPlan`, with which a walk launches its later steps
     (:func:`launch_shard_step`) without checking again."""
+    # torchlint-ok(tensor-branch): ``shards`` is a list of shard
+    # records; its truth is its length, no tensor is read.
     if not shards:
         raise ValueError("shard_step takes one shard or more")
     if apply_step < -1 or select_step < -1 or \

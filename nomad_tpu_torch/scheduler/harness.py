@@ -152,6 +152,11 @@ class VerifyingPlanner:
                                                        evaluate_window)
 
         with self.h._lock:
+            # devlint-ok(transfer-under-lock): the harness lock IS the
+            # rig's serialization point (verify+commit must be atomic
+            # for concurrent fuzz submitters); the device verify's
+            # counted window-descriptor fetch under it is test-rig-only
+            # — the real applier verifies on its own single thread.
             outcomes = evaluate_window(self.h.state, plans,
                                        device=self.device)
             items = []

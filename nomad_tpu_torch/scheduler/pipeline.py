@@ -120,8 +120,10 @@ class _CollectWorker:
 
     def _run(self) -> None:
         while True:
-            # Idle parking: exit rides the None sentinel; the collect
-            # deadline lives on the outq.get in _collect_device_bounded.
+            # faultlint-ok(unbounded-wait): idle watchdog-worker
+            # parking — exit rides the None sentinel; the collect
+            # DEADLINE lives on the outq.get in
+            # _collect_device_bounded, not here.
             fn = self.inq.get()
             if fn is None:
                 return
@@ -492,7 +494,10 @@ class PipelinedEvalRunner(BatchEvalRunner):
         must match it before the breaker closes."""
         sched = it.sched
         if sched.dispatched_host:
-            # Host-executor results are ready numpy arrays.
+            # faultlint-ok(uninjectable-io): host-lane collect (the
+            # work never went to the device: its results are ready numpy
+            # arrays); the device seam consults device.collect in
+            # _collect_device_bounded.
             return sched.collect_device(it.args, it.handles)
         try:
             t_col = time.perf_counter()
@@ -564,4 +569,7 @@ class PipelinedEvalRunner(BatchEvalRunner):
         """Run one eval's placement walk on the host twin (a CPU
         runner's recovery, and the probe's parity check)."""
         handles = it.sched.dispatch_host(it.args)
+        # faultlint-ok(uninjectable-io): host-twin rerun AFTER a device
+        # fault — injecting here would fault the very fallback the
+        # breaker depends on.
         return it.sched.collect_device(it.args, handles)

@@ -518,6 +518,9 @@ class TorchBinPackScheduler(GenericScheduler, FastPlacementMixin):
             self.deferred = (place, args)
             return
         handles = self.dispatch_device(args)
+        # faultlint-ok(uninjectable-io): synchronous compute lane (no
+        # pipeline, no breaker); the injectable device seam is the
+        # pipelined runner's dispatch/collect pair.
         chosen, scores = self.collect_device(args, handles)
         self.finish_deferred(place, args, chosen, scores)
 
@@ -1305,11 +1308,17 @@ class TorchBinPackScheduler(GenericScheduler, FastPlacementMixin):
                 view.job_counts, args.feasible_h, args.asks, args.distinct,
                 group_idx, valid, np.float32(args.penalty),
                 n_real=statics.n_real)
+            # devlint-ok(transfer-in-hot-loop): the host twin's numpy
+            # results; the device branch below fetches with fetch_host.
             return np.asarray(chosen).tolist(), np.asarray(scores).tolist()
         device = self.device
         capacity_d, reserved_d = statics.device_capacity_reserved(device)
         args.feasible_d[1] = ensure_on_default(
             args.feasible_d[1], args.feasible_d[0], device)
+        # devlint-ok(mesh-bypass): the re-plan of a walk's tail after a
+        # conflict, one short walk on the scheduler's own device against
+        # the fleet copies resident there (the JAX package re-plans on
+        # the host); the eval's first walk took the mesh route.
         chosen, scores, _u = binpack.place_sequence(
             capacity_d, reserved_d, put_counted(view.usage, device),
             put_counted(view.job_counts, device), args.feasible_d[1],

@@ -182,6 +182,10 @@ class _SerialTLS:
         while True:
             with self._lock:
                 try:
+                    # faultlint-ok(uninjectable-io): the TLS session's
+                    # serialized read (non-blocking, the wait is in
+                    # _wait); the framed reads above it consult
+                    # rpc.recv once the stream reaches _execute.
                     return self._sock.recv(n)
                 except ssl.SSLWantReadError:
                     want_read = True

@@ -321,15 +321,17 @@ class Server:
         # server's registry gauges, adjusts the live knobs through
         # railed actuators, and publishes its own decisions as the
         # ``controller`` provider — so /v1/agent/metrics carries every
-        # knob position and reversal count.  It actuates host-local
-        # performance knobs off this server's own metrics and never
-        # touches replicated state, so it runs on every server, leader
-        # or not.
+        # knob position and reversal count.
         if self.config.control_enabled:
             from nomad_tpu_torch.control import server_controller
             self.controller = server_controller(self)
             self.obs_registry.register("controller",
                                        self.controller.stats)
+            # consensus-ok(leader-fence): the feedback controller
+            # actuates host-local performance knobs (batch windows,
+            # broker admission) off this server's own metrics — it
+            # never touches replicated state, so it runs on every
+            # server, leader or not, by design.
             self.controller.start()
         # Gossip membership: servers discover one another (reference
         # nomad/serf.go).  The listener is bound, so the member tags

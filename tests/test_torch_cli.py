@@ -1,8 +1,8 @@
 """The port's CLI against the JAX package's.
 
 Twins of tests/test_cli_args.py on ``python -m nomad_tpu_torch.cli``
-(in process: no agent needed for argument errors); ``lint``, whose
-analyzers are not ported, refusing by name; ``agent -dev`` without
+(in process: no agent needed for argument errors); ``lint`` running
+the port's analyzers (nomad_tpu_torch/analysis); ``agent -dev`` without
 ``-device`` meaning the card; and twins of tests/test_blackbox.py's
 process-boundary cases on subprocess agents ``agent ... -device cpu``
 (the real agent process driven over HTTP: submit, schedule, run,
@@ -105,30 +105,128 @@ def test_connection_refused_is_clean_error(capsys):
 # what the port's CLI does differently, on purpose
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("argv", [
-    ["lint"],
-    ["lint", "-json"],
-    ["lint", "nomad_tpu_torch", "-strict", "-changed", "HEAD"],
-], ids=["plain", "json", "changed"])
-def test_lint_refuses_and_names_the_roadmap_item(argv, capsys):
-    """The JAX CLI's lint reads ``analysis/``, which the port does not
-    have yet: every form of the command exits 1 and says so."""
-    rc, out, err = run_cli(argv, capsys)
-    assert rc == 1 and out == ""
-    assert "not ported" in err and "ROADMAP Queue 1 item 4" in err
+@pytest.fixture(scope="module")
+def port_lint_result():
+    """One whole-program pass over nomad_tpu_torch/ for the module's
+    lint tests (the findings and the coverage the CLI formats)."""
+    from nomad_tpu_torch.analysis import run_lint
+
+    coverage: dict = {}
+    findings = run_lint(strict=True, coverage_out=coverage)
+    return findings, coverage
 
 
-def test_lint_imports_nothing_of_the_jax_package():
+@pytest.fixture
+def one_pass(monkeypatch, port_lint_result):
+    """``lint`` over the port tree reads the module's one pass (the
+    CLI's own formatting, allowlist and exit code still run)."""
+    import copy
+
+    from nomad_tpu_torch import analysis
+
+    real = analysis.run_lint
+
+    def replay(package_dir=None, strict=False, coverage_out=None, **kw):
+        if package_dir is not None:
+            return real(package_dir, strict, coverage_out, **kw)
+        findings, coverage = port_lint_result
+        if coverage_out is not None:
+            coverage_out.update(copy.deepcopy(coverage))
+        return list(findings)
+
+    monkeypatch.setattr(analysis, "run_lint", replay)
+
+
+def _git_repo(tmp_path):
+    """A temporary git repo holding a package ``pkg`` with a committed
+    file and a file changed since HEAD (both with a bare-write)."""
+    def git(*args):
+        subprocess.run(["git", "-C", str(tmp_path), *args], check=True,
+                       capture_output=True,
+                       env={"GIT_AUTHOR_NAME": "t",
+                            "GIT_AUTHOR_EMAIL": "t@t",
+                            "GIT_COMMITTER_NAME": "t",
+                            "GIT_COMMITTER_EMAIL": "t@t",
+                            "HOME": str(tmp_path),
+                            "PATH": os.environ.get("PATH", "")})
+
+    bad = ("import threading\n\n"
+           "class {name}:\n"
+           "    def __init__(self):\n"
+           "        self._lock = threading.Lock()\n"
+           "        self.n = 0\n\n"
+           "    def inc(self):\n"
+           "        with self._lock:\n"
+           "            self.n += 1\n\n"
+           "    def reset(self):\n"
+           "        self.n = 0\n")
+    pkg = tmp_path / "pkg"
+    pkg.mkdir()
+    (pkg / "untouched.py").write_text(bad.format(name="Old"))
+    (pkg / "touched.py").write_text("def ok():\n    return 1\n")
+    git("init", "-q")
+    git("add", "-A")
+    git("commit", "-q", "-m", "base")
+    (pkg / "touched.py").write_text(bad.format(name="New"))
+    return pkg
+
+
+@pytest.mark.parametrize("form", ["plain", "json", "changed"])
+def test_lint_runs_on_the_port(form, capsys, tmp_path, one_pass):
+    """``lint`` runs the port's analyzers: over nomad_tpu_torch/ it
+    exits 0 (no gating finding, no stale allowlist entry); ``-json``
+    gives schema 3 with the devlint / consensuslint / faultlint
+    coverage blocks; ``-strict -changed HEAD`` in a repo reports only
+    the files touched since HEAD."""
+    if form == "plain":
+        rc, out, err = run_cli(["lint"], capsys)
+        assert rc == 0, out + err
+        assert "0 finding(s)" in out and "0 stale" in out
+    elif form == "json":
+        rc, out, err = run_cli(["lint", "-json"], capsys)
+        assert rc == 0, err
+        doc = json.loads(out)
+        assert doc["schema_version"] == 3
+        assert doc["gating"] == [] and doc["stale_allowlist"] == []
+        assert doc["allowlisted"] > 0
+        cov = doc["coverage"]
+        assert {"devlint", "consensuslint", "faultlint"} <= set(cov)
+        assert cov["devlint"]["kernels"] > 0
+        assert cov["faultlint"]["covered_fraction"] == 1.0
+    else:
+        pkg = _git_repo(tmp_path)
+        empty = tmp_path / "allow.txt"
+        empty.write_text("")
+        sarif = tmp_path / "lint.sarif"
+        rc, out, err = run_cli(["lint", str(pkg), "-strict", "-changed",
+                                "HEAD", "-allowlist", str(empty),
+                                "-sarif", str(sarif)], capsys)
+        assert rc == 1, out + err
+        assert "pkg/touched.py" in out and "untouched" not in out
+        assert "[bare-write] New.n" in out
+        log = json.loads(sarif.read_text())
+        uris = {r["locations"][0]["physicalLocation"]["artifactLocation"]
+                ["uri"] for r in log["runs"][0]["results"]}
+        assert uris == {"pkg/touched.py"}
+
+
+def test_lint_imports_nothing_of_the_jax_package(tmp_path):
+    pkg = tmp_path / "pkg"
+    pkg.mkdir()
+    (pkg / "mod.py").write_text("def ok():\n    return 1\n")
+    empty = tmp_path / "allow.txt"
+    empty.write_text("")
     code = ("import sys\n"
             "from nomad_tpu_torch.cli import main\n"
-            "rc = main(['lint'])\n"
+            f"rc = main(['lint', {str(pkg)!r}, '-json', '-allowlist', "
+            f"{str(empty)!r}])\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'nomad_tpu')]\n"
-            "assert rc == 1 and not bad, (rc, bad)\n")
+            "('jax', 'nomad_tpu', 'torch')]\n"
+            "assert rc == 0 and not bad, (rc, bad)\n")
     proc = subprocess.run([sys.executable, "-c", code], env=_env(),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert "ROADMAP Queue 1 item 4" in proc.stderr
+    assert '"schema_version": 3' in proc.stdout
 
 
 def test_version_prints_the_ports_version(capsys):
