@@ -27,8 +27,9 @@ refuses every host->device move the seam makes implicitly — a
 or item store into a CUDA tensor from host data, a ``torch.tensor`` /
 ``as_tensor`` / ``asarray`` on the card from host data, a host tensor
 or array mixed into an op on a CUDA tensor — unless a counted seam
-(``COUNTED_SEAMS``: ``devices.put_counted``, ``PinnedStaging.upload``,
-``mesh._put``) is on the stack.  A refusal raises
+(``COUNTED_SEAMS``: ``devices._put``, the move of ``put_counted`` and
+``ensure_on_default``, ``PinnedStaging.upload``, ``mesh._put``) is on
+the stack.  A refusal raises
 ``ImplicitTransferError`` in the offending call, before the move runs,
 and is kept for ``check()``.  The device->host direction is not guarded
 (devlint's concretize pass owns it).  A seam that cannot be imported
@@ -300,7 +301,7 @@ TRANSFER_SEAMS = (
 # The counted placements: a move made with one of these on the stack is
 # explicit (and on the transfer odometer), not implicit.
 COUNTED_SEAMS = (
-    ("nomad_tpu_torch.parallel.devices", None, "put_counted"),
+    ("nomad_tpu_torch.parallel.devices", None, "_put"),
     ("nomad_tpu_torch.parallel.devices", "PinnedStaging", "upload"),
     ("nomad_tpu_torch.parallel.mesh", None, "_put"),
 )

@@ -38,6 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from nomad_tpu_torch.obs import trace as obs_trace
 from nomad_tpu_torch.ops import kernels
 from nomad_tpu_torch.structs import (
     ALL_FIT_DIMS,
@@ -1162,9 +1163,12 @@ def scatter_rows(usage, idx, rows):
             rows=(torch.float32, (r, d))))
     out = torch.empty_like(usage)
     lib = kernels.library("scatter_rows")
+    started = obs_trace.device_span(device) if obs_trace.ENABLED else None
     code = lib.nomad_scatter_rows(
         usage.data_ptr(), out.data_ptr(), idx.data_ptr(), rows.data_ptr(),
         r, n, d, kernels.stream_handle(device))
+    if started is not None:
+        started.end("device.K5", n=n, d=d, r=r)
     kernels.check(lib, "scatter_rows", code)
     scatter_rows.launches += 1
     return out

@@ -16,8 +16,12 @@ Design constraints, in order:
 - **Disabled = one module-bool check.**  Every instrumentation site in
   the runtime guards on ``trace.ENABLED`` (the same pattern as
   ``faultinject.ACTIVE``); with tracing off the hot path pays a single
-  global read.  bench.py asserts the tracing-ON config-4 stream stays
-  within 5% of off.
+  global read and no CUDA event is created.  Tracing on costs evals:
+  on an H100 the benchmark's ``fleet10k.mock-job`` and
+  ``fleet1k.batch-10x4`` cells complete 12-20% fewer a second traced
+  than untraced in paired runs, ``fleet10k.deploy-1000g`` moves within
+  its spread; the benchmark's own CUDA-event timeline with only the
+  per-eval spans costs about as much (PERF.md §6).
 - **Lock-cheap recording.**  Finished spans append to a per-thread
   buffer (plain ``list.append`` — owner-thread only, no lock) and drain
   into one bounded global ring under a single leaf lock every
@@ -56,13 +60,58 @@ with a ``control.adjust`` child per moved knob (``knob``, ``old``,
 ``new``, ``gauge``, ``direction``, ``reversal``, ``rail``) — the
 decision trail that makes a tuning loop auditable after the fact.
 
+Batch-worker taxonomy: one ``worker.batch`` span per dequeued batch
+(dequeue to the last ack; tags ``lanes``, ``rounds`` fused rounds run,
+``solo`` evals retried alone) parents the worker thread's phase spans,
+recorded with :func:`phase` and carrying no ``eval_id``; each starts
+where the thread's last one ended (:func:`phase_start`), so they tile
+the batch: ``worker.sync`` (raft catch-up and snapshot), ``sched.lanes``
+(a round's lanes begun, each eval's ``sched.begin`` inside),
+``dispatch.stack``,
+``dispatch.upload``, ``dispatch.launch``, ``dispatch.fetch`` (the host
+waiting on the card) and ``dispatch.unstack`` (results mapped back per
+lane), ``finish.prepare``, ``finish.native``, ``finish.tail``,
+``submit.wait`` (the plan futures), ``submit.status`` (the eval-status
+raft applies), ``sched.refresh`` (the snapshot between fused rounds),
+one ``sched.solo`` per eval retried alone, ``sched.gc`` (the
+collections the batch deferred, run as it re-enables the collector)
+and ``worker.ack`` (the acks).  A phase nested in another (the
+finish of an eval retried alone) starts at its own start.  Every
+``sched.*`` span but ``sched.gc`` carries ``round`` (0 for the first
+fused round).
+
+Raft, commit and watch taxonomy: the in-memory raft records
+``raft.wait`` (call to lock held) and ``raft.entry`` (lock held: log
+append and ``fsm.apply``) for every entry, tagged ``msg_type`` and
+``bytes``; the applier's committer records ``commit.encode`` (the
+window's slab-wire and msgpack encode) and ``commit.respond``; the
+store's ``StateWatch.notify`` records ``watch.notify`` when it wakes
+waiters (``woken``, ``table``).
+
+Device taxonomy: every kernel wrapper and device seam calls
+:func:`device_span`, which records a start and an end CUDA event on the
+device's current stream around the launch or copy and keeps them
+pending; :meth:`Tracer.snapshot` synchronizes the cards and resolves
+them into finished spans, so the hot path never waits on the card.
+``enable()`` pairs one CUDA event per card with :meth:`Tracer.now`, so
+a device span's ``t0`` and ``dur`` lie on the host spans' clock.  Names
+are ``device.<kernel>`` (``K2``-``K6``, ``K6_sharded``, ``shard_walk``,
+``shard_step``, ``K7b``, ``K7d``), tagged with the launch's logical
+shapes, and ``device.<seam>`` (``put_counted``, ``ensure_on_default``,
+``copy_to_host_async``, ``PinnedStaging.upload``), tagged ``bytes`` and
+``kind`` (``h2d``, ``d2h``, ``d2d``).  Pending device spans sit in the
+ring like finished ones: the ring bound and ``stats()["dropped"]``
+count them.
+
 Export is Chrome-trace JSON (``chrome://tracing`` / Perfetto "X"
 complete events), span tags riding in ``args``.
 
 Counterpart of ``nomad_tpu/obs/trace.py``: the same recorder, the same
-ids for a seed and the same span taxonomy.  The port's batch worker
-also records one ``worker.invoke`` span per eval of a fused batch,
-which the JAX package's records only on its plain worker.
+ids for a seed and the same per-eval span taxonomy.  The port's batch
+worker also records one ``worker.invoke`` span per eval of a fused
+batch, which the JAX package's records only on its plain worker; the
+batch-worker, raft, commit, watch and device spans above are the
+port's own and carry no ``eval_id``.
 """
 from __future__ import annotations
 
@@ -129,6 +178,14 @@ class Tracer:
         self._bufs: dict = {}           # id(buf) -> _ThreadBuf
         self._local = threading.local()
         self._ambient = _Ambient()
+        # The open phase parent (``worker.batch``) of each thread: not
+        # ambient, so the spans other code records on the thread keep
+        # their parents.
+        self._windows = threading.local()
+        # card index -> (CUDA event, tracer-epoch seconds it completed
+        # at): the pairing that puts device spans on this clock.
+        self._bases: dict = {}
+        self._resolve_lock = threading.Lock()
 
     # -- ids / context -----------------------------------------------------
     def new_id(self) -> str:
@@ -226,6 +283,103 @@ class Tracer:
                              if parent else None},
                         span_id=mine["span_id"], **tags)
 
+    # -- phase spans ------------------------------------------------------
+    def open_window(self) -> dict:
+        """Open the calling thread's phase parent: a context whose span
+        :meth:`close_window` records, and under which :meth:`phase`
+        spans on this thread hang.  Not ambient."""
+        now = self.now()
+        ctx = {"trace_id": self.new_id(), "span_id": self.new_id(),
+               "t0": now, "cursor": now}
+        self._windows.ctx = ctx
+        return ctx
+
+    def close_window(self, ctx: dict, name: str, **tags) -> None:
+        """Record the window span ``ctx`` opened, [its open, now]."""
+        if getattr(self._windows, "ctx", None) is ctx:
+            self._windows.ctx = None
+        self.record(name, ctx["t0"], self.now() - ctx["t0"],
+                    ctx={"trace_id": ctx["trace_id"], "parent_id": None},
+                    span_id=ctx["span_id"], **tags)
+
+    def phase_start(self) -> float:
+        """Where the calling thread's next phase starts: the end of its
+        last phase in the open window (its open, before the first), so
+        the phases that start here tile the window; now when none is
+        open."""
+        window = getattr(self._windows, "ctx", None)
+        return window["cursor"] if window is not None else self.now()
+
+    def phase(self, name: str, t0: float, **tags) -> float:
+        """Record a phase span [t0, now] under the calling thread's open
+        window (a root span when none is open); returns now, where the
+        window's next phase starts."""
+        now = self.now()
+        parent = getattr(self._windows, "ctx", None)
+        self.record(name, t0, now - t0, parent_ctx=parent, **tags)
+        if parent is not None:
+            parent["cursor"] = now
+        return now
+
+    # -- device spans -----------------------------------------------------
+    def clock_devices(self) -> None:
+        """Pair one CUDA event per visible card with :meth:`now`, after
+        synchronizing it: the base that resolves device spans onto this
+        clock.  No card, no base, and no device span is recorded."""
+        import torch
+
+        if not torch.cuda.is_available():
+            return
+        bases = {}
+        for index in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(index)
+            base = torch.cuda.Event(enable_timing=True)
+            base.record(torch.cuda.current_stream(index))
+            base.synchronize()
+            bases[index] = (base, self.now())
+        with self._resolve_lock:
+            self._bases = bases
+
+    def device_start(self, device) -> Optional["DeviceSpan"]:
+        """Record a start event on ``device``'s current stream; None
+        for a device with no base (the CPU, or no card at enable)."""
+        if getattr(device, "type", None) != "cuda":
+            return None
+        import torch
+
+        index = device.index if device.index is not None else \
+            torch.cuda.current_device()
+        if index not in self._bases:
+            return None
+        stream = torch.cuda.current_stream(index)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        return DeviceSpan(self, index, stream, start, end)
+
+    def _resolve(self, spans: list) -> None:
+        """Resolve pending device spans in place: synchronize their
+        cards, then set ``t0``/``dur`` from the events.  A span whose end
+        event was recorded after the synchronize stays pending."""
+        import torch
+
+        pending = [s for s in spans if "_device" in s]
+        for index in {dev[0] for dev in (s.get("_device") for s in pending)
+                      if dev is not None}:
+            torch.cuda.synchronize(index)
+        with self._resolve_lock:
+            for s in pending:
+                dev = s.get("_device")
+                if dev is None or not dev[2].query():
+                    continue  # resolved by another snapshot, or later
+                index, start, end, lazy = dev
+                base, t_base = self._bases[index]
+                s["t0"] = t_base + base.elapsed_time(start) / 1e3
+                s["dur"] = start.elapsed_time(end) / 1e3
+                if lazy is not None:
+                    s["tags"].update(lazy())
+                del s["_device"]
+
     def _append(self, span: dict) -> None:
         buf = getattr(self._local, "buf", None)
         if buf is None or buf.thread is not threading.current_thread():
@@ -264,7 +418,9 @@ class Tracer:
     def snapshot(self) -> list:
         """Every retained span (ring + still-buffered), oldest-first by
         arrival.  Non-destructive; buffers of dead threads are folded
-        into the ring so they cannot linger unbounded."""
+        into the ring so they cannot linger unbounded.  Pending device
+        spans are resolved here, the one call that synchronizes the
+        cards."""
         with self._lock:
             for key, buf in list(self._bufs.items()):
                 if not buf.thread.is_alive() and buf.spans:
@@ -275,6 +431,9 @@ class Tracer:
             out = list(self._ring)
             for buf in self._bufs.values():
                 out.extend(list(buf.spans))
+        if any("_device" in s for s in out):
+            self._resolve(out)
+            out = [s for s in out if "_device" not in s]
         return out
 
     def stats(self) -> dict:
@@ -317,16 +476,50 @@ class Tracer:
         return len(doc["traceEvents"])
 
 
+class DeviceSpan:
+    """A device span begun by :meth:`Tracer.device_start`: its card,
+    stream and events, the start one recorded.  :meth:`end` records the
+    end event and leaves the span pending until
+    :meth:`Tracer.snapshot`."""
+
+    __slots__ = ("tracer", "index", "stream", "start", "end_event")
+
+    def __init__(self, tracer: Tracer, index: int, stream, start,
+                 end) -> None:
+        self.tracer = tracer
+        self.index = index
+        self.stream = stream
+        self.start = start
+        self.end_event = end
+
+    def end(self, name: str, lazy=None, **tags) -> None:
+        """Record the end event and keep the span pending, tagged
+        ``tags``; ``lazy``, a zero-argument function, adds the tags that
+        need the launch's device data, once the span resolves."""
+        end = self.end_event
+        end.record(self.stream)
+        t = self.tracer
+        t._append({"name": name, "trace_id": t.new_id(),
+                   "span_id": t.new_id(), "parent_id": None,
+                   "t0": None, "dur": None,
+                   "thread": threading.current_thread().name,
+                   "tags": tags,
+                   "_device": (self.index, self.start, end, lazy)})
+
+
 # ---------------------------------------------------------------------------
 # module-level convenience API (no-ops unless enabled)
 # ---------------------------------------------------------------------------
 
 def enable(seed: Optional[int] = None,
            ring: int = DEFAULT_RING) -> Tracer:
-    """Install a fresh process-global tracer and flip the hot-path
-    gate.  Returns the tracer."""
+    """Install a fresh process-global tracer, pair its clock with each
+    card's (:meth:`Tracer.clock_devices`) and flip the hot-path gate.
+    Returns the tracer."""
     global _TRACER, ENABLED
-    _TRACER = Tracer(seed=seed, ring=ring)
+    tracer = Tracer(seed=seed, ring=ring)
+    tracer.clock_devices()
+    _TRACER = tracer
     ENABLED = True
     return _TRACER
 
@@ -349,6 +542,39 @@ def tracing(seed: Optional[int] = None, ring: int = DEFAULT_RING):
         yield t
     finally:
         disable()
+
+
+def now() -> float:
+    """Tracer-epoch now, 0.0 when tracing is off."""
+    t = _TRACER
+    return t.now() if t is not None else 0.0
+
+
+def phase_start() -> float:
+    """Where the calling thread's next phase starts
+    (:meth:`Tracer.phase_start`), 0.0 when tracing is off."""
+    t = _TRACER
+    return t.phase_start() if t is not None else 0.0
+
+
+def phase(name: str, t0: float, **tags) -> float:
+    """Record a phase span [t0, now] under the calling thread's open
+    window (:meth:`Tracer.phase`); returns now.  With tracing off it
+    reads the gate and returns 0.0."""
+    if not ENABLED:
+        return 0.0
+    t = _TRACER
+    return t.phase(name, t0, **tags) if t is not None else 0.0
+
+
+def device_span(device) -> Optional[DeviceSpan]:
+    """Begin a device span on ``device`` (a ``torch.device``): the one
+    helper every kernel wrapper and device seam calls, behind
+    ``ENABLED``, around its launch or copy.  None when tracing is off
+    or the device is not a card the tracer clocked; else end it with
+    :meth:`DeviceSpan.end`."""
+    t = _TRACER
+    return t.device_start(device) if t is not None else None
 
 
 def ctx() -> Optional[dict]:

@@ -43,6 +43,8 @@ import ctypes
 
 import torch
 
+from nomad_tpu_torch.obs import trace as obs_trace
+
 from . import kernels
 
 NEG_INF = -1.0e30
@@ -192,6 +194,16 @@ def place_rounds_plain(capacity, reserved, usage0, jc0, feasible, asks,
 # -- wrappers -----------------------------------------------------------
 
 
+def _named(group_idx):
+    """The device span tag of a sequence walk's launch: the distinct
+    groups each lane's steps name, read from its group index when the
+    span resolves (the tensor lies on the card at launch)."""
+    def tags() -> dict:
+        rows = group_idx.reshape(-1, group_idx.shape[-1]).tolist()
+        return {"named": [len(set(row)) for row in rows]}
+    return tags
+
+
 def _node_axis(capacity) -> int:
     n = capacity.shape[0]
     if n < 1 or n & (n - 1):
@@ -268,6 +280,7 @@ def place_sequence(capacity, reserved, usage0, job_counts0, feasible, asks,
     scratch = torch.empty(slots * n, dtype=torch.float32, device=device) \
         if SEQ_MODES[mode] == "scratch" else None
     lib = kernels.library("binpack")
+    started = obs_trace.device_span(device) if obs_trace.ENABLED else None
     code = lib.nomad_place_sequence(
         capacity.data_ptr(), reserved.data_ptr(), usage0.data_ptr(),
         job_counts0.data_ptr(), feasible.data_ptr(), asks.data_ptr(),
@@ -276,6 +289,8 @@ def place_sequence(capacity, reserved, usage0, job_counts0, feasible, asks,
         scores.data_ptr(), usage.data_ptr(), jc.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
         kernels.stream_handle(device))
+    if started is not None:
+        started.end("device.K2", lazy=_named(group_idx), n=n, lanes=1, p=p)
     kernels.check(lib, "place_sequence", code)
     place_sequence.launches += 1
     if with_job_counts:
@@ -364,6 +379,7 @@ def place_rounds(capacity, reserved, usage0, jc0, feasible, asks, distinct,
     jc = torch.empty_like(jc0)
     path, scratch = _rounds_scratch(n, k_cap, None, device)
     lib = kernels.library("binpack")
+    started = obs_trace.device_span(device) if obs_trace.ENABLED else None
     code = lib.nomad_place_rounds(
         capacity.data_ptr(), reserved.data_ptr(), usage0.data_ptr(),
         jc0.data_ptr(), feasible.data_ptr(), asks.data_ptr(),
@@ -372,6 +388,9 @@ def place_rounds(capacity, reserved, usage0, jc0, feasible, asks, distinct,
         usage.data_ptr(), jc.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
         kernels.stream_handle(device))
+    if started is not None:
+        started.end("device.K3", n=n, lanes=1, g=g, k_cap=k_cap,
+                    rounds=rounds)
     kernels.check(lib, "place_rounds", code)
     place_rounds.launches += 1
     return chosen, scores, usage
@@ -456,6 +475,7 @@ def place_rounds_batch(capacity, reserved, usage0, job_counts, feasible,
     # One row of key words per lane when they do not fit in shared memory.
     path, scratch = _rounds_scratch(n, k_cap, lanes, device)
     lib = kernels.library("binpack")
+    started = obs_trace.device_span(device) if obs_trace.ENABLED else None
     code = lib.nomad_place_rounds_batch(
         capacity.data_ptr(), reserved.data_ptr(), usage0.data_ptr(),
         job_counts.data_ptr(), feasible.data_ptr(), asks.data_ptr(),
@@ -464,6 +484,9 @@ def place_rounds_batch(capacity, reserved, usage0, job_counts, feasible,
         usage.data_ptr(), jc.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
         kernels.stream_handle(device))
+    if started is not None:
+        started.end("device.K4a", n=n, lanes=lanes, g=g, k_cap=k_cap,
+                    rounds=rounds)
     kernels.check(lib, "place_rounds_batch", code)
     place_rounds_batch.launches += 1
     return chosen, scores, usage
@@ -531,6 +554,7 @@ def place_sequence_batch(capacity, reserved, usage0, job_counts, feasible,
                           device=device) \
         if SEQ_MODES[mode] == "scratch" else None
     lib = kernels.library("binpack")
+    started = obs_trace.device_span(device) if obs_trace.ENABLED else None
     code = lib.nomad_place_sequence_batch(
         capacity.data_ptr(), reserved.data_ptr(), usage0.data_ptr(),
         job_counts.data_ptr(), feasible.data_ptr(), asks.data_ptr(),
@@ -539,6 +563,9 @@ def place_sequence_batch(capacity, reserved, usage0, job_counts, feasible,
         chosen.data_ptr(), scores.data_ptr(), usage.data_ptr(),
         jc.data_ptr(), None if scratch is None else scratch.data_ptr(),
         kernels.stream_handle(device))
+    if started is not None:
+        started.end("device.K4b", lazy=_named(group_idx), n=n, lanes=lanes,
+                    p=p)
     kernels.check(lib, "place_sequence_batch", code)
     place_sequence_batch.launches += 1
     return chosen, scores, usage
@@ -817,7 +844,11 @@ def launch_shard_step(plan: StepPlan, apply_step: int,
     :func:`step_plan` checked (a walk checks once for all its steps);
     the launch goes to the stream current when the plan was made."""
     fn, *head = plan.head
+    started = obs_trace.device_span(plan.shards[0]["capacity"].device) \
+        if obs_trace.ENABLED else None
     code = fn(*head, apply_step, select_step, *plan.tail)
+    if started is not None:
+        started.end("device.shard_step")
     if code:
         kernels.check(kernels.library("binpack"), "shard_step", code)
     shard_step.launches += 1
@@ -891,7 +922,11 @@ def merge_launch(cand_vals, cand_idx, rows, upd, chosen, scores, m, counts,
             scores.data_ptr(), kernels.stream_handle(cand_vals.device))
 
     def launch(slot: int, rnd: int) -> None:
+        started = obs_trace.device_span(cand_vals.device) \
+            if obs_trace.ENABLED else None
         code = fn(*head, slot, rnd, *tail)
+        if started is not None:
+            started.end("device.K7b")
         if code:
             kernels.check(lib, "merge_select", code)
         merge_select.launches += 1
@@ -1014,11 +1049,20 @@ def shard_walk(shards, chosen, scores, *, k_cap: int = 1, rounds: int = 1,
     scratch = [select_scratch(rows, k, lanes, device) for _ in shards]
     table = walk_table(shards, scratch)
     lib = kernels.library("binpack")
+    started = obs_trace.device_span(device) if obs_trace.ENABLED else None
     code = lib.nomad_shard_walk(
         table, len(shards), lanes, rows, g, p, k, kout, rounds, path,
         chosen.data_ptr(), scores.data_ptr(),
         valid.data_ptr() if seq else None,
         None if seq else counts.data_ptr(), kernels.stream_handle(device))
+    if started is not None:
+        if seq:
+            started.end("device.shard_walk",
+                        lazy=_named(shards[0]["group_idx"]),
+                        n=rows * len(shards), lanes=lanes, p=p)
+        else:
+            started.end("device.shard_walk", n=rows * len(shards),
+                        lanes=lanes, g=g, k_cap=k_cap, rounds=rounds)
     kernels.check(lib, "shard_walk", code)
     shard_walk.launches += 1
 

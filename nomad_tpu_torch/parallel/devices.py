@@ -23,6 +23,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from nomad_tpu_torch.obs import trace as obs_trace
+
 # -- transfer accounting ----------------------------------------------------
 
 _TRANSFER_LOCK = threading.Lock()
@@ -104,7 +106,7 @@ def ensure_on_default(cached, host, device=None):
     detect a re-upload)."""
     if cached is not None and on_default_platform(cached, device):
         return cached
-    return put_counted(host, device)
+    return _put("device.ensure_on_default", host, resolve_device(device))
 
 
 def put_counted(x, device=None):
@@ -112,14 +114,28 @@ def put_counted(x, device=None):
     tensor onto ``device`` (counted).  A tensor already there passes
     through untouched; a host value is always copied, so the device
     copy never aliases a host array the caller may reuse."""
-    device = resolve_device(device)
+    return _put("device.put_counted", x, resolve_device(device))
+
+
+def _put(span: str, x, device: torch.device):
+    """put_counted's move onto the resolved ``device``, traced as the
+    device span ``span`` (the seam the caller entered, once)."""
     if isinstance(x, torch.Tensor):
         if x.device == device:
             return x
-        note_transfer(classify_move(x.device.type, device.type))
-        return x.to(device, copy=True)
-    note_transfer("h2d")
-    return torch.tensor(np.asarray(x), device=device)
+        kind = classify_move(x.device.type, device.type)
+    else:
+        kind = "h2d"
+    started = obs_trace.device_span(device) if obs_trace.ENABLED else None
+    note_transfer(kind)
+    if kind == "h2d" and not isinstance(x, torch.Tensor):
+        out = torch.tensor(np.asarray(x), device=device)
+    else:
+        out = x.to(device, copy=True)
+    if started is not None:
+        started.end(span, bytes=out.numel() * out.element_size(),
+                    kind=kind)
+    return out
 
 
 def classify_move(src_type: str, dst_type: str) -> str:
@@ -162,7 +178,12 @@ class PinnedStaging(threading.local):
         device = resolve_device(device)
         note_transfer("h2d")
         out = torch.empty(count, dtype=self.dtype, device=device)
+        started = obs_trace.device_span(device) if obs_trace.ENABLED \
+            else None
         out.copy_(self.host[:count], non_blocking=True)
+        if started is not None:
+            started.end("device.PinnedStaging.upload",
+                        bytes=out.numel() * out.element_size(), kind="h2d")
         self.event = self.events.get(device.index)
         if self.event is None:
             self.event = self.events[device.index] = torch.cuda.Event()
@@ -190,7 +211,11 @@ def copy_to_host_async(x) -> PendingHost:
         return PendingHost(x, None)
     note_transfer("d2h")
     host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    started = obs_trace.device_span(x.device) if obs_trace.ENABLED else None
     host.copy_(x, non_blocking=True)
+    if started is not None:
+        started.end("device.copy_to_host_async",
+                    bytes=host.numel() * host.element_size(), kind="d2h")
     event = torch.cuda.Event()
     event.record(torch.cuda.current_stream(x.device))
     return PendingHost(host, event)

@@ -52,6 +52,7 @@ import os
 import numpy as np
 import torch
 
+from nomad_tpu_torch.obs import trace as obs_trace
 from nomad_tpu_torch.ops.binpack import STEP_SHARDS
 from nomad_tpu_torch.parallel.devices import (
     PinnedStaging,
@@ -948,10 +949,14 @@ def launch_window_verify(capacity, reserved, usage, packed, b: int,
             kernels.check(lib, "window_verify setup",
                           lib.nomad_window_verify_setup())
         _SET_UP.add(device.index)
+    started = obs_trace.device_span(device) if obs_trace.ENABLED else None
     code = lib.nomad_window_verify(
         capacity.data_ptr(), reserved.data_ptr(), usage.data_ptr(),
         usage.shape[1], packed.data_ptr(), b, *counts, out.data_ptr(),
         kernels.stream_handle(device))
+    if started is not None:
+        pairs, rows, seq = counts
+        started.end("device.K6", pairs=pairs, rows=rows, seq=seq)
     kernels.check(lib, "window_verify", code)
     window_verify.launches += 1
     return out
@@ -1021,10 +1026,13 @@ def shard_gather(capacity, reserved, usage, row_lo: int, pair_ni, out=None):
         out = torch.empty((b, 12), dtype=torch.float32, device=device)
     kernels.check_args(dict(out=out), dict(out=(torch.float32, (b, 12))))
     lib = kernels.library("window_verify")
+    started = obs_trace.device_span(device) if obs_trace.ENABLED else None
     code = lib.nomad_shard_gather(
         capacity.data_ptr(), reserved.data_ptr(), usage.data_ptr(), d,
         row_lo, rows, pair_ni.data_ptr(), b, out.data_ptr(),
         kernels.stream_handle(device))
+    if started is not None:
+        started.end("device.K7d")
     kernels.check(lib, "shard_gather", code)
     shard_gather.launches += 1
     return out
@@ -1117,11 +1125,14 @@ def launch_window_verify_shards(shards, shard_rows: int, owners: int,
             kernels.check(lib, "window_verify_sharded setup",
                           lib.nomad_window_verify_sharded_setup())
         _SET_UP_SHARDED.add(device.index)
+    started = obs_trace.device_span(device) if obs_trace.ENABLED else None
     code = lib.nomad_window_verify_sharded(
         table, len(shards), owners, shard_rows, d,
         None if partials is None else partials.data_ptr(),
         packed.data_ptr(), b, *counts, out.data_ptr(),
         kernels.stream_handle(device))
+    if started is not None:
+        started.end("device.K6_sharded")
     kernels.check(lib, "window_verify_sharded", code)
     launch_window_verify_shards.launches += 1
     return out

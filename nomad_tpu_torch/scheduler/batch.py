@@ -58,10 +58,13 @@ from .torch_binpack import (
 from .util import set_status
 
 
-def _tnow() -> float:
-    """Tracer-epoch now, 0.0 when tracing is off (obs/trace.py)."""
-    t = trace_mod.tracer()
-    return t.now() if t is not None else 0.0
+# Tracer-epoch now, 0.0 when tracing is off; a phase span [t0, now] of
+# the calling thread under its open ``worker.batch``; and where its next
+# phase starts, so the top-level phases tile the batch (obs/trace.py).
+# Phases nested in another start at now.
+_tnow = trace_mod.now
+_phase = trace_mod.phase
+_phase_start = trace_mod.phase_start
 
 
 def _lane_spans(name: str, scheds, t0: float, t1: float, **tags) -> None:
@@ -135,6 +138,11 @@ class BatchEvalRunner:
         # Evals that left the fused launches for the per-eval sequential
         # retry (a scheduler of their own: K3, not K4a).
         self.solo_evals = 0
+        # Fused rounds run, and the round under way (the ``round`` tag
+        # of the sched.* spans; the solo retries come after round
+        # FUSED_RETRY_ROUNDS - 1).
+        self.rounds_run = 0
+        self._round = 0
 
     def _scheduler(self, state, ev: Evaluation) -> TorchBinPackScheduler:
         return TorchBinPackScheduler(state, self.planner,
@@ -180,7 +188,8 @@ class BatchEvalRunner:
                 return self._begin_eval_inner(ev, finish_noop)
             finally:
                 tracer.record("sched.begin", t0, tracer.now() - t0,
-                              parent_ctx=ev.trace, eval_id=ev.id)
+                              parent_ctx=ev.trace, eval_id=ev.id,
+                              round=self._round)
         return self._begin_eval_inner(ev, finish_noop)
 
     def _begin_eval_inner(self, ev: Evaluation, finish_noop: bool = True):
@@ -210,32 +219,52 @@ class BatchEvalRunner:
         from nomad_tpu_torch.utils.gctune import gc_pause
 
         with gc_pause():
-            pending = list(evals)
-            # Fused retry rounds: lanes whose plans came back partial or
-            # rejected re-plan TOGETHER against a refreshed snapshot —
-            # under contention the applier's serialized conflicts, not
-            # planning, dominate, and one fused round retries them all
-            # for one launch.  Without a refresh hook (or for the
-            # stragglers after the round cap) the exact per-eval
-            # sequential retry gives the same terminal guarantee as the
-            # single-eval worker path.
-            rounds = self.FUSED_RETRY_ROUNDS \
-                if self.state_refresh is not None else 1
-            for _ in range(rounds):
-                retries = [] if self.state_refresh is not None else None
-                self._process(pending, retries)
-                if not retries:
-                    return
-                pending = retries
-                self.state = self.state_refresh()
-            self.solo_evals += len(pending)
-            for ev in pending:
-                self._scheduler(self.state, ev).process(ev)
+            self._process_rounds(evals)
+            t_resume = _phase_start()
+        # The collections the batch deferred run as the collector comes
+        # back, on this thread: one ``sched.gc`` span.
+        _phase("sched.gc", t_resume)
+
+    def _process_rounds(self, evals: list[Evaluation]) -> None:
+        """The fused rounds, then the per-eval sequential retries."""
+        pending = list(evals)
+        # Fused retry rounds: lanes whose plans came back partial or
+        # rejected re-plan TOGETHER against a refreshed snapshot —
+        # under contention the applier's serialized conflicts, not
+        # planning, dominate, and one fused round retries them all
+        # for one launch.  Without a refresh hook (or for the
+        # stragglers after the round cap) the exact per-eval
+        # sequential retry gives the same terminal guarantee as the
+        # single-eval worker path.
+        rounds = self.FUSED_RETRY_ROUNDS \
+            if self.state_refresh is not None else 1
+        for rnd in range(rounds):
+            self._round = rnd
+            self.rounds_run += 1
+            retries = [] if self.state_refresh is not None else None
+            self._process(pending, retries)
+            if not retries:
+                return
+            pending = retries
+            t_refresh = _phase_start()
+            self.state = self.state_refresh()
+            _phase("sched.refresh", t_refresh, round=rnd + 1)
+        self._round = rounds
+        self.solo_evals += len(pending)
+        for ev in pending:
+            self._solo(self.state, ev, _phase_start())
+
+    def _solo(self, state, ev: Evaluation, t_solo: float) -> None:
+        """The exact per-eval sequential retry: a scheduler of its own,
+        the whole process (one ``sched.solo`` span from ``t_solo``)."""
+        self._scheduler(state, ev).process(ev)
+        _phase("sched.solo", t_solo, round=self._round)
 
     def _process(self, evals: list[Evaluation],
                  retries: Optional[list] = None) -> None:
         this_round, leftovers = self._split_rounds(evals)
 
+        t_lanes = _phase_start()
         pending = []  # (scheduler, place, DeviceArgs)
         for ev in this_round:
             sched = self._begin_eval(ev)
@@ -248,6 +277,10 @@ class BatchEvalRunner:
                 self._run_single(sched, place, args, retries)
                 continue
             pending.append((sched, place, args))
+        if this_round:
+            # The round's lanes begun one by one (each eval's own
+            # sched.begin lies inside).
+            _phase("sched.lanes", t_lanes, round=self._round)
 
         if pending:
             if self._fused_on_host(pending):
@@ -286,6 +319,7 @@ class BatchEvalRunner:
         k_cap = max(a.k_cap for _, _, a in pending)
         rounds = max(a.rounds for _, _, a in pending)
         done = []
+        t_launch = _phase_start()
         for sched, place, args in pending:
             t_disp = _tnow()
             if rounds_ok:
@@ -303,8 +337,9 @@ class BatchEvalRunner:
                     args.distinct, args.group_idx, args.valid,
                     float(args.penalty), n_real=n_real)
             _lane_spans("sched.dispatch", [sched], t_disp, _tnow(),
-                        host=True)
+                        host=True, round=self._round)
             done.append((sched, place, args, chosen, scores))
+        _phase("dispatch.launch", t_launch)
         return done
 
     def _dispatch_fused(self, pending: list) -> list:
@@ -313,7 +348,7 @@ class BatchEvalRunner:
         ``[(sched, place, args, chosen, scores), ...]`` in lane order."""
         from nomad_tpu_torch.ops import binpack
 
-        t_disp = _tnow()
+        t_disp, t_stack = _tnow(), _phase_start()
         device = self.device
         g_max = max(a.g_pad for _, _, a in pending)
         p_max = max(a.p_pad for _, _, a in pending)
@@ -355,11 +390,12 @@ class BatchEvalRunner:
         from nomad_tpu_torch.parallel.mesh import dispatch_mesh
 
         mesh = dispatch_mesh(B_pad, statics.n_pad, device=device)
+        t_phase = _phase("dispatch.stack", t_stack)
         if mesh is not None:
             return self._dispatch_fused_sharded(
-                pending, mesh, t_disp, rounds_ok, k_cap, rounds, feasible,
-                asks, distinct, group_idx, valid, job_counts, counts,
-                penalty)
+                pending, mesh, t_disp, t_phase, rounds_ok, k_cap, rounds,
+                feasible, asks, distinct, group_idx, valid, job_counts,
+                counts, penalty)
         # All fused lanes share the same snapshot base usage (fast-path
         # contract above): the mirror's resident device copy when it has
         # one, so the fleet tensors are not re-uploaded per launch.  The
@@ -371,35 +407,43 @@ class BatchEvalRunner:
             put_counted(x, device)
             for x in (job_counts, feasible, asks, distinct, penalty))
         if rounds_ok:
+            counts = put_counted(counts, device)
+            t_phase = _phase("dispatch.upload", t_phase)
             # Top-k rounds: device steps scale with unique groups x
             # rounds, not with placements.
             chosen_s, score_s, _u = binpack.place_rounds_batch(
                 capacity_d, reserved_d, base_usage, job_counts, feasible,
-                asks, distinct, put_counted(counts, device), penalty,
-                k_cap=k_cap, rounds=rounds)
+                asks, distinct, counts, penalty, k_cap=k_cap, rounds=rounds)
+            t_phase = _phase("dispatch.launch", t_phase)
             chosen_s, score_s = fetch_results(chosen_s, score_s)
+            t_phase = _phase("dispatch.fetch", t_phase)
             _lane_spans("sched.dispatch", [s for s, _p, _a in pending],
-                        t_disp, _tnow(), fused=B)
+                        t_disp, _tnow(), fused=B, round=self._round)
             done = []
             for b, (sched, place, args) in enumerate(pending):
                 chosen, scores = rounds_to_placements(
                     args, chosen_s[b], score_s[b])
                 done.append((sched, place, args, chosen, scores))
+            _phase("dispatch.unstack", t_phase)
             return done
+        group_idx = put_counted(group_idx, device)
+        valid = put_counted(valid, device)
+        t_phase = _phase("dispatch.upload", t_phase)
         chosen, scores, _u = binpack.place_sequence_batch(
             capacity_d, reserved_d, base_usage, job_counts, feasible, asks,
-            distinct, put_counted(group_idx, device),
-            put_counted(valid, device), penalty)
+            distinct, group_idx, valid, penalty)
+        t_phase = _phase("dispatch.launch", t_phase)
         chosen, scores = fetch_results(chosen, scores)
+        _phase("dispatch.fetch", t_phase)
         _lane_spans("sched.dispatch", [s for s, _p, _a in pending],
-                    t_disp, _tnow(), fused=B)
+                    t_disp, _tnow(), fused=B, round=self._round)
         return [(sched, place, args, chosen[b], scores[b])
                 for b, (sched, place, args) in enumerate(pending)]
 
-    def _dispatch_fused_sharded(self, pending, mesh, t_disp, rounds_ok,
-                                k_cap, rounds, feasible, asks, distinct,
-                                group_idx, valid, job_counts, counts,
-                                penalty) -> list:
+    def _dispatch_fused_sharded(self, pending, mesh, t_disp, t_phase,
+                                rounds_ok, k_cap, rounds, feasible, asks,
+                                distinct, group_idx, valid, job_counts,
+                                counts, penalty) -> list:
         """The fused launch with the node axis (and on a storm mesh the
         lanes) sharded over ``mesh`` (K7), against the mesh-resident
         capacity/reserved and the mirror's sharded usage twin when the
@@ -420,26 +464,35 @@ class BatchEvalRunner:
                 mesh, view0.usage)
         if base_usage is None:
             base_usage = view0.usage  # the mirror moved on: host upload
+        # The lane stacks go up inside the sharded wrappers: the upload
+        # phase holds the resident fleet's lookup, the launch the rest.
+        t_phase = _phase("dispatch.upload", t_phase)
         if rounds_ok:
             chosen_s, score_s, _u = place_rounds_batch_sharded(
                 mesh, capacity_d, reserved_d, base_usage, job_counts,
                 feasible, asks, distinct, counts, penalty, k_cap=k_cap,
                 rounds=rounds)
+            t_phase = _phase("dispatch.launch", t_phase)
             chosen_s, score_s = fetch_results(chosen_s, score_s)
+            t_phase = _phase("dispatch.fetch", t_phase)
             _lane_spans("sched.dispatch", [s for s, _p, _a in pending],
-                        t_disp, _tnow(), fused=len(pending))
+                        t_disp, _tnow(), fused=len(pending),
+                        round=self._round)
             done = []
             for b, (sched, place, args) in enumerate(pending):
                 chosen, scores = rounds_to_placements(
                     args, chosen_s[b], score_s[b])
                 done.append((sched, place, args, chosen, scores))
+            _phase("dispatch.unstack", t_phase)
             return done
         chosen, scores, _u = place_sequence_batch_sharded(
             mesh, capacity_d, reserved_d, base_usage, job_counts, feasible,
             asks, distinct, group_idx, valid, penalty)
+        t_phase = _phase("dispatch.launch", t_phase)
         chosen, scores = fetch_results(chosen, scores)
+        _phase("dispatch.fetch", t_phase)
         _lane_spans("sched.dispatch", [s for s, _p, _a in pending],
-                    t_disp, _tnow(), fused=len(pending))
+                    t_disp, _tnow(), fused=len(pending), round=self._round)
         return [(sched, place, args, chosen[b], scores[b])
                 for b, (sched, place, args) in enumerate(pending)]
 
@@ -450,32 +503,38 @@ class BatchEvalRunner:
                            "duplicate eval for job in one batch and no "
                            "state refresh available")
             return
+        t_refresh = _phase_start()
         self.state = self.state_refresh()
+        _phase("sched.refresh", t_refresh, round=self._round)
         self.process(leftovers)
 
     def _run_single(self, sched, place, args, retries=None) -> None:
         t0 = _tnow()
         handles = sched.dispatch_device(args)
+        t_fetch = _phase("dispatch.launch", t0)
         # faultlint-ok(uninjectable-io): batch-lane device round-trip;
         # fault rehearsal (and the recovery path it needs) rides the
         # pipelined lane's device.dispatch/collect seam — a documented
         # gap, not an oversight.
         chosen, scores = sched.collect_device(args, handles)
+        _phase("dispatch.fetch", t_fetch)
         t1 = _tnow()
-        _lane_spans("sched.dispatch", [sched], t0, t1)
+        _lane_spans("sched.dispatch", [sched], t0, t1, round=self._round)
         sched.finish_deferred(place, args, chosen, scores)
-        _lane_spans("sched.finish", [sched], t1, _tnow())
+        _lane_spans("sched.finish", [sched], t1, _tnow(),
+                    round=self._round)
         self._finish(sched, retries)
 
     @staticmethod
-    def _finish_lanes(lanes: list) -> None:
+    def _finish_lanes(lanes: list, round_: int = 0) -> None:
         """Windowed finish for a list of lanes in lane order — ONE
         shared uuid slab (structs.generate_uuids) and ONE native call
         (csrc/port_alloc.cpp bulk_finish_many) cover every lane's
         happy-path prefix, then each lane's Python tail runs.
         ``lanes`` is [(sched, place, args, chosen, scores), ...];
-        semantics per lane are identical to ``finish_deferred``."""
-        t_fin = _tnow()
+        semantics per lane are identical to ``finish_deferred``.
+        ``round_`` tags the lanes' ``sched.finish`` spans."""
+        t_fin, t_prep = _tnow(), _phase_start()
         uuid_slab = generate_uuids(
             sum(len(place) for _, place, *_ in lanes))
         states = []
@@ -487,6 +546,7 @@ class BatchEvalRunner:
             off += len(place)
             states.append(fs)
             nargs.append(sched._finish_native_args(fs))
+        t_phase = _phase("finish.prepare", t_prep)
         native = torch_binpack._native_bulk()
         # Columnar lanes (fs.slab set) batch through ONE
         # bulk_finish_many call; object lanes (columnar contract
@@ -506,10 +566,12 @@ class BatchEvalRunner:
                     else:
                         sched._finish_consume_native(
                             fs, native.bulk_finish(*a))
+        t_phase = _phase("finish.native", t_phase)
         for (sched, *_rest), fs in zip(lanes, states):
             sched._finish_python_tail(fs)
+        _phase("finish.tail", t_phase)
         _lane_spans("sched.finish", [s for s, *_r in lanes],
-                    t_fin, _tnow(), window=len(lanes))
+                    t_fin, _tnow(), window=len(lanes), round=round_)
 
     def _finish_window(self, done: list, retries=None) -> None:
         """Windowed finish + group submit for fused lanes
@@ -518,7 +580,7 @@ class BatchEvalRunner:
         commit point is paid once per window, not per lane."""
         if not done:
             return
-        self._finish_lanes(done)
+        self._finish_lanes(done, round_=self._round)
         self._submit_window([sched for sched, *_rest in done], retries)
 
     def _submit_window(self, scheds: list, retries=None) -> None:
@@ -526,8 +588,9 @@ class BatchEvalRunner:
         order and per-lane status semantics (see ``_finish``).  Uses the
         planner's group path when it has one; per-plan submits
         otherwise."""
-        t_sub = _tnow()
+        t_sub, t_first = _tnow(), _phase_start()
         submitters = []
+        set_any = False
         for sched in scheds:
             ev = sched.eval
             try:
@@ -535,40 +598,54 @@ class BatchEvalRunner:
             except SetStatusError as e:  # pragma: no cover - defensive
                 set_status(self.planner, ev, sched.next_eval,
                            e.eval_status, str(e))
+                set_any = True
                 continue
             if done is not None:
                 set_status(self.planner, ev, sched.next_eval,
                            EVAL_STATUS_COMPLETE)
+                set_any = True
                 continue
             submitters.append(sched)
+        if set_any:
+            _phase("submit.status", t_first)
         if not submitters:
             _lane_spans("sched.submit", scheds, t_sub, _tnow(),
-                        window=len(scheds))
+                        window=len(scheds), round=self._round)
             return
+        t_wait = _phase_start()
         group = getattr(self.planner, "submit_plans", None)
         if group is not None and len(submitters) > 1:
             outs = group([s.plan for s in submitters])
         else:
             outs = [self.planner.submit_plan(s.plan)
                     for s in submitters]
+        t_status = _phase("submit.wait", t_wait)
+        # Each lane's outcome first, then its status applies in lane
+        # order (one submit.status span), then the sequential retries.
+        statuses, solo = [], []
         for sched, (result, state) in zip(submitters, outs):
             ev = sched.eval
             try:
                 ok = sched._submit_finish(result, state)
             except SetStatusError as e:  # pragma: no cover - defensive
-                set_status(self.planner, ev, sched.next_eval,
-                           e.eval_status, str(e))
+                statuses.append((sched, e.eval_status, str(e)))
                 continue
             if ok:
-                set_status(self.planner, ev, sched.next_eval,
-                           EVAL_STATUS_COMPLETE)
+                statuses.append((sched, EVAL_STATUS_COMPLETE, ""))
             elif retries is not None:
                 retries.append(ev)  # no status yet: a later round owns it
             else:
-                self.solo_evals += 1
-                self._scheduler(sched.state, ev).process(ev)
+                solo.append(sched)
+        for sched, status, description in statuses:
+            set_status(self.planner, sched.eval, sched.next_eval, status,
+                       description)
+        if statuses:
+            _phase("submit.status", t_status)
+        for sched in solo:
+            self.solo_evals += 1
+            self._solo(sched.state, sched.eval, _phase_start())
         _lane_spans("sched.submit", scheds, t_sub, _tnow(),
-                    window=len(scheds))
+                    window=len(scheds), round=self._round)
 
     def _finish(self, sched, retries=None) -> None:
         """Submit the plan; on rejection/partial commit either queue the
@@ -576,17 +653,20 @@ class BatchEvalRunner:
         or fall back to the sequential retry loop (fresh scheduler,
         full process)."""
         ev = sched.eval
+        t_wait = _tnow()
         try:
             ok = sched._submit()
         except SetStatusError as e:  # pragma: no cover - defensive
             set_status(self.planner, ev, sched.next_eval, e.eval_status,
                        str(e))
             return
+        t_status = _phase("submit.wait", t_wait)
         if ok:
             set_status(self.planner, ev, sched.next_eval,
                        EVAL_STATUS_COMPLETE)
+            _phase("submit.status", t_status)
         elif retries is not None:
             retries.append(ev)  # no status yet: a later round owns it
         else:
             self.solo_evals += 1
-            self._scheduler(sched.state, ev).process(ev)
+            self._solo(sched.state, ev, _tnow())

@@ -54,6 +54,7 @@ from nomad_tpu_torch.models.fleet import (
     mirror_for,
     net_base_for,
 )
+from nomad_tpu_torch.obs import trace as trace_mod
 from nomad_tpu_torch.ops import binpack
 from nomad_tpu_torch.parallel.devices import (
     copy_to_host_async,
@@ -969,9 +970,12 @@ class TorchBinPackScheduler(GenericScheduler, FastPlacementMixin):
         window's native phase in ONE C call (native.bulk_finish_many)
         and pass a shared uuid slab: prepare (host state init), native
         happy-path prefix, Python tail.  This entry point runs them
-        back-to-back."""
+        back-to-back, each a phase span (obs/trace.py) when tracing is
+        on."""
+        t_phase = trace_mod.now()
         fs = self._finish_prepare(place, args, chosen, scores, uuids)
         nargs = self._finish_native_args(fs)
+        t_phase = trace_mod.phase("finish.prepare", t_phase)
         if nargs is not None:
             native = _native_bulk()
             if fs.slab is not None:
@@ -980,7 +984,9 @@ class TorchBinPackScheduler(GenericScheduler, FastPlacementMixin):
             else:
                 self._finish_consume_native(
                     fs, native.bulk_finish(*nargs))
+        t_phase = trace_mod.phase("finish.native", t_phase)
         self._finish_python_tail(fs)
+        trace_mod.phase("finish.tail", t_phase)
 
     def _finish_prepare(self, place: list, args: DeviceArgs,
                         chosen, scores,

@@ -976,8 +976,6 @@ class PlanApplier:
         dur_verify = tracer.now() - t_verify
         # perf_counter epoch -> tracer epoch for component t0s.
         perf_off = time.perf_counter() - tracer.now()
-        dev_span = info.get("device") if info is not None else None
-        dev_recorded = False
         for pending, outcome in zip(pendings, outcomes):
             if not pending.plan.trace:
                 continue
@@ -1004,20 +1002,6 @@ class PlanApplier:
                     parent_ctx=wctx,
                     eval_id=pending.plan.eval_id,
                     component=0, fallback=outcome.fallback)
-            if dev_span is not None and dev_span.get("dispatched") \
-                    and not dev_recorded:
-                # ONE per-window device-dispatch span, beside the
-                # per-component applier.verify spans, anchored to the
-                # first traced member's window span.
-                dev_recorded = True
-                tracer.record(
-                    "applier.verify.device", t_verify,
-                    dev_span.get("wall", 0.0), parent_ctx=wctx,
-                    window=len(pendings),
-                    pairs=dev_span.get("pairs", 0),
-                    bucket=dev_span.get("bucket", 0),
-                    h2d=dev_span.get("h2d", 0),
-                    d2h=dev_span.get("d2h", 0))
 
     def _dispatch_window(self, committers, alloc_lists, tracer):
         """Encode one window's accepted portions and dispatch ONE raft
@@ -1039,6 +1023,7 @@ class PlanApplier:
             encode_plan_batch,
         )
 
+        t_encode = tracer.now() if tracer is not None else 0.0
         if len(committers) == 1:
             msg_type, payload = (codec.ALLOC_UPDATE_REQUEST,
                                  encode_alloc_update(alloc_lists[0]))
@@ -1059,6 +1044,9 @@ class PlanApplier:
                 payload["_trace"] = env
             t_apply = tracer.now()
         entry = codec.encode(msg_type, payload)
+        if tracer is not None:
+            tracer.record("commit.encode", t_encode,
+                          tracer.now() - t_encode, bytes=len(entry))
         try:
             future = self.raft.apply(entry)
         except Exception as e:
@@ -1112,10 +1100,12 @@ class PlanApplier:
             for pend, _res in committers:
                 pend.respond(None, e)
             return
+        t_respond = 0.0
         if tracer is not None:
             # raft.apply dispatch -> committed, one span per member
             # plan (shared t0/dur, like the verify spans).
-            dur = tracer.now() - t_apply
+            t_respond = tracer.now()
+            dur = t_respond - t_apply
             for pend, _res in committers:
                 if pend.plan.trace:
                     tracer.record("raft.apply", t_apply, dur,
@@ -1125,6 +1115,9 @@ class PlanApplier:
         for pend, res in committers:
             res.alloc_index = index
             pend.respond(res, None)
+        if tracer is not None:
+            tracer.record("commit.respond", t_respond,
+                          tracer.now() - t_respond, plans=len(committers))
 
     def _commit_job(self, committers, alloc_lists, tracer) -> None:
         """One committer-pipeline job: encode, dispatch, await, respond

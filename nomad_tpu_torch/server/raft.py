@@ -25,6 +25,8 @@ from typing import Optional
 import msgpack
 
 from nomad_tpu_torch import faultinject
+from nomad_tpu_torch.obs import trace as trace_mod
+from nomad_tpu_torch.structs.codec import IGNORE_UNKNOWN_TYPE_FLAG
 from nomad_tpu_torch.utils.sync import Immutable
 
 logger = logging.getLogger("nomad_tpu_torch.server.raft")
@@ -697,7 +699,17 @@ class InmemRaft:
             # entry that never entered the log (callers retry/raise).
             faultinject.fire("raft.apply")
         future = ApplyFuture()
+        # raft.wait (call to lock held) and raft.entry (lock held), for
+        # every entry (obs/trace.py).
+        tracer = trace_mod.tracer() if trace_mod.ENABLED else None
+        t_call = t_held = t_done = tracer.now() if tracer is not None \
+            else 0.0
+        appended = True
+        apply_error = None
+        response = None
         with self._lock:
+            if tracer is not None:
+                t_held = tracer.now()
             index = self._applied + 1
             # Persist BEFORE applying (raft discipline, reference
             # raft-boltdb ordering): a disk failure rejects the entry with
@@ -712,16 +724,22 @@ class InmemRaft:
                 except Exception as e:
                     logger.exception("raft log append failed at index %d",
                                      index)
-                    future.respond(index, None, e)
-                    return future
-            apply_error = None
-            response = None
-            try:
-                response = self.fsm.apply(index, entry)
-            except Exception as e:  # surface apply errors to the caller
-                apply_error = e
-            self._applied = index
-            self._entries_since_snap += 1
+                    appended = False
+                    apply_error = e
+            if appended:
+                try:
+                    response = self.fsm.apply(index, entry)
+                except Exception as e:  # surface apply errors to the caller
+                    apply_error = e
+                self._applied = index
+                self._entries_since_snap += 1
+            if tracer is not None:
+                t_done = tracer.now()
+        if tracer is not None:
+            tags = {"msg_type": entry[0] & ~IGNORE_UNKNOWN_TYPE_FLAG,
+                    "bytes": len(entry)}
+            tracer.record("raft.wait", t_call, t_held - t_call, **tags)
+            tracer.record("raft.entry", t_held, t_done - t_held, **tags)
         future.respond(index, response, apply_error)
         if apply_error is None:
             try:

@@ -260,8 +260,6 @@ class BatchWorker(Worker):
     DEVICE_QUEUES = ("service", "batch")
 
     def run(self) -> None:
-        from nomad_tpu_torch.scheduler.batch import BatchEvalRunner
-
         backoff = Backoff(base=BACKOFF_BASE, max_delay=BACKOFF_LIMIT,
                           jitter=0.5)
         while not self._stop.is_set():
@@ -279,52 +277,77 @@ class BatchWorker(Worker):
             backoff.reset()
             if not batch:
                 continue
-            self._delivery_deadline = time.monotonic() + \
-                self.server.eval_broker.nack_timeout
-            max_index = max(ev.modify_index for ev, _ in batch)
-            try:
-                self._wait_for_index(max_index, RAFT_SYNC_LIMIT)
-                # ErrDeadlineExceeded is a TimeoutError: an expired
-                # delivery nacks the batch below instead of burning a
-                # whole fused device dispatch on redelivered work.
-                self._check_delivery_live(batch[0][0])
-            except TimeoutError:
-                for ev, token in batch:
-                    try:
-                        self.server.eval_broker.nack(ev.id, token)
-                    except ValueError:
-                        pass
-                continue
-
-            self._tokens = {ev.id: token for ev, token in batch}
-            state = self.server.fsm.state.snapshot()
-            runner = BatchEvalRunner(
-                state, _BatchPlanner(self),
-                state_refresh=lambda: self.server.fsm.state.snapshot(),
-                device=self.device)
             tracer = trace_mod.tracer() if trace_mod.ENABLED else None
-            t_invoke = tracer.now() if tracer is not None else 0.0
-            try:
-                runner.process([ev for ev, _ in batch])
-            except Exception as e:
-                logger.exception("batch worker: dispatch failed")
-                self.failures += 1
-                self.last_error = e
-                for ev, token in batch:
-                    try:
-                        self.server.eval_broker.nack(ev.id, token)
-                    except ValueError:
-                        pass
+            if tracer is None:
+                self._run_batch(batch, None)
                 continue
+            # One worker.batch span, dequeue to the last ack, parents
+            # this thread's phase spans (obs/trace.py).
+            window = tracer.open_window()
+            runner = None
+            try:
+                runner = self._run_batch(batch, tracer, window["t0"])
             finally:
-                self.solo_evals += runner.solo_evals
-                if tracer is not None:
-                    self._invoke_spans(tracer, batch, t_invoke)
+                tracer.close_window(
+                    window, "worker.batch", lanes=len(batch),
+                    rounds=runner.rounds_run if runner is not None else 0,
+                    solo=runner.solo_evals if runner is not None else 0)
+
+    def _run_batch(self, batch: list, tracer, t_sync: float = 0.0):
+        """Catch up, snapshot, run the fused batch and ack (or nack) it;
+        traced, its ``worker.sync`` phase starts at ``t_sync`` and
+        ``worker.ack`` covers the acks.  Returns the runner, None when
+        the batch was nacked before it."""
+        from nomad_tpu_torch.scheduler.batch import BatchEvalRunner
+
+        self._delivery_deadline = time.monotonic() + \
+            self.server.eval_broker.nack_timeout
+        max_index = max(ev.modify_index for ev, _ in batch)
+        try:
+            self._wait_for_index(max_index, RAFT_SYNC_LIMIT)
+            # ErrDeadlineExceeded is a TimeoutError: an expired
+            # delivery nacks the batch below instead of burning a
+            # whole fused device dispatch on redelivered work.
+            self._check_delivery_live(batch[0][0])
+        except TimeoutError:
             for ev, token in batch:
                 try:
-                    self.server.eval_broker.ack(ev.id, token)
+                    self.server.eval_broker.nack(ev.id, token)
                 except ValueError:
                     pass
+            if tracer is not None:
+                tracer.phase("worker.sync", t_sync)
+            return None
+
+        self._tokens = {ev.id: token for ev, token in batch}
+        state = self.server.fsm.state.snapshot()
+        if tracer is not None:
+            tracer.phase("worker.sync", t_sync)
+        runner = BatchEvalRunner(
+            state, _BatchPlanner(self),
+            state_refresh=lambda: self.server.fsm.state.snapshot(),
+            device=self.device)
+        t_invoke = tracer.now() if tracer is not None else 0.0
+        settle = self.server.eval_broker.ack
+        try:
+            runner.process([ev for ev, _ in batch])
+        except Exception as e:
+            logger.exception("batch worker: dispatch failed")
+            self.failures += 1
+            self.last_error = e
+            settle = self.server.eval_broker.nack
+        t_ack = tracer.phase_start() if tracer is not None else 0.0
+        self.solo_evals += runner.solo_evals
+        if tracer is not None:
+            self._invoke_spans(tracer, batch, t_invoke)
+        for ev, token in batch:
+            try:
+                settle(ev.id, token)
+            except ValueError:
+                pass
+        if tracer is not None:
+            tracer.phase("worker.ack", t_ack)
+        return runner
 
     @staticmethod
     def _invoke_spans(tracer, batch: list, t0: float) -> None:

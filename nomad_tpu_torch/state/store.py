@@ -23,6 +23,7 @@ import time
 from typing import Callable, Iterable, Optional
 
 from nomad_tpu_torch import faultinject
+from nomad_tpu_torch.obs import trace as trace_mod
 from nomad_tpu_torch.structs import (
     Allocation,
     Evaluation,
@@ -142,7 +143,10 @@ class StateWatch:
         waiter (min_index 0, or index unknown, or index past
         min_index).  Runs on the writer's thread, outside the store
         lock; callbacks must be quick (set an event / re-enqueue a
-        dispatch)."""
+        dispatch).  Traced, a notify that wakes waiters records one
+        ``watch.notify`` span (``woken``, the key's ``table``)."""
+        tracer = trace_mod.tracer() if trace_mod.ENABLED else None
+        t0 = tracer.now() if tracer is not None else 0.0
         matured: list = []
         with self._lock:
             for key in keys:
@@ -159,6 +163,7 @@ class StateWatch:
                     self._waiters.pop(token, None)
                 if not bucket:
                     self._by_key.pop(key, None)
+        woken = 0
         for waiter in matured:
             if faultinject.ACTIVE:
                 try:
@@ -184,6 +189,10 @@ class StateWatch:
                                     time.monotonic(), 0.001))
                     continue
             self._deliver(waiter, timed_out=False)
+            woken += 1
+        if tracer is not None and woken:
+            tracer.record("watch.notify", t0, tracer.now() - t0,
+                          woken=woken, table=str(keys[0][0]))
 
     def notify_all(self) -> None:
         """Wake every watcher — used when the whole world may have

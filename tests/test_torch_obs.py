@@ -12,7 +12,14 @@ to a JAX ``Server`` and a port ``Server(device="cpu")``, both with
 parent-name edges per eval (the port's batch worker adds one
 ``worker.invoke`` per eval, which the JAX batch worker does not record:
 ROADMAP Queue 3), and the two servers' registries expose the same
-flattened keys apart from the named differences below.
+flattened keys apart from the named differences below.  Last the
+port's own spans, which carry no ``eval_id``: the phase spans under
+each ``worker.batch`` cover it, a forced conflict records its refresh
+and solo retries with their round, raft records one ``raft.wait`` and
+one ``raft.entry`` per apply, ``watch.notify`` counts every waiter it
+wakes, device spans resolve onto the tracer's clock (a stand-in CUDA
+event on the CPU), and with tracing off nothing is recorded and no
+CUDA event made.
 """
 from __future__ import annotations
 
@@ -556,3 +563,289 @@ def test_the_registries_expose_the_jax_keys(traced_twins):
     assert providers == {"broker", "plan_queue", "applier",
                          "applier_components", "overload", "heartbeat",
                          "store", "workers", "rpc"}
+
+
+# ---------------------------------------------------------------------------
+# the port's own spans: the batch worker's phases, raft, the watch, the card
+# ---------------------------------------------------------------------------
+
+# The worker thread's phase spans under each ``worker.batch``.
+PHASES = {"worker.sync", "sched.lanes", "dispatch.stack", "dispatch.upload",
+          "dispatch.launch", "dispatch.fetch", "dispatch.unstack",
+          "finish.prepare", "finish.native", "finish.tail", "submit.wait",
+          "submit.status", "sched.refresh", "sched.solo", "sched.gc",
+          "worker.ack"}
+
+
+def _union_s(intervals) -> float:
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def _port_eval(job):
+    from nomad_tpu_torch.structs import Evaluation, generate_uuid
+
+    return Evaluation(id=generate_uuid(), priority=job.priority,
+                      type=job.type, triggered_by="job-register",
+                      job_id=job.id, status="pending")
+
+
+@pytest.fixture(scope="module")
+def traced_port_run():
+    """A port server on the CPU with tracing on: 20 nodes and a burst of
+    12 jobs of 8 copies, whose fused lanes conflict and retry; every
+    entry handed to raft is counted by its message type."""
+    from nomad_tpu_torch import mock as tmock
+
+    applied = collections.Counter()
+    with trace.tracing(seed=9) as t, t_executor("device"), _seeded(3):
+        srv = _port_server()
+        raft_apply = srv.raft.apply
+
+        def counted(entry):
+            applied[entry[0] & 0x7F] += 1
+            return raft_apply(entry)
+
+        srv.raft.apply = counted
+        try:
+            for i in range(20):
+                srv.node_register(tmock.node(i))
+            srv.establish_leadership()
+            ids = []
+            for _ in range(12):
+                job = tmock.job()
+                job.task_groups[0].count = 8
+                ids.append(srv.job_register(job)[1])
+            assert srv.wait_for_evals(ids, timeout=WAIT_S)
+        finally:
+            srv.shutdown()
+        spans = t.snapshot()
+        stats = t.stats()
+    return spans, applied, stats
+
+
+def test_the_phases_of_each_batch_cover_it(traced_port_run):
+    spans, _applied, stats = traced_port_run
+    assert stats["dropped"] == 0
+    batches = [s for s in spans if s["name"] == "worker.batch"]
+    assert batches and sum(b["tags"]["lanes"] for b in batches) >= 12
+    for b in batches:
+        a0, a1 = b["t0"], b["t0"] + b["dur"]
+        kids = [s for s in spans if s["parent_id"] == b["span_id"]]
+        assert {s["name"] for s in kids} <= PHASES
+        assert not any("eval_id" in (s.get("tags") or {}) for s in kids)
+        # with the lanes' own sched.begin spans on the worker's thread
+        kids += [s for s in spans if s["name"] == "sched.begin"
+                 and s["thread"] == b["thread"] and a0 <= s["t0"] <= a1]
+        covered = _union_s((max(a0, s["t0"]), min(a1, s["t0"] + s["dur"]))
+                           for s in kids)
+        assert covered >= 0.95 * b["dur"], (b["tags"], covered, b["dur"])
+        assert {"worker.sync", "dispatch.launch", "finish.tail",
+                "submit.wait"} <= {s["name"] for s in kids}
+    rounds = collections.Counter(
+        s["tags"].get("round") for s in spans
+        if s["name"] in ("sched.begin", "sched.dispatch", "sched.finish",
+                         "sched.submit"))
+    assert rounds[0] > 0 and None not in rounds
+
+
+def test_raft_records_one_wait_and_one_entry_per_apply(traced_port_run):
+    spans, applied, _stats = traced_port_run
+    for name in ("raft.wait", "raft.entry"):
+        mine = [s for s in spans if s["name"] == name]
+        assert collections.Counter(s["tags"]["msg_type"] for s in mine) \
+            == applied, name
+        assert all(s["tags"]["bytes"] > 1 and s["dur"] >= 0 for s in mine)
+    assert len(applied) >= 3  # node, job, eval and plan entries
+    commits = [s for s in spans if s["name"] == "commit.encode"]
+    assert commits and all(s["tags"]["bytes"] > 1 for s in commits)
+    assert len([s for s in spans if s["name"] == "commit.respond"]) == \
+        len(commits)
+
+
+def test_a_forced_conflict_records_the_refresh_and_the_solo_retries():
+    """A planner that answers the first two windows with a refresh (the
+    applier's stale-data answer): every lane retries in fused round 1,
+    then alone after round 2."""
+    from nomad_tpu_torch import mock as tmock
+    from nomad_tpu_torch.scheduler import Harness
+    from nomad_tpu_torch.scheduler.batch import BatchEvalRunner
+
+    h = Harness(device="cpu")
+    for i in range(8):
+        h.state.upsert_node(h.next_index(), tmock.node(i))
+    jobs = []
+    for _ in range(3):
+        job = tmock.job()
+        job.task_groups[0].count = 2
+        h.state.upsert_job(h.next_index(), job)
+        jobs.append(job)
+
+    class Stale:
+        windows = 2
+
+        def submit_plans(self, plans):
+            if self.windows:
+                self.windows -= 1
+                return [(None, h.snapshot()) for _ in plans]
+            return h.submit_plans(plans)
+
+        def submit_plan(self, plan):
+            return h.submit_plan(plan)
+
+        def update_eval(self, ev):
+            h.update_eval(ev)
+
+        def create_eval(self, ev):
+            h.create_eval(ev)
+
+    with trace.tracing(seed=4) as t, t_executor("device"):
+        runner = BatchEvalRunner(h.snapshot(), Stale(),
+                                 state_refresh=h.snapshot, device="cpu")
+        runner.process([_port_eval(j) for j in jobs])
+        spans = t.snapshot()
+    assert runner.rounds_run == 2 and runner.solo_evals == 3
+    refresh = [s["tags"]["round"] for s in spans
+               if s["name"] == "sched.refresh"]
+    solo = [s["tags"]["round"] for s in spans if s["name"] == "sched.solo"]
+    assert refresh == [1, 2]
+    assert solo == [2, 2, 2]
+    begins = collections.Counter(s["tags"]["round"] for s in spans
+                                 if s["name"] == "sched.begin")
+    assert begins == collections.Counter({0: 3, 1: 3})
+    assert all(h.state.allocs_by_job(j.id) for j in jobs)
+
+
+def test_watch_notify_counts_every_waiter_it_wakes():
+    from nomad_tpu_torch import mock as tmock
+    from nomad_tpu_torch.state.store import StateStore
+
+    store = StateStore()
+    watch = store.watch
+    index = 10
+    with trace.tracing(seed=6) as t:
+        before = watch.delivered
+        for key, n in ((("nodes",), 3), (("evals",), 2), (("jobs",), 4)):
+            for _ in range(n):
+                watch.subscribe(key, lambda timed_out: None,
+                                min_index=index)
+        # a waiter whose key no write touches is never woken
+        watch.subscribe(("allocs",), lambda timed_out: None,
+                        min_index=index)
+        for i in range(2):
+            index += 1
+            store.upsert_node(index, tmock.node(i))
+        index += 1
+        store.upsert_job(index, tmock.job())
+        index += 1
+        store.upsert_evals(index, [tmock.eval()])
+        spans = [s for s in t.snapshot() if s["name"] == "watch.notify"]
+    woken = sum(s["tags"]["woken"] for s in spans)
+    assert woken == watch.delivered - before == 9
+    assert {s["tags"]["table"] for s in spans} == {"nodes", "jobs", "evals"}
+    assert watch.live_waiters() == 1
+    watch.shutdown()
+
+
+class _FakeEvent:
+    """A CUDA event on the host's clock: records the time it is
+    recorded at, complete at once."""
+
+    made = 0
+
+    def __init__(self, enable_timing=False):
+        type(self).made += 1
+        self.at = None
+
+    def record(self, stream=None):
+        import time
+
+        self.at = time.perf_counter()
+
+    def synchronize(self):
+        pass
+
+    def query(self):
+        return True
+
+    def elapsed_time(self, end):
+        return (end.at - self.at) * 1e3
+
+
+def _fake_card(monkeypatch):
+    _FakeEvent.made = 0
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: "stream")
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+
+
+def test_device_spans_resolve_on_the_tracers_clock(monkeypatch):
+    import time
+
+    _fake_card(monkeypatch)
+    card = torch.device("cuda", 0)
+    with trace.tracing(seed=2) as t:
+        assert _FakeEvent.made == 1  # the card's base
+        t_start = t.now()
+        started = trace.device_span(card)
+        time.sleep(0.02)  # sleep-ok: the stand-in launch's known length
+        gi = torch.tensor([[0, 0, 1, 1], [2, 2, 2, 2]], dtype=torch.int32)
+        started.end("device.K4b", lazy=lambda: {"named": [
+            len(set(r)) for r in gi.tolist()]}, n=16, lanes=2, p=4)
+        assert trace.device_span(torch.device("cpu")) is None
+        assert t.stats()["recorded"] == 1
+        (got,) = t.snapshot()
+    assert got["name"] == "device.K4b" and "_device" not in got
+    assert got["tags"] == dict(n=16, lanes=2, p=4, named=[2, 1])
+    assert abs(got["t0"] - t_start) < 0.01
+    assert 0.015 < got["dur"] < 0.5
+    assert _FakeEvent.made == 3
+
+
+def test_pending_device_spans_count_against_the_ring(monkeypatch):
+    _fake_card(monkeypatch)
+    monkeypatch.setattr(trace, "FLUSH_AT", 1)
+    card = torch.device("cuda", 0)
+    with trace.tracing(seed=2, ring=3) as t:
+        for _ in range(4):
+            trace.device_span(card).end("device.put_counted", bytes=8,
+                                        kind="h2d")
+        stats = t.stats()
+        spans = t.snapshot()
+    assert (stats["ring"], stats["dropped"], stats["recorded"]) == (3, 1, 4)
+    assert [s["name"] for s in spans] == ["device.put_counted"] * 3
+    assert all(s["dur"] >= 0 and s["tags"]["bytes"] == 8 for s in spans)
+
+
+def test_tracing_off_records_nothing_and_makes_no_cuda_event(monkeypatch):
+    from nomad_tpu_torch import mock as tmock
+
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    _FakeEvent.made = 0
+    assert not trace.ENABLED and trace.tracer() is None
+    with t_executor("device"), _seeded(3):
+        srv = _port_server()
+        try:
+            for i in range(6):
+                srv.node_register(tmock.node(i))
+            srv.establish_leadership()
+            job = tmock.job()
+            job.task_groups[0].count = 4
+            assert srv.wait_for_evals([srv.job_register(job)[1]],
+                                      timeout=WAIT_S)
+        finally:
+            srv.shutdown()
+    assert trace.tracer() is None
+    assert trace.device_span(torch.device("cuda", 0)) is None
+    assert trace.phase("worker.sync", 0.0) == 0.0
+    assert _FakeEvent.made == 0
