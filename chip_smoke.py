@@ -345,9 +345,10 @@ DEV = "cuda"  # where the checks put their tensors and run the port
 WINDOW_TRANSFERS = {"cuda": (1, 1), "cpu": (0, 0)}
 
 # What config 5b commits on the port (its placements are also held
-# against a rerun through the plain versions).
-CONFIG5B_COUNTS = dict(placed=6240, conflicts=36, commits=11,
-                       conflict_fallbacks=87)
+# against a rerun through the plain versions).  Its six stragglers after
+# the fused rounds plan as one chained window.
+CONFIG5B_COUNTS = dict(placed=6240, conflicts=33, commits=5,
+                       conflict_fallbacks=92)
 
 
 class SmokeError(RuntimeError):
@@ -3343,19 +3344,24 @@ def run_wire(torch, n_agents=10_000, n_jobs=64, n_groups=None,
             storm_launches = {k: fn.launches
                               for k, fn in rec.counters.items()}
             # The storm goes through the fused launch (K4a).  K3 only
-            # for an eval the batch worker handed to the per-eval retry
-            # after its fused rounds, at most its scheduler's attempts.
+            # for a lane of the batch worker's chained tail after its
+            # fused rounds, and for an eval it handed to the per-eval
+            # retry, at most its scheduler's attempts.
             from nomad_tpu_torch.scheduler.generic import (
                 MAX_SERVICE_SCHEDULE_ATTEMPTS)
             solo = sum(getattr(w, "solo_evals", 0) for w in srv.workers)
+            chained = sum(getattr(w, "chained_evals", 0)
+                          for w in srv.workers)
             row["storm_solo_evals"] = solo
+            row["storm_chained_evals"] = chained
             require(storm_launches["place_rounds_batch"] > 0
                     and storm_launches["place_rounds"]
-                    <= solo * MAX_SERVICE_SCHEDULE_ATTEMPTS,
+                    <= chained + solo * MAX_SERVICE_SCHEDULE_ATTEMPTS,
                     f"wire: the storm launched K4a "
                     f"{storm_launches['place_rounds_batch']} and K3 "
                     f"{storm_launches['place_rounds']} times, with "
-                    f"{solo} evals on the per-eval retry")
+                    f"{chained} lanes chained and {solo} evals on the "
+                    f"per-eval retry")
             step("jobs")
             wall = marks["done"] - marks["first"]
             placed = check_server_state(structs, srv, "wire", ids, probe)

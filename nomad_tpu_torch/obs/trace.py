@@ -186,6 +186,9 @@ class Tracer:
         # at): the pairing that puts device spans on this clock.
         self._bases: dict = {}
         self._resolve_lock = threading.Lock()
+        # Tags the calling thread adds to every device span it ends
+        # (:meth:`device_tags`).
+        self._device_tags = threading.local()
 
     # -- ids / context -----------------------------------------------------
     def new_id(self) -> str:
@@ -357,6 +360,17 @@ class Tracer:
         start.record(stream)
         return DeviceSpan(self, index, stream, start, end)
 
+    @contextmanager
+    def device_tags(self, **tags):
+        """Add ``tags`` to every device span the calling thread ends in
+        the body (a chained walk's ``chain``: the lane's position),
+        beside the tags its wrapper gives."""
+        self._device_tags.tags = tags
+        try:
+            yield
+        finally:
+            self._device_tags.tags = None
+
     def _resolve(self, spans: list) -> None:
         """Resolve pending device spans in place: synchronize their
         cards, then set ``t0``/``dur`` from the events.  A span whose end
@@ -499,6 +513,9 @@ class DeviceSpan:
         end = self.end_event
         end.record(self.stream)
         t = self.tracer
+        extra = getattr(t._device_tags, "tags", None)
+        if extra:
+            tags = dict(tags, **extra)
         t._append({"name": name, "trace_id": t.new_id(),
                    "span_id": t.new_id(), "parent_id": None,
                    "t0": None, "dur": None,

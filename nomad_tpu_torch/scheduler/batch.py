@@ -31,12 +31,25 @@ devices, or a ``mesh_override`` device list) the fused launch runs
 node-axis-sharded (K7), on the 2-D ``(lanes, fleet)`` storm layout when
 the lanes split, against the resident sharded capacity, reserved and
 usage.
+
+The stragglers a runner with ``state_refresh`` still holds after its
+fused rounds are planned as ONE chained window: each lane's own walk
+(K3, or K2 for a lane that is not rounds-eligible) in lane order on the
+usage the lane before it left, from one upload of the stacked lanes and
+one fetch, so every lane sees the claims of the lanes before it, as if
+the evals had run one after another, each on the state the one before
+it committed.  The window finishes and submits like a fused round, each
+lane's host finish seeing the placements of the lanes before it; a plan
+it still rejects (a dynamic port an earlier lane took on the same node,
+a concurrent commit) takes the per-eval retry.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 from nomad_tpu_torch.obs import trace as trace_mod
 from nomad_tpu_torch.parallel.devices import put_counted, resolve_device
@@ -98,6 +111,33 @@ def fused_cost(pending: list) -> int:
     return len(pending) * steps * statics.n_real
 
 
+def _stack_lanes(pending: list, n_lanes: int) -> tuple:
+    """The lanes' host inputs stacked along a lane axis of ``n_lanes``,
+    each padded to the widest lane: (feasible, asks, distinct,
+    group_idx, valid, job_counts, counts).  Rows past the lanes are
+    all-invalid (nothing feasible, no valid step, counts 0)."""
+    statics = pending[0][2].statics
+    g_max = max(a.g_pad for _, _, a in pending)
+    p_max = max(a.p_pad for _, _, a in pending)
+    feasible = np.zeros((n_lanes, g_max, statics.n_pad), dtype=bool)
+    asks = np.zeros((n_lanes, g_max, pending[0][2].asks.shape[1]),
+                    dtype=np.float32)
+    distinct = np.zeros((n_lanes, g_max), dtype=bool)
+    group_idx = np.zeros((n_lanes, p_max), dtype=np.int32)
+    valid = np.zeros((n_lanes, p_max), dtype=bool)
+    job_counts = np.zeros((n_lanes, statics.n_pad), dtype=np.int32)
+    counts = np.zeros((n_lanes, g_max), dtype=np.int32)
+    for b, (_s, _p, a) in enumerate(pending):
+        feasible[b, :a.g_pad] = a.feasible_h
+        asks[b, :a.g_pad] = a.asks
+        distinct[b, :a.g_pad] = a.distinct
+        group_idx[b, :a.p_pad] = a.group_idx
+        valid[b, :a.p_pad] = a.valid
+        job_counts[b] = a.view.job_counts
+        counts[b, :a.g_pad] = a.counts
+    return feasible, asks, distinct, group_idx, valid, job_counts, counts
+
+
 def pad_lanes(n: int) -> int:
     """Next power of two >= n (>= 1): the lane-axis bucket of the fused
     launch, bucketed like the group and placement axes
@@ -123,9 +163,8 @@ class BatchEvalRunner:
     means ``cuda`` (``RuntimeError`` when no CUDA device is present).
     """
 
-    # Fused retry rounds before the per-eval sequential fallback: 1 =
-    # collect-then-serial (each retry sees every earlier retry's
-    # commits).
+    # Fused retry rounds before the chained tail: 1 = collect-then-serial
+    # (each straggler sees every earlier straggler's claims).
     FUSED_RETRY_ROUNDS = 2
 
     def __init__(self, state, planner,
@@ -138,9 +177,11 @@ class BatchEvalRunner:
         # Evals that left the fused launches for the per-eval sequential
         # retry (a scheduler of their own: K3, not K4a).
         self.solo_evals = 0
+        # Lanes planned in the chained tail (after the fused rounds).
+        self.chained_evals = 0
         # Fused rounds run, and the round under way (the ``round`` tag
-        # of the sched.* spans; the solo retries come after round
-        # FUSED_RETRY_ROUNDS - 1).
+        # of the sched.* spans; the chained tail and the solo retries
+        # come after round FUSED_RETRY_ROUNDS - 1).
         self.rounds_run = 0
         self._round = 0
 
@@ -226,14 +267,13 @@ class BatchEvalRunner:
         _phase("sched.gc", t_resume)
 
     def _process_rounds(self, evals: list[Evaluation]) -> None:
-        """The fused rounds, then the per-eval sequential retries."""
+        """The fused rounds, then the chained tail."""
         pending = list(evals)
         # Fused retry rounds: lanes whose plans came back partial or
         # rejected re-plan TOGETHER against a refreshed snapshot —
         # under contention the applier's serialized conflicts, not
         # planning, dominate, and one fused round retries them all
-        # for one launch.  Without a refresh hook (or for the
-        # stragglers after the round cap) the exact per-eval
+        # for one launch.  Without a refresh hook the exact per-eval
         # sequential retry gives the same terminal guarantee as the
         # single-eval worker path.
         rounds = self.FUSED_RETRY_ROUNDS \
@@ -249,10 +289,10 @@ class BatchEvalRunner:
             t_refresh = _phase_start()
             self.state = self.state_refresh()
             _phase("sched.refresh", t_refresh, round=rnd + 1)
+        # The stragglers, on the snapshot just refreshed: one chained
+        # window, then the per-eval retry for a plan it still rejects.
         self._round = rounds
-        self.solo_evals += len(pending)
-        for ev in pending:
-            self._solo(self.state, ev, _phase_start())
+        self._process(pending, chained=True)
 
     def _solo(self, state, ev: Evaluation, t_solo: float) -> None:
         """The exact per-eval sequential retry: a scheduler of its own,
@@ -261,7 +301,11 @@ class BatchEvalRunner:
         _phase("sched.solo", t_solo, round=self._round)
 
     def _process(self, evals: list[Evaluation],
-                 retries: Optional[list] = None) -> None:
+                 retries: Optional[list] = None,
+                 chained: bool = False) -> None:
+        """One round: begin every lane, plan the lanes without plan
+        deltas in one fused launch (``chained``: one chained window),
+        finish and submit them as one window."""
         this_round, leftovers = self._split_rounds(evals)
 
         t_lanes = _phase_start()
@@ -282,7 +326,16 @@ class BatchEvalRunner:
             # sched.begin lies inside).
             _phase("sched.lanes", t_lanes, round=self._round)
 
-        if pending:
+        if pending and chained:
+            done = self._dispatch_chained(pending)
+            if done is None:
+                self.solo_evals += len(pending)
+                for sched, _p, _a in pending:
+                    self._solo(self.state, sched.eval, _phase_start())
+            else:
+                self.chained_evals += len(done)
+                self._finish_window(done, chained=True)
+        elif pending:
             if self._fused_on_host(pending):
                 self._finish_window(self._dispatch_fused_host(pending),
                                     retries)
@@ -301,45 +354,135 @@ class BatchEvalRunner:
         return TorchBinPackScheduler.host_for_cost(fused_cost(pending),
                                                    pipelined=False)
 
-    def _dispatch_fused_host(self, pending: list) -> list:
+    def _dispatch_fused_host(self, pending: list,
+                             chained: bool = False) -> list:
         """Host-executor twin of the fused launch: every lane plans
         against the same snapshot base usage with the numpy twins, one
         lane at a time (each lane's walk is vectorized over nodes),
         reading the lanes' own arrays: no [B, G, N] stacking.  Lanes are
         harmonized to the widest top-k and the most rounds, as on the
-        card.  Returns ``[(sched, place, args, chosen, scores), ...]``
-        in lane order."""
+        card.  ``chained``: the twin of the chained window instead, each
+        lane at its own top-k and rounds (or the sequence walk) on the
+        usage the lane before it left.  Returns ``[(sched, place, args,
+        chosen, scores), ...]`` in lane order."""
         from nomad_tpu_torch.ops.binpack_host import (place_rounds_host,
                                                       place_sequence_host)
 
         statics = pending[0][2].statics
-        base_usage = pending[0][2].view.usage  # host array
+        usage = pending[0][2].view.usage  # host array
         n_real = statics.n_real
         rounds_ok = all(a.rounds_eligible for _, _, a in pending)
         k_cap = max(a.k_cap for _, _, a in pending)
         rounds = max(a.rounds for _, _, a in pending)
+        tags = dict(chained=len(pending)) if chained else {}
         done = []
         t_launch = _phase_start()
         for sched, place, args in pending:
             t_disp = _tnow()
+            if chained:
+                rounds_ok, k_cap, rounds = \
+                    args.rounds_eligible, args.k_cap, args.rounds
             if rounds_ok:
-                chosen_s, score_s, _u = place_rounds_host(
-                    statics.capacity, statics.reserved, base_usage,
+                chosen_s, score_s, lane_usage = place_rounds_host(
+                    statics.capacity, statics.reserved, usage,
                     args.view.job_counts, args.feasible_h, args.asks,
                     args.distinct, args.counts, float(args.penalty),
                     k_cap=k_cap, rounds=rounds, n_real=n_real)
                 chosen, scores = rounds_to_placements(
                     args, chosen_s, score_s)
             else:
-                chosen, scores, _u = place_sequence_host(
-                    statics.capacity, statics.reserved, base_usage,
+                chosen, scores, lane_usage = place_sequence_host(
+                    statics.capacity, statics.reserved, usage,
                     args.view.job_counts, args.feasible_h, args.asks,
                     args.distinct, args.group_idx, args.valid,
                     float(args.penalty), n_real=n_real)
+            if chained:
+                usage = lane_usage
             _lane_spans("sched.dispatch", [sched], t_disp, _tnow(),
-                        host=True, round=self._round)
+                        host=True, round=self._round, **tags)
             done.append((sched, place, args, chosen, scores))
         _phase("dispatch.launch", t_launch)
+        return done
+
+    def _dispatch_chained(self, pending: list) -> Optional[list]:
+        """The chained window: each lane planned exactly as a scheduler
+        of its own would plan it on the state the lanes before it
+        committed — its own walk (K3 at its own top-k and rounds, or K2
+        for a lane that is not rounds-eligible) on the usage the walk
+        before it returned, the first on the snapshot's.  The lanes'
+        inputs are stacked and uploaded once, the walks launched in lane
+        order with nothing fetched between them, and every result
+        fetched in one copy.  A lane's rounds are its own estimate on
+        the snapshot; copies its walk leaves unplaced take the finish's
+        host fallback, which sees the earlier lanes' placements
+        (``_finish_lanes``, ``chained``).  The executor policy prices
+        the window as a fused storm (the numpy twins carry the usage
+        alike).  Returns
+        ``[(sched, place, args, chosen, scores), ...]`` in lane order,
+        or None where a mesh resolves (the per-eval retry then takes
+        the lanes)."""
+        from nomad_tpu_torch.ops import binpack
+        from nomad_tpu_torch.parallel.mesh import dispatch_mesh
+
+        if self._fused_on_host(pending):
+            return self._dispatch_fused_host(pending, chained=True)
+        statics = pending[0][2].statics
+        device = self.device
+        if dispatch_mesh(1, statics.n_pad, device=device) is not None:
+            return None
+        t_disp, t_stack = _tnow(), _phase_start()
+        B = len(pending)
+        any_rounds = any(a.rounds_eligible for _, _, a in pending)
+        any_seq = not all(a.rounds_eligible for _, _, a in pending)
+        feasible, asks, distinct, group_idx, valid, job_counts, counts = \
+            _stack_lanes(pending, B)
+        t_phase = _phase("dispatch.stack", t_stack)
+        capacity_d, reserved_d = statics.device_capacity_reserved(device)
+        usage = put_counted(pending[0][2].view.dispatch_usage(), device)
+        job_counts, feasible, asks, distinct = (
+            put_counted(x, device)
+            for x in (job_counts, feasible, asks, distinct))
+        if any_rounds:
+            counts = put_counted(counts, device)
+        if any_seq:
+            group_idx = put_counted(group_idx, device)
+            valid = put_counted(valid, device)
+        t_phase = _phase("dispatch.upload", t_phase)
+        tracer = trace_mod.tracer() if trace_mod.ENABLED else None
+        outs = []
+        for b, (_s, _p, a) in enumerate(pending):
+            g = a.g_pad
+            with tracer.device_tags(chain=b) if tracer is not None \
+                    else contextlib.nullcontext():
+                if a.rounds_eligible:
+                    chosen, scores, usage = binpack.place_rounds(
+                        capacity_d, reserved_d, usage, job_counts[b],
+                        feasible[b, :g], asks[b, :g], distinct[b, :g],
+                        counts[b, :g], a.penalty, k_cap=a.k_cap,
+                        rounds=a.rounds)
+                else:
+                    chosen, scores, usage = binpack.place_sequence(
+                        capacity_d, reserved_d, usage, job_counts[b],
+                        feasible[b, :g], asks[b, :g], distinct[b, :g],
+                        group_idx[b, :a.p_pad], valid[b, :a.p_pad],
+                        a.penalty)
+            outs += (chosen, scores.view(torch.int32))
+        t_phase = _phase("dispatch.launch", t_phase)
+        (flat,) = fetch_results(torch.cat([t.reshape(-1) for t in outs]))
+        t_phase = _phase("dispatch.fetch", t_phase)
+        _lane_spans("sched.dispatch", [s for s, _p, _a in pending], t_disp,
+                    _tnow(), chained=B, round=self._round)
+        done, off = [], 0
+        for b, (sched, place, args) in enumerate(pending):
+            lane = []
+            for t in outs[2 * b:2 * b + 2]:
+                lane.append(flat[off:off + t.numel()].reshape(t.shape))
+                off += t.numel()
+            chosen, scores = lane[0], lane[1].view(np.float32)
+            if args.rounds_eligible:
+                chosen, scores = rounds_to_placements(args, chosen, scores)
+            done.append((sched, place, args, chosen, scores))
+        _phase("dispatch.unstack", t_phase)
         return done
 
     def _dispatch_fused(self, pending: list) -> list:
@@ -350,8 +493,6 @@ class BatchEvalRunner:
 
         t_disp, t_stack = _tnow(), _phase_start()
         device = self.device
-        g_max = max(a.g_pad for _, _, a in pending)
-        p_max = max(a.p_pad for _, _, a in pending)
         statics = pending[0][2].statics
         B = len(pending)
         # Pad lanes are all-invalid (feasible/valid False, counts 0)
@@ -363,24 +504,8 @@ class BatchEvalRunner:
         # maps each lane's streams back through its own placements.
         k_cap = max(a.k_cap for _, _, a in pending)
         rounds = max(a.rounds for _, _, a in pending)
-
-        # Harmonize pad shapes across lanes, stack, one launch.
-        feasible = np.zeros((B_pad, g_max, statics.n_pad), dtype=bool)
-        asks = np.zeros((B_pad, g_max, pending[0][2].asks.shape[1]),
-                        dtype=np.float32)
-        distinct = np.zeros((B_pad, g_max), dtype=bool)
-        group_idx = np.zeros((B_pad, p_max), dtype=np.int32)
-        valid = np.zeros((B_pad, p_max), dtype=bool)
-        job_counts = np.zeros((B_pad, statics.n_pad), dtype=np.int32)
-        counts = np.zeros((B_pad, g_max), dtype=np.int32)
-        for b, (_s, _p, a) in enumerate(pending):
-            feasible[b, :a.g_pad] = a.feasible_h
-            asks[b, :a.g_pad] = a.asks
-            distinct[b, :a.g_pad] = a.distinct
-            group_idx[b, :a.p_pad] = a.group_idx
-            valid[b, :a.p_pad] = a.valid
-            job_counts[b] = a.view.job_counts
-            counts[b, :a.g_pad] = a.counts
+        feasible, asks, distinct, group_idx, valid, job_counts, counts = \
+            _stack_lanes(pending, B_pad)
         penalty = np.zeros(B_pad, dtype=np.float32)
         penalty[:B] = [a.penalty for _, _, a in pending]
 
@@ -526,14 +651,18 @@ class BatchEvalRunner:
         self._finish(sched, retries)
 
     @staticmethod
-    def _finish_lanes(lanes: list, round_: int = 0) -> None:
+    def _finish_lanes(lanes: list, round_: int = 0,
+                      chained: bool = False) -> None:
         """Windowed finish for a list of lanes in lane order — ONE
         shared uuid slab (structs.generate_uuids) and ONE native call
         (csrc/port_alloc.cpp bulk_finish_many) cover every lane's
         happy-path prefix, then each lane's Python tail runs.
         ``lanes`` is [(sched, place, args, chosen, scores), ...];
         semantics per lane are identical to ``finish_deferred``.
-        ``round_`` tags the lanes' ``sched.finish`` spans."""
+        ``chained``: each lane's tail (its exact re-checks, network
+        assignment and host fallback) also sees the placements of the
+        lanes before it (``EvalContext.claims``), as its walk saw their
+        usage.  ``round_`` tags the lanes' ``sched.finish`` spans."""
         t_fin, t_prep = _tnow(), _phase_start()
         uuid_slab = generate_uuids(
             sum(len(place) for _, place, *_ in lanes))
@@ -567,20 +696,28 @@ class BatchEvalRunner:
                         sched._finish_consume_native(
                             fs, native.bulk_finish(*a))
         t_phase = _phase("finish.native", t_phase)
+        claims: dict = {}
         for (sched, *_rest), fs in zip(lanes, states):
+            if chained:
+                sched.ctx.claims = claims
             sched._finish_python_tail(fs)
+            if chained:
+                claims = dict(claims)
+                for node_id, allocs in sched.plan.node_allocation.items():
+                    claims[node_id] = claims.get(node_id, []) + allocs
         _phase("finish.tail", t_phase)
         _lane_spans("sched.finish", [s for s, *_r in lanes],
                     t_fin, _tnow(), window=len(lanes), round=round_)
 
-    def _finish_window(self, done: list, retries=None) -> None:
+    def _finish_window(self, done: list, retries=None,
+                       chained: bool = False) -> None:
         """Windowed finish + group submit for fused lanes
         (``_finish_lanes``), then every lane's plan submits as one group
         through the planner's window path (``submit_plans``) so the
         commit point is paid once per window, not per lane."""
         if not done:
             return
-        self._finish_lanes(done, round_=self._round)
+        self._finish_lanes(done, round_=self._round, chained=chained)
         self._submit_window([sched for sched, *_rest in done], retries)
 
     def _submit_window(self, scheds: list, retries=None) -> None:

@@ -29,6 +29,10 @@ class EvalContext:
         self._metrics = AllocMetric()
         self.regexp_cache: dict = {}
         self.constraint_cache: dict = {}
+        # Placements of the lanes before this eval's in a chained window
+        # (scheduler/batch.py), node id -> allocs: the claims the state
+        # would hold had those evals committed first.
+        self.claims: dict = {}
 
     def state(self):
         return self._state
@@ -50,8 +54,10 @@ class EvalContext:
         self._metrics = AllocMetric()
 
     def proposed_allocs(self, node_id: str) -> list:
-        """Existing allocs - planned evictions + planned placements."""
+        """Existing allocs - planned evictions + earlier chained claims +
+        planned placements."""
         existing = filter_terminal_allocs(self._state.allocs_by_node(node_id))
         update = self._plan.node_update.get(node_id, [])
         proposed = remove_allocs(existing, update) if update else existing
-        return list(proposed) + list(self._plan.node_allocation.get(node_id, []))
+        return list(proposed) + list(self.claims.get(node_id, ())) + \
+            list(self._plan.node_allocation.get(node_id, []))

@@ -321,6 +321,8 @@ class FastPlacementMixin:
             evicted.update(a.id for a in updates)
         allocs = [a for a in self.state.allocs()
                   if not a.terminal_status() and a.id not in evicted]
+        for placements in self.ctx.claims.values():
+            allocs.extend(placements)
         for placements in self.plan.node_allocation.values():
             allocs.extend(placements)
         return allocs
@@ -351,7 +353,7 @@ class FastPlacementMixin:
         plan = self.plan
         if self.state.has_allocs_on_node(node_id) or \
                 node_id in plan.node_update or \
-                node_id in plan.node_allocation:
+                node_id in plan.node_allocation or node_id in self.ctx.claims:
             for alloc in self.ctx.proposed_allocs(node_id):
                 for tr in alloc.task_resources.values():
                     for offer in tr.networks:

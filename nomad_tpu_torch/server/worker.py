@@ -252,8 +252,10 @@ class BatchWorker(Worker):
         super().__init__(server, scheduler_override=None)
         self.max_batch = max_batch
         self._tokens: dict = {}
-        # Evals its runners took one at a time after the fused rounds.
+        # Evals its runners took one at a time after the fused rounds,
+        # and the lanes they planned in a chained tail.
         self.solo_evals = 0
+        self.chained_evals = 0
 
     # The fused device runner implements generic (service/batch) semantics;
     # system and _core evals go to the plain workers.
@@ -291,7 +293,9 @@ class BatchWorker(Worker):
                 tracer.close_window(
                     window, "worker.batch", lanes=len(batch),
                     rounds=runner.rounds_run if runner is not None else 0,
-                    solo=runner.solo_evals if runner is not None else 0)
+                    solo=runner.solo_evals if runner is not None else 0,
+                    chained=runner.chained_evals
+                    if runner is not None else 0)
 
     def _run_batch(self, batch: list, tracer, t_sync: float = 0.0):
         """Catch up, snapshot, run the fused batch and ack (or nack) it;
@@ -338,6 +342,7 @@ class BatchWorker(Worker):
             settle = self.server.eval_broker.nack
         t_ack = tracer.phase_start() if tracer is not None else 0.0
         self.solo_evals += runner.solo_evals
+        self.chained_evals += runner.chained_evals
         if tracer is not None:
             self._invoke_spans(tracer, batch, t_invoke)
         for ev, token in batch:

@@ -33,6 +33,8 @@ def pytest_configure(config):
         "markers", "multichip: sharded-parity suite on the forced "
         "8-device host mesh; re-driven hermetically by the tier-1 "
         "subprocess rig (tests/test_multichip_rig.py)")
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA device; skips on the CPU")
 
 
 import pytest  # noqa: E402

@@ -602,6 +602,202 @@ def test_solo_evals_count_the_per_eval_retries(cpu, refresh, monkeypatch):
         assert runner.solo_evals > 0, "the storm was meant to retry"
 
 
+# -- the chained tail: the stragglers after the fused rounds ---------------
+
+
+def _bits(x) -> np.ndarray:
+    """A float32 array's bits (so -0.0 and +0.0 differ)."""
+    x = x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return np.ascontiguousarray(x.astype(np.float32)).view(np.int32)
+
+
+def _chain_lanes(rng, n_lanes, used):
+    """``n_lanes`` lanes of K3 inputs on one fleet of _lanes_case: each
+    its own same-job counts, feasibility, asks, distinct_hosts slots,
+    counts and penalty.  Returns (fleet, usage, lanes)."""
+    fleet = usage = None
+    lanes = []
+    while len(lanes) < n_lanes:
+        (f, u, jc, feasible, asks, distinct, _gi, _v, counts,
+         penalty) = _lanes_case(rng, used)
+        if fleet is None:
+            fleet, usage = f, u
+        for b in range(min(REAL, n_lanes - len(lanes))):
+            lanes.append((jc[b], feasible[b], asks[b], distinct[b],
+                          counts[b], penalty[b]))
+    return fleet, usage, lanes
+
+
+@pytest.mark.parametrize("used", [False, True])
+@pytest.mark.parametrize("k_cap,rounds", [(8, 1), (4, 2)])
+@pytest.mark.parametrize("n_lanes", [1, 3, 8])
+def test_chained_place_rounds_like_jax_chained(n_lanes, k_cap, rounds,
+                                               used):
+    """The chained tail's walk: K3 lane after lane, each on the usage
+    the lane before it returned, equals the JAX package's place_rounds
+    chained the same way: every lane's chosen nodes and the usage it
+    leaves bit for bit, every round's scores to the score contract."""
+    rng = np.random.default_rng(71 + n_lanes + k_cap + rounds)
+    fleet, usage, lanes = _chain_lanes(rng, n_lanes, used)
+    j_usage, t_usage = usage, _t(usage)
+    cap, res = _t(fleet.capacity), _t(fleet.reserved)
+    for jc, feasible, asks, distinct, counts, penalty in lanes:
+        j_chosen, j_scores, j_usage = (np.asarray(x) for x in
+                                       jbp.place_rounds(
+            fleet.capacity, fleet.reserved, j_usage, jc, feasible, asks,
+            distinct, counts, np.float32(penalty), k_cap=k_cap,
+            rounds=rounds))
+        t_chosen, t_scores, t_usage = tbp.place_rounds(
+            cap, res, t_usage, _t(jc), _t(feasible), _t(asks),
+            _t(distinct), _t(counts), float(penalty), k_cap=k_cap,
+            rounds=rounds)
+        assert np.array_equal(t_chosen.numpy(), j_chosen)
+        # pow may round one ulp apart between the packages: the repo's
+        # score contract (module docstring)
+        np.testing.assert_allclose(t_scores.numpy(), j_scores, rtol=1e-4,
+                                   atol=1e-4)
+        assert np.array_equal(_bits(t_usage), _bits(j_usage))
+        assert (t_chosen.numpy() >= 0).any()
+    # every lane's placements stay in the usage the chain ends on
+    assert not np.array_equal(_bits(t_usage), _bits(usage))
+
+
+class _StalePlanner:
+    """A planner that answers the first ``windows`` group submits with a
+    refresh (the applier's stale-data answer) and passes the rest to
+    its harness: it forces every lane through both fused rounds into
+    the tail."""
+
+    def __init__(self, h, windows: int) -> None:
+        self.h = h
+        self.windows = windows
+
+    def submit_plans(self, plans):
+        if self.windows:
+            self.windows -= 1
+            return [(None, self.h.snapshot()) for _ in plans]
+        return self.h.submit_plans(plans)
+
+    def submit_plan(self, plan):
+        return self.h.submit_plan(plan)
+
+    def update_eval(self, ev):
+        self.h.update_eval(ev)
+
+    def create_eval(self, ev):
+        self.h.create_eval(ev)
+
+
+def _tail_jobs():
+    """Jobs that fit 8 mock nodes together but not as planned from one
+    snapshot (every lane wants the same fullest nodes): service jobs
+    and a batch job on K3, and one whose asks are too large next to a
+    node for the rounds, on K2."""
+    jobs = [_service_job(2, cpu=1000) for _ in range(5)]
+    jobs.insert(2, _batch_job(3))
+    big = mock.job()
+    tg = big.task_groups[0]
+    tg.count = 2
+    tg.tasks[0].resources = Resources(
+        cpu=1500, memory_mb=3000,
+        networks=[NetworkResource(mbits=10, dynamic_ports=["http"])])
+    jobs.insert(4, big)
+    return jobs
+
+
+# (jobs, nodes, placed, K2 lanes): the jobs fit the fleet together; or
+# they do not, and the later lanes' copies find no room left by the
+# lanes before them (service copies of 1,500 MHz, two a node).
+_TAIL_SHAPES = {
+    "fits": (_tail_jobs, 8, 15, 1),
+    "full": (lambda: [_service_job(2, cpu=1500) for _ in range(6)], 4, 8,
+             0),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(_TAIL_SHAPES))
+@pytest.mark.parametrize("executor", ["device", "host"])
+def test_stragglers_plan_as_one_chained_window_like_jax_one_by_one(
+        executor, shape, monkeypatch):
+    """Stragglers forced into the tail plan as one chained window
+    through the port's VerifyingPlanner: the window commits every plan
+    at once with no conflict, nothing is retried alone, every eval
+    completes, no node is oversubscribed, and each placement lands on
+    the node the JAX package's scheduler picks when it processes the
+    same evals one at a time in lane order, each on the state the one
+    before it committed; on a full fleet the same copies fail (a lane's
+    host fallback sees the earlier lanes' claims).  ``host``: the numpy
+    twins carry the usage."""
+    calls = []
+    real = tbp.place_sequence
+
+    def spy(*a, **kw):
+        calls.append(a[4].shape)
+        return real(*a, **kw)
+    monkeypatch.setattr(tbp, "place_sequence", spy)
+    jobs_of, n_nodes, n_placed, n_seq = _TAIL_SHAPES[shape]
+    jobs = jobs_of()
+    jh, th = _worlds([mock.node(i) for i in range(n_nodes)], jobs,
+                     verifying=True)
+    evals = [_make_eval(j) for j in jobs]
+    with mesh_override("off"), executor_override("device"), _seeded():
+        for ev in evals:
+            jh.process("jax-binpack-batch" if ev.type == "batch"
+                       else "jax-binpack", ev)
+    runner = TRunner(th.state.snapshot(), _StalePlanner(th, 2),
+                     state_refresh=th.snapshot, device="cpu")
+    with t_executor_override(executor), _seeded():
+        runner.process([TEvaluation.from_dict(e.to_dict()) for e in evals])
+    vp = th.planner
+    assert (runner.rounds_run, runner.chained_evals, runner.solo_evals) \
+        == (2, len(jobs), 0)
+    assert (vp.conflicts, vp.commits, vp.committed_plans) \
+        == (0, 1, len(jobs))
+    assert len(calls) == (n_seq if executor == "device" else 0)
+    j_placed, j_failed, j_status = _committed(jh)
+    t_placed, t_failed, t_status = _committed(th)
+    assert {k: node for k, (node, _ports) in t_placed.items()} == \
+        {k: node for k, (node, _ports) in j_placed.items()}
+    assert len(t_placed) == n_placed
+    assert t_failed == j_failed and bool(t_failed) == (shape == "full")
+    assert set(t_status.values()) == set(j_status.values()) == {"complete"}
+    shared = max(len({a.job_id for a in th.state.allocs_by_node(n.id)})
+                 for n in th.state.nodes())
+    assert shared >= (3 if shape == "fits" else 2), \
+        "the lanes were meant to share nodes"
+    for node in th.state.nodes():
+        live = [a for a in th.state.allocs_by_node(node.id)
+                if not a.terminal_status()]
+        fit, dim, _ = t_allocs_fit(node, live)
+        assert fit, f"node {node.id} oversubscribed on {dim}"
+
+
+def test_on_a_mesh_the_stragglers_take_the_per_eval_retry():
+    """Where a mesh resolves the chained window is not launched: each
+    straggler takes the per-eval retry (a scheduler of its own, its
+    walk sharded), and every eval still completes on a fleet no node of
+    which is oversubscribed."""
+    from nomad_tpu_torch.parallel import mesh as tmesh
+
+    jobs = _tail_jobs()
+    _jh, th = _worlds([mock.node(i) for i in range(8)], jobs,
+                      verifying=True)
+    runner = TRunner(th.state.snapshot(), _StalePlanner(th, 2),
+                     state_refresh=th.snapshot, device="cpu")
+    with tmesh.mesh_override(["cpu"] * 8), t_executor_override("device"), \
+            _seeded():
+        runner.process([TEvaluation.from_dict(_make_eval(j).to_dict())
+                        for j in jobs])
+    assert (runner.chained_evals, runner.solo_evals) == (0, len(jobs))
+    placed, failed, status = _committed(th)
+    assert len(placed) == 15 and not failed
+    assert set(status.values()) == {"complete"}
+    for node in th.state.nodes():
+        live = [a for a in th.state.allocs_by_node(node.id)
+                if not a.terminal_status()]
+        assert t_allocs_fit(node, live)[0]
+
+
 def test_runner_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):

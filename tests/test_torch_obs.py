@@ -14,8 +14,8 @@ parent-name edges per eval (the port's batch worker adds one
 ROADMAP Queue 3), and the two servers' registries expose the same
 flattened keys apart from the named differences below.  Last the
 port's own spans, which carry no ``eval_id``: the phase spans under
-each ``worker.batch`` cover it, a forced conflict records its refresh
-and solo retries with their round, raft records one ``raft.wait`` and
+each ``worker.batch`` cover it, a forced conflict records its refresh,
+its chained tail and its solo retries with their round, raft records one ``raft.wait`` and
 one ``raft.entry`` per apply, ``watch.notify`` counts every waiter it
 wakes, device spans resolve onto the tracer's clock (a stand-in CUDA
 event on the CPU), and with tracing off nothing is recorded and no
@@ -637,6 +637,7 @@ def test_the_phases_of_each_batch_cover_it(traced_port_run):
     batches = [s for s in spans if s["name"] == "worker.batch"]
     assert batches and sum(b["tags"]["lanes"] for b in batches) >= 12
     for b in batches:
+        assert {"lanes", "rounds", "solo", "chained"} <= set(b["tags"])
         a0, a1 = b["t0"], b["t0"] + b["dur"]
         kids = [s for s in spans if s["parent_id"] == b["span_id"]]
         assert {s["name"] for s in kids} <= PHASES
@@ -670,10 +671,10 @@ def test_raft_records_one_wait_and_one_entry_per_apply(traced_port_run):
         len(commits)
 
 
-def test_a_forced_conflict_records_the_refresh_and_the_solo_retries():
-    """A planner that answers the first two windows with a refresh (the
-    applier's stale-data answer): every lane retries in fused round 1,
-    then alone after round 2."""
+def _stale_run(stale_windows: int):
+    """Three evals through a planner that answers the first
+    ``stale_windows`` windows with a refresh (the applier's stale-data
+    answer), traced: (runner, spans, harness, jobs)."""
     from nomad_tpu_torch import mock as tmock
     from nomad_tpu_torch.scheduler import Harness
     from nomad_tpu_torch.scheduler.batch import BatchEvalRunner
@@ -689,7 +690,7 @@ def test_a_forced_conflict_records_the_refresh_and_the_solo_retries():
         jobs.append(job)
 
     class Stale:
-        windows = 2
+        windows = stale_windows
 
         def submit_plans(self, plans):
             if self.windows:
@@ -711,7 +712,16 @@ def test_a_forced_conflict_records_the_refresh_and_the_solo_retries():
                                  state_refresh=h.snapshot, device="cpu")
         runner.process([_port_eval(j) for j in jobs])
         spans = t.snapshot()
+    return runner, spans, h, jobs
+
+
+def test_a_forced_conflict_records_the_refresh_and_the_solo_retries():
+    """A planner that answers the first three windows with a refresh:
+    every lane retries in fused round 1, then in the chained tail, then
+    alone."""
+    runner, spans, h, jobs = _stale_run(3)
     assert runner.rounds_run == 2 and runner.solo_evals == 3
+    assert runner.chained_evals == 3
     refresh = [s["tags"]["round"] for s in spans
                if s["name"] == "sched.refresh"]
     solo = [s["tags"]["round"] for s in spans if s["name"] == "sched.solo"]
@@ -719,8 +729,26 @@ def test_a_forced_conflict_records_the_refresh_and_the_solo_retries():
     assert solo == [2, 2, 2]
     begins = collections.Counter(s["tags"]["round"] for s in spans
                                  if s["name"] == "sched.begin")
-    assert begins == collections.Counter({0: 3, 1: 3})
+    assert begins == collections.Counter({0: 3, 1: 3, 2: 3})
     assert all(h.state.allocs_by_job(j.id) for j in jobs)
+
+
+def test_a_forced_conflict_records_the_chained_tail():
+    """A planner that answers the first two windows with a refresh:
+    every lane retries in fused round 1, then in one chained window
+    tagged ``round`` 2, which commits them all with none alone."""
+    runner, spans, h, jobs = _stale_run(2)
+    assert runner.rounds_run == 2 and runner.solo_evals == 0
+    assert runner.chained_evals == 3
+    assert not [s for s in spans if s["name"] == "sched.solo"]
+    begins = collections.Counter(s["tags"]["round"] for s in spans
+                                 if s["name"] == "sched.begin")
+    assert begins == collections.Counter({0: 3, 1: 3, 2: 3})
+    tail = [s["tags"] for s in spans if s["name"] == "sched.dispatch"
+            and s["tags"]["round"] == 2]
+    assert [t.get("chained") for t in tail] == [3, 3, 3]
+    assert all(h.state.allocs_by_job(j.id) for j in jobs)
+    assert {e.status for e in h.evals} == {"complete"}
 
 
 def test_watch_notify_counts_every_waiter_it_wakes():
@@ -810,6 +838,27 @@ def test_device_spans_resolve_on_the_tracers_clock(monkeypatch):
     assert abs(got["t0"] - t_start) < 0.01
     assert 0.015 < got["dur"] < 0.5
     assert _FakeEvent.made == 3
+
+
+def test_device_tags_mark_the_spans_a_thread_ends_inside(monkeypatch):
+    """A chained walk's ``chain`` tag: added to every device span the
+    thread ends inside ``device_tags``, beside the wrapper's own tags,
+    and to none after it or on another thread."""
+    import threading
+
+    _fake_card(monkeypatch)
+    card = torch.device("cuda", 0)
+    with trace.tracing(seed=2) as t:
+        with t.device_tags(chain=1):
+            trace.device_span(card).end("device.K3", n=16, lanes=1)
+            other = threading.Thread(target=lambda: trace.device_span(
+                card).end("device.K3", n=16, lanes=1))
+            other.start()
+            other.join()
+        trace.device_span(card).end("device.K3", n=16, lanes=1)
+        spans = t.snapshot()
+    assert sorted(s["tags"].get("chain", -1) for s in spans) == [-1, -1, 1]
+    assert all(s["tags"]["n"] == 16 for s in spans)
 
 
 def test_pending_device_spans_count_against_the_ring(monkeypatch):
